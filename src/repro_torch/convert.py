@@ -1,0 +1,47 @@
+"""Carry reference weights across: numpy param trees -> port params.
+
+The reference's ``init_lm`` tree, turned to numpy by the caller (e.g.
+``jax.tree.map(np.asarray, params)``), arrives here as nested dicts of
+numpy arrays; nothing in this module imports JAX.  The layout it undoes:
+``blocks.scan.b0.*`` is stacked over layers (even with
+``scan_layers=False``), while the port keeps ``params["blocks"]`` as a
+per-layer list.  Per-layer shapes are unchanged (``wq``/``wk``/``wv``
+(d, H, hd), ``wo`` (H, hd, d)); the port's ``Engine`` quantizes the
+float weights once, like the reference's.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.nn.transformer import ModelConfig, Params
+
+
+def _to_torch(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device) for k, v in tree.items()}
+    return torch.as_tensor(np.array(tree), device=device)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Params:
+    """Reference float params as numpy -> the port's params on `device`."""
+    blocks = tree["blocks"]
+    if set(blocks) != {"scan"} or set(blocks["scan"]) != {"b0"}:
+        raise NotImplementedError(
+            f"blocks {sorted(blocks)}: only one-kind scan-stacked "
+            "decoders are ported")
+    stacked = blocks["scan"]["b0"]
+
+    def layer(i, node):
+        if isinstance(node, dict):
+            return {k: layer(i, v) for k, v in node.items()}
+        return node[i]
+
+    n = len(np.asarray(stacked["norm1"]["scale"]))
+    if n != cfg.n_layers:
+        raise ValueError(f"{n} stacked layers for a {cfg.n_layers}-layer "
+                         "config")
+    out = {k: _to_torch(v, device) for k, v in tree.items()
+           if k != "blocks"}
+    out["blocks"] = [_to_torch(layer(i, stacked), device) for i in range(n)]
+    return out

@@ -1,0 +1,69 @@
+"""Approximate matmul on int8 operands via operand-LSB truncation.
+
+Counterpart of ``repro.core.approx_matmul`` (operand path only; the LUT
+oracle belongs to the paper's MLP slice, not ported yet).  The config's
+(depth_a, depth_b, gate, rtn) row from ``OPERAND_PARAM_TABLE`` truncates
+both operands, then an exact integer matmul accumulates.
+
+Exact accumulation without an int32 GEMM: ``torch.matmul`` has no
+int8/int32 path on CUDA, so the products are summed in float64, which
+is exact here — every operand magnitude is <= 128, so every partial sum
+is an integer below 128**2 * K < 2**53 for any K the models use — and
+the sum is cast to int32.
+"""
+from __future__ import annotations
+
+import torch
+
+from .approx_multiplier import OPERAND_PARAM_TABLE, operand_params
+from .quantization import QTensor, quantize, truncate_operand_lsb
+
+
+def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., M, K) x (..., K, N) integer tensors -> int32, exact (float64
+    accumulation, see the module docstring)."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)
+                        ).to(torch.int32)
+
+
+def resolve_operand_params(config):
+    """(depth_a, depth_b, gate, rtn) for a Python-int or 0-d tensor
+    config (a tensor gathers its row on the tensor's device)."""
+    if isinstance(config, torch.Tensor):
+        table = torch.as_tensor(OPERAND_PARAM_TABLE, device=config.device)
+        row = table[config.to(torch.long)]
+        return row[..., 0], row[..., 1], row[..., 2], row[..., 3]
+    return operand_params(int(config))
+
+
+def approx_matmul_operand(a_q: torch.Tensor, b_q: torch.Tensor,
+                          config) -> torch.Tensor:
+    """a_q: (..., M, K) int8, b_q: (K, N) int8 -> (..., M, N) int32 with
+    both operands truncated under `config` (Python int or 0-d tensor)."""
+    if isinstance(config, torch.Tensor) or config != 0:
+        depth_a, depth_b, gate, rtn = resolve_operand_params(config)
+        a_q = truncate_operand_lsb(a_q, depth_a, gate, rtn)
+        b_q = truncate_operand_lsb(b_q, depth_b, gate, rtn)
+    return exact_int_matmul(a_q, b_q)
+
+
+def approx_matmul_operand_blocked(a_q: torch.Tensor, b_q: torch.Tensor,
+                                  cfg_vec, block_n: int) -> torch.Tensor:
+    """Mixed-config oracle: output columns [i*block_n, (i+1)*block_n)
+    run entirely under cfg_vec[i] (one ``approx_matmul_operand`` call
+    per block, concatenated)."""
+    n = b_q.shape[-1]
+    spans = [(s, min(s + block_n, n)) for s in range(0, n, block_n)]
+    assert len(spans) == len(cfg_vec), (n, block_n, len(cfg_vec))
+    return torch.cat([approx_matmul_operand(a_q, b_q[..., s:e], cfg_vec[i])
+                      for i, (s, e) in enumerate(spans)], dim=-1)
+
+
+def approx_dense(x: torch.Tensor, w_qt: QTensor, config) -> torch.Tensor:
+    """y = approx(x) @ w for float activations and a pre-quantized
+    weight: per-tensor dynamic int8 activations, operand truncation,
+    and ONE f32 rescale by the combined scale ``x_scale * w_scale``
+    (rounded once — the repo-wide single-rounding convention)."""
+    x_qt = quantize(x)
+    acc = approx_matmul_operand(x_qt.values, w_qt.values, config)
+    return acc.to(torch.float32) * (x_qt.scale * w_qt.scale)

@@ -1,0 +1,72 @@
+"""Per-MAC energy model calibrated to the paper (numpy copy of the parts
+of ``repro.core.power_model`` the serving engine reads).
+
+The paper's 45 nm ASIC: 5.55 mW network power in exact mode, a 44.36 %
+maximum per-MAC saving, and the implied MAC energy of 1.668 pJ.  Per
+config, the saving scales with the active partial-product columns times
+the operand-gate probability, normalized so config 31 hits 44.36 %.
+These are MODELED joules of the paper's hardware running the same
+GEMMs — the knob's effect on accuracy is real, its energy is not a
+measurement of the GPU.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+from .approx_multiplier import CONFIG_TABLE, PROD_BITS
+
+NETWORK_POWER_EXACT_MW = 5.55
+MAX_NETWORK_SAVING = 0.1333
+MAX_NEURON_SAVING = 0.2478
+MAX_MAC_SAVING = 0.4436
+N_PHYSICAL_NEURONS = 10
+
+NEURON_SHARE_OF_NETWORK = MAX_NETWORK_SAVING / MAX_NEURON_SAVING
+MAC_SHARE_OF_NEURON = MAX_NEURON_SAVING / MAX_MAC_SAVING
+NEURON_POWER_MW = (NETWORK_POWER_EXACT_MW * NEURON_SHARE_OF_NETWORK
+                   / N_PHYSICAL_NEURONS)
+MAC_POWER_EXACT_MW = NEURON_POWER_MW * MAC_SHARE_OF_NEURON
+
+# one exact MAC per cycle at the paper's 100 MHz clock
+PAPER_CLOCK_HZ = 100e6
+MAC_ENERGY_EXACT_PJ = MAC_POWER_EXACT_MW * 1e-3 / PAPER_CLOCK_HZ * 1e12
+
+_MODE_OVERHEAD = {0: 0.000, 1: 0.010, 2: 0.020, 3: 0.015}
+
+
+def _raw_saving(mode: int, t: int, gate: int) -> float:
+    p_gate = ((128 - gate) / 128.0) ** 2 if gate > 0 else 1.0
+    return p_gate * (min(t, 13) / PROD_BITS) - _MODE_OVERHEAD[mode]
+
+
+_RAW = np.array([0.0] + [_raw_saving(m, t, g) for (m, t, g) in CONFIG_TABLE])
+MAC_SAVING_FRAC = _RAW * (MAX_MAC_SAVING / _RAW.max())
+
+# (32,) modeled energy of one MAC per config
+ENERGY_PER_MAC_PJ = MAC_ENERGY_EXACT_PJ * (1.0 - MAC_SAVING_FRAC)
+
+
+@functools.cache
+def error_rank() -> np.ndarray:
+    """Position of each config when sorted by (measured MRED, config
+    index): the tie-free total order behind the engine's pool join."""
+    from .error_metrics import mred_table
+    mred = np.asarray(mred_table())
+    order = np.lexsort((np.arange(mred.size), mred))
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.size)
+    rank.setflags(write=False)
+    return rank
+
+
+def energy_per_token_pj(config, macs_per_token: float = 1.0) -> float:
+    """Modeled MAC energy (pJ) of one token under `config` — a scalar,
+    an (n_layers,) vector or an (n_layers, groups) matrix; every cell
+    covers an equal share of the token's MACs.  (The reference's
+    expert-axis weighting belongs to MoE models, not ported yet.)"""
+    cfg = np.asarray(config, dtype=np.int64)
+    if cfg.ndim > 2:
+        raise NotImplementedError("expert-axis configs are not ported")
+    return macs_per_token * float(np.mean(ENERGY_PER_MAC_PJ[cfg]))

@@ -1,0 +1,74 @@
+"""Serving launcher: the continuous-batching engine with the power knob.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+      [--smoke] [--requests 8] [--max-batch 4] [--max-len 128] \
+      [--max-new 16] [--approx-cfg 0] [--device cuda]
+
+Serves random init (seed 0) through ``repro_torch.serve.engine.Engine``:
+every GEMM runs the fused approx-MAC kernel on a CUDA device, or its
+plain PyTorch version with ``--device cpu``.  --smoke selects the
+reduced config so the loop runs on the CPU.  Counterpart of
+``repro.launch.serve`` without its checkpoint, scheduler, mesh,
+resilience, traffic, paged and speculative options (not ported yet).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import get_config
+from repro_torch.nn import transformer as T
+from repro_torch.serve.engine import Engine, Request
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--approx-cfg", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain "
+                         "versions); no fallback between the two")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    device = T.resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    eng = Engine(T.init_lm(gen, cfg, device), cfg, max_batch=args.max_batch,
+                 max_len=args.max_len, approx_cfg=args.approx_cfg,
+                 device=device)
+    rng = np.random.default_rng(0)
+    t0 = time.time()
+    for rid in range(args.requests):
+        eng.submit(Request(
+            rid=rid, prompt=rng.integers(0, cfg.vocab_size,
+                                         size=int(rng.integers(4, 24))),
+            max_new_tokens=args.max_new))
+    done = eng.run()
+    dt = time.time() - t0
+    total_new = sum(len(r.tokens) for r in done)
+    ttfts = [r.first_token_at - r.submitted_at for r in done
+             if r.first_token_at is not None]
+    ttft_note = (f"TTFT p50 {np.median(ttfts)*1e3:.0f} ms"
+                 if ttfts else "no first tokens")
+    print(f"{len(done)} requests, {total_new} tokens in {dt:.2f}s "
+          f"({total_new/dt:.1f} tok/s) on {device}; {ttft_note}")
+    rep = eng.energy_report()
+    print(f"approx_cfg={rep['approx_cfg']} modeled MAC energy "
+          f"{rep['modeled_mac_energy_j']*1e3:.2f} mJ "
+          f"(exact {rep['exact_mac_energy_j']*1e3:.2f} mJ, "
+          f"saving {rep['saving_frac']*100:.2f}%)")
+    return rep
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,104 @@
+"""The fused approx-MAC GEMM of the port against the reference's Pallas
+kernel, and the port's CUDA kernel against its plain version.
+
+CPU half: ``repro_torch``'s ``approx_dense_pallas`` (which runs the
+plain version for CPU tensors) is BIT-identical (``assert_array_equal``)
+to ``repro.kernels.approx_mac.ops.approx_dense_pallas(...,
+interpret=True)`` — the Pallas kernel run as tests/test_kernels.py runs
+it on the CPU — for uniform, per-block and neuron-group configs and
+for M, K, N that need padding.  The reference op runs under
+``jax.jit``, as the reference's Engine runs it: that fixes its
+activation scale to the compiled form the port computes (DESIGN.md §3).
+Integer accumulation is exact and the epilogue is one f32 multiply by
+the same combined scale, so no tolerance is needed.
+
+The CUDA kernel against its plain version, on the same cases, is in
+tests/test_torch_cuda.py (no JAX there, so it also runs on the card).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.quantization import quantize as jquantize
+from repro.kernels.approx_mac import ops as jops
+from repro_torch.core.quantization import quantize
+from repro_torch.kernels.approx_mac import approx_mac as A
+from repro_torch.kernels.approx_mac import ops
+from test_torch_cuda import SHAPES, _case, _cfg_id, _configs
+
+CASES = [(s, c) for s in SHAPES for c in _configs(s[2])]
+
+
+@jax.jit
+def _jit_ref(x, w_qt, config):
+    return jops.approx_dense_pallas(x, w_qt, config=config, interpret=True,
+                                    compute_dtype=jnp.float32)
+
+
+@pytest.mark.parametrize("shape,config", CASES,
+                         ids=[f"{m}x{k}x{n}-{_cfg_id(c)}"
+                              for (m, k, n), c in CASES])
+def test_plain_fused_bit_identical_to_pallas_interpret(shape, config):
+    m, k, n = shape
+    x, w = _case(m, k, n)
+    ref = _jit_ref(jnp.asarray(x), jquantize(jnp.asarray(w), axis=1),
+                   jnp.asarray(config, jnp.int32))
+    before = A.approx_mac_fused_matmul.launches
+    got = ops.approx_dense_pallas(
+        torch.as_tensor(x), quantize(torch.as_tensor(w), axis=1),
+        config=torch.as_tensor(config, dtype=torch.int32))
+    assert A.approx_mac_fused_matmul.launches == before   # CPU: no kernel
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("g,n", [(3, 300), (5, 129), (2, 256), (7, 1000),
+                                 (4, 512)])
+def test_expand_group_vector_matches_reference(g, n):
+    cfg = np.random.default_rng(g * n).integers(0, 32, g).astype(np.int32)
+    nb = -(-n // 128)
+    ref = jops._expand_group_vector(jnp.asarray(cfg), n, 128, nb)
+    got = ops._expand_group_vector(torch.as_tensor(cfg), n, 128, nb)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_config_operand_rows_and_errors():
+    rows = A.config_operand(8, 3, "cpu")
+    assert rows.shape == (3, 4) and rows.dtype == torch.int32
+    np.testing.assert_array_equal(rows.numpy()[1], A.OPERAND_PARAM_TABLE[8])
+    vec = A.config_operand(torch.tensor([0, 31]), 2, "cpu")
+    np.testing.assert_array_equal(vec.numpy(), A.OPERAND_PARAM_TABLE[[0, 31]])
+    with pytest.raises(ValueError):
+        A.config_operand(torch.tensor([0, 31, 8]), 2, "cpu")
+
+
+def test_leading_dims_flatten_into_m():
+    x, w = _case(6, 96, 64, seed=3)
+    w_q = quantize(torch.as_tensor(w), axis=1)
+    flat = ops.approx_dense_pallas(torch.as_tensor(x), w_q, config=8)
+    batched = ops.approx_dense_pallas(torch.as_tensor(x).reshape(2, 3, 96),
+                                      w_q, config=8)
+    np.testing.assert_array_equal(batched.reshape(6, 64).numpy(),
+                                  flat.numpy())
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version():
+    """Only a CPU tensor reaches the plain version: any other device
+    launches the kernel or raises."""
+    x = torch.empty((4, 64), device="meta")
+    w = torch.empty((64, 32), dtype=torch.int8, device="meta")
+    rows = torch.empty((1, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no approx-MAC kernel"):
+        A.approx_mac_fused_matmul(x, w, torch.empty(32, device="meta"),
+                                  torch.empty(1, device="meta"), rows)
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    """No nvcc (or a failing one) is an error, never a silent fallback."""
+    monkeypatch.setattr(A, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        A.build()

@@ -1,0 +1,127 @@
+"""The port's CUDA kernel on the card, against its plain PyTorch version.
+
+Every test here is marked ``cuda`` and skips with a reason where there
+is no CUDA device, so the CPU suite collects and skips them.  This file
+imports no JAX (the machine with the card has none), and so does not
+need the suite's conftest; on the card run it with
+
+    PYTHONPATH=src python -m pytest --noconftest -q -p no:cacheprovider \\
+        -m cuda tests/test_torch_cuda.py
+
+The cases (``SHAPES``, ``_configs``) are shared with
+tests/test_torch_approx_mac.py, which holds the plain version against
+the reference's Pallas kernel on the same inputs."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.registry import get_config
+from repro_torch.core.quantization import quantize
+from repro_torch.kernels.approx_mac import approx_mac as A
+from repro_torch.kernels.approx_mac import ops
+from repro_torch.nn import transformer as T
+
+# (M, K, N): a main-path-like tile, then ragged M/K/N that need padding
+SHAPES = [(4, 256, 256), (24, 200, 300), (1, 130, 129), (5, 64, 384)]
+# the GEMMs of a Qwen2.5-3B layer at decode (M = 4) and prefill (M = 24)
+MAIN_PATH = [(m, k, n) for m in (4, 24)
+             for (k, n) in ((2048, 2048), (2048, 256), (2048, 11008),
+                            (11008, 2048))]
+
+
+def _configs(n: int, bn: int = 128):
+    """Uniform configs 0/8/31, a per-block vector, and neuron-group
+    vectors whose groups straddle blocks (shorter than the block count
+    for wide GEMMs, longer for narrow ones)."""
+    n_blocks = -(-n // bn)
+    rng = np.random.default_rng(n)
+    return [0, 8, 31,
+            rng.integers(0, 32, n_blocks).astype(np.int32),
+            np.asarray([3, 31, 8], np.int32),
+            np.asarray([16, 1, 31, 30, 7], np.int32)]
+
+
+def _case(m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(m, k)) * 2).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * 0.05).astype(np.float32)
+    return x, w
+
+
+def _cfg_id(c):
+    return f"vec{len(c)}" if isinstance(c, np.ndarray) else f"cfg{c}"
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + MAIN_PATH,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_kernel_equals_plain_version(cuda_device, shape):
+    """Bit for bit, through the float-facing op (padding, group
+    expansion, combined scale) at every config form."""
+    m, k, n = shape
+    x, w = _case(m, k, n)
+    xd = torch.as_tensor(x, device=cuda_device)
+    w_q = quantize(torch.as_tensor(w, device=cuda_device), axis=1)
+    for config in _configs(n):
+        cfg = torch.as_tensor(config, dtype=torch.int32, device=cuda_device)
+        before = A.approx_mac_fused_matmul.launches
+        out = ops.approx_dense_pallas(xd, w_q, config=cfg)
+        ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul_ref
+        try:
+            ref = ops.approx_dense_pallas(xd, w_q, config=cfg)
+        finally:
+            ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul
+        torch.cuda.synchronize()
+        assert A.approx_mac_fused_matmul.launches == before + 1
+        assert torch.equal(out, ref), (shape, _cfg_id(config))
+
+
+@pytest.mark.cuda
+def test_cuda_config_sweep_uses_one_library(cuda_device):
+    """The knob is data: all 32 configs run through one built library."""
+    x, w = _case(4, 512, 256, seed=5)
+    xd = torch.as_tensor(x, device=cuda_device)
+    w_q = quantize(torch.as_tensor(w, device=cuda_device), axis=1)
+    outs = [ops.approx_dense_pallas(xd, w_q, config=torch.tensor(
+        c, dtype=torch.int32, device=cuda_device)) for c in range(32)]
+    torch.cuda.synchronize()
+    assert A._lib.cache_info().currsize == 1
+    assert not torch.equal(outs[0], outs[31])
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_and_decode_equal_plain_path(cuda_device):
+    """The smoke model's prefill and decode step through the kernel equal
+    the same calls through the plain version, with one launch per GEMM."""
+    cfg = get_config("qwen2.5-3b").smoke(mac_backend="pallas")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = T.quantize_lm_params(T.init_lm(gen, cfg, cuda_device), cfg)
+    toks = torch.randint(0, 128, (2, 9), device=cuda_device, generator=gen)
+    acfg = torch.tensor([[8, 31], [0, 16]], dtype=torch.int32,
+                        device=cuda_device)
+
+    def run():
+        logits, cache = T.prefill(params, cfg, toks, max_len=16,
+                                  approx_cfg=acfg)
+        tok = torch.argmax(logits, -1)[:, None]
+        step, _ = T.decode_step(params, cfg, cache, tok, approx_cfg=acfg)
+        return logits, step
+
+    before = A.approx_mac_fused_matmul.launches
+    kernel = run()
+    assert A.approx_mac_fused_matmul.launches - before == 7 * 2 * 2
+    ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul_ref
+    try:
+        plain = run()
+    finally:
+        ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul
+    torch.cuda.synchronize()
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
