@@ -8,12 +8,20 @@ numpy arrays; nothing in this module imports JAX.  The layout it undoes:
 per-layer list.  Per-layer shapes are unchanged (``wq``/``wk``/``wv``
 (d, H, hd), ``wo`` (H, hd, d)); the port's ``Engine`` quantizes the
 float weights once, like the reference's.
+
+The paper's MLP crosses the same way: ``mlp_params_from_numpy`` takes
+the reference's float ``{"hidden": {"w", "b"}, "out": {...}}`` tree as
+numpy, and ``quantized_mlp_from_fields`` rebuilds a reference
+``QuantizedMLP`` (whose fields are numpy already) field by field.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from repro_torch.nn.mlp_paper import QuantizedMLP
 from repro_torch.nn.transformer import ModelConfig, Params
 
 
@@ -45,3 +53,15 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Params:
            if k != "blocks"}
     out["blocks"] = [_to_torch(layer(i, stacked), device) for i in range(n)]
     return out
+
+
+def mlp_params_from_numpy(tree: dict, device="cuda") -> dict:
+    """Reference float MLP params as numpy -> the port's on `device`."""
+    return _to_torch(tree, device)
+
+
+def quantized_mlp_from_fields(qmlp) -> QuantizedMLP:
+    """A reference ``QuantizedMLP`` (or anything with its fields) -> the
+    port's, field by field (numpy arrays and Python scalars)."""
+    return QuantizedMLP(**{f.name: getattr(qmlp, f.name)
+                           for f in dataclasses.fields(QuantizedMLP)})

@@ -1,5 +1,6 @@
 """Per-MAC energy model calibrated to the paper (numpy copy of the parts
-of ``repro.core.power_model`` the serving engine reads).
+of ``repro.core.power_model`` the serving engine and the hardware
+simulator read).
 
 The paper's 45 nm ASIC: 5.55 mW network power in exact mode, a 44.36 %
 maximum per-MAC saving, and the implied MAC energy of 1.668 pJ.  Per
@@ -25,9 +26,11 @@ N_PHYSICAL_NEURONS = 10
 
 NEURON_SHARE_OF_NETWORK = MAX_NETWORK_SAVING / MAX_NEURON_SAVING
 MAC_SHARE_OF_NEURON = MAX_NEURON_SAVING / MAX_MAC_SAVING
-NEURON_POWER_MW = (NETWORK_POWER_EXACT_MW * NEURON_SHARE_OF_NETWORK
-                   / N_PHYSICAL_NEURONS)
+NEURONS_POWER_MW = NETWORK_POWER_EXACT_MW * NEURON_SHARE_OF_NETWORK
+NEURON_POWER_MW = NEURONS_POWER_MW / N_PHYSICAL_NEURONS
 MAC_POWER_EXACT_MW = NEURON_POWER_MW * MAC_SHARE_OF_NEURON
+NEURON_OTHER_MW = NEURON_POWER_MW - MAC_POWER_EXACT_MW
+NETWORK_OTHER_MW = NETWORK_POWER_EXACT_MW - NEURONS_POWER_MW
 
 # one exact MAC per cycle at the paper's 100 MHz clock
 PAPER_CLOCK_HZ = 100e6
@@ -46,6 +49,28 @@ MAC_SAVING_FRAC = _RAW * (MAX_MAC_SAVING / _RAW.max())
 
 # (32,) modeled energy of one MAC per config
 ENERGY_PER_MAC_PJ = MAC_ENERGY_EXACT_PJ * (1.0 - MAC_SAVING_FRAC)
+
+
+def mac_saving(config: int) -> float:
+    """Fraction of MAC power saved at `config` (0 for exact mode)."""
+    return float(MAC_SAVING_FRAC[config])
+
+
+def mac_power_mw(config: int) -> float:
+    return MAC_POWER_EXACT_MW * (1.0 - mac_saving(config))
+
+
+def neuron_power_mw(config: int) -> float:
+    return NEURON_OTHER_MW + mac_power_mw(config)
+
+
+def network_power_mw(config: int) -> float:
+    """Total network power with all 10 neurons at `config`."""
+    return NETWORK_OTHER_MW + N_PHYSICAL_NEURONS * neuron_power_mw(config)
+
+
+def energy_per_mac_pj(config: int) -> float:
+    return MAC_ENERGY_EXACT_PJ * (1.0 - mac_saving(config))
 
 
 @functools.cache

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 QMAX = 127
@@ -83,6 +84,24 @@ def quantize(x: torch.Tensor, axis: int | None = None) -> QTensor:
         q = torch.round(x / scale.reshape(shape))
     q = torch.clamp(q, -QMAX, QMAX).to(torch.int8)
     return QTensor(q, scale.to(torch.float32), axis)
+
+
+def quantize_np(x: np.ndarray, axis: int | None = None):
+    """numpy twin of ``quantize`` (the paper MLP's quantizer and the
+    hardware simulator's): returns (int8 values, f32 scale)."""
+    if axis is None:
+        amax = np.abs(x).max()
+        scale = max(amax, 1e-12) / QMAX
+        q = np.clip(np.round(x / scale), -QMAX, QMAX).astype(np.int8)
+        return q, np.float32(scale)
+    reduce_axes = tuple(i for i in range(x.ndim) if i != axis)
+    amax = np.abs(x).max(axis=reduce_axes)
+    scale = np.maximum(amax, 1e-12) / QMAX
+    shape = [1] * x.ndim
+    shape[axis] = -1
+    q = np.clip(np.round(x / scale.reshape(shape)), -QMAX, QMAX
+                ).astype(np.int8)
+    return q, scale.astype(np.float32)
 
 
 def truncate_operand_lsb(q_values: torch.Tensor, depth, gate,

@@ -1,1 +1,1 @@
-"""Fused approx-MAC GEMM (CUDA C++ for sm_90a) and its wrappers."""
+"""Approx-MAC GEMMs (CUDA C++ for sm_90a) and their wrappers."""

@@ -1,76 +1,44 @@
-"""Fused approx-MAC GEMM: the Hopper kernel, its plain PyTorch twin, and
+"""Approx-MAC GEMMs: the Hopper kernels, their plain PyTorch twins, and
 the config operand.
 
-Counterpart of ``repro.kernels.approx_mac.approx_mac`` (the fused
-variant only).  ``approx_mac_fused_matmul`` quantizes the f32
-activations in-kernel with a per-tensor scale, truncates both operands
-with the (depth_a, depth_b, gate, rtn) row of each output column's
-config block, multiply-accumulates int8 in int32 and rescales with ONE
-f32 multiply by the combined ``scale_row`` — float in, float out.
+Counterpart of ``repro.kernels.approx_mac.approx_mac`` (its fused and
+int variants).  Both kernels truncate the operands with the (depth_a,
+depth_b, gate, rtn) row of each output column's config block and
+multiply-accumulate int8 in int32:
 
-For a CUDA tensor it launches the hand-written kernel in
-``csrc/approx_mac.cu`` (built with nvcc at first use into
-``build/kernels/`` at the repository root, loaded through ctypes) or
-raises; for a CPU tensor it runs ``approx_mac_fused_matmul_ref``, the
-same function in plain PyTorch.  There is no fallback between the two.
+* ``approx_mac_fused_matmul`` quantizes f32 activations in-kernel with a
+  per-tensor scale and rescales with ONE f32 multiply by the combined
+  ``scale_row`` — float in, float out (every GEMM of the LM);
+* ``approx_mac_matmul`` takes int8 activations and returns the int32
+  accumulator (the paper MLP's GEMMs, ``ops.approx_mac``).
+
+For CUDA tensors each launches its hand-written kernel in
+``csrc/approx_mac.cu`` (one templated body, built with nvcc at first use
+into ``build/kernels/`` at the repository root, loaded through ctypes)
+or raises; for CPU tensors it runs its ``*_ref`` twin, the same function
+in plain PyTorch.  There is no fallback between the two.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
 from repro_torch.core.approx_multiplier import OPERAND_PARAM_TABLE
 from repro_torch.core.approx_matmul import exact_int_matmul
 from repro_torch.core.quantization import QMAX, truncate_operand_lsb
+from repro_torch.kernels import build as _build
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc" / "approx_mac.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_BN = 32          # the kernel's column tile; config blocks are
 #                         multiples of it
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError(f"nvcc not found (looked for {path}); the "
-                           "approx-MAC CUDA kernel cannot be built")
-    return path
-
-
 def build() -> tuple[pathlib.Path, str]:
-    """Compile csrc/approx_mac.cu into a shared library named by the
-    source hash (reused when present).  Returns (path, compiler log);
-    raises on a failed build."""
-    src = _CSRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libapprox_mac_{tag[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC)],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                               f"{r.stdout}\n{r.stderr}")
-        os.replace(tmp, lib)     # atomic: concurrent builders never see
-    finally:                     # a half-written library
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, r.stdout + r.stderr
+    """Compile csrc/approx_mac.cu (see ``kernels.build``)."""
+    return _build.build(_CSRC)
 
 
 @functools.cache
@@ -79,6 +47,11 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     fn = lib.approx_mac_fused_matmul
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_void_p]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.approx_mac_matmul
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                              ctypes.c_void_p]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -109,27 +82,70 @@ def config_operand(config, n_blocks: int, device) -> torch.Tensor:
     return table.index_select(0, cfg)
 
 
-def approx_mac_fused_matmul_ref(x, w_q, scale_row, x_scale, cfg_rows,
-                                cfg_bn: int = 128) -> torch.Tensor:
-    """Plain PyTorch version of the fused kernel (same arguments as
-    ``approx_mac_fused_matmul``): quantize, truncate per config block,
-    accumulate exactly (float64, see core.approx_matmul), one f32
-    epilogue multiply."""
-    m, k = x.shape
+def _blocked_int_matmul(a_q, w_q, cfg_rows, cfg_bn: int) -> torch.Tensor:
+    """Plain int32 product of int8 a_q (M, K) and w_q (K, N), both
+    operands truncated with the config row of each output column's
+    block; exact accumulation (float64, see core.approx_matmul)."""
+    m = a_q.shape[0]
     n = w_q.shape[1]
     n_blocks = cfg_rows.shape[0]
-    x_q = torch.clamp(torch.round(x / x_scale), -QMAX, QMAX).to(torch.int8)
     rows = cfg_rows.to(torch.int32)
     # activations: one truncated copy per config block -> (nb, M, K)
     p = rows[:, None, None, :]
-    a = truncate_operand_lsb(x_q[None], p[..., 0], p[..., 2], p[..., 3])
+    a = truncate_operand_lsb(a_q[None], p[..., 0], p[..., 2], p[..., 3])
     # weights: per-column parameters of the column's block
     wpad = torch.nn.functional.pad(w_q, (0, n_blocks * cfg_bn - n))
     col = rows.repeat_interleave(cfg_bn, dim=0)          # (nb*bn, 4)
     b = truncate_operand_lsb(wpad, col[:, 1], col[:, 2], col[:, 3])
-    b = b.reshape(k, n_blocks, cfg_bn).permute(1, 0, 2)  # (nb, K, bn)
-    acc = exact_int_matmul(a, b).permute(1, 0, 2).reshape(m, -1)[:, :n]
-    return acc.to(torch.float32) * scale_row.reshape(1, n)
+    b = b.reshape(-1, n_blocks, cfg_bn).permute(1, 0, 2)  # (nb, K, bn)
+    return exact_int_matmul(a, b).permute(1, 0, 2).reshape(m, -1)[:, :n]
+
+
+def approx_mac_fused_matmul_ref(x, w_q, scale_row, x_scale, cfg_rows,
+                                cfg_bn: int = 128) -> torch.Tensor:
+    """Plain PyTorch version of the fused kernel (same arguments as
+    ``approx_mac_fused_matmul``): quantize, truncate per config block,
+    accumulate exactly, one f32 epilogue multiply."""
+    x_q = torch.clamp(torch.round(x / x_scale), -QMAX, QMAX).to(torch.int8)
+    acc = _blocked_int_matmul(x_q, w_q, cfg_rows, cfg_bn)
+    return acc.to(torch.float32) * scale_row.reshape(1, -1)
+
+
+def approx_mac_matmul_ref(a, w_q, cfg_rows, cfg_bn: int = 128
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of the int kernel (same arguments as
+    ``approx_mac_matmul``): the blocked operand-truncation matmul of
+    ``repro.kernels.approx_mac.ref.approx_mac_matmul_ref`` with one
+    config row per output block."""
+    return _blocked_int_matmul(a, w_q, cfg_rows, cfg_bn)
+
+
+def _check_operands(a, w_q, cfg_rows, cfg_bn: int) -> None:
+    """The launch contract both kernels share (shapes, devices, rows)."""
+    k, n = w_q.shape
+    if w_q.dtype != torch.int8 or a.shape[1] != k:
+        raise ValueError(f"shapes a {tuple(a.shape)}, w {tuple(w_q.shape)} "
+                         f"({w_q.dtype})")
+    if cfg_bn % KERNEL_BN or cfg_rows.shape != (-(-n // cfg_bn), 4):
+        raise ValueError(f"cfg_rows {tuple(cfg_rows.shape)} for N={n}, "
+                         f"cfg_bn={cfg_bn}")
+    for t in (w_q, cfg_rows):
+        if t.device != a.device:
+            raise ValueError(f"tensor on {t.device}, expected {a.device}")
+    if cfg_rows.dtype != torch.int32 or cfg_rows.stride(1) != 1:
+        raise ValueError("cfg_rows must be int32 with unit column stride")
+
+
+def _padded_weight(w_q) -> tuple[torch.Tensor, int]:
+    """The kernels take whole 32-column tiles: ragged N is padded with
+    zero columns (zero weights change no kept result)."""
+    pad = (-w_q.shape[1]) % KERNEL_BN
+    w = w_q.contiguous()
+    if pad:
+        w = torch.nn.functional.pad(w, (0, pad))
+    if w.data_ptr() % 8:
+        raise ValueError("weight rows must be 8-byte aligned")
+    return w, pad
 
 
 def approx_mac_fused_matmul(x, w_q, scale_row, x_scale, cfg_rows,
@@ -146,38 +162,26 @@ def approx_mac_fused_matmul(x, w_q, scale_row, x_scale, cfg_rows,
                                            cfg_rows, cfg_bn)
     if x.device.type != "cuda":
         raise ValueError(f"no approx-MAC kernel for device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"need f32 x, got {x.dtype}")
+    _check_operands(x, w_q, cfg_rows, cfg_bn)
     m, k = x.shape
     n = w_q.shape[1]
-    dev = x.device
-    if x.dtype != torch.float32 or w_q.dtype != torch.int8:
-        raise TypeError(f"need f32 x and int8 w, got {x.dtype}, {w_q.dtype}")
-    if w_q.shape[0] != k or scale_row.numel() != n:
-        raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w_q.shape)}, "
-                         f"scale_row {tuple(scale_row.shape)}")
-    if cfg_bn % KERNEL_BN or cfg_rows.shape != (-(-n // cfg_bn), 4):
-        raise ValueError(f"cfg_rows {tuple(cfg_rows.shape)} for N={n}, "
-                         f"cfg_bn={cfg_bn}")
-    for t in (w_q, scale_row, x_scale, cfg_rows):
-        if t.device != dev:
-            raise ValueError(f"tensor on {t.device}, expected {dev}")
-    if cfg_rows.dtype != torch.int32 or cfg_rows.stride(1) != 1:
-        raise ValueError("cfg_rows must be int32 with unit column stride")
-    # the kernel takes whole 32-column tiles: pad ragged N with zero
-    # columns (zero weights and scales change no kept result)
-    pad = (-n) % KERNEL_BN
+    if scale_row.numel() != n or scale_row.device != x.device \
+            or x_scale.device != x.device:
+        raise ValueError(f"scale_row {tuple(scale_row.shape)} on "
+                         f"{scale_row.device} for N={n}")
     x = x.contiguous()
-    w, srow = w_q.contiguous(), scale_row.reshape(n).float().contiguous()
+    w, pad = _padded_weight(w_q)
+    srow = scale_row.reshape(n).float().contiguous()
     if pad:
-        w = torch.nn.functional.pad(w, (0, pad))
         srow = torch.nn.functional.pad(srow, (0, pad))
     xs = x_scale.reshape(1).float().contiguous()
-    out = torch.empty((m, n + pad), dtype=torch.float32, device=dev)
-    if w.data_ptr() % 8:
-        raise ValueError("weight rows must be 8-byte aligned")
+    out = torch.empty((m, n + pad), dtype=torch.float32, device=x.device)
     err = _lib().approx_mac_fused_matmul(
         x.data_ptr(), w.data_ptr(), srow.data_ptr(), xs.data_ptr(),
         cfg_rows.data_ptr(), cfg_rows.stride(0), cfg_bn, out.data_ptr(),
-        m, k, n + pad, torch.cuda.current_stream(dev).cuda_stream)
+        m, k, n + pad, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"approx_mac_fused_matmul launch failed: CUDA "
                            f"error {err}")
@@ -186,3 +190,35 @@ def approx_mac_fused_matmul(x, w_q, scale_row, x_scale, cfg_rows,
 
 
 approx_mac_fused_matmul.launches = 0
+
+
+def approx_mac_matmul(a, w_q, cfg_rows, cfg_bn: int = 128) -> torch.Tensor:
+    """a: (M, K) int8; w_q: (K, N) int8; cfg_rows: (ceil(N / cfg_bn), 4)
+    int32 config rows (``config_operand``).  Returns (M, N) int32, the
+    truncated operands' exact products summed.  CUDA tensors launch the
+    kernel (counted in ``.launches``) or raise; CPU tensors take the
+    plain version."""
+    if a.device.type == "cpu":
+        return approx_mac_matmul_ref(a, w_q, cfg_rows, cfg_bn)
+    if a.device.type != "cuda":
+        raise ValueError(f"no approx-MAC kernel for device {a.device}")
+    if a.dtype != torch.int8:
+        raise TypeError(f"need int8 activations, got {a.dtype}")
+    _check_operands(a, w_q, cfg_rows, cfg_bn)
+    m, k = a.shape
+    n = w_q.shape[1]
+    a = a.contiguous()
+    w, pad = _padded_weight(w_q)
+    out = torch.empty((m, n + pad), dtype=torch.int32, device=a.device)
+    err = _lib().approx_mac_matmul(
+        a.data_ptr(), w.data_ptr(), cfg_rows.data_ptr(), cfg_rows.stride(0),
+        cfg_bn, out.data_ptr(), m, k, n + pad,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"approx_mac_matmul launch failed: CUDA error "
+                           f"{err}")
+    approx_mac_matmul.launches += 1
+    return out[:, :n] if pad else out
+
+
+approx_mac_matmul.launches = 0

@@ -1,14 +1,18 @@
-// Fused error-configurable approx-MAC GEMM for Hopper (sm_90a).
+// Error-configurable approx-MAC GEMMs for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `approx_mac_fused_matmul` (body `_fused_kernel`)
-// of src/repro/kernels/approx_mac/approx_mac.py.  One launch computes
+// Replaces two TPU kernels of src/repro/kernels/approx_mac/approx_mac.py,
+// both from ONE kernel body templated on the activation type and the
+// epilogue:
 //
-//   out[m, n] = float(sum_k ta(q(x[m, k])) * tb(w[k, n])) * scale_row[n]
+//   approx_mac_fused_matmul (body `_fused_kernel`), TA = float, TOut = float:
+//     out[m, n] = float(sum_k ta(q(x[m, k])) * tb(w[k, n])) * scale_row[n]
+//     where q is the in-kernel dynamic int8 quantization
+//     clip(round_half_even(x / x_scale), +-127) with an IEEE divide;
+//   approx_mac_matmul (body `_kernel`), TA = int8, TOut = int32:
+//     out[m, n] = sum_k ta(a[m, k]) * tb(w[k, n])     (int32)
 //
-// where q is the in-kernel dynamic int8 quantization
-// clip(round_half_even(x / x_scale), +-127) with an IEEE divide, and ta/tb
-// truncate operand LSBs with the (depth_a, depth_b, gate, rtn) row of the
-// output column's config block: cfg[(n / cfg_bn) * cfg_stride + 0..3].
+// ta/tb truncate operand LSBs with the (depth_a, depth_b, gate, rtn) row of
+// the output column's config block: cfg[(n / cfg_bn) * cfg_stride + 0..3].
 // The config rows are device data read at run time, so one compiled kernel
 // serves all 32 configs and any per-block mix (the knob stays data).
 //
@@ -16,8 +20,10 @@
 // once and used for 4 MACs, so the int8 weight bytes set the floor — one
 // Qwen2.5-3B layer's seven GEMMs read 77,070,336 B, about 2.77 GB per
 // decode step over 36 layers, ~0.83 ms at 3.35 TB/s — while the int8
-// operations at M = 4 take ~11 us at 1,979 TOPS.  The design therefore
-// spends nothing on tensor cores and everything on streaming W:
+// operations at M = 4 take ~11 us at 1,979 TOPS.  The paper MLP's GEMMs
+// (M = 10,000, K = 62/30, N = 30/10) are bound by the activation and
+// output bytes.  The design spends nothing on tensor cores and everything
+// on streaming W:
 //   * one block owns BM = 4 output rows x BN = 32 columns, so a
 //     2048 x 11008 GEMM runs 344 blocks; each of its 256 threads streams
 //     one 8-byte weight row segment per k-step (a warp reads 8 rows x 32
@@ -26,8 +32,9 @@
 //   * truncation of either operand is one lookup in a 256-entry table
 //     the block builds from its config row, so the knob costs one
 //     shared-memory load per weight byte and no extra device-memory bytes;
-//   * the block's activation rows are quantized and truncated once into
-//     shared memory (int8, 4 x K bytes) and reused for all its columns;
+//   * the block's activation rows are quantized (float input) and
+//     truncated once into shared memory (int8, 4 x K bytes) and reused for
+//     all its columns;
 //   * products of int8 magnitudes <= 128 accumulate exactly in int32 in
 //     any order, so the k-lane split changes no bit.
 // A tensor-core (wgmma) version with TMA-fed pipelines is later work.
@@ -65,12 +72,34 @@ __device__ __forceinline__ int truncate_operand(int v, int depth, int gate,
   return v < 0 ? -tmag : tmag;
 }
 
+// LUT index of an activation: float inputs are quantized first.
+__device__ __forceinline__ int activation_index(float x, float s) {
+  float v = rintf(__fdiv_rn(x, s));
+  v = fminf(fmaxf(v, -127.f), 127.f);
+  return (int)v + 128;
+}
+__device__ __forceinline__ int activation_index(int8_t a, float) {
+  return (int)a + 128;
+}
+
+__device__ __forceinline__ void store(float* out, size_t i, int sum,
+                                      const float* scale_row, int n) {
+  out[i] = (float)sum * scale_row[n];
+}
+__device__ __forceinline__ void store(int32_t* out, size_t i, int sum,
+                                      const float*, int) {
+  out[i] = sum;
+}
+
+// TA: float (quantized in-kernel with x_scale) or int8_t (used as is);
+// TOut: float (scaled by scale_row) or int32_t (the raw accumulator).
+template <typename TA, typename TOut>
 __global__ void __launch_bounds__(THREADS)
-fused_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
-             const float* __restrict__ scale_row,
-             const float* __restrict__ x_scale,
-             const int32_t* __restrict__ cfg, int cfg_stride, int cfg_bn,
-             float* __restrict__ out, int M, int K, int N) {
+approx_mac_kernel(const TA* __restrict__ a, const int8_t* __restrict__ w,
+                  const float* __restrict__ scale_row,
+                  const float* __restrict__ x_scale,
+                  const int32_t* __restrict__ cfg, int cfg_stride,
+                  int cfg_bn, TOut* __restrict__ out, int M, int K, int N) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* lut_a = reinterpret_cast<int*>(smem);
   int* lut_b = lut_a + 256;
@@ -89,17 +118,13 @@ fused_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   lut_b[tid] = truncate_operand(tid - 128, depth_b, gate, rtn);
   __syncthreads();
 
-  // quantize + truncate this block's activation rows once
-  const float s = x_scale[0];
+  // quantize (float input) + truncate this block's activation rows once
+  const float s = x_scale != nullptr ? x_scale[0] : 1.f;
   for (int i = tid; i < BM * K; i += THREADS) {
     const int m = i / K;
     const int k = i - m * K;
     int q = 0;
-    if (m0 + m < M) {
-      float v = rintf(__fdiv_rn(x[(size_t)(m0 + m) * K + k], s));
-      v = fminf(fmaxf(v, -127.f), 127.f);
-      q = lut_a[(int)v + 128];
-    }
+    if (m0 + m < M) q = lut_a[activation_index(a[(size_t)(m0 + m) * K + k], s)];
     xs[i] = (int8_t)q;
   }
   __syncthreads();
@@ -135,9 +160,9 @@ fused_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
       }
 #pragma unroll
       for (int m = 0; m < BM; ++m) {
-        const int a = xs[m * K + kk];
+        const int av = xs[m * K + kk];
 #pragma unroll
-        for (int j = 0; j < COLS; ++j) acc[m][j] += a * wt[j];
+        for (int j = 0; j < COLS; ++j) acc[m][j] += av * wt[j];
       }
     }
   }
@@ -172,8 +197,30 @@ fused_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
     for (int wi = 0; wi < WARPS; ++wi)
       sum += red[((wi * COL_GROUPS + g) * BM + m) * COLS + j];
     if (m0 + m < M && n0 + n < N)
-      out[(size_t)(m0 + m) * N + n0 + n] = (float)sum * scale_row[n0 + n];
+      store(out, (size_t)(m0 + m) * N + n0 + n, sum, scale_row, n0 + n);
   }
+}
+
+template <typename TA, typename TOut>
+int launch(const TA* a, const int8_t* w, const float* scale_row,
+           const float* x_scale, const int32_t* cfg, int cfg_stride,
+           int cfg_bn, TOut* out, int M, int K, int N, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || N % BN != 0 || cfg_bn <= 0 ||
+      cfg_bn % BN != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t xs_bytes = (size_t)BM * K;
+  const size_t smem = LUT_BYTES + (xs_bytes > RED_BYTES ? xs_bytes
+                                                        : (size_t)RED_BYTES);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        approx_mac_kernel<TA, TOut>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(N / BN, (M + BM - 1) / BM);
+  approx_mac_kernel<TA, TOut><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      a, w, scale_row, x_scale, cfg, cfg_stride, cfg_bn, out, M, K, N);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -190,20 +237,16 @@ extern "C" int approx_mac_fused_matmul(const float* x, const int8_t* w,
                                        const int32_t* cfg, int cfg_stride,
                                        int cfg_bn, float* out, int M, int K,
                                        int N, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || N % BN != 0 || cfg_bn <= 0 ||
-      cfg_bn % BN != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t xs_bytes = (size_t)BM * K;
-  const size_t smem = LUT_BYTES + (xs_bytes > RED_BYTES ? xs_bytes
-                                                        : (size_t)RED_BYTES);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
-  fused_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, w, scale_row, x_scale, cfg, cfg_stride, cfg_bn, out, M, K, N);
-  return (int)cudaGetLastError();
+  return launch<float, float>(x, w, scale_row, x_scale, cfg, cfg_stride,
+                              cfg_bn, out, M, K, N, stream);
+}
+
+// a (M, K) int8, w (K, N) int8 with N % 32 == 0 and 8-byte aligned rows,
+// cfg / cfg_stride / cfg_bn as above, out (M, N) int32.
+extern "C" int approx_mac_matmul(const int8_t* a, const int8_t* w,
+                                 const int32_t* cfg, int cfg_stride,
+                                 int cfg_bn, int32_t* out, int M, int K,
+                                 int N, void* stream) {
+  return launch<int8_t, int32_t>(a, w, nullptr, nullptr, cfg, cfg_stride,
+                                 cfg_bn, out, M, K, N, stream);
 }

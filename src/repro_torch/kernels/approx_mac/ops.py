@@ -1,7 +1,11 @@
-"""Float-facing wrapper around the fused approx-MAC kernel.
+"""Wrappers around the approx-MAC kernels.
 
-Counterpart of ``repro.kernels.approx_mac.ops`` (fused path only):
-leading dims flatten into M, the per-tensor activation scale is
+Counterpart of ``repro.kernels.approx_mac.ops`` (all but the grouped
+MoE path).  ``approx_mac`` is the int8-in/int32-out op on the int kernel
+(the paper MLP's GEMMs); ``approx_dense_pallas`` is the float-facing
+layer op, fused (the serving path) or unfused (quantize -> int kernel
+-> rescale, kept for the reference's A/B).  In both: leading dims
+flatten into M, the per-tensor activation scale is
 computed here by the caller-side reduction, the combined dequant scale
 ``x_scale * w_scale`` is rounded once, and config scalars / per-block
 vectors / neuron-group vectors become the kernel's (n_blocks, 4) device
@@ -21,9 +25,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.error_metrics import mred_table
-from repro_torch.core.quantization import QTensor, activation_scale
+from repro_torch.core.quantization import QMAX, QTensor, activation_scale
 
-from .approx_mac import approx_mac_fused_matmul, config_operand
+from .approx_mac import (approx_mac_fused_matmul, approx_mac_matmul,
+                         config_operand)
 
 
 @functools.cache
@@ -66,26 +71,55 @@ def _expand_group_vector(config: torch.Tensor, n_logical: int, bn: int,
     return torch.gather(cand, 1, pick)[:, 0]
 
 
+def _config_rows(config, n: int, bn: int, device) -> torch.Tensor:
+    """Any accepted config form -> the kernels' (ceil(n/bn), 4) rows."""
+    n_blocks = -(-n // bn)
+    cfg = torch.as_tensor(config, dtype=torch.int32, device=device)
+    if cfg.ndim == 1:
+        cfg = _expand_group_vector(cfg, n, bn, n_blocks)
+    return config_operand(cfg, n_blocks, device)
+
+
+def approx_mac(a: torch.Tensor, b: torch.Tensor, config=0, *,
+               bn: int = 128) -> torch.Tensor:
+    """a: (..., M, K) int8; b: (K, N) int8 -> (..., M, N) int32 on the int
+    kernel.  config: Python int, 0-d int tensor, an (ceil(N/bn),)
+    per-block vector or a (g,) neuron-group vector (see
+    ``_expand_group_vector``); bn: the logical config-block width.
+    Bit-identical to the reference ``approx_mac`` at every config."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"need int8 operands, got {a.dtype}, {b.dtype}")
+    lead, k = a.shape[:-1], a.shape[-1]
+    n = b.shape[-1]
+    rows = _config_rows(config, n, bn, a.device)
+    out = approx_mac_matmul(a.reshape(-1, k), b, rows, bn)
+    return out.reshape(*lead, n)
+
+
 def approx_dense_pallas(x: torch.Tensor, w_qt: QTensor, config=0, *,
-                        bn: int = 128) -> torch.Tensor:
-    """y = approx(x) @ w on the fused kernel path.
+                        fused: bool = True, bn: int = 128) -> torch.Tensor:
+    """y = approx(x) @ w on the kernel path.
 
     x: (..., K) float; w_qt: a (K, N) int8 QTensor with a per-tensor or
     per-column scale; config: Python int, 0-d int tensor, an
     (ceil(N/bn),) per-block vector or a (g,) neuron-group vector; bn: the
     logical config-block width (``ModelConfig.mac_blocks[1]``).  Returns
     (..., N) f32, bit-identical to the reference ``approx_dense_pallas``
-    under ``jax.jit`` at every config."""
+    under ``jax.jit`` at every config.  ``fused=False`` quantizes here,
+    runs the int kernel and rescales after it (three passes, the same
+    bits: both paths use one scale and one epilogue multiply)."""
     w_q = w_qt.values
     lead, k = x.shape[:-1], x.shape[-1]
     n = w_q.shape[-1]
     x2 = x.to(torch.float32).reshape(-1, k)
     x_scale = activation_scale(x2)
     w_row = x_scale * w_qt.scale.to(torch.float32).reshape(-1).expand(n)
-    n_blocks = -(-n // bn)
-    cfg = torch.as_tensor(config, dtype=torch.int32, device=x.device)
-    if cfg.ndim == 1:
-        cfg = _expand_group_vector(cfg, n, bn, n_blocks)
-    rows = config_operand(cfg, n_blocks, x.device)
-    y = approx_mac_fused_matmul(x2, w_q, w_row, x_scale, rows, bn)
+    rows = _config_rows(config, n, bn, x.device)
+    if fused:
+        y = approx_mac_fused_matmul(x2, w_q, w_row, x_scale, rows, bn)
+    else:
+        x_q = torch.clamp(torch.round(x2 / x_scale), -QMAX, QMAX
+                          ).to(torch.int8)
+        y = approx_mac_matmul(x_q, w_q, rows, bn).to(torch.float32) \
+            * w_row.reshape(1, n)
     return y.reshape(*lead, n)

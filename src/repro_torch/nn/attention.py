@@ -1,8 +1,10 @@
 """Attention for the all-'global' decoder: causal GQA prefill attention
 over query chunks and single-token decode attention against a cache.
 
-Counterpart of ``repro.nn.attention`` (no window, no softcap, no decay
-— the port raises on models that need them).  Both are plain tensor
+Counterpart of ``repro.nn.attention`` (no window and no decay — the
+port raises on models that need them; the tanh logit softcap exists
+for decode attention, which the paged-attention kernel's plain twin
+runs).  Both are plain tensor
 code in the reference too (XLA, not Pallas), so they stay plain
 PyTorch here.  Scores and softmax run in f32; outputs take q's dtype.
 """
@@ -22,10 +24,12 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, s, kv * n_rep, hd)
 
 
-def _softmax_attend(q, k, v, mask, scale):
+def _softmax_attend(q, k, v, mask, scale, logit_cap: float = 0.0):
     """q (B,Sq,H,hd), k/v (B,Sk,H,hd), mask (B|1, 1, Sq|1, Sk) bool."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * scale
+    if logit_cap > 0:
+        scores = softcap(scores, logit_cap)
     scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w, v.to(torch.float32))
@@ -50,10 +54,17 @@ def chunked_attention(q, k, v, *, scale: float | None = None,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """tanh logit soft-capping (Gemma-2)."""
+    return torch.tanh(x / cap) * cap
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     logit_cap: float = 0.0,
                      scale: float | None = None) -> torch.Tensor:
     """q: (B, 1, H, hd); caches: (B, S_max, KV, hd); cache_len: scalar
-    or (B,) tensor of valid positions (the new token already written)."""
+    or (B,) tensor of valid positions (the new token already written);
+    logit_cap > 0 soft-caps the scores."""
     b, _, h, hd = q.shape
     scale = scale if scale is not None else hd ** -0.5
     n_rep = h // k_cache.shape[2]
@@ -61,5 +72,6 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     limit = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
     valid = (pos < limit)[:, None, None, :]
     out = _softmax_attend(q, _repeat_kv(k_cache, n_rep),
-                          _repeat_kv(v_cache, n_rep), valid, scale)
+                          _repeat_kv(v_cache, n_rep), valid, scale,
+                          logit_cap)
     return out.to(q.dtype)

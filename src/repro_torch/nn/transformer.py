@@ -11,13 +11,16 @@ Layout: params are plain dicts holding the reference's per-layer shapes
 ``params["blocks"]`` a list of per-layer dicts instead of the
 reference's scan-stacked ``blocks.scan.b0``.  The KV cache is
 ``{"pos", "k", "v"}`` with k/v stacked (n_layers, B, S, KV, hd) — the
-reference's ``cache["scan"]["b0"]`` layout.
+reference's ``cache["scan"]["b0"]`` layout.  The paged cache
+(``init_paged_cache``) stacks per-layer block pools the same way:
+k/v (n_layers, num_blocks, block_size, KV, hd).
 
 The reference's numerics are copied, not fixed: ``dense`` returns bf16
 whatever the model's compute dtype (the reference's ``_dense_kw`` does
 not pass one), and the decode pool runs every row at one scalar
-position.  ``decode_step`` writes the new K/V into the cache tensors IN
-PLACE (the reference is functional) and returns the same tensors.
+position.  ``decode_step``, ``paged_decode_step`` and
+``paged_prefill_chunk`` write the new K/V into the cache tensors IN
+PLACE (the reference is functional) and return the same tensors.
 """
 from __future__ import annotations
 
@@ -30,7 +33,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.quantization import QTensor, quantize
-from .attention import chunked_attention, decode_attention
+from repro_torch.kernels.flash_attention.paged_attention import \
+    paged_decode_attention
+from repro_torch.serve.paged_cache import TRASH_BLOCK
+from .attention import (_repeat_kv, _softmax_attend, chunked_attention,
+                        decode_attention)
 from .layers import (ACT, MAC_BACKENDS, apply_rope, dense, dense_init,
                      embed_init, rmsnorm)
 
@@ -265,6 +272,7 @@ def forward(params, cfg: ModelConfig, tokens, *, approx_cfg=0):
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device="cuda") -> Params:
+    device = resolve_device(device)
     shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
              cfg.head_dim)
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
@@ -283,9 +291,16 @@ def _kv_write(cache: Params, layer: int, k_new, v_new, pos) -> None:
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
-            approx_cfg=0):
+            approx_cfg=0, true_len: int | None = None):
     """Prompt prefill: (last-position logits (B, V), cache of length
-    max_len holding the prompt's K/V and pos = S)."""
+    max_len holding the prompt's K/V and pos = S).
+
+    ``true_len`` marks the real prompt length inside right-padded
+    ``tokens`` (the engine pads to ``prefill_pad``): K/V of the pad
+    positions are zeroed, pos = true_len and the logits come from
+    position true_len - 1.  Causality keeps every real position blind
+    to the pads, but the pads do join each GEMM's per-tensor
+    activation scale, as in the reference."""
     b, s = tokens.shape
     max_len = max_len or s
     if s > max_len:
@@ -295,15 +310,20 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, device=dev)[None]
     zero = torch.zeros((), dtype=torch.long, device=dev)
+    keep = (None if true_len is None else
+            (torch.arange(s, device=dev) < true_len)[None, :, None, None])
     for i, (p, ac) in enumerate(zip(params["blocks"],
                                     _layer_cfgs(approx_cfg, cfg.n_layers,
                                                 dev))):
         x, k, v = _attention_block(p, x, cfg, positions=positions,
                                    approx_cfg=ac)
+        if keep is not None:
+            k, v = k * keep.to(k.dtype), v * keep.to(v.dtype)
         _kv_write(cache, i, k, v, zero)
-    cache["pos"] = torch.tensor(s, dtype=torch.int32, device=dev)
+    last = s if true_len is None else int(true_len)
+    cache["pos"] = torch.tensor(last, dtype=torch.int32, device=dev)
     x = rmsnorm(x, params["final_norm"]["scale"])
-    return logits_for(params, cfg, x[:, -1]), cache
+    return logits_for(params, cfg, x[:, last - 1]), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
@@ -327,3 +347,125 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
     x = rmsnorm(x, params["final_norm"]["scale"])
     logits = logits_for(params, cfg, x[:, 0])
     return logits, {"pos": pos + 1, "k": cache["k"], "v": cache["v"]}
+
+
+# ---------------------------------------------------------------------------
+# serving: paged KV cache
+# ---------------------------------------------------------------------------
+# Per layer a (num_blocks, block_size, KV, hd) K/V pool, stacked over
+# layers; requests own pool blocks through (B, P) int32 block tables.
+# Tables, sequence lengths and the active mask are device tensors the
+# engine uploads once per tick; nothing below reads one on the host.
+# Block ids 0/1 are reserved (serve/paged_cache.py): 0 is all-zero and
+# backs unallocated table entries, 1 absorbs masked-off writes.  The
+# reference's ``_paged_gate`` (all-'global', float KV, no encoder or
+# vision prefix) is what ``ModelConfig`` already enforces here.
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     device="cuda") -> Params:
+    """Block-pool cache: {"k", "v"} of shape (n_layers, num_blocks,
+    block_size, KV, hd), all zero.  Block 0 (ZERO_BLOCK) must never be
+    written, so unowned table entries gather zeros, matching what the
+    dense cache holds past ``pos``."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+
+
+def _pool_write(pool: torch.Tensor, blocks, offsets, new) -> None:
+    """pool (NB, bs, KV, hd)[blocks[i], offsets[i]] = new[i], in place."""
+    nb, bs, kv, hd = pool.shape
+    idx = blocks.to(torch.long) * bs + offsets.to(torch.long)
+    pool.view(nb * bs, kv, hd).index_copy_(0, idx, new.to(pool.dtype))
+
+
+def _paged_attn_block(p, x, cache, layer, cfg, tables, seq_lens, active,
+                      approx_cfg):
+    """One paged layer, one token per row.  x: (B, 1, d); tables (B, P)
+    int32; seq_lens (B,) int32 tokens already cached per row; active
+    (B,) bool.  The current token's K/V lands in the row's tail block
+    (inactive rows write the trash block); attention runs the paged
+    kernel (its plain version on the CPU)."""
+    q, k, v = _qkv(p, x, cfg, seq_lens[:, None], approx_cfg)
+    k_pool, v_pool = cache["k"][layer], cache["v"][layer]
+    bs = k_pool.shape[1]
+    # clamp like the reference's gather (JAX clamps out-of-range indices);
+    # a live row's page is always in range
+    page = torch.clamp(seq_lens // bs, max=tables.shape[1] - 1)
+    tail = torch.gather(tables, 1, page[:, None].to(torch.long))[:, 0]
+    blocks = torch.where(active, tail, TRASH_BLOCK)
+    _pool_write(k_pool, blocks, seq_lens % bs, k[:, 0])
+    _pool_write(v_pool, blocks, seq_lens % bs, v[:, 0])
+    attn = paged_decode_attention(q, k_pool, v_pool, tables, seq_lens + 1,
+                                  scale=cfg.query_scale)
+    return _block_tail(p, x, attn, cfg, approx_cfg)
+
+
+def paged_decode_step(params, cfg: ModelConfig, cache: Params, token, *,
+                      approx_cfg=0):
+    """One token for every row against the block pool.
+
+    ``cache`` holds the pools ("k", "v") and three device tensors:
+    "tables" (B, P) int32 block tables, "seq_lens" (B,) int32 and
+    "active" (B,) bool.  Each row ropes and attends at its own length.
+    Returns (logits (B, V), {"k", "v"}) — the same pool tensors, updated
+    in place; table bookkeeping stays on the host
+    (serve/paged_cache.py)."""
+    tables, seq_lens, active = (cache["tables"], cache["seq_lens"],
+                                cache["active"])
+    x = embed_tokens(params, cfg, token)
+    for i, (p, ac) in enumerate(zip(params["blocks"],
+                                    _layer_cfgs(approx_cfg, cfg.n_layers,
+                                                x.device))):
+        x = _paged_attn_block(p, x, cache, i, cfg, tables, seq_lens, active,
+                              ac)
+    x = rmsnorm(x, params["final_norm"]["scale"])
+    return (logits_for(params, cfg, x[:, 0]),
+            {"k": cache["k"], "v": cache["v"]})
+
+
+def paged_prefill_chunk(params, cfg: ModelConfig, cache: Params, tokens, *,
+                        slot: int, start: int, count: int, approx_cfg=0):
+    """Advance one request's prefill by one chunk of its prompt.
+
+    tokens: (1, C) right-padded chunk; slot/start/count are host ints —
+    the request's row, the absolute position of tokens[0] and the number
+    of valid tokens.  K/V of the valid tokens go into the slot's blocks
+    (pads into the trash block); each chunk position attends to every
+    cached key at an absolute position <= its own (einsum attention over
+    the gathered table row, as in the reference), so chained chunks
+    reproduce a full-prompt prefill up to summation order.  Returns
+    (logits (1, C, V) at every chunk position, {"k", "v"} updated in
+    place)."""
+    dev = tokens.device
+    c_len = tokens.shape[1]
+    tok_pos = start + torch.arange(c_len, device=dev)        # (C,) absolute
+    row = cache["tables"][slot]                              # (P,)
+    bs = cache["k"].shape[2]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    scale = (cfg.query_scale if cfg.query_scale is not None
+             else cfg.head_dim ** -0.5)
+    page = torch.clamp(tok_pos // bs, max=row.shape[0] - 1)
+    blocks = torch.where(torch.arange(c_len, device=dev) < count, row[page],
+                         TRASH_BLOCK)
+    key_pos = torch.arange(row.shape[0] * bs, device=dev)
+    valid = (key_pos[None, :] <= tok_pos[:, None])[None, None]   # (1,1,C,L)
+    gather = row.to(torch.long)
+    x = embed_tokens(params, cfg, tokens)
+    for i, (p, ac) in enumerate(zip(params["blocks"],
+                                    _layer_cfgs(approx_cfg, cfg.n_layers,
+                                                dev))):
+        q, k, v = _qkv(p, x, cfg, tok_pos[None], ac)
+        k_pool, v_pool = cache["k"][i], cache["v"][i]
+        _pool_write(k_pool, blocks, tok_pos % bs, k[0])
+        _pool_write(v_pool, blocks, tok_pos % bs, v[0])
+        kc = k_pool[gather].reshape(1, -1, cfg.n_kv_heads, cfg.head_dim)
+        vc = v_pool[gather].reshape(1, -1, cfg.n_kv_heads, cfg.head_dim)
+        attn = _softmax_attend(q, _repeat_kv(kc, n_rep),
+                               _repeat_kv(vc, n_rep), valid, scale
+                               ).to(q.dtype)
+        x = _block_tail(p, x, attn, cfg, ac)
+    x = rmsnorm(x, params["final_norm"]["scale"])
+    return logits_for(params, cfg, x), {"k": cache["k"], "v": cache["v"]}

@@ -18,14 +18,28 @@ as a runtime value:
 
 Pool semantics copied from the reference: per layer (and neuron group)
 the pool runs the LOWEST-measured-MRED config among the active slots
-(``pool_join``), and every row decodes at ONE scalar position, the
-maximum over active slots — a shorter slot attends to the zero K/V rows
-between its own length and that position.
+(``pool_join``), and every row of the dense pool decodes at ONE scalar
+position, the maximum over active slots — a shorter slot attends to the
+zero K/V rows between its own length and that position.
+``prefill_pad`` pads prompts to a multiple of that many tokens (the
+padded width is what runs and what energy is charged for).
+
+Paged serving (``paged=PagedCacheConfig(...)``): the KV cache becomes a
+block pool with per-request block tables (``serve/paged_cache.py``).
+A request's first chunk runs stock ``prefill`` on a chunk-length buffer
+and is scattered into its blocks; longer prompts continue one
+``prefill_chunk`` per tick through ``paged_prefill_chunk``, interleaved
+with decode.  Full prompt blocks are shared between requests with a
+common prefix (copy-on-write before any write to a shared block), and a
+starved pool preempts the youngest request, which re-prefills its
+prompt and generated tokens when it is readmitted.  Each paged decode
+row ropes and attends at its own length, through the paged-attention
+kernel on the card.
 
 Not ported yet (the reference's knobs for them do not exist here):
-paged cache, speculative decoding, the scheduler and telemetry, fault
-injection, brownout, traffic classes' budgets, checkpointing,
-``prefill_pad``, sharding and the MoE expert axis.
+speculative decoding, the scheduler and telemetry, fault injection and
+deadline expiry, brownout, traffic classes' budgets, the power cap,
+checkpointing, sharding and the MoE expert axis.
 
 Runs on ``device="cuda"`` unless told otherwise; without a GPU the
 default raises rather than falling back to the CPU.
@@ -46,6 +60,7 @@ from repro_torch.core.power_model import (ENERGY_PER_MAC_PJ,
                                           energy_per_token_pj, error_rank)
 from repro_torch.core.quantization import QTensor
 from repro_torch.nn import transformer as T
+from .paged_cache import ZERO_BLOCK, PageAllocator, PagedCacheConfig
 from .sampling import sample
 
 
@@ -102,7 +117,9 @@ class Engine:
                  max_len: int = 512, approx_cfg=0, seed: int = 0,
                  cfg_groups: int = 1, quantize_weights: bool = True,
                  clock: Callable[[], float] = time.time,
-                 queue_capacity: int = 256, device="cuda"):
+                 queue_capacity: int = 256,
+                 paged: PagedCacheConfig | None = None,
+                 prefill_pad: int = 0, device="cuda"):
         """max_batch: decode-pool slots; max_len: KV-cache length
         (prompt + generated); approx_cfg: engine-wide error config (int
         or per-layer[/per-group] array); seed: seed of the sampling
@@ -110,8 +127,11 @@ class Engine:
         (needs ``cfg.mac_backend == "pallas"``); quantize_weights:
         pre-quantize every GEMM weight once; clock: injected time
         source (seconds) for request stamps; queue_capacity: admission
-        bound (``submit`` rejects past it); device: where params, cache
-        and every step live."""
+        bound (``submit`` rejects past it); paged: a
+        ``PagedCacheConfig`` for the block-pool cache (None: the dense
+        pool; needs ``max_len % block_size == 0``); prefill_pad: pad
+        prompts to a multiple of this many tokens (paged mode pads to
+        the chunk); device: where params, cache and every step live."""
         self.device = T.resolve_device(device)
         if cfg_groups > 1 and cfg.mac_backend != "pallas":
             raise ValueError("per-group configs require "
@@ -136,7 +156,32 @@ class Engine:
         # follow the engine config live
         self.slot_pinned = np.zeros(max_batch, dtype=bool)
         self.slot_pos = np.zeros(max_batch, dtype=np.int64)
-        self.cache = T.init_cache(cfg, max_batch, max_len, self.device)
+        self.paged = paged
+        self.prefill_pad = int(prefill_pad)
+        if paged is not None:
+            if max_len % paged.block_size:
+                raise ValueError(f"max_len {max_len} is not a multiple of "
+                                 f"block_size {paged.block_size}")
+            # paged prefill always runs chunked, padded to the chunk
+            self.prefill_pad = paged.prefill_chunk
+            self.allocator = PageAllocator(paged)
+            self.pages_per_slot = max_len // paged.block_size
+            self.block_tables = np.full((max_batch, self.pages_per_slot),
+                                        ZERO_BLOCK, dtype=np.int32)
+            self.seq_lens = np.zeros(max_batch, dtype=np.int32)
+            # authoritative per-slot owned-block lists, in table order
+            # (block_tables is the derived device operand)
+            self._slot_blocks: list[list[int]] = [[] for _ in
+                                                  range(max_batch)]
+            # slot -> {"tokens", "next", "resumed"}: requests mid chunked
+            # prefill (excluded from the decode batch)
+            self._prefill_progress: dict[int, dict] = {}
+            self.n_preempted = 0
+            self.n_shared_blocks = 0
+            self.cache = T.init_paged_cache(cfg, paged.num_blocks,
+                                            paged.block_size, self.device)
+        else:
+            self.cache = T.init_cache(cfg, max_batch, max_len, self.device)
         self.n_rejected = 0
         self.n_decode_steps = 0
         self.n_prefill_tokens = 0
@@ -263,27 +308,325 @@ class Engine:
                 req_cfg = self._as_layer_vector(req.approx_cfg)
                 req.status = "active"
                 self.slot_pinned[slot] = req.approx_cfg is not None
-                toks = np.asarray(req.prompt, np.int32).reshape(1, -1)
+                toks = np.asarray(req.prompt, np.int32).reshape(-1)
+                true_len = toks.shape[0]
+                if self.prefill_pad > 0:
+                    pad = (-true_len) % self.prefill_pad
+                    toks = np.concatenate([toks, np.zeros(pad, np.int32)])
                 logits, row_cache = T.prefill(
                     self.params, self.cfg,
-                    torch.as_tensor(toks, device=self.device),
+                    torch.as_tensor(toks[None], device=self.device),
                     max_len=self.max_len,
-                    approx_cfg=self._device_cfg(req_cfg))
-                self.n_prefill_tokens += toks.shape[1]
-                self._count_energy(toks.shape[1], req_cfg, "prefill",
+                    approx_cfg=self._device_cfg(req_cfg),
+                    true_len=true_len if self.prefill_pad > 0 else None)
+                self.n_prefill_tokens += true_len
+                # energy charges the executed (padded) width
+                self._count_energy(toks.shape[0], req_cfg, "prefill",
                                    cls=req.cls)
                 self._splice_cache(slot, row_cache)
-                self.slot_pos[slot] = toks.shape[1]
+                self.slot_pos[slot] = true_len
                 self.slot_cfg[slot] = req_cfg
                 first = sample(logits, self.gen, temperature=req.temperature)
                 req.tokens.append(int(first[0]))
                 req.first_token_at = self.clock()
                 self.slots[slot] = req
 
+    # -- paged serving ----------------------------------------------------
+    @property
+    def backpressure(self) -> dict:
+        """Admission-pressure signal: queue depth/utilization, active
+        slots, lifetime rejections, and in paged mode the free-block
+        watermark and the preemption count."""
+        bp = {"queued": len(self.queue),
+              "capacity": self.queue_capacity,
+              "utilization": len(self.queue) / self.queue_capacity,
+              "active": sum(s is not None for s in self.slots),
+              "rejected": self.n_rejected}
+        if self.paged is not None:
+            free = self.allocator.free_blocks()
+            bp["kv_free_blocks"] = free
+            bp["kv_utilization"] = 1.0 - free / self.paged.usable_blocks
+            bp["preempted"] = self.n_preempted
+        return bp
+
+    def _release_slot(self, slot: int) -> None:
+        """Free a paged slot's blocks and reset its table row to the
+        zero block (gathers read zeros, like dense rows past pos)."""
+        self.allocator.release(self._slot_blocks[slot])
+        self._slot_blocks[slot] = []
+        self.block_tables[slot] = ZERO_BLOCK
+        self.seq_lens[slot] = 0
+        self._prefill_progress.pop(slot, None)
+
+    def _paged_operands(self, active_mask=None) -> dict:
+        """The pools plus the tick's three device tensors: block tables,
+        sequence lengths and the active mask, uploaded once (copies: the
+        tick mutates the host arrays after the call)."""
+        if active_mask is None:
+            active_mask = np.zeros(self.max_batch, dtype=bool)
+        return {"k": self.cache["k"], "v": self.cache["v"],
+                "tables": torch.tensor(self.block_tables,
+                                       device=self.device),
+                "seq_lens": torch.tensor(self.seq_lens, device=self.device),
+                "active": torch.tensor(active_mask, device=self.device)}
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """Copy one block's K/V across every layer (COW fault)."""
+        for key in ("k", "v"):
+            self.cache[key][:, dst] = self.cache[key][:, src]
+
+    def _scatter_prefill(self, slot: int, row_cache, count: int) -> None:
+        """Scatter a one-chunk prefill row (stock ``prefill`` on a
+        chunk-length buffer, positions >= count zeroed by true_len) into
+        the slot's blocks."""
+        bs = self.paged.block_size
+        blocks = self._slot_blocks[slot][: self.paged.blocks_for(count)]
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
+        for key in ("k", "v"):
+            pool = self.cache[key]                   # (L, NB, bs, KV, hd)
+            rows = row_cache[key][:, 0, : len(blocks) * bs]
+            pool.index_copy_(1, idx, rows.reshape(
+                pool.shape[0], len(blocks), *pool.shape[2:]))
+
+    def _preemption_victim(self) -> int | None:
+        """Youngest in-flight request (latest submitted_at, ties toward
+        the higher slot): cheapest to recompute, fairest to the oldest
+        streams."""
+        best, best_t = None, -np.inf
+        for i, r in enumerate(self.slots):
+            if r is None:
+                continue
+            t = r.submitted_at if r.submitted_at is not None else 0.0
+            if t >= best_t:
+                best, best_t = i, t
+        return best
+
+    def _preempt(self, slot: int) -> None:
+        """Preempt-by-recompute: free the victim's blocks and requeue it
+        at the FRONT.  Its generated tokens ride along, so readmission
+        re-prefills prompt+generated and the stream continues where it
+        stopped."""
+        req = self.slots[slot]
+        if req is None:
+            return
+        self.n_preempted += 1
+        self._release_slot(slot)
+        self.slots[slot] = None
+        self.slot_pos[slot] = 0
+        if len(self.queue) >= self.queue_capacity:
+            req.status = "rejected"
+            req.finished_at = self.clock()
+            self.n_rejected += 1
+            self.completed.append(req)
+        else:
+            req.status = "queued"
+            self.queue.appendleft(req)
+
+    def _admit_paged(self) -> None:
+        """FIFO admission into free slots: reuse any cached prompt prefix
+        (fork its blocks), reserve the first chunk's blocks, and register
+        the request for chunked prefill.  Block shortage is a
+        head-of-line wait."""
+        p = self.paged
+        bs = p.block_size
+        for slot in range(self.max_batch):
+            if self.slots[slot] is not None or not self.queue:
+                continue
+            req = self.queue[0]
+            req_cfg = self._as_layer_vector(req.approx_cfg)
+            # a preempted request re-prefills prompt + generated; the
+            # LAST generated token stays out — it is the next decode input
+            toks = np.asarray(req.prompt, np.int32).reshape(-1)
+            resumed = bool(req.tokens)
+            if resumed:
+                toks = np.concatenate(
+                    [toks, np.asarray(req.tokens[:-1], np.int32)])
+            # a request whose peak committed length can never fit the
+            # pool is rejected up front (else it would starve, preempt
+            # everyone and requeue itself forever)
+            peak = min(len(np.asarray(req.prompt).reshape(-1))
+                       + req.max_new_tokens - 1, self.max_len - 1)
+            if (toks.size >= self.max_len
+                    or p.blocks_for(peak) > p.usable_blocks):
+                self.queue.popleft()
+                req.status = "rejected"
+                req.finished_at = self.clock()
+                self.n_rejected += 1
+                self.completed.append(req)
+                continue
+            shared = self.allocator.match_prefix(toks)
+            start = len(shared) * bs
+            first_end = min(toks.size, start + p.prefill_chunk)
+            need = p.blocks_for(first_end) - len(shared)
+            if not self.allocator.can_alloc(need):
+                break                      # wait for blocks, FIFO order
+            self.queue.popleft()
+            req.status = "active"
+            self.slot_pinned[slot] = req.approx_cfg is not None
+            self.slot_cfg[slot] = req_cfg
+            blocks = self.allocator.fork(shared)
+            self.n_shared_blocks += len(shared)
+            self._slot_blocks[slot] = blocks
+            self.block_tables[slot] = ZERO_BLOCK
+            self.block_tables[slot, :len(blocks)] = blocks
+            self.seq_lens[slot] = start
+            self.slot_pos[slot] = start
+            self._prefill_progress[slot] = {"tokens": toks, "next": start,
+                                            "resumed": resumed}
+            self.slots[slot] = req
+
+    def _register_prefix_blocks(self, slot: int, toks: np.ndarray) -> None:
+        """Publish the slot's FULL prompt blocks for prefix reuse, keyed
+        by the token prefix they hold (never written again: decode
+        appends past them)."""
+        bs = self.paged.block_size
+        blocks = self._slot_blocks[slot]
+        for i in range(toks.size // bs):
+            key = tuple(int(t) for t in toks[: (i + 1) * bs])
+            self.allocator.register_prefix(key, blocks[i])
+
+    def _advance_prefills(self) -> None:
+        """Advance every mid-prefill slot by ONE chunk this tick.  A
+        fresh prompt that fits one chunk takes stock ``prefill`` on a
+        chunk-length buffer plus a scatter into its blocks (the dense
+        engine's padded prefill, the same K/V); continuations run
+        ``paged_prefill_chunk``."""
+        p = self.paged
+        C = p.prefill_chunk
+        for slot in sorted(self._prefill_progress):
+            if slot not in self._prefill_progress:
+                continue       # preempted by an earlier slot this tick
+            prog = self._prefill_progress[slot]
+            toks, start = prog["tokens"], prog["next"]
+            count = int(min(C, toks.size - start))
+            end = start + count
+            need = p.blocks_for(end) - len(self._slot_blocks[slot])
+            if need > 0:
+                # a starved pool preempts the youngest request (never
+                # this slot itself), or two mid-prefill slots could each
+                # hold blocks the other needs forever
+                while not self.allocator.can_alloc(need):
+                    victim = self._preemption_victim()
+                    if victim is None or victim == slot:
+                        break
+                    self._preempt(victim)
+                if not self.allocator.can_alloc(need):
+                    continue               # pool short; retry next tick
+                have = len(self._slot_blocks[slot])
+                new = self.allocator.alloc_n(need)
+                self._slot_blocks[slot].extend(new)
+                self.block_tables[slot, have:have + need] = new
+            req = self.slots[slot]
+            cfg_vec = (self.slot_cfg[slot] if self.slot_pinned[slot]
+                       else self.approx_cfg)
+            acfg = self._device_cfg(cfg_vec)
+            buf = np.zeros((1, C), np.int32)
+            buf[0, :count] = toks[start:end]
+            tokens = torch.as_tensor(buf, device=self.device)
+            if start == 0 and toks.size <= C:
+                logits, row_cache = T.prefill(
+                    self.params, self.cfg, tokens, max_len=C,
+                    approx_cfg=acfg, true_len=count)
+                self._scatter_prefill(slot, row_cache, count)
+            else:
+                logits, self.cache = T.paged_prefill_chunk(
+                    self.params, self.cfg, self._paged_operands(), tokens,
+                    slot=slot, start=start, count=count, approx_cfg=acfg)
+                logits = logits[:, count - 1]
+            self.n_prefill_tokens += count       # TRUE tokens advanced
+            self._count_energy(C, cfg_vec, "prefill",  # executed width
+                               cls=req.cls)
+            self.seq_lens[slot] = end
+            self.slot_pos[slot] = end
+            prog["next"] = end
+            if end == toks.size:
+                del self._prefill_progress[slot]
+                self._register_prefix_blocks(slot, toks)
+                if not prog["resumed"]:
+                    first = sample(logits, self.gen,
+                                   temperature=req.temperature)
+                    req.tokens.append(int(first[0]))
+                if req.first_token_at is None:
+                    req.first_token_at = self.clock()
+
+    def _ensure_write_blocks(self, decodable: list[int]) -> list[int]:
+        """Give every decode row a writable tail block for this tick's
+        K/V write; preempt the youngest request when the pool runs dry.
+        Returns the rows that still hold a slot afterwards."""
+        bs = self.paged.block_size
+        rows: list[int] = []
+        for i in decodable:
+            if self.slots[i] is None:
+                continue
+            page = int(self.seq_lens[i]) // bs
+            if page >= len(self._slot_blocks[i]):
+                while not self.allocator.can_alloc(1):
+                    victim = self._preemption_victim()
+                    if victim is None:
+                        break
+                    self._preempt(victim)
+                    if victim in rows:
+                        rows.remove(victim)
+                    if victim == i:
+                        break
+                if self.slots[i] is None:
+                    continue               # preempted itself
+                blk = self.allocator.alloc()
+                self._slot_blocks[i].append(blk)
+                self.block_tables[i, page] = blk
+            else:
+                # a shared tail is never written in place (match_prefix
+                # only shares FULL blocks, so this is defensive)
+                old = self._slot_blocks[i][page]
+                blk, copied = self.allocator.ensure_writable(old)
+                if copied:
+                    self._copy_block(old, blk)
+                    self._slot_blocks[i][page] = blk
+                    self.block_tables[i, page] = blk
+            rows.append(i)
+        return rows
+
     # -- main loop ------------------------------------------------------
+    def _next_tokens(self, logits: torch.Tensor, active: list[int]
+                     ) -> np.ndarray:
+        """(B,) next tokens: greedy rows by argmax, rows with a
+        temperature by a draw from `self.gen` (one host sync)."""
+        temps = np.asarray([r.temperature if r is not None else 0.0
+                            for r in self.slots], np.float32)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        if not np.any(temps[active] > 0.0):
+            return greedy
+        safe = torch.as_tensor(np.where(temps > 0.0, temps, 1.0),
+                               device=self.device)
+        drawn = sample(logits / safe[:, None], self.gen).cpu().numpy()
+        return np.where(temps > 0.0, drawn, greedy)
+
+    def _emit(self, active: list[int], nxt: np.ndarray) -> None:
+        """Append each active row's token; finish the requests that hit
+        max_new_tokens or the cache end (paged: free their blocks)."""
+        for i in active:
+            req = self.slots[i]
+            req.tokens.append(int(nxt[i]))
+            self.slot_pos[i] += 1
+            if self.paged is not None:
+                self.seq_lens[i] += 1
+            if (len(req.tokens) >= req.max_new_tokens
+                    or self.slot_pos[i] >= self.max_len - 1):
+                req.done = True
+                req.status = "done"
+                req.finished_at = self.clock()
+                self.completed.append(req)
+                self.slots[i] = None
+                if self.paged is not None:
+                    self._release_slot(i)
+                    self.slot_pos[i] = 0
+
     def step(self) -> bool:
         """One tick: admit queued requests into free slots, then one
-        decode step for the pool.  Returns whether work remains."""
+        decode step for the pool (paged: after one prefill chunk per
+        mid-prefill slot).  Returns whether work remains."""
+        if self.paged is not None:
+            return self._step_paged()
         self._admit()
         active = [i for i, r in enumerate(self.slots) if r is not None]
         if not active:
@@ -304,27 +647,34 @@ class Engine:
         self.n_decode_steps += 1
         self._count_energy(len(active), pool_cfg,
                            cls=self._cls_counts(active))
-        temps = np.asarray([r.temperature if r is not None else 0.0
-                            for r in self.slots], np.float32)
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
-        if np.any(temps[active] > 0.0):
-            safe = torch.as_tensor(np.where(temps > 0.0, temps, 1.0),
-                                   device=self.device)
-            drawn = sample(logits / safe[:, None], self.gen).cpu().numpy()
-            nxt = np.where(temps > 0.0, drawn, greedy)
-        else:
-            nxt = greedy
+        self._emit(active, self._next_tokens(logits, active))
+        return True
+
+    def _step_paged(self) -> bool:
+        """One paged tick: admission, one chunk for every mid-prefill
+        slot, then ONE batched paged decode step for the rest."""
+        self._admit_paged()
+        self._advance_prefills()
+        active = self._ensure_write_blocks(
+            [i for i, r in enumerate(self.slots)
+             if r is not None and i not in self._prefill_progress])
+        if not active:
+            return bool(self.queue
+                        or any(s is not None for s in self.slots))
+        token = np.zeros((self.max_batch, 1), dtype=np.int32)
+        active_mask = np.zeros(self.max_batch, dtype=bool)
         for i in active:
-            req = self.slots[i]
-            req.tokens.append(int(nxt[i]))
-            self.slot_pos[i] += 1
-            if (len(req.tokens) >= req.max_new_tokens
-                    or self.slot_pos[i] >= self.max_len - 1):
-                req.done = True
-                req.status = "done"
-                req.finished_at = self.clock()
-                self.completed.append(req)
-                self.slots[i] = None
+            token[i, 0] = self.slots[i].tokens[-1]
+            active_mask[i] = True
+        pool_cfg = self._pool_cfg()
+        logits, self.cache = T.paged_decode_step(
+            self.params, self.cfg, self._paged_operands(active_mask),
+            torch.as_tensor(token, device=self.device),
+            approx_cfg=self._device_cfg(pool_cfg))
+        self.n_decode_steps += 1
+        self._count_energy(len(active), pool_cfg,
+                           cls=self._cls_counts(active))
+        self._emit(active, self._next_tokens(logits, active))
         return True
 
     def run(self, max_ticks: int = 10000) -> list[Request]:

@@ -96,9 +96,13 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
-    """No nvcc (or a failing one) is an error, never a silent fallback."""
-    monkeypatch.setattr(A, "BUILD_DIR", tmp_path)
+    """No nvcc (or a failing one) is an error, never a silent fallback,
+    for every kernel source of the port."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import paged_attention as PA
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    with pytest.raises(RuntimeError, match="nvcc"):
-        A.build()
+    for module in (A, PA):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            module.build()

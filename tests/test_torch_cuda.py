@@ -1,4 +1,6 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions: the fused and int approx-MAC GEMMs (bit for bit) and the
+paged decode attention (within the tolerance stated at ``PAGED_TOL``).
 
 Every test here is marked ``cuda`` and skips with a reason where there
 is no CUDA device, so the CPU suite collects and skips them.  This file
@@ -8,9 +10,11 @@ need the suite's conftest; on the card run it with
     PYTHONPATH=src python -m pytest --noconftest -q -p no:cacheprovider \\
         -m cuda tests/test_torch_cuda.py
 
-The cases (``SHAPES``, ``_configs``) are shared with
-tests/test_torch_approx_mac.py, which holds the plain version against
-the reference's Pallas kernel on the same inputs."""
+The cases (``SHAPES``, ``_configs``, ``INT_SHAPES``, ``_int_case``) are
+shared with tests/test_torch_approx_mac.py and tests/test_torch_mlp.py,
+which hold the plain versions against the reference's Pallas kernels on
+the same inputs; the paged cases are tests/test_torch_paged.py's shapes
+with bf16 and f32 pools."""
 import numpy as np
 import pytest
 import torch
@@ -19,6 +23,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.quantization import quantize
 from repro_torch.kernels.approx_mac import approx_mac as A
 from repro_torch.kernels.approx_mac import ops
+from repro_torch.kernels.flash_attention import paged_attention as PA
 from repro_torch.nn import transformer as T
 
 # (M, K, N): a main-path-like tile, then ragged M/K/N that need padding
@@ -27,6 +32,13 @@ SHAPES = [(4, 256, 256), (24, 200, 300), (1, 130, 129), (5, 64, 384)]
 MAIN_PATH = [(m, k, n) for m in (4, 24)
              for (k, n) in ((2048, 2048), (2048, 256), (2048, 11008),
                             (11008, 2048))]
+# (M, K, N) of the int kernel: the paper MLP's GEMMs, then ragged shapes
+INT_SHAPES = [(16, 62, 30), (1, 30, 10), (24, 200, 300), (5, 64, 384)]
+# bf16: the kernel rounds its f32 result once, the plain version after
+# other f32 sums, so the two can sit one bf16 ulp apart (2**-8 relative);
+# f32: the sums' order differs, ~1e-7 relative
+PAGED_TOL = {torch.bfloat16: {"rtol": 1.6e-2, "atol": 1e-5},
+             torch.float32: {"rtol": 1.3e-6, "atol": 1e-5}}
 
 
 def _configs(n: int, bn: int = 128):
@@ -46,6 +58,27 @@ def _case(m, k, n, seed=0):
     x = (rng.normal(size=(m, k)) * 2).astype(np.float32)
     w = (rng.normal(size=(k, n)) * 0.05).astype(np.float32)
     return x, w
+
+
+def _int_case(m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-128, 128, (m, k)).astype(np.int8),
+            rng.integers(-128, 128, (k, n)).astype(np.int8))
+
+
+def _attention_case(b=3, h=4, kv=2, hd=32, bs=4, pages=5, seed=0):
+    rng = np.random.default_rng(seed)
+    nb = 2 + b * pages
+    k_pool = rng.normal(size=(nb, bs, kv, hd)).astype(np.float32)
+    v_pool = rng.normal(size=(nb, bs, kv, hd)).astype(np.float32)
+    k_pool[0] = v_pool[0] = 0
+    q = rng.normal(size=(b, 1, h, hd)).astype(np.float32)
+    lens = rng.integers(1, pages * bs + 1, b).astype(np.int32)
+    lens[0] = pages * bs                               # one full row
+    perm = (rng.permutation(nb - 2) + 2).reshape(b, pages)
+    owned = np.arange(pages)[None, :] * bs < lens[:, None]
+    tables = np.where(owned, perm, 0).astype(np.int32)
+    return q, k_pool, v_pool, tables, lens
 
 
 def _cfg_id(c):
@@ -125,3 +158,46 @@ def test_cuda_prefill_and_decode_equal_plain_path(cuda_device):
     torch.cuda.synchronize()
     for a, b in zip(kernel, plain):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INT_SHAPES + [(10000, 62, 30),
+                                                (24, 2048, 11008)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_int_kernel_equals_plain_version(cuda_device, shape):
+    """Bit for bit, through ops.approx_mac, at every config form."""
+    a, b = (torch.as_tensor(t, device=cuda_device)
+            for t in _int_case(*shape))
+    for config in _configs(shape[2]):
+        cfg = torch.as_tensor(config, dtype=torch.int32, device=cuda_device)
+        before = A.approx_mac_matmul.launches
+        out = ops.approx_mac(a, b, cfg)
+        ops.approx_mac_matmul = A.approx_mac_matmul_ref
+        try:
+            ref = ops.approx_mac(a, b, cfg)
+        finally:
+            ops.approx_mac_matmul = A.approx_mac_matmul
+        torch.cuda.synchronize()
+        assert A.approx_mac_matmul.launches == before + 1
+        assert torch.equal(out, ref), (shape, _cfg_id(config))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=str)
+@pytest.mark.parametrize("kv,logit_cap", [(1, 0.0), (2, 30.0), (4, 0.0)])
+def test_cuda_paged_attention_matches_plain_version(cuda_device, dtype, kv,
+                                                    logit_cap):
+    q, kp, vp, tables, lens = (
+        torch.as_tensor(t, device=cuda_device)
+        for t in _attention_case(kv=kv, hd=128, bs=16, seed=kv))
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    before = PA.paged_decode_attention.launches
+    out = PA.paged_decode_attention(q, kp, vp, tables, lens,
+                                    logit_cap=logit_cap)
+    ref = PA.paged_attention_reference(q, kp, vp, tables, lens,
+                                       logit_cap=logit_cap)
+    torch.cuda.synchronize()
+    assert PA.paged_decode_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out, ref, **PAGED_TOL[dtype])

@@ -186,9 +186,9 @@ def test_default_device_is_cuda():
             TE.T.init_lm(gen, cfg)
 
 
-@pytest.mark.parametrize("knob", ["paged", "spec", "scheduler", "mapping",
-                                  "cfg_experts", "prefill_pad",
-                                  "fault_injector", "checkpointer"])
+@pytest.mark.parametrize("knob", ["spec", "scheduler", "mapping",
+                                  "cfg_experts", "fault_injector",
+                                  "checkpointer"])
 def test_unported_engine_knobs_raise(knob):
     """The reference's knobs for features not ported yet are refused,
     not ignored."""
