@@ -66,17 +66,49 @@ Phases, each printing one JSON line:
              through the fused approx-MAC kernel against the same calls
              through its plain version, bit for bit.
 12. profile_paged — torch.profiler over three paged decode steps.
+13. check_grouped — the grouped approx-MAC kernel equals its plain
+             version bit for bit through ops.approx_dense_grouped_pallas
+             at OLMoE-1B-7B's expert GEMMs (E 64, K x N 2048 x 1024 and
+             1024 x 2048, M in {4, 32, 128}) and a ragged case (M, K, N
+             not multiples of 4, 8, 32), under configs 0, 8, 31, a
+             random per-expert vector and a per-expert 5-group matrix
+             (groups straddle config blocks), with group_rows full,
+             ragged and zero for some experts.
+14. timing_grouped — device times from CUDA graphs at the decode shape
+             (4 tokens, top-8 of 64 experts from a real routing, M 32),
+             banks rotated past the 50 MB L2, beside the bytes of the
+             touched banks (the bound), the plain version and, as a
+             yardstick the port never calls, a per-expert torch._int_mm
+             loop over the touched experts (config 0).
+15. moe_serve — the port's Engine on full-width OLMoE-1B-7B (random init,
+             seed 0, mac_backend "pallas", cfg_experts 64, max_batch 4,
+             max_len 128): 8 requests with prompts of 4-48 tokens (two
+             of them multiples of 16, so their prefill runs 16 dispatch
+             groups and drops entries), 16 new tokens each; config 0,
+             then a random (16, 64, 1) per-expert tensor after half the
+             ticks, then one apply_allocation with (layer, expert) keys.
+             Every request must finish with 16 tokens and both kernels
+             must have launched exactly 3 (grouped) and 4 (fused) times
+             per layer per prefill and decode step.
+16. moe_check — one decode step runs under
+             torch.cuda.set_sync_debug_mode("error") without a sync, and
+             one full-width prefill with capacity drops at a per-expert
+             config gives the same logits through both kernels as
+             through their plain versions, bit for bit.
+17. profile_moe — torch.profiler over three decode steps: device time by
+             kernel, the grouped kernel's share and the busy share.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line again, and, as the
 last line, ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without a CUDA device, or without the repository beside
 this file, the script exits non-zero and prints no result.  The
-rehearsal walks the serve, mlp and paged_serve phases at the smoke size
-on the CPU and never prints the ``ok`` line.
+rehearsal walks the serve, mlp, paged_serve and moe_serve phases at the
+smoke size on the CPU and never prints the ``ok`` line.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import itertools
 import json
 import pathlib
@@ -97,6 +129,9 @@ GEMMS_PER_LAYER = len(LAYER_GEMMS)
 TPU_KERNEL = "src/repro/kernels/approx_mac/approx_mac.py:223"
 KERNEL_SOURCE = "src/repro_torch/kernels/approx_mac/csrc/approx_mac.cu"
 INT_TPU_KERNEL = "src/repro/kernels/approx_mac/approx_mac.py:193"
+GROUPED_TPU_KERNEL = "src/repro/kernels/approx_mac/approx_mac.py:326"
+# OLMoE-1B-7B's expert GEMMs (K, N): gate, up, down
+MOE_GEMMS = ((2048, 1024), (2048, 1024), (1024, 2048))
 PAGED_TPU_KERNEL = "src/repro/kernels/flash_attention/paged_attention.py:103"
 PAGED_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "paged_attention.cu")
@@ -906,6 +941,370 @@ def phase_profile_paged(torch, T, params, cfg, snap, step_ms) -> None:
                   for k, (t, c) in top]})
 
 
+def _grouped_rows(torch, e, m, gen, dev):
+    """Row counts per expert: full, ragged, and zero for every third."""
+    ragged = torch.randint(0, m + 1, (e,), device=dev, generator=gen,
+                           dtype=torch.int32)
+    some = torch.where(torch.arange(e, device=dev) % 3 == 0, 0,
+                       ragged).to(torch.int32)
+    return [torch.full((e,), m, dtype=torch.int32, device=dev), ragged,
+            some]
+
+
+def phase_check_grouped(torch, A, ops, bank_of, dev) -> float:
+    """Grouped kernel vs plain version through the grouped op (row
+    masking, per-expert group expansion, combined scales), bit for
+    bit."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shapes = [(64, m, k, n) for k, n in MOE_GEMMS[1:] for m in (4, 32, 128)]
+    shapes.append((6, 7, 203, 300))
+    cases = 0
+    for e, m, k, n in shapes:
+        bank = bank_of(torch.randn(e, k, n, device=dev, generator=gen)
+                       * 0.02)
+        x = torch.randn(e, m, k, device=dev, generator=gen)
+        vec = torch.randint(0, 32, (e,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        mat = torch.randint(0, 32, (e, 5), device=dev, generator=gen,
+                            dtype=torch.int32)
+        for rows in _grouped_rows(torch, e, m, gen, dev):
+            for cfg in (0, 8, 31, vec, mat):
+                c = (cfg if isinstance(cfg, torch.Tensor) else
+                     torch.tensor(cfg, dtype=torch.int32, device=dev))
+                out = ops.approx_dense_grouped_pallas(x, bank, c, rows)
+                ops.approx_mac_grouped_matmul = \
+                    A.approx_mac_grouped_matmul_ref
+                try:
+                    ref = ops.approx_dense_grouped_pallas(x, bank, c, rows)
+                finally:
+                    ops.approx_mac_grouped_matmul = \
+                        A.approx_mac_grouped_matmul
+                torch.cuda.synchronize()
+                cases += 1
+                if not torch.equal(out, ref):
+                    err = float((out - ref).abs().max())
+                    raise AssertionError(
+                        f"grouped kernel != plain version at E={e} M={m} "
+                        f"K={k} N={n} rows={rows.tolist()} cfg="
+                        f"{tuple(c.shape) or int(c)}: max |diff| {err}")
+        del bank
+        torch.cuda.empty_cache()
+    emit({"phase": "check_grouped", "cases": cases, "bit_identical": True,
+          "max_abs_err": 0.0})
+    return 0.0
+
+
+def decode_routing(torch, e, k, tokens, d, gen, dev):
+    """(E,) int32 rows per expert of a decode step's dispatch buffer
+    (one group, capacity = tokens * k: dropless) from a top-k routing of
+    `tokens` random activations through a random f32 router."""
+    x = torch.randn(tokens, d, device=dev, generator=gen)
+    router = torch.randn(d, e, device=dev, generator=gen) / d ** 0.5
+    top_e = torch.topk(torch.softmax(x @ router, -1), k, dim=-1).indices
+    counts = torch.bincount(top_e.reshape(-1), minlength=e)
+    return counts.to(torch.int32), tokens * k
+
+
+def grouped_bound(rows, m, k, n) -> tuple[float, str]:
+    """Least time (ms) of one grouped GEMM on this routing: the touched
+    experts' bank bytes, their present rows' f32 activations, the (E, N)
+    combined scales and config rows, group_rows, and the whole (E, M, N)
+    f32 output written once; or the int8 operations of the present rows
+    at peak."""
+    e = len(rows)
+    present = sum(rows)
+    touched = sum(1 for r in rows if r > 0)
+    n_blocks = -(-n // 128)
+    moved = (touched * k * n + present * k * 4 + e * n * 4 + 4
+             + e * n_blocks * 16 + e * 4 + e * m * n * 4)
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = 2 * present * k * n / INT8_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_timing_grouped(torch, A, bank_of, dev) -> list:
+    """Grouped kernel, plain version and a per-expert torch._int_mm loop
+    at the decode shape of OLMoE-1B-7B (4 tokens, top-8 of 64)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    e, top_k, tokens = 64, 8, 4
+    counts, m = decode_routing(torch, e, top_k, tokens, 2048, gen, dev)
+    rows_host = counts.tolist()
+    touched = [i for i, r in enumerate(rows_host) if r > 0]
+    out_rows = []
+    for k, n in MOE_GEMMS[1:]:
+        copies = 3                        # 3 x 134 MB banks: past the L2
+        banks = [bank_of(torch.randn(e, k, n, device=dev, generator=gen)
+                         * 0.02) for _ in range(copies)]
+        x = torch.randn(e, m, k, device=dev, generator=gen)
+        present = (torch.arange(m, device=dev)[None, :]
+                   < counts[:, None])[..., None]
+        x = torch.where(present, x, 0.0)
+        xs = x.abs().amax().clamp(min=1e-12) * (1.0 / 127)
+        srows = [xs * b.scale for b in banks]
+        cfg = A.grouped_config_operand(16, e, -(-n // 128), dev)
+        x_q = torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
+
+        def kernel(i):
+            A.approx_mac_grouped_matmul(x, banks[i % copies].values,
+                                        srows[i % copies], xs, counts, cfg)
+
+        def plain(i):
+            A.approx_mac_grouped_matmul_ref(x, banks[i % copies].values,
+                                            srows[i % copies], xs, counts,
+                                            cfg)
+
+        def int_mm(i):
+            w = banks[i % copies].values
+            for j in touched:
+                torch._int_mm(x_q[j], w[j])
+
+        t_kernel = graph_ms(torch, kernel, 3 * copies)
+        t_plain = graph_ms(torch, plain, copies, replays=3)
+        t_lib = graph_ms(torch, int_mm, 3 * copies)
+        b_ms, b_by = grouped_bound(rows_host, m, k, n)
+        row = {"e": e, "m": m, "k": k, "n": n, "tokens": tokens,
+               "top_k": top_k, "touched_experts": len(touched),
+               "present_rows": sum(rows_host), "ms": t_kernel,
+               "plain_ms": t_plain, "int_mm_ms": t_lib,
+               "int_mm_calls": len(touched), "bound_ms": b_ms,
+               "bound_by": b_by, "bank_copies": copies}
+        emit({"phase": "timing_grouped", **row})
+        out_rows.append(row)
+        del banks, srows
+        torch.cuda.empty_cache()
+    return out_rows
+
+
+def _moe_prompts(Request, n_req, max_new, vocab):
+    """Prompts of 4-48 tokens; requests 1 and 4 have 32 and 48, so their
+    prefill runs 16 dispatch groups (moe_groups) and drops entries."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.integers(4, 49, n_req)
+    lens[1], lens[4] = 32, 48
+    return [Request(rid=rid, prompt=rng.integers(0, min(vocab, 50000), n)
+                    .astype(np.int32), max_new_tokens=max_new)
+            for rid, n in enumerate(lens)]
+
+
+def phase_moe_serve(torch, T, A, Engine, Request, cfg, dev):
+    """The MoE main path through the port's Engine with per-expert
+    configs; on a CPU (the rehearsal) the plain versions run and no
+    kernel launch is expected."""
+    import numpy as np
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    kw = dict(max_batch=4, max_len=128, cfg_experts=cfg.n_experts,
+              device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = T.init_lm(gen, cfg, dev, quantized=True)
+    warm = Engine(params, cfg, **kw)
+    sync()
+    init_s = time.perf_counter() - t0
+    warm.submit(Request(rid=-1, prompt=list(range(32)), max_new_tokens=3))
+    warm.run()
+    del warm
+    eng = Engine(params, cfg, **kw)
+    n_req, max_new = 8, 16
+    for r in _moe_prompts(Request, n_req, max_new, cfg.vocab_size):
+        eng.submit(r)
+
+    timed = {"prefill": [], "decode": []}
+    groups = {"calls": 0, "grouped_calls": 0, "dropped": None}
+    fns = (T.prefill, T.decode_step, T.moe_ffn)
+
+    def timer(kind, fn):
+        def run(*args, **kwargs):
+            sync()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            timed[kind].append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    def count_drops(x, p, **kwargs):
+        y, aux = fns[2](x, p, **kwargs)
+        g = kwargs["n_groups"]
+        sg, e, k = x.shape[0] // g, kwargs["n_experts"], kwargs["top_k"]
+        cap = min(int(np.ceil(sg * k / e * kwargs["capacity_factor"])),
+                  sg * k)
+        drops = (aux["slot"] == e * cap).sum()     # stays on the device
+        groups["dropped"] = (drops if groups["dropped"] is None
+                             else groups["dropped"] + drops)
+        groups["calls"] += 1
+        groups["grouped_calls"] += g > 1
+        return y, aux
+
+    half = (n_req // 4) * (max_new - 1) // 2
+    rng = np.random.default_rng(0)
+    per_expert = rng.integers(0, 32, (cfg.n_layers, cfg.n_experts, 1))
+    n_l, n_e = cfg.n_layers, cfg.n_experts
+    alloc = {(0, 5 % n_e): 31, (3 % n_l, 17 % n_e): 8,
+             (n_l - 1, n_e - 1): 2, (7 % n_l, 0): 16}
+    T.prefill, T.decode_step, T.moe_ffn = (timer("prefill", fns[0]),
+                                           timer("decode", fns[1]),
+                                           count_drops)
+    try:
+        A.approx_mac_grouped_matmul.launches = 0
+        A.approx_mac_fused_matmul.launches = 0
+        t0 = time.perf_counter()
+        ticks = 0
+        while eng.queue or any(s is not None for s in eng.slots):
+            eng.step()
+            ticks += 1
+            if ticks == half:
+                eng.set_approx_cfg(per_expert)
+            if ticks == half + 4:
+                eng.apply_allocation(alloc)
+        sync()
+        wall = time.perf_counter() - t0
+        grouped = A.approx_mac_grouped_matmul.launches
+        fused = A.approx_mac_fused_matmul.launches
+    finally:
+        T.prefill, T.decode_step, T.moe_ffn = fns
+    done = eng.completed
+    assert len(done) == n_req, len(done)
+    assert all(len(r.tokens) == max_new and r.status == "done"
+               for r in done), [len(r.tokens) for r in done]
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.tokens)
+    n_prefill, n_decode = len(timed["prefill"]), eng.n_decode_steps
+    assert n_prefill == n_req and n_decode == len(timed["decode"])
+    calls = n_prefill + n_decode
+    exp_grouped = 3 * cfg.n_layers * calls if on_card else 0
+    exp_fused = 4 * cfg.n_layers * calls if on_card else 0
+    assert grouped == exp_grouped, (grouped, exp_grouped)
+    assert fused == exp_fused, (fused, exp_fused)
+    want = per_expert.copy()
+    for (layer, expert), c in alloc.items():
+        want[layer, expert] = c
+    assert (eng.approx_cfg == want).all()
+    assert ticks > half + 4, (ticks, half)
+    dropped = int(groups["dropped"])
+    if cfg.moe_groups > 1:
+        assert groups["grouped_calls"] >= 2 * cfg.n_layers, groups
+        assert dropped > 0, dropped
+    tokens = sum(len(r.tokens) for r in done)
+    rep = eng.energy_report()
+    res = {"phase": "moe_serve", "arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "experts": cfg.n_experts,
+           "top_k": cfg.top_k, "requests": n_req,
+           "prompt_lens": [len(r.prompt) for r in done], "ticks": ticks,
+           "retuned_at_tick": half, "allocation_at_tick": half + 4,
+           "prefills": n_prefill, "decode_steps": n_decode,
+           "grouped_launches": grouped, "expected_grouped": exp_grouped,
+           "fused_launches": fused, "expected_fused": exp_fused,
+           "moe_calls": groups["calls"],
+           "moe_calls_with_groups": groups["grouped_calls"],
+           "dropped_entries": dropped, "init_and_quantize_s": init_s,
+           "prefill_ms_mean": sum(timed["prefill"]) / n_prefill,
+           "decode_step_ms_mean": sum(timed["decode"]) / n_decode,
+           "decode_step_ms_min": min(timed["decode"]),
+           "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+           "energy_report": {k: v for k, v in rep.items()
+                             if k != "approx_cfg"},
+           "approx_cfg_shape": list(np.shape(rep["approx_cfg"]))}
+    emit(res)
+    return res, eng
+
+
+def phase_moe_check(torch, T, A, ops, eng, dev) -> dict:
+    """No host sync inside a MoE decode step; a full-width prefill with
+    capacity drops through both kernels equals the same prefill through
+    their plain versions, bit for bit."""
+    import numpy as np
+    cfg = eng.cfg
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cache = dict(eng.cache)
+    cache["pos"] = torch.tensor(100, dtype=torch.int32, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (eng.max_batch, 1), device=dev,
+                        generator=gen)
+    acfg = torch.as_tensor(eng.approx_cfg, device=dev)
+    T.decode_step(eng.params, cfg, cache, tok, approx_cfg=acfg)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T.decode_step(eng.params, cfg, cache, tok, approx_cfg=acfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    toks = torch.randint(0, cfg.vocab_size, (1, 48), device=dev,
+                         generator=gen)
+    mixed = torch.randint(0, 32, (cfg.n_layers, cfg.n_experts, 1),
+                          dtype=torch.int32, device=dev, generator=gen)
+    logits_k, _ = T.prefill(eng.params, cfg, toks, max_len=64,
+                            approx_cfg=mixed)
+    ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul_ref
+    ops.approx_mac_grouped_matmul = A.approx_mac_grouped_matmul_ref
+    try:
+        logits_p, _ = T.prefill(eng.params, cfg, toks, max_len=64,
+                                approx_cfg=mixed)
+    finally:
+        ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul
+        ops.approx_mac_grouped_matmul = A.approx_mac_grouped_matmul
+    torch.cuda.synchronize()
+    assert logits_k.shape == (1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits_k.float()).all())
+    err = float((logits_k.float() - logits_p.float()).abs().max())
+    assert torch.equal(logits_k, logits_p), err
+    sg = 48 // cfg.moe_groups
+    cap = min(int(np.ceil(sg * cfg.top_k / cfg.n_experts
+                          * cfg.capacity_factor)), sg * cfg.top_k)
+    res = {"phase": "moe_check", "sync_free_decode_step": True,
+           "prefill_tokens": 48, "dispatch_groups": cfg.moe_groups,
+           "capacity": cap, "kernels_equal_plain_logits": True,
+           "max_abs_err": err}
+    emit(res)
+    return res
+
+
+def phase_profile_moe(torch, T, eng, dev, step_ms: float) -> None:
+    """Device time of three MoE decode steps by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, steps = eng.cfg, 3
+    gen = torch.Generator(device=dev).manual_seed(10)
+    cache = dict(eng.cache)
+    cache["pos"] = torch.tensor(100, dtype=torch.int32, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (eng.max_batch, 1), device=dev,
+                        generator=gen)
+    acfg = torch.as_tensor(eng.approx_cfg, device=dev)
+    T.decode_step(eng.params, cfg, cache, tok, approx_cfg=acfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            T.decode_step(eng.params, cfg, cache, tok, approx_cfg=acfg)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            t_us = getattr(e, "self_device_time_total", 0)
+            by_kernel[e.key] = (t_us / steps / 1e3, e.count / steps)
+    device_ms = sum(t for t, _ in by_kernel.values())
+    grouped_ms = sum(t for k, (t, _) in by_kernel.items()
+                     if "approx_mac_kernel" in k and "true" in k)
+    fused_ms = sum(t for k, (t, _) in by_kernel.items()
+                   if "approx_mac_kernel" in k and "true" not in k)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    emit({"phase": "profile_moe", "decode_steps": steps,
+          "device_ms_per_step": device_ms if device_ms else None,
+          "grouped_ms_per_step": grouped_ms if device_ms else None,
+          "grouped_share_of_device": (grouped_ms / device_ms
+                                      if device_ms else None),
+          "fused_ms_per_step": fused_ms if device_ms else None,
+          "kernels_per_step": sum(c for _, c in by_kernel.values()),
+          "decode_step_ms": step_ms,
+          "device_busy_share": device_ms / step_ms if device_ms else None,
+          "top": [{"kernel": k[:80], "ms_per_step": t, "count_per_step": c}
+                  for k, (t, c) in top]})
+
+
 def rehearse() -> int:
     """The serve, mlp and paged_serve phases on a CPU at the smoke size:
     plain versions, no build, no timing, and never the ok line."""
@@ -923,6 +1322,8 @@ def rehearse() -> int:
     phase_mlp(torch, A, cpu, n_data=200, n_sim=8)
     phase_paged_serve(torch, T, A, PA, Engine, Request, PagedCacheConfig,
                       eng.params, cfg, cpu)
+    moe_cfg = get_config("olmoe-1b-7b").smoke(mac_backend="pallas")
+    phase_moe_serve(torch, T, A, Engine, Request, moe_cfg, cpu)
     emit({"rehearsal": True, "ok": False})
     return 0
 
@@ -946,6 +1347,7 @@ def main(argv: list[str]) -> int:
     from repro_torch.kernels.approx_mac import ops
     from repro_torch.kernels.flash_attention import paged_attention as PA
     from repro_torch.nn import transformer as T
+    from repro_torch.nn.moe import quantize_expert_bank
     from repro_torch.serve.engine import Engine, Request
     from repro_torch.serve.paged_cache import PagedCacheConfig
 
@@ -973,9 +1375,13 @@ def main(argv: list[str]) -> int:
     worst = phase_check(torch, A, quantize, dev)
     int_err = phase_check_int(torch, A, ops, dev)
     paged_err = phase_check_paged(torch, PA, dev)
+    grouped_err = phase_check_grouped(torch, A, ops, quantize_expert_bank,
+                                      dev)
     timing = phase_timing(torch, A, quantize, dev)
     timing_int = phase_timing_int(torch, A, dev)
     timing_paged = phase_timing_paged(torch, PA, dev)
+    timing_grouped = phase_timing_grouped(torch, A, quantize_expert_bank,
+                                          dev)
     cfg = get_config("qwen2.5-3b")
     serve, eng = phase_serve(torch, T, A, Engine, Request, cfg, dev)
     phase_profile(torch, T, eng, dev, serve["decode_step_ms_mean"])
@@ -988,8 +1394,21 @@ def main(argv: list[str]) -> int:
     phase_paged_check(torch, T, PA, A, ops, params, cfg, snaps, chunk_snap)
     phase_profile_paged(torch, T, params, cfg, snaps[0],
                         paged["decode_step_ms_mean"])
+    # free Qwen2.5-3B before OLMoE-1B-7B
+    del params, snaps, chunk_snap
+    torch.cuda.empty_cache()
+    moe_cfg = dataclasses.replace(get_config("olmoe-1b-7b"),
+                                  mac_backend="pallas")
+    moe, moe_eng = phase_moe_serve(torch, T, A, Engine, Request, moe_cfg,
+                                   dev)
+    phase_moe_check(torch, T, A, ops, moe_eng, dev)
+    phase_profile_moe(torch, T, moe_eng, dev, moe["decode_step_ms_mean"])
+    del moe_eng
+    torch.cuda.empty_cache()
 
     layer = [timing[s] for s in LAYER_GEMMS]
+    # gate and up share a shape: the grouped row counts the first twice
+    moe_layer = [timing_grouped[0], timing_grouped[0], timing_grouped[1]]
     serve_attn = timing_paged[0]
     emit({"kernels": [{
         "name": "approx_mac_fused_matmul",
@@ -1003,10 +1422,11 @@ def main(argv: list[str]) -> int:
         "bound_ms": sum(r["bound_ms"] for r in layer),
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in layer)
                      else "operations"),
-        "library_ms": None,
+        "library_ms": sum(r["int_mm_ms"] for r in layer),
         "work": "the 7 GEMMs of one Qwen2.5-3B layer at decode, M = 4; "
                 "launches from the dense serve run (the paged run's are "
-                "in paged_serve)",
+                "in paged_serve, the MoE run's in moe_serve); library_ms "
+                "is torch._int_mm at config 0 with M padded to 32",
     }, {
         "name": "approx_mac_matmul",
         "route": "cuda",
@@ -1038,6 +1458,23 @@ def main(argv: list[str]) -> int:
         "work": "one layer's paged decode attention at B 8, length 256 "
                 "(H 16, KV 2, hd 128, bs 16, bf16); library_ms is the "
                 "gather k_pool[tables] plus scaled_dot_product_attention",
+    }, {
+        "name": "approx_mac_grouped_matmul",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": GROUPED_TPU_KERNEL,
+        "launches": moe["grouped_launches"],
+        "max_abs_err": grouped_err,
+        "ms": sum(r["ms"] for r in moe_layer),
+        "plain_ms": sum(r["plain_ms"] for r in moe_layer),
+        "bound_ms": sum(r["bound_ms"] for r in moe_layer),
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                    for r in moe_layer) else "operations"),
+        "library_ms": sum(r["int_mm_ms"] for r in moe_layer),
+        "work": "the 3 expert GEMMs (gate, up, down) of one OLMoE-1B-7B "
+                "layer at decode: 4 tokens, top-8 of 64 experts from a "
+                "real routing, M 32; library_ms is a torch._int_mm loop "
+                "over the touched experts at config 0",
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,10 +9,12 @@ it: the twin runs for CPU tensors (the tests), the kernel for CUDA
 tensors.
 
 Ported so far: the serving paths of ``launch/serve.py`` — the
-``Engine`` over the all-'global' decoder family (Qwen2.5-3B), dense or
-paged (``--paged``), with every GEMM through the fused approx-MAC CUDA
-kernel and paged decode attention through the paged-attention kernel —
-and the paper's own 62-30-10 MLP (``nn/mlp_paper.py``, ``core/hw_sim.py``,
+``Engine`` over the all-'global' decoder families, dense (Qwen2.5-3B)
+and MoE (OLMoE-1B-7B, each expert at its own error config), dense or
+paged (``--paged``), with every dense GEMM through the fused approx-MAC
+CUDA kernel, every expert GEMM through the grouped one, and paged
+decode attention through the paged-attention kernel — and the paper's
+own 62-30-10 MLP (``nn/mlp_paper.py``, ``core/hw_sim.py``,
 ``data/synthetic_mnist.py``), whose "kernel" method runs the int
 approx-MAC CUDA kernel.
 """

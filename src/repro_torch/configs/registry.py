@@ -6,7 +6,7 @@ import importlib
 
 from repro_torch.nn.transformer import ModelConfig
 
-_MODULES = {"qwen2.5-3b": "qwen2_5_3b"}
+_MODULES = {"qwen2.5-3b": "qwen2_5_3b", "olmoe-1b-7b": "olmoe_1b_7b"}
 ARCH_IDS = list(_MODULES)
 
 

@@ -6,8 +6,10 @@ numpy arrays; nothing in this module imports JAX.  The layout it undoes:
 ``blocks.scan.b0.*`` is stacked over layers (even with
 ``scan_layers=False``), while the port keeps ``params["blocks"]`` as a
 per-layer list.  Per-layer shapes are unchanged (``wq``/``wk``/``wv``
-(d, H, hd), ``wo`` (H, hd, d)); the port's ``Engine`` quantizes the
-float weights once, like the reference's.
+(d, H, hd), ``wo`` (H, hd, d), a MoE layer's ``router`` (d, E) and
+expert banks ``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f, d));
+the port's ``Engine`` quantizes the float weights once, like the
+reference's.
 
 The paper's MLP crosses the same way: ``mlp_params_from_numpy`` takes
 the reference's float ``{"hidden": {"w", "b"}, "out": {...}}`` tree as

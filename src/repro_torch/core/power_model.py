@@ -86,12 +86,23 @@ def error_rank() -> np.ndarray:
     return rank
 
 
-def energy_per_token_pj(config, macs_per_token: float = 1.0) -> float:
+def energy_per_token_pj(config, macs_per_token: float = 1.0,
+                        moe_mac_frac: float = 0.0) -> float:
     """Modeled MAC energy (pJ) of one token under `config` — a scalar,
-    an (n_layers,) vector or an (n_layers, groups) matrix; every cell
-    covers an equal share of the token's MACs.  (The reference's
-    expert-axis weighting belongs to MoE models, not ported yet.)"""
+    an (n_layers,) vector, an (n_layers, groups) matrix or an (n_layers,
+    experts, groups) tensor; every cell covers an equal share of the
+    token's MACs.  With an expert axis only the expert GEMMs — a
+    `moe_mac_frac` share of the MACs — run at their per-expert configs;
+    the dense GEMMs run at the expert-collapsed (lowest ``error_rank``
+    per layer and group) config (``ops.collapse_expert_cfg``) and are
+    charged there."""
     cfg = np.asarray(config, dtype=np.int64)
-    if cfg.ndim > 2:
-        raise NotImplementedError("expert-axis configs are not ported")
-    return macs_per_token * float(np.mean(ENERGY_PER_MAC_PJ[cfg]))
+    per_mac = float(np.mean(ENERGY_PER_MAC_PJ[cfg]))
+    if cfg.ndim >= 3 and moe_mac_frac < 1.0:
+        idx = np.argmin(error_rank()[cfg], axis=-2)
+        collapsed = np.take_along_axis(
+            cfg, np.expand_dims(idx, -2), axis=-2)[..., 0, :]
+        per_mac = (moe_mac_frac * per_mac
+                   + (1.0 - moe_mac_frac)
+                   * float(np.mean(ENERGY_PER_MAC_PJ[collapsed])))
+    return macs_per_token * per_mac

@@ -1,16 +1,21 @@
 """Approx-MAC GEMMs: the Hopper kernels, their plain PyTorch twins, and
-the config operand.
+the config operands.
 
-Counterpart of ``repro.kernels.approx_mac.approx_mac`` (its fused and
-int variants).  Both kernels truncate the operands with the (depth_a,
-depth_b, gate, rtn) row of each output column's config block and
-multiply-accumulate int8 in int32:
+Counterpart of ``repro.kernels.approx_mac.approx_mac`` (its fused, int
+and grouped variants).  All three kernels truncate the operands with the
+(depth_a, depth_b, gate, rtn) row of each output column's config block
+and multiply-accumulate int8 in int32:
 
 * ``approx_mac_fused_matmul`` quantizes f32 activations in-kernel with a
   per-tensor scale and rescales with ONE f32 multiply by the combined
-  ``scale_row`` — float in, float out (every GEMM of the LM);
+  ``scale_row`` — float in, float out (every dense GEMM of the LM);
 * ``approx_mac_matmul`` takes int8 activations and returns the int32
-  accumulator (the paper MLP's GEMMs, ``ops.approx_mac``).
+  accumulator (the paper MLP's GEMMs, ``ops.approx_mac``);
+* ``approx_mac_grouped_matmul`` is the fused GEMM over a stacked expert
+  bank: E GEMMs in one launch, each expert (and each of its config
+  blocks) at its own config, one shared activation scale, and rows past
+  each expert's ``group_rows`` count absent (the MoE expert GEMMs,
+  ``ops.approx_dense_grouped_pallas``).
 
 For CUDA tensors each launches its hand-written kernel in
 ``csrc/approx_mac.cu`` (one templated body, built with nvcc at first use
@@ -55,6 +60,11 @@ def _lib() -> ctypes.CDLL:
                                              ctypes.c_void_p]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.approx_mac_grouped_matmul
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -80,6 +90,30 @@ def config_operand(config, n_blocks: int, device) -> torch.Tensor:
         raise ValueError(f"config vector {tuple(cfg.shape)} != "
                          f"({n_blocks},) blocks")
     return table.index_select(0, cfg)
+
+
+def grouped_config_operand(config, n_experts: int, n_blocks: int,
+                           device) -> torch.Tensor:
+    """(E, n_blocks, 4) int32 config rows of the grouped kernel on
+    `device`, gathered from the per-device OPERAND_PARAM_TABLE — for a
+    Python int or 0-d tensor (one config for every expert and block), an
+    (E,) per-expert vector or an (E, n_blocks) per-expert-per-block
+    matrix.  Broadcasts are stride-0 views; per-expert neuron-group
+    matrices of another width are mapped onto blocks by
+    ``ops._expand_group_vector``."""
+    table = operand_param_table(torch.device(device))
+    cfg = torch.as_tensor(config, dtype=torch.long, device=table.device)
+    if cfg.ndim == 0:
+        return table.index_select(0, cfg.reshape(1)).expand(
+            n_experts, n_blocks, 4)
+    if cfg.ndim == 1 and cfg.shape == (n_experts,):
+        return table.index_select(0, cfg)[:, None].expand(
+            n_experts, n_blocks, 4)
+    if cfg.shape != (n_experts, n_blocks):
+        raise ValueError(f"config {tuple(cfg.shape)} for {n_experts} "
+                         f"experts x {n_blocks} blocks")
+    return table.index_select(0, cfg.reshape(-1)).reshape(
+        n_experts, n_blocks, 4)
 
 
 def _blocked_int_matmul(a_q, w_q, cfg_rows, cfg_bn: int) -> torch.Tensor:
@@ -120,6 +154,23 @@ def approx_mac_matmul_ref(a, w_q, cfg_rows, cfg_bn: int = 128
     return _blocked_int_matmul(a, w_q, cfg_rows, cfg_bn)
 
 
+def approx_mac_grouped_matmul_ref(x, w_q, scale_rows, x_scale, group_rows,
+                                  cfg_rows, cfg_bn: int = 128
+                                  ) -> torch.Tensor:
+    """Plain PyTorch version of the grouped kernel (same arguments as
+    ``approx_mac_grouped_matmul``): expert by expert the fused plain
+    GEMM on the shared x_scale, with rows past group_rows[e] absent
+    (zero outputs)."""
+    e, m, _ = x.shape
+    x_q = torch.clamp(torch.round(x / x_scale), -QMAX, QMAX).to(torch.int8)
+    outs = [_blocked_int_matmul(x_q[i], w_q[i], cfg_rows[i], cfg_bn)
+            .to(torch.float32) * scale_rows[i].reshape(1, -1)
+            for i in range(e)]
+    present = (torch.arange(m, device=x.device)[None, :]
+               < group_rows.reshape(e, 1))[..., None]
+    return torch.where(present, torch.stack(outs), 0.0)
+
+
 def _check_operands(a, w_q, cfg_rows, cfg_bn: int) -> None:
     """The launch contract both kernels share (shapes, devices, rows)."""
     k, n = w_q.shape
@@ -137,9 +188,10 @@ def _check_operands(a, w_q, cfg_rows, cfg_bn: int) -> None:
 
 
 def _padded_weight(w_q) -> tuple[torch.Tensor, int]:
-    """The kernels take whole 32-column tiles: ragged N is padded with
-    zero columns (zero weights change no kept result)."""
-    pad = (-w_q.shape[1]) % KERNEL_BN
+    """The kernels take whole 32-column tiles: ragged N (the last dim of
+    a (K, N) matrix or an (E, K, N) bank) is padded with zero columns
+    (zero weights change no kept result)."""
+    pad = (-w_q.shape[-1]) % KERNEL_BN
     w = w_q.contiguous()
     if pad:
         w = torch.nn.functional.pad(w, (0, pad))
@@ -222,3 +274,62 @@ def approx_mac_matmul(a, w_q, cfg_rows, cfg_bn: int = 128) -> torch.Tensor:
 
 
 approx_mac_matmul.launches = 0
+
+
+def approx_mac_grouped_matmul(x, w_q, scale_rows, x_scale, group_rows,
+                              cfg_rows, cfg_bn: int = 128) -> torch.Tensor:
+    """x: (E, M, K) f32 per-expert activation slices; w_q: (E, K, N) int8
+    stacked bank; scale_rows: (E, N) f32 COMBINED dequant scales
+    x_scale * w_scale[e] (rounded once by the caller); x_scale: (1,) or
+    0-d f32 activation scale shared by every expert; group_rows: (E,)
+    int32 rows present per expert (rows at index >= group_rows[e] give
+    zeros); cfg_rows: (E, ceil(N / cfg_bn), 4) int32 config rows
+    (``grouped_config_operand``).  Returns (E, M, N) f32.  CUDA tensors
+    launch the kernel (counted in ``.launches``) or raise; CPU tensors
+    take the plain version."""
+    if x.device.type == "cpu":
+        return approx_mac_grouped_matmul_ref(x, w_q, scale_rows, x_scale,
+                                             group_rows, cfg_rows, cfg_bn)
+    if x.device.type != "cuda":
+        raise ValueError(f"no approx-MAC kernel for device {x.device}")
+    if x.dtype != torch.float32 or w_q.dtype != torch.int8:
+        raise TypeError(f"need f32 x and int8 w, got {x.dtype}, "
+                        f"{w_q.dtype}")
+    e, m, k = x.shape
+    n = w_q.shape[2]
+    n_blocks = -(-n // cfg_bn)
+    if w_q.shape[:2] != (e, k) or scale_rows.shape != (e, n) \
+            or group_rows.shape != (e,) \
+            or cfg_rows.shape != (e, n_blocks, 4) or cfg_bn % KERNEL_BN:
+        raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w_q.shape)},"
+                         f" scale_rows {tuple(scale_rows.shape)}, group_rows"
+                         f" {tuple(group_rows.shape)}, cfg_rows "
+                         f"{tuple(cfg_rows.shape)} (cfg_bn {cfg_bn})")
+    for t in (w_q, scale_rows, x_scale, group_rows, cfg_rows):
+        if t.device != x.device:
+            raise ValueError(f"tensor on {t.device}, expected {x.device}")
+    if cfg_rows.dtype != torch.int32 or cfg_rows.stride(2) != 1 \
+            or group_rows.dtype != torch.int32:
+        raise ValueError("cfg_rows and group_rows must be int32, cfg_rows "
+                         "with unit last stride")
+    w, pad = _padded_weight(w_q)
+    srow = scale_rows.float().contiguous()
+    if pad:
+        srow = torch.nn.functional.pad(srow, (0, pad))
+    x = x.contiguous()
+    rows = group_rows.contiguous()
+    xs = x_scale.reshape(1).float().contiguous()
+    out = torch.empty((e, m, n + pad), dtype=torch.float32, device=x.device)
+    err = _lib().approx_mac_grouped_matmul(
+        x.data_ptr(), w.data_ptr(), srow.data_ptr(), xs.data_ptr(),
+        rows.data_ptr(), cfg_rows.data_ptr(), cfg_rows.stride(0),
+        cfg_rows.stride(1), cfg_bn, out.data_ptr(), e, m, k, n + pad,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"approx_mac_grouped_matmul launch failed: CUDA "
+                           f"error {err}")
+    approx_mac_grouped_matmul.launches += 1
+    return out[..., :n] if pad else out
+
+
+approx_mac_grouped_matmul.launches = 0

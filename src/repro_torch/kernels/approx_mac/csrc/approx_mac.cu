@@ -1,8 +1,8 @@
 // Error-configurable approx-MAC GEMMs for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of src/repro/kernels/approx_mac/approx_mac.py,
-// both from ONE kernel body templated on the activation type and the
-// epilogue:
+// Replaces three TPU kernels of src/repro/kernels/approx_mac/approx_mac.py,
+// all from ONE kernel body templated on the activation type, the epilogue
+// and an expert axis:
 //
 //   approx_mac_fused_matmul (body `_fused_kernel`), TA = float, TOut = float:
 //     out[m, n] = float(sum_k ta(q(x[m, k])) * tb(w[k, n])) * scale_row[n]
@@ -10,11 +10,20 @@
 //     clip(round_half_even(x / x_scale), +-127) with an IEEE divide;
 //   approx_mac_matmul (body `_kernel`), TA = int8, TOut = int32:
 //     out[m, n] = sum_k ta(a[m, k]) * tb(w[k, n])     (int32)
+//   approx_mac_grouped_matmul (body `_grouped_kernel`, approx_mac.py:326),
+//     the fused instance with GROUPED = true: E fused GEMMs in one launch,
+//     blockIdx.z = expert e, each with its own (M, K) activations, (K, N)
+//     int8 bank slice, (N,) combined scales and (n_blocks, 4) config rows,
+//     one shared x_scale; rows at index >= group_rows[e] are absent (their
+//     outputs are zero) and a tile with no present row writes zeros and
+//     returns before it reads a weight byte.
 //
 // ta/tb truncate operand LSBs with the (depth_a, depth_b, gate, rtn) row of
-// the output column's config block: cfg[(n / cfg_bn) * cfg_stride + 0..3].
-// The config rows are device data read at run time, so one compiled kernel
-// serves all 32 configs and any per-block mix (the knob stays data).
+// the output column's config block: cfg[(n / cfg_bn) * cfg_stride + 0..3]
+// (grouped: from cfg + e * cfg_expert_stride).  The config rows and the
+// row counts are device data read at run time, so one compiled kernel
+// serves all 32 configs and any per-block or per-expert mix (the knob
+// stays data).
 //
 // What bounds it on an H100: at decode (M = 4) every weight byte is read
 // once and used for 4 MACs, so the int8 weight bytes set the floor — one
@@ -22,8 +31,12 @@
 // decode step over 36 layers, ~0.83 ms at 3.35 TB/s — while the int8
 // operations at M = 4 take ~11 us at 1,979 TOPS.  The paper MLP's GEMMs
 // (M = 10,000, K = 62/30, N = 30/10) are bound by the activation and
-// output bytes.  The design spends nothing on tensor cores and everything
-// on streaming W:
+// output bytes.  The grouped GEMMs of an OLMoE-1B-7B decode step (4 slots,
+// top-8 of 64 experts) are bound by the bank bytes of the experts the
+// step's tokens touch: about 27 of 64, so ~170 MB per layer (gate, up,
+// down) and ~2.7 GB per step over 16 layers, ~0.8 ms; reading every
+// expert's bank would be 6.44 GB, ~1.9 ms.
+// The design spends nothing on tensor cores and everything on streaming W:
 //   * one block owns BM = 4 output rows x BN = 32 columns, so a
 //     2048 x 11008 GEMM runs 344 blocks; each of its 256 threads streams
 //     one 8-byte weight row segment per k-step (a warp reads 8 rows x 32
@@ -35,9 +48,15 @@
 //   * the block's activation rows are quantized (float input) and
 //     truncated once into shared memory (int8, 4 x K bytes) and reused for
 //     all its columns;
+//   * grouped: the expert is a grid dimension, and a tile past its
+//     expert's row count exits at once, so an expert no token was routed
+//     to costs a launch slot per tile and no weight bytes, and a touched
+//     expert's bank is read by its filled m-blocks only;
 //   * products of int8 magnitudes <= 128 accumulate exactly in int32 in
 //     any order, so the k-lane split changes no bit.
-// A tensor-core (wgmma) version with TMA-fed pipelines is later work.
+// A tensor-core (wgmma) version with TMA-fed pipelines is later work; so
+// is reading a touched bank once for all its m-blocks (each m-block of
+// 4 rows streams the expert's columns again, from L2 where they fit).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,14 +111,18 @@ __device__ __forceinline__ void store(int32_t* out, size_t i, int sum,
 }
 
 // TA: float (quantized in-kernel with x_scale) or int8_t (used as is);
-// TOut: float (scaled by scale_row) or int32_t (the raw accumulator).
-template <typename TA, typename TOut>
+// TOut: float (scaled by scale_row) or int32_t (the raw accumulator);
+// GROUPED: blockIdx.z is the expert, which offsets a, w, scale_row, out
+// and cfg, and rows at index >= group_rows[e] are absent.
+template <typename TA, typename TOut, bool GROUPED>
 __global__ void __launch_bounds__(THREADS)
 approx_mac_kernel(const TA* __restrict__ a, const int8_t* __restrict__ w,
                   const float* __restrict__ scale_row,
                   const float* __restrict__ x_scale,
                   const int32_t* __restrict__ cfg, int cfg_stride,
-                  int cfg_bn, TOut* __restrict__ out, int M, int K, int N) {
+                  int cfg_bn, const int32_t* __restrict__ group_rows,
+                  int cfg_expert_stride, TOut* __restrict__ out, int M,
+                  int K, int N) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* lut_a = reinterpret_cast<int*>(smem);
   int* lut_b = lut_a + 256;
@@ -109,6 +132,26 @@ approx_mac_kernel(const TA* __restrict__ a, const int8_t* __restrict__ w,
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
+  int rows = M;                       // rows present in this GEMM
+  if constexpr (GROUPED) {
+    const size_t e = blockIdx.z;
+    a += e * M * K;
+    w += e * K * N;
+    scale_row += e * N;
+    out += e * M * N;
+    cfg += e * cfg_expert_stride;
+    rows = min(M, max(group_rows[e], 0));
+    if (m0 >= rows) {
+      // no present row in this tile: zeros, what the MAC of its
+      // (absent, zero) rows would give, and no weight byte read
+      if (tid < BM * BN) {
+        const int m = tid / BN, n = tid % BN;
+        if (m0 + m < M && n0 + n < N)
+          out[(size_t)(m0 + m) * N + n0 + n] = (TOut)0;
+      }
+      return;
+    }
+  }
 
   // this block's columns lie inside one config block (cfg_bn % BN == 0)
   const int32_t* c = cfg + (size_t)(n0 / cfg_bn) * cfg_stride;
@@ -124,7 +167,8 @@ approx_mac_kernel(const TA* __restrict__ a, const int8_t* __restrict__ w,
     const int m = i / K;
     const int k = i - m * K;
     int q = 0;
-    if (m0 + m < M) q = lut_a[activation_index(a[(size_t)(m0 + m) * K + k], s)];
+    if (m0 + m < rows)
+      q = lut_a[activation_index(a[(size_t)(m0 + m) * K + k], s)];
     xs[i] = (int8_t)q;
   }
   __syncthreads();
@@ -201,25 +245,29 @@ approx_mac_kernel(const TA* __restrict__ a, const int8_t* __restrict__ w,
   }
 }
 
-template <typename TA, typename TOut>
+template <typename TA, typename TOut, bool GROUPED>
 int launch(const TA* a, const int8_t* w, const float* scale_row,
            const float* x_scale, const int32_t* cfg, int cfg_stride,
-           int cfg_bn, TOut* out, int M, int K, int N, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || N % BN != 0 || cfg_bn <= 0 ||
-      cfg_bn % BN != 0)
+           int cfg_bn, const int32_t* group_rows, int cfg_expert_stride,
+           TOut* out, int E, int M, int K, int N, void* stream) {
+  if (E <= 0 || E > 65535 || M <= 0 || K <= 0 || N <= 0 || N % BN != 0 ||
+      cfg_bn <= 0 || cfg_bn % BN != 0 || (M + BM - 1) / BM > 65535 ||
+      (GROUPED && group_rows == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t xs_bytes = (size_t)BM * K;
   const size_t smem = LUT_BYTES + (xs_bytes > RED_BYTES ? xs_bytes
                                                         : (size_t)RED_BYTES);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        approx_mac_kernel<TA, TOut>,
+        approx_mac_kernel<TA, TOut, GROUPED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
-  approx_mac_kernel<TA, TOut><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      a, w, scale_row, x_scale, cfg, cfg_stride, cfg_bn, out, M, K, N);
+  const dim3 grid(N / BN, (M + BM - 1) / BM, E);
+  approx_mac_kernel<TA, TOut, GROUPED>
+      <<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+          a, w, scale_row, x_scale, cfg, cfg_stride, cfg_bn, group_rows,
+          cfg_expert_stride, out, M, K, N);
   return (int)cudaGetLastError();
 }
 
@@ -237,8 +285,9 @@ extern "C" int approx_mac_fused_matmul(const float* x, const int8_t* w,
                                        const int32_t* cfg, int cfg_stride,
                                        int cfg_bn, float* out, int M, int K,
                                        int N, void* stream) {
-  return launch<float, float>(x, w, scale_row, x_scale, cfg, cfg_stride,
-                              cfg_bn, out, M, K, N, stream);
+  return launch<float, float, false>(x, w, scale_row, x_scale, cfg,
+                                     cfg_stride, cfg_bn, nullptr, 0, out, 1,
+                                     M, K, N, stream);
 }
 
 // a (M, K) int8, w (K, N) int8 with N % 32 == 0 and 8-byte aligned rows,
@@ -247,6 +296,28 @@ extern "C" int approx_mac_matmul(const int8_t* a, const int8_t* w,
                                  const int32_t* cfg, int cfg_stride,
                                  int cfg_bn, int32_t* out, int M, int K,
                                  int N, void* stream) {
-  return launch<int8_t, int32_t>(a, w, nullptr, nullptr, cfg, cfg_stride,
-                                 cfg_bn, out, M, K, N, stream);
+  return launch<int8_t, int32_t, false>(a, w, nullptr, nullptr, cfg,
+                                        cfg_stride, cfg_bn, nullptr, 0, out,
+                                        1, M, K, N, stream);
+}
+
+// x (E, M, K) f32, w (E, K, N) int8 with N % 32 == 0 and 8-byte aligned
+// rows, scale_rows (E, N) f32 = x_scale * w_scale[e] rounded once by the
+// caller, x_scale (1,) f32 shared by every expert, group_rows (E,) int32
+// rows present per expert, cfg rows of expert e's config block i at
+// cfg + e * cfg_expert_stride + i * cfg_stride, cfg_bn as above, out
+// (E, M, N) f32 (every element written: absent rows get zeros).
+extern "C" int approx_mac_grouped_matmul(const float* x, const int8_t* w,
+                                         const float* scale_rows,
+                                         const float* x_scale,
+                                         const int32_t* group_rows,
+                                         const int32_t* cfg,
+                                         int cfg_expert_stride,
+                                         int cfg_stride, int cfg_bn,
+                                         float* out, int E, int M, int K,
+                                         int N, void* stream) {
+  return launch<float, float, true>(x, w, scale_rows, x_scale, cfg,
+                                    cfg_stride, cfg_bn, group_rows,
+                                    cfg_expert_stride, out, E, M, K, N,
+                                    stream);
 }

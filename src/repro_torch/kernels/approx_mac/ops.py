@@ -1,17 +1,21 @@
 """Wrappers around the approx-MAC kernels.
 
-Counterpart of ``repro.kernels.approx_mac.ops`` (all but the grouped
-MoE path).  ``approx_mac`` is the int8-in/int32-out op on the int kernel
-(the paper MLP's GEMMs); ``approx_dense_pallas`` is the float-facing
-layer op, fused (the serving path) or unfused (quantize -> int kernel
--> rescale, kept for the reference's A/B).  In both: leading dims
-flatten into M, the per-tensor activation scale is
-computed here by the caller-side reduction, the combined dequant scale
-``x_scale * w_scale`` is rounded once, and config scalars / per-block
-vectors / neuron-group vectors become the kernel's (n_blocks, 4) device
-rows.  Ragged M and K are masked inside the kernel; ragged N is padded
-by the kernel wrapper.  Nothing here reads a config on the host: the
-knob stays device data.
+Counterpart of ``repro.kernels.approx_mac.ops`` (without its block
+autotuner, a TPU tiling search).  ``approx_mac`` is the int8-in/int32-out
+op on the int kernel (the paper MLP's GEMMs); ``approx_dense_pallas`` is
+the float-facing layer op, fused (the serving path) or unfused
+(quantize -> int kernel -> rescale, kept for the reference's A/B);
+``approx_dense_grouped_pallas`` is its expert-bank twin on the grouped
+kernel (the MoE expert GEMMs), and ``collapse_expert_cfg`` maps a
+per-expert config onto a GEMM without an expert axis.  In all of them:
+the per-tensor activation scale is computed here by the caller-side
+reduction, the combined dequant scale ``x_scale * w_scale`` is rounded
+once, and config scalars / per-block vectors / neuron-group vectors
+(per expert, for the grouped op) become the kernels' (n_blocks, 4)
+device rows.  Ragged M and K are masked inside the kernels; ragged N is
+padded by the kernel wrappers.  Nothing here reads a config on the
+host, and nothing uploads from it after a shape's first call: the knob
+stays device data, and a decode step never synchronizes.
 
 The activation scale is ``core.quantization.activation_scale``, the
 form the reference's jitted serving path computes (DESIGN.md §3), so
@@ -25,10 +29,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.error_metrics import mred_table
+from repro_torch.core.power_model import error_rank
 from repro_torch.core.quantization import QMAX, QTensor, activation_scale
 
-from .approx_mac import (approx_mac_fused_matmul, approx_mac_matmul,
-                         config_operand)
+from .approx_mac import (approx_mac_fused_matmul, approx_mac_grouped_matmul,
+                         approx_mac_matmul, config_operand,
+                         grouped_config_operand)
 
 
 @functools.cache
@@ -37,38 +43,62 @@ def _mred_table_dev(device: torch.device) -> torch.Tensor:
 
 
 @functools.cache
-def _group_spans(g: int, n_logical: int, bn: int, n_blocks: int):
+def _error_rank_dev(device: torch.device) -> torch.Tensor:
+    """``power_model.error_rank`` — the (measured MRED, config index)
+    total order of the engine's pool join — uploaded once per device.
+    Unlike the raw MRED table it has no ties."""
+    return torch.tensor(error_rank(), dtype=torch.long, device=device)
+
+
+def collapse_expert_cfg(config: torch.Tensor) -> torch.Tensor:
+    """(E, g) per-expert-per-group configs -> the (g,) vector a GEMM with
+    no expert axis runs (the attention GEMMs of a MoE layer): per group,
+    the config of lowest ``error_rank`` among the experts — the pool
+    join's never-exceed-requested-error rule, ties to the lower config
+    index.  Device gathers only."""
+    if config.ndim != 2:
+        raise ValueError(f"expected an (E, g) config, got "
+                         f"{tuple(config.shape)}")
+    cfg = config.to(torch.long)
+    pick = torch.argmin(_error_rank_dev(cfg.device)[cfg], dim=0)
+    return torch.gather(cfg, 0, pick[None])[0].to(config.dtype)
+
+
+@functools.cache
+def _group_spans(g: int, n_logical: int, bn: int, n_blocks: int,
+                 device: torch.device) -> torch.Tensor:
     """(n_blocks, W) int64 group indices each block covers (the span
     lo..hi, right-padded by repeating lo so argmin's first-occurrence
-    tie-break is unchanged)."""
+    tie-break is unchanged), uploaded once per shape and device."""
     spans = []
     for i in range(n_blocks):
         lo = min(i * bn, n_logical - 1) * g // n_logical
         hi = min((i + 1) * bn - 1, n_logical - 1) * g // n_logical
         spans.append(list(range(lo, hi + 1)))
     width = max(len(s) for s in spans)
-    return np.asarray([s + [s[0]] * (width - len(s)) for s in spans],
-                      np.int64)
+    return torch.as_tensor(
+        np.asarray([s + [s[0]] * (width - len(s)) for s in spans],
+                   np.int64), device=device)
 
 
 def _expand_group_vector(config: torch.Tensor, n_logical: int, bn: int,
                          n_blocks: int) -> torch.Tensor:
-    """Map a (g,) neuron-group config vector onto the (n_blocks,) grid
-    of bn-wide config blocks using the LOGICAL output width: group j
-    owns columns [j*n/g, (j+1)*n/g); a block inside one group takes its
-    config, a block straddling groups (or a GEMM too narrow to resolve
-    them) the lowest-measured-MRED config among the groups it covers
-    (``argmin`` over the raw MRED table, first index on ties — exactly
-    the reference's rule).  Device gathers only."""
-    g = config.shape[0]
+    """Map a (..., g) neuron-group config vector (one per leading index,
+    e.g. per expert) onto the (..., n_blocks) grid of bn-wide config
+    blocks using the LOGICAL output width: group j owns columns
+    [j*n/g, (j+1)*n/g); a block inside one group takes its config, a
+    block straddling groups (or a GEMM too narrow to resolve them) the
+    lowest-measured-MRED config among the groups it covers (``argmin``
+    over the raw MRED table, first index on ties — exactly the
+    reference's rule).  Device gathers only."""
+    g = config.shape[-1]
     if g == n_blocks and n_logical % bn == 0:
         return config
-    idx = torch.as_tensor(_group_spans(g, n_logical, bn, n_blocks),
-                          device=config.device)
-    cand = config.to(torch.long)[idx]                      # (n_blocks, W)
+    idx = _group_spans(g, n_logical, bn, n_blocks, config.device)
+    cand = config.to(torch.long)[..., idx]           # (..., n_blocks, W)
     rank = _mred_table_dev(config.device)[cand]
-    pick = torch.argmin(rank, dim=1, keepdim=True)
-    return torch.gather(cand, 1, pick)[:, 0]
+    pick = torch.argmin(rank, dim=-1, keepdim=True)
+    return torch.gather(cand, -1, pick)[..., 0]
 
 
 def _config_rows(config, n: int, bn: int, device) -> torch.Tensor:
@@ -123,3 +153,46 @@ def approx_dense_pallas(x: torch.Tensor, w_qt: QTensor, config=0, *,
         y = approx_mac_matmul(x_q, w_q, rows, bn).to(torch.float32) \
             * w_row.reshape(1, n)
     return y.reshape(*lead, n)
+
+
+def approx_dense_grouped_pallas(x: torch.Tensor, w_qt: QTensor, config=0,
+                                group_rows: torch.Tensor | None = None, *,
+                                bn: int = 128) -> torch.Tensor:
+    """E approx GEMMs against a stacked bank, ONE grouped-kernel launch.
+
+    x: (E, M, K) float per-expert activation slices; w_qt: an (E, K, N)
+    int8 bank QTensor with (E, N) per-expert per-column (or scalar)
+    scales (``moe.quantize_expert_bank``); config: Python int, 0-d int
+    tensor, an (E,) per-expert vector or an (E, g) per-expert
+    neuron-group matrix (g == N-blocks for exact per-block control);
+    group_rows: optional (E,) int32 rows present per expert — rows at
+    index >= group_rows[e] are zeroed BEFORE the shared abs-max (they
+    join neither the activation scale nor the MAC, and give zeros), and
+    the kernel skips their tiles; bn: the logical config-block width.
+    Returns (E, M, N) f32, bit-identical to the reference
+    ``approx_dense_grouped_pallas`` under ``jax.jit`` at every config."""
+    w_q = w_qt.values
+    e, m, _ = x.shape
+    n = w_q.shape[-1]
+    # the reference shrinks its column tile to a single-block GEMM's
+    # 128-rounded width; config semantics follow the block width
+    bn = min(bn, -(-n // 128) * 128)
+    x = x.to(torch.float32)
+    if group_rows is None:
+        rows = torch.full((e,), m, dtype=torch.int32, device=x.device)
+    else:
+        rows = group_rows.to(torch.int32)
+        present = (torch.arange(m, device=x.device)[None, :]
+                   < rows[:, None])[..., None]
+        x = torch.where(present, x, 0.0)
+    x_scale = activation_scale(x)
+    w_scale = w_qt.scale.to(torch.float32)
+    ws = x_scale * (w_scale.reshape(e, -1) if w_scale.ndim else
+                    w_scale.reshape(1, 1)).expand(e, n)
+    n_blocks = -(-n // bn)
+    cfg = torch.as_tensor(config, dtype=torch.int32, device=x.device)
+    if cfg.ndim == 2:
+        cfg = _expand_group_vector(cfg, n, bn, n_blocks)
+    rows_cfg = grouped_config_operand(cfg, e, n_blocks, x.device)
+    return approx_mac_grouped_matmul(x, w_q, ws, x_scale, rows, rows_cfg,
+                                     bn)

@@ -1,13 +1,15 @@
 """Serving launcher: the continuous-batching engine with the power knob.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch {qwen2.5-3b,olmoe-1b-7b} \
       [--smoke] [--requests 8] [--max-batch 4] [--max-len 128] \
       [--max-new 16] [--approx-cfg 0] [--device cuda] \
       [--paged [--num-blocks N] [--block-size 16] [--prefill-chunk 32]]
 
 Serves random init (seed 0) through ``repro_torch.serve.engine.Engine``:
-every GEMM runs the fused approx-MAC kernel on a CUDA device, or its
-plain PyTorch version with ``--device cpu``.  --smoke selects the
+every dense GEMM runs the fused approx-MAC kernel and every MoE expert
+GEMM the grouped one on a CUDA device, or their plain PyTorch versions
+with ``--device cpu``.  --smoke selects the
 reduced config so the loop runs on the CPU.  --paged serves from a
 block-pool KV cache (chunked prefill, prefix sharing, preemption by
 recompute) whose decode attention runs the paged-attention kernel.
@@ -73,7 +75,10 @@ def main(argv=None) -> dict:
               f"({paged.usable_blocks * args.block_size} usable), "
               f"prefill chunk {args.prefill_chunk}")
     gen = torch.Generator(device=device).manual_seed(0)
-    eng = Engine(T.init_lm(gen, cfg, device), cfg, max_batch=args.max_batch,
+    # quantized as drawn: a full-width MoE model's f32 expert banks
+    # (25.8 GB for OLMoE-1B-7B) then exist one layer at a time
+    eng = Engine(T.init_lm(gen, cfg, device, quantized=True), cfg,
+                 max_batch=args.max_batch,
                  max_len=args.max_len, approx_cfg=args.approx_cfg,
                  paged=paged, device=device)
     rng = np.random.default_rng(0)

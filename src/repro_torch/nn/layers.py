@@ -40,7 +40,10 @@ def dense(x: torch.Tensor, w, *, approx_cfg=0, backend: str = "xla",
     Python int, a 0-d int tensor (the runtime knob, read on the device),
     or — only with ``backend="pallas"``, the reference's gate for
     per-block configs — a (g,) per-neuron-group vector (see
-    ``ops.approx_dense_pallas``).  backend "xla" and "pallas" compute the
+    ``ops.approx_dense_pallas``) or an (E, g) per-expert matrix (an
+    engine config with an expert axis reaching a GEMM that has none:
+    collapsed to (g,) by ``ops.collapse_expert_cfg``, the lowest
+    ``error_rank`` config per group).  backend "xla" and "pallas" compute the
     same bits (the reference's two backends are bit-identical); cfg_bn
     is the logical config-block width (``ModelConfig.mac_blocks[1]``).
     """
@@ -48,12 +51,13 @@ def dense(x: torch.Tensor, w, *, approx_cfg=0, backend: str = "xla",
         raise ValueError(f"unknown mac backend {backend!r}")
     is_tensor = isinstance(approx_cfg, torch.Tensor)
     if is_tensor or approx_cfg > 0:
-        if is_tensor and approx_cfg.ndim > 1:
-            raise NotImplementedError("expert-axis configs are not ported")
-        if is_tensor and approx_cfg.ndim == 1 and backend != "pallas":
-            raise ValueError("per-block config vectors require "
+        if is_tensor and approx_cfg.ndim >= 1 and backend != "pallas":
+            raise ValueError("per-block and per-expert configs require "
                              "backend='pallas'")
-        from repro_torch.kernels.approx_mac.ops import approx_dense_pallas
+        from repro_torch.kernels.approx_mac.ops import (approx_dense_pallas,
+                                                        collapse_expert_cfg)
+        if is_tensor and approx_cfg.ndim == 2:
+            approx_cfg = collapse_expert_cfg(approx_cfg)
         w_qt = w if isinstance(w, QTensor) else quantize(w, axis=1)
         y = approx_dense_pallas(x, w_qt, config=approx_cfg, bn=cfg_bn)
         return y.to(torch.bfloat16)

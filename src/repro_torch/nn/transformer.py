@@ -1,13 +1,19 @@
-"""Dense decoder LM: the all-'global' subset of ``repro.nn.transformer``.
+"""Decoder LM: the all-'global' subset of ``repro.nn.transformer``.
 
-Covers the family ``launch/serve.py`` serves (Qwen2.5-3B): GQA attention
-with RoPE and optional QKV bias, RMSNorm, SwiGLU MLP, tied or untied
-embeddings.  Every GEMM (q, k, v, o, gate, up, down) goes through
-``layers.dense`` under the runtime error config.  ``ModelConfig``
-raises on every other pattern or feature of the reference.
+Covers the families ``launch/serve.py`` serves: dense (Qwen2.5-3B) and
+MoE (OLMoE-1B-7B) — GQA attention with RoPE and optional QKV bias,
+RMSNorm, a SwiGLU MLP or a top-k MoE FFN (``nn/moe.py``), tied or
+untied embeddings.  Every dense GEMM (q, k, v, o, and a dense MLP's
+gate, up, down) goes through ``layers.dense`` under the runtime error
+config; a MoE layer's expert GEMMs run the grouped approx-MAC op, each
+expert at its own config when the config carries an expert axis
+((n_layers, E, g) tensors; the layer's dense GEMMs then run the
+expert-collapsed config).  ``ModelConfig`` raises on every other
+pattern or feature of the reference.
 
 Layout: params are plain dicts holding the reference's per-layer shapes
-(``wq`` (d, H, hd), ``wo`` (H, hd, d), MLP mats (in, out)), with
+(``wq`` (d, H, hd), ``wo`` (H, hd, d), MLP mats (in, out), MoE
+``router`` (d, E) and expert banks (E, in, out)), with
 ``params["blocks"]`` a list of per-layer dicts instead of the
 reference's scan-stacked ``blocks.scan.b0``.  The KV cache is
 ``{"pos", "k", "v"}`` with k/v stacked (n_layers, B, S, KV, hd) — the
@@ -40,6 +46,7 @@ from .attention import (_repeat_kv, _softmax_attend, chunked_attention,
                         decode_attention)
 from .layers import (ACT, MAC_BACKENDS, apply_rope, dense, dense_init,
                      embed_init, rmsnorm)
+from .moe import moe_ffn, quantize_expert_bank
 
 Params = dict[str, Any]
 
@@ -62,6 +69,15 @@ class ModelConfig:
     rope_theta: float = 10000.0
     query_scale: float | None = None     # None -> head_dim**-0.5
     tie_embeddings: bool = False
+    # MoE (family "moe"): top_k of n_experts per token, capacity
+    # ceil(S_g * top_k / n_experts * capacity_factor) per dispatch group
+    # (dropless at decode), moe_groups groups when they divide the tokens
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    renormalize: bool = True
+    moe_groups: int = 1
+    moe_seq_chunks: int = 1              # only 1 is ported
     # approx-MAC backend of every GEMM.  Both values run the same integer
     # pipeline here — the fused CUDA kernel for CUDA tensors, its plain
     # twin for CPU tensors; "pallas" keeps only its reference role as
@@ -80,8 +96,15 @@ class ModelConfig:
                 "ported")
         if self.mlp != "swiglu" or self.act not in ACT:
             raise NotImplementedError(f"mlp {self.mlp!r}/{self.act!r}")
-        if self.family != "dense":
+        if self.family not in ("dense", "moe"):
             raise NotImplementedError(f"family {self.family!r}")
+        if (self.family == "moe") != (self.n_experts > 0):
+            raise ValueError(f"family {self.family!r} with n_experts "
+                             f"{self.n_experts}")
+        if self.n_experts and not 0 < self.top_k <= self.n_experts:
+            raise ValueError(f"top_k {self.top_k} of {self.n_experts}")
+        if self.moe_seq_chunks != 1:
+            raise NotImplementedError("moe_seq_chunks > 1 is not ported")
         if self.mac_backend not in MAC_BACKENDS:
             raise ValueError(f"mac_backend {self.mac_backend!r}")
 
@@ -92,6 +115,8 @@ class ModelConfig:
             n_layers=max(2 * len(self.pattern), 2), d_model=64, n_heads=2,
             n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads > 1 else 1,
             head_dim=32, d_ff=128, vocab_size=128, q_chunk=8,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0, moe_groups=1,
             compute_dtype=torch.float32)
         base.update(over)
         return dataclasses.replace(self, **base)
@@ -111,9 +136,13 @@ def resolve_device(device) -> torch.device:
 # init / one-time weight quantization
 # ---------------------------------------------------------------------------
 
-def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> Params:
+def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda", *,
+            quantized: bool = False) -> Params:
     """Random float params (the reference's init distributions) drawn
-    from `gen`, a generator on `device`."""
+    from `gen`, a generator on `device`.  ``quantized`` quantizes each
+    layer's GEMM weights as soon as they are drawn (the serving layout
+    of ``quantize_lm_params``, bit for bit), so a full-width MoE
+    model's f32 expert banks exist one layer at a time."""
     device = resolve_device(device)
     d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
@@ -136,32 +165,59 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> Params:
                 "wo": normal(h, hd, d) * std / math.sqrt(cfg.n_layers)}
         if cfg.qkv_bias:
             attn.update(bq=zeros(h, hd), bk=zeros(kv, hd), bv=zeros(kv, hd))
-        mlp = {"w_up": dense_init(gen, d, f, device=device),
-               "w_down": dense_init(gen, f, d, device=device,
-                                    scale=1.0 / math.sqrt(f)),
-               "w_gate": dense_init(gen, d, f, device=device)}
-        blocks.append({"norm1": {"scale": zeros(d)}, "attn": attn,
-                       "norm2": {"scale": zeros(d)}, "mlp": mlp})
+        if cfg.n_experts:
+            # w_gate and w_up are independent draws (the reference draws
+            # both from one key, so its two banks are equal)
+            e = cfg.n_experts
+            mlp = {"router": normal(d, e) * std,
+                   "w_gate": normal(e, d, f) * std,
+                   "w_up": normal(e, d, f) * std,
+                   "w_down": normal(e, f, d) * (1.0 / math.sqrt(f))}
+        else:
+            mlp = {"w_up": dense_init(gen, d, f, device=device),
+                   "w_down": dense_init(gen, f, d, device=device,
+                                        scale=1.0 / math.sqrt(f)),
+                   "w_gate": dense_init(gen, d, f, device=device)}
+        block = {"norm1": {"scale": zeros(d)}, "attn": attn,
+                 "norm2": {"scale": zeros(d)}, "mlp": mlp}
+        blocks.append(_quantize_block(block) if quantized else block)
     params["blocks"] = blocks
     params["final_norm"] = {"scale": zeros(d)}
     return params
 
 
+def _quantize_block(p: Params) -> Params:
+    """One layer's GEMM weights as per-output-channel QTensors (QTensors
+    pass through): attention projections in their 2D GEMM layout, dense
+    MLP mats in place, expert mats as (E, in, out) banks with (E, out)
+    scales; the router stays float."""
+    a = dict(p["attn"])
+    for key in ("wq", "wk", "wv", "wo"):
+        w = a[key]
+        if not isinstance(w, QTensor):
+            w2 = (w.reshape(-1, w.shape[-1]) if key == "wo"
+                  else w.reshape(w.shape[0], -1))
+            a[key] = quantize(w2, axis=1)
+    mlp = {}
+    for k, w in p["mlp"].items():
+        if k == "router" or isinstance(w, QTensor):
+            mlp[k] = w
+        elif w.ndim == 3:
+            mlp[k] = quantize_expert_bank(w)
+        else:
+            mlp[k] = quantize(w, axis=1)
+    return {**p, "attn": a, "mlp": mlp}
+
+
 def quantize_lm_params(params: Params, cfg: ModelConfig) -> Params:
     """Pre-quantize every GEMM weight into a per-output-channel QTensor
     ONCE (serving mode).  Attention projections are stored in their 2D
-    GEMM layout ((d, H*hd) / (H*hd, d)) exactly as the reference does;
-    embed/lm_head/norms/biases stay float."""
-    blocks = []
-    for p in params["blocks"]:
-        a = dict(p["attn"])
-        for key in ("wq", "wk", "wv"):
-            w = a[key]
-            a[key] = quantize(w.reshape(w.shape[0], -1), axis=1)
-        a["wo"] = quantize(a["wo"].reshape(-1, a["wo"].shape[-1]), axis=1)
-        mlp = {k: quantize(w, axis=1) for k, w in p["mlp"].items()}
-        blocks.append({**p, "attn": a, "mlp": mlp})
-    return {**params, "blocks": blocks}
+    GEMM layout ((d, H*hd) / (H*hd, d)) and MoE expert mats as stacked
+    (E, in, out) banks with (E, out) scales, exactly as the reference
+    does; the router, embed/lm_head, norms and biases stay float, and
+    weights already quantized pass through."""
+    return {**params, "blocks": [_quantize_block(p)
+                                 for p in params["blocks"]]}
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +253,17 @@ def _attn_out(y, wo, approx_cfg, cfg):
 
 
 def _mlp_apply(p, x, cfg, approx_cfg):
+    if cfg.n_experts:
+        b, s, d = x.shape
+        # decode (one position) is dropless; groups must divide the tokens
+        cf = float(cfg.n_experts) if s == 1 else cfg.capacity_factor
+        groups = cfg.moe_groups if (b * s) % cfg.moe_groups == 0 else 1
+        y, _ = moe_ffn(x.reshape(b * s, d), p, n_experts=cfg.n_experts,
+                       top_k=cfg.top_k, capacity_factor=cf,
+                       n_groups=groups, act=cfg.act,
+                       renormalize=cfg.renormalize, approx_cfg=approx_cfg,
+                       backend=cfg.mac_backend)
+        return y.reshape(b, s, d)
     kw = _dense_kw(cfg)
     h = ACT[cfg.act](dense(x, p["w_gate"], approx_cfg=approx_cfg, **kw)) \
         * dense(x, p["w_up"], approx_cfg=approx_cfg, **kw)
@@ -233,8 +300,8 @@ def _attention_block(p, x, cfg, *, positions, approx_cfg):
 
 
 def _layer_cfgs(approx_cfg, n_layers: int, device) -> list:
-    """Per-layer configs: a (n_layers[, groups]) vector/matrix splits by
-    layer (as device tensors); a scalar config serves every layer."""
+    """Per-layer configs: a (n_layers[, experts][, groups]) tensor splits
+    by layer (as device tensors); a scalar config serves every layer."""
     if isinstance(approx_cfg, (list, tuple, np.ndarray)):
         approx_cfg = torch.as_tensor(np.asarray(approx_cfg, np.int32),
                                      device=device)

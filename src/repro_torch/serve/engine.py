@@ -36,10 +36,17 @@ prompt and generated tokens when it is readmitted.  Each paged decode
 row ropes and attends at its own length, through the paged-attention
 kernel on the card.
 
+MoE models (``cfg_experts == n_experts``, the reference's expert axis):
+configs become (n_layers, n_experts, cfg_groups) tensors, every expert
+of every MoE layer runs at its own config through the grouped expert
+kernel, the layer's dense GEMMs run the expert-collapsed config, and the
+energy integral weights the expert axis by the expert GEMMs' share of a
+layer's MACs.
+
 Not ported yet (the reference's knobs for them do not exist here):
 speculative decoding, the scheduler and telemetry, fault injection and
 deadline expiry, brownout, traffic classes' budgets, the power cap,
-checkpointing, sharding and the MoE expert axis.
+checkpointing and sharding.
 
 Runs on ``device="cuda"`` unless told otherwise; without a GPU the
 default raises rather than falling back to the CPU.
@@ -115,7 +122,8 @@ class Request:
 class Engine:
     def __init__(self, params, cfg: T.ModelConfig, *, max_batch: int = 4,
                  max_len: int = 512, approx_cfg=0, seed: int = 0,
-                 cfg_groups: int = 1, quantize_weights: bool = True,
+                 cfg_groups: int = 1, cfg_experts: int = 1,
+                 quantize_weights: bool = True,
                  clock: Callable[[], float] = time.time,
                  queue_capacity: int = 256,
                  paged: PagedCacheConfig | None = None,
@@ -124,7 +132,10 @@ class Engine:
         (prompt + generated); approx_cfg: engine-wide error config (int
         or per-layer[/per-group] array); seed: seed of the sampling
         generator; cfg_groups > 1: per-layer-per-neuron-group configs
-        (needs ``cfg.mac_backend == "pallas"``); quantize_weights:
+        (needs ``cfg.mac_backend == "pallas"``); cfg_experts > 1: the
+        expert axis of a MoE model, (n_layers, cfg_experts, cfg_groups)
+        configs (needs ``cfg.mac_backend == "pallas"`` and
+        ``cfg_experts == cfg.n_experts``); quantize_weights:
         pre-quantize every GEMM weight once; clock: injected time
         source (seconds) for request stamps; queue_capacity: admission
         bound (``submit`` rejects past it); paged: a
@@ -133,9 +144,13 @@ class Engine:
         prompts to a multiple of this many tokens (paged mode pads to
         the chunk); device: where params, cache and every step live."""
         self.device = T.resolve_device(device)
-        if cfg_groups > 1 and cfg.mac_backend != "pallas":
-            raise ValueError("per-group configs require "
+        if (cfg_groups > 1 or cfg_experts > 1) \
+                and cfg.mac_backend != "pallas":
+            raise ValueError("per-group and per-expert configs require "
                              "mac_backend='pallas'")
+        if cfg_experts > 1 and cfg_experts != cfg.n_experts:
+            raise ValueError(f"cfg_experts {cfg_experts} != the model's "
+                             f"{cfg.n_experts} experts")
         params = _tree_to(params, self.device)
         self.params = (T.quantize_lm_params(params, cfg)
                        if quantize_weights else params)
@@ -143,6 +158,18 @@ class Engine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.cfg_groups = cfg_groups
+        self.cfg_experts = cfg_experts
+        # share of a MoE layer's MACs the expert GEMMs execute (the rest,
+        # attention, runs at the expert-collapsed config): the weight of
+        # the expert axis in the energy integral
+        if cfg.n_experts:
+            d, h, kv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.head_dim)
+            attn_macs = d * (h + 2 * kv) * hd + h * hd * d
+            moe_macs = 3 * d * cfg.d_ff * max(cfg.top_k, 1)
+            self._moe_mac_frac = moe_macs / (moe_macs + attn_macs)
+        else:
+            self._moe_mac_frac = 0.0
         self.approx_cfg = self._as_layer_vector(
             0 if approx_cfg is None else approx_cfg)
         self.clock = clock
@@ -196,13 +223,19 @@ class Engine:
 
     # -- config management ----------------------------------------------
     def _as_layer_vector(self, approx_cfg) -> np.ndarray:
-        """int / sequence -> the engine's (n_layers,) or (n_layers,
-        cfg_groups) int32 config shape (scalars broadcast everywhere, a
-        per-layer vector across groups)."""
+        """int / sequence -> the engine's int32 config shape: (n_layers,),
+        (n_layers, cfg_groups) with neuron groups, or (n_layers,
+        cfg_experts, cfg_groups) with an expert axis.  Scalars broadcast
+        everywhere, a per-layer vector across experts and groups, a 2-D
+        input with an expert axis across the groups."""
         if approx_cfg is None:
             return self.approx_cfg.copy()
-        shape = ((self.cfg.n_layers, self.cfg_groups) if self.cfg_groups > 1
-                 else (self.cfg.n_layers,))
+        if self.cfg_experts > 1:
+            shape = (self.cfg.n_layers, self.cfg_experts, self.cfg_groups)
+        elif self.cfg_groups > 1:
+            shape = (self.cfg.n_layers, self.cfg_groups)
+        else:
+            shape = (self.cfg.n_layers,)
         vec = np.asarray(approx_cfg, dtype=np.int32)
         while 1 <= vec.ndim < len(shape):
             vec = vec[..., None]
@@ -217,14 +250,23 @@ class Engine:
         self.approx_cfg = self._as_layer_vector(approx_cfg)
 
     def apply_allocation(self, assignment: Mapping[Any, int]) -> None:
-        """Set per-layer configs: keys are layer indices or
-        integer-suffixed names ('layer_<i>'); missing layers keep their
+        """Set per-layer configs: keys are layer indices,
+        integer-suffixed names ('layer_<i>') or, with cfg_experts > 1,
+        (layer, expert) tuples; missing layers and experts keep their
         config; unparseable or out-of-range keys raise."""
         vec = self.approx_cfg.copy()
         for key, c in assignment.items():
+            expert = None
             if isinstance(key, tuple):
-                raise ValueError(f"key {key!r}: (layer, expert) keys need "
-                                 "the expert axis, which is not ported")
+                if len(key) != 2 or self.cfg_experts <= 1:
+                    raise ValueError(
+                        f"key {key!r}: (layer, expert) tuples need "
+                        f"len == 2 and an engine with cfg_experts > 1")
+                key, expert = key
+                expert = int(expert)
+                if not 0 <= expert < self.cfg_experts:
+                    raise ValueError(f"expert index {expert} out of range "
+                                     f"[0, {self.cfg_experts})")
             if isinstance(key, str):
                 tail = key.rsplit("_", 1)[-1]
                 if not tail.isdigit():
@@ -237,7 +279,10 @@ class Engine:
             if not 0 <= i < self.cfg.n_layers:
                 raise ValueError(f"layer index {i} (from key {key!r}) out "
                                  f"of range [0, {self.cfg.n_layers})")
-            vec[i] = int(c)
+            if expert is None:
+                vec[i] = int(c)
+            else:
+                vec[i, expert] = int(c)
         self.set_approx_cfg(vec)
 
     def _pool_cfg(self) -> np.ndarray:
@@ -275,8 +320,11 @@ class Engine:
         self.cache["v"][:, slot] = row_cache["v"][:, 0]
 
     def _energy_pj_mean(self, cfg_vec: np.ndarray) -> float:
-        """Mean modeled per-MAC energy of one token under cfg_vec."""
-        return energy_per_token_pj(cfg_vec)
+        """Mean modeled per-MAC energy of one token under cfg_vec; an
+        expert axis weighs in by the expert GEMMs' share of the MACs
+        (the dense share is charged at the expert-collapsed config)."""
+        return energy_per_token_pj(cfg_vec,
+                                   moe_mac_frac=self._moe_mac_frac)
 
     def _cls_counts(self, active: list[int]) -> dict[str, int]:
         out: dict[str, int] = {}

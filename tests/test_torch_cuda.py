@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions: the fused and int approx-MAC GEMMs (bit for bit) and the
-paged decode attention (within the tolerance stated at ``PAGED_TOL``).
+versions: the fused, int and grouped approx-MAC GEMMs (bit for bit) and
+the paged decode attention (within the tolerance stated at
+``PAGED_TOL``).
 
 Every test here is marked ``cuda`` and skips with a reason where there
 is no CUDA device, so the CPU suite collects and skips them.  This file
@@ -10,11 +11,12 @@ need the suite's conftest; on the card run it with
     PYTHONPATH=src python -m pytest --noconftest -q -p no:cacheprovider \\
         -m cuda tests/test_torch_cuda.py
 
-The cases (``SHAPES``, ``_configs``, ``INT_SHAPES``, ``_int_case``) are
-shared with tests/test_torch_approx_mac.py and tests/test_torch_mlp.py,
-which hold the plain versions against the reference's Pallas kernels on
-the same inputs; the paged cases are tests/test_torch_paged.py's shapes
-with bf16 and f32 pools."""
+The cases (``SHAPES``, ``_configs``, ``INT_SHAPES``, ``_int_case``,
+``_grouped_case``, ``_grouped_rows``) are shared with
+tests/test_torch_approx_mac.py, tests/test_torch_mlp.py and
+tests/test_torch_moe.py, which hold the plain versions against the
+reference's Pallas kernels on the same inputs; the paged cases are
+tests/test_torch_paged.py's shapes with bf16 and f32 pools."""
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,13 @@ MAIN_PATH = [(m, k, n) for m in (4, 24)
                             (11008, 2048))]
 # (M, K, N) of the int kernel: the paper MLP's GEMMs, then ragged shapes
 INT_SHAPES = [(16, 62, 30), (1, 30, 10), (24, 200, 300), (5, 64, 384)]
+# (E, M, K, N) of the grouped kernel: OLMoE-1B-7B's expert GEMMs (gate/up
+# 2048 -> 1024, down 1024 -> 2048) at decode (M = 4), a decode pool's
+# buffer (M = 32) and prefill (M = 128), with 8 of its 64 experts; then a
+# ragged case (M % 4, K % 8, N % 32 all nonzero)
+GROUPED_SHAPES = [(8, m, k, n) for m in (4, 32, 128)
+                  for k, n in ((2048, 1024), (1024, 2048))] + [(5, 7, 203,
+                                                                300)]
 # bf16: the kernel rounds its f32 result once, the plain version after
 # other f32 sums, so the two can sit one bf16 ulp apart (2**-8 relative);
 # f32: the sums' order differs, ~1e-7 relative
@@ -58,6 +67,29 @@ def _case(m, k, n, seed=0):
     x = (rng.normal(size=(m, k)) * 2).astype(np.float32)
     w = (rng.normal(size=(k, n)) * 0.05).astype(np.float32)
     return x, w
+
+
+def _grouped_case(e, m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(e, m, k)).astype(np.float32)
+    w = (rng.normal(size=(e, k, n)) * 0.05).astype(np.float32)
+    return x, w
+
+
+def _grouped_rows(e, m):
+    """Row counts per expert: full, ragged, zero for some experts, and
+    zero for all."""
+    ragged = (np.arange(e) * 7 + 3) % (m + 1)
+    some = np.where(np.arange(e) % 2 == 1, 0, np.maximum(ragged, 1))
+    return [np.full(e, m), ragged, some, np.zeros(e, np.int64)]
+
+
+def _grouped_configs(e, n, bn=128):
+    """Uniform configs 0/8/31, a per-expert vector, and a per-expert
+    neuron-group matrix whose 3 groups straddle config blocks."""
+    rng = np.random.default_rng(e * n)
+    return [0, 8, 31, rng.integers(0, 32, e).astype(np.int32),
+            rng.integers(0, 32, (e, 3)).astype(np.int32)]
 
 
 def _int_case(m, k, n, seed=0):
@@ -201,3 +233,71 @@ def test_cuda_paged_attention_matches_plain_version(cuda_device, dtype, kv,
     assert PA.paged_decode_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out, ref, **PAGED_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GROUPED_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_grouped_kernel_equals_plain_version(cuda_device, shape):
+    """Bit for bit, through the grouped float-facing op (row masking,
+    per-expert group expansion, combined scales), at every config form
+    and every row-count form, one launch per call."""
+    from repro_torch.nn.moe import quantize_expert_bank
+    e, m, k, n = shape
+    x, w = _grouped_case(e, m, k, n)
+    xd = torch.as_tensor(x, device=cuda_device)
+    bank = quantize_expert_bank(torch.as_tensor(w, device=cuda_device))
+    for rows in _grouped_rows(e, m):
+        rd = torch.as_tensor(rows, dtype=torch.int32, device=cuda_device)
+        for config in _grouped_configs(e, n):
+            cfg = torch.as_tensor(config, dtype=torch.int32,
+                                  device=cuda_device)
+            before = A.approx_mac_grouped_matmul.launches
+            out = ops.approx_dense_grouped_pallas(xd, bank, cfg, rd)
+            ops.approx_mac_grouped_matmul = A.approx_mac_grouped_matmul_ref
+            try:
+                ref = ops.approx_dense_grouped_pallas(xd, bank, cfg, rd)
+            finally:
+                ops.approx_mac_grouped_matmul = A.approx_mac_grouped_matmul
+            torch.cuda.synchronize()
+            assert A.approx_mac_grouped_matmul.launches == before + 1
+            assert torch.equal(out, ref), (shape, rows.tolist(),
+                                           _cfg_id(config))
+
+
+@pytest.mark.cuda
+def test_cuda_moe_prefill_and_decode_equal_plain_path(cuda_device):
+    """The OLMoE smoke model's prefill (with capacity drops) and decode
+    step at per-expert configs through both kernels equal the same calls
+    through their plain versions, with 3 grouped and 4 fused launches per
+    layer per call."""
+    cfg = get_config("olmoe-1b-7b").smoke(mac_backend="pallas")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = T.init_lm(gen, cfg, cuda_device, quantized=True)
+    toks = torch.randint(0, 128, (1, 24), device=cuda_device, generator=gen)
+    acfg = torch.randint(0, 32, (cfg.n_layers, cfg.n_experts, 1),
+                         dtype=torch.int32, device=cuda_device,
+                         generator=gen)
+
+    def run():
+        logits, cache = T.prefill(params, cfg, toks, max_len=32,
+                                  approx_cfg=acfg)
+        tok = torch.argmax(logits, -1)[:, None]
+        step, _ = T.decode_step(params, cfg, cache, tok, approx_cfg=acfg)
+        return logits, step
+
+    grouped = A.approx_mac_grouped_matmul.launches
+    fused = A.approx_mac_fused_matmul.launches
+    kernel = run()
+    assert A.approx_mac_grouped_matmul.launches - grouped == 3 * 2 * 2
+    assert A.approx_mac_fused_matmul.launches - fused == 4 * 2 * 2
+    ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul_ref
+    ops.approx_mac_grouped_matmul = A.approx_mac_grouped_matmul_ref
+    try:
+        plain = run()
+    finally:
+        ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul
+        ops.approx_mac_grouped_matmul = A.approx_mac_grouped_matmul
+    torch.cuda.synchronize()
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)

@@ -14,6 +14,7 @@ the port's differ by at most ``LOGIT_TOL`` (tests/test_torch_transformer.py
 states why), so the test first asserts that every top-1/top-2 logit gap
 of the reference run exceeds it — a near-tie shows up as a broken
 premise, not as a flaky stream mismatch."""
+import dataclasses
 import itertools
 import os
 import subprocess
@@ -191,8 +192,16 @@ def test_default_device_is_cuda():
                                   "checkpointer"])
 def test_unported_engine_knobs_raise(knob):
     """The reference's knobs for features not ported yet are refused,
-    not ignored."""
+    not ignored; the expert axis, now ported, is refused on a model
+    without experts."""
     cfg = tget("qwen2.5-3b").smoke()
     params = TE.T.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    if knob == "cfg_experts":
+        with pytest.raises(ValueError, match="pallas"):
+            TE.Engine(params, cfg, max_len=16, device="cpu", cfg_experts=2)
+        with pytest.raises(ValueError, match="cfg_experts"):
+            TE.Engine(params, dataclasses.replace(cfg, mac_backend="pallas"),
+                      max_len=16, device="cpu", cfg_experts=2)
+        return
     with pytest.raises(TypeError):
         TE.Engine(params, cfg, max_len=16, device="cpu", **{knob: 1})
