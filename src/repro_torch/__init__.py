@@ -9,11 +9,14 @@ it: the twin runs for CPU tensors (the tests), the kernel for CUDA
 tensors.
 
 Ported so far: the serving paths of ``launch/serve.py`` — the
-``Engine`` over the all-'global' decoder families, dense (Qwen2.5-3B)
-and MoE (OLMoE-1B-7B, each expert at its own error config), dense or
-paged (``--paged``), with every dense GEMM through the fused approx-MAC
-CUDA kernel, every expert GEMM through the grouped one, and paged
-decode attention through the paged-attention kernel — and the paper's
+``Engine`` over the attention-only decoder families, dense (Qwen2.5-3B;
+Gemma-2-27B with local and global layers, softcaps and an int8 KV
+cache) and MoE (OLMoE-1B-7B, each expert at its own error config),
+dense or paged (``--paged``, all-'global' float-KV models), with every
+dense GEMM through the fused approx-MAC CUDA kernel, every expert GEMM
+through the grouped one, every prefill attention through the
+flash-attention kernel and paged decode attention through the
+paged-attention kernel — and the paper's
 own 62-30-10 MLP (``nn/mlp_paper.py``, ``core/hw_sim.py``,
 ``data/synthetic_mnist.py``), whose "kernel" method runs the int
 approx-MAC CUDA kernel.

@@ -6,7 +6,8 @@ import importlib
 
 from repro_torch.nn.transformer import ModelConfig
 
-_MODULES = {"qwen2.5-3b": "qwen2_5_3b", "olmoe-1b-7b": "olmoe_1b_7b"}
+_MODULES = {"qwen2.5-3b": "qwen2_5_3b", "olmoe-1b-7b": "olmoe_1b_7b",
+            "gemma2-27b": "gemma2_27b"}
 ARCH_IDS = list(_MODULES)
 
 

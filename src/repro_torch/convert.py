@@ -3,12 +3,14 @@
 The reference's ``init_lm`` tree, turned to numpy by the caller (e.g.
 ``jax.tree.map(np.asarray, params)``), arrives here as nested dicts of
 numpy arrays; nothing in this module imports JAX.  The layout it undoes:
-``blocks.scan.b0.*`` is stacked over layers (even with
-``scan_layers=False``), while the port keeps ``params["blocks"]`` as a
-per-layer list.  Per-layer shapes are unchanged (``wq``/``wk``/``wv``
-(d, H, hd), ``wo`` (H, hd, d), a MoE layer's ``router`` (d, E) and
-expert banks ``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f, d));
-the port's ``Engine`` quantizes the float weights once, like the
+``blocks.scan.b{j}.*`` is stacked over pattern periods (even with
+``scan_layers=False``), one ``b{j}`` per kind of the pattern (Gemma-2's
+local layers in ``b0``, its global ones in ``b1``), while the port
+keeps ``params["blocks"]`` as a per-layer list.  Per-layer shapes are
+unchanged (``wq``/``wk``/``wv`` (d, H, hd), ``wo`` (H, hd, d), a MoE
+layer's ``router`` (d, E) and expert banks ``w_gate``/``w_up``
+(E, d, f) and ``w_down`` (E, f, d); a post-norm model's ``post1`` and
+``post2`` ride along); the port's ``Engine`` quantizes the float weights once, like the
 reference's.
 
 The paper's MLP crosses the same way: ``mlp_params_from_numpy`` takes
@@ -34,26 +36,31 @@ def _to_torch(tree, device):
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Params:
-    """Reference float params as numpy -> the port's params on `device`."""
+    """Reference float params as numpy -> the port's params on `device`.
+    Layer g * P + j of a P-kind pattern is group g of the reference's
+    ``blocks.scan.b{j}``."""
     blocks = tree["blocks"]
-    if set(blocks) != {"scan"} or set(blocks["scan"]) != {"b0"}:
+    npat = len(cfg.pattern)
+    if set(blocks) != {"scan"} or set(blocks["scan"]) != {
+            f"b{j}" for j in range(npat)}:
         raise NotImplementedError(
-            f"blocks {sorted(blocks)}: only one-kind scan-stacked "
-            "decoders are ported")
-    stacked = blocks["scan"]["b0"]
+            f"blocks {sorted(blocks)}: only scan-stacked decoders whose "
+            "depth is a multiple of the pattern are ported")
+    stacked = blocks["scan"]
 
     def layer(i, node):
         if isinstance(node, dict):
             return {k: layer(i, v) for k, v in node.items()}
         return node[i]
 
-    n = len(np.asarray(stacked["norm1"]["scale"]))
-    if n != cfg.n_layers:
-        raise ValueError(f"{n} stacked layers for a {cfg.n_layers}-layer "
-                         "config")
+    n_groups = len(np.asarray(stacked["b0"]["norm1"]["scale"]))
+    if n_groups * npat != cfg.n_layers:
+        raise ValueError(f"{n_groups} stacked groups of {npat} for a "
+                         f"{cfg.n_layers}-layer config")
     out = {k: _to_torch(v, device) for k, v in tree.items()
            if k != "blocks"}
-    out["blocks"] = [_to_torch(layer(i, stacked), device) for i in range(n)]
+    out["blocks"] = [_to_torch(layer(i // npat, stacked[f"b{i % npat}"]),
+                               device) for i in range(cfg.n_layers)]
     return out
 
 

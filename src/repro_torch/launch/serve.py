@@ -1,18 +1,21 @@
 """Serving launcher: the continuous-batching engine with the power knob.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch {qwen2.5-3b,olmoe-1b-7b} \
+      --arch {qwen2.5-3b,olmoe-1b-7b,gemma2-27b} \
       [--smoke] [--requests 8] [--max-batch 4] [--max-len 128] \
       [--max-new 16] [--approx-cfg 0] [--device cuda] \
       [--paged [--num-blocks N] [--block-size 16] [--prefill-chunk 32]]
 
 Serves random init (seed 0) through ``repro_torch.serve.engine.Engine``:
 every dense GEMM runs the fused approx-MAC kernel and every MoE expert
-GEMM the grouped one on a CUDA device, or their plain PyTorch versions
-with ``--device cpu``.  --smoke selects the
+GEMM the grouped one on a CUDA device, and every prefill attention the
+flash-attention kernel, or their plain PyTorch versions with
+``--device cpu``.  --smoke selects the
 reduced config so the loop runs on the CPU.  --paged serves from a
 block-pool KV cache (chunked prefill, prefix sharing, preemption by
-recompute) whose decode attention runs the paged-attention kernel.
+recompute) whose decode attention runs the paged-attention kernel; as
+in the reference, it refuses models with local layers or an int8 KV
+cache (Gemma-2).
 Counterpart of ``repro.launch.serve`` without its checkpoint,
 scheduler, mesh, resilience, traffic and speculative options (not
 ported yet).

@@ -1,5 +1,5 @@
 """Building-block layers: dense with the error-config knob, RMSNorm,
-RoPE, initializers.  Plain functions over tensors (counterpart of
+RoPE, activations, the logit softcap, initializers.  Plain functions over tensors (counterpart of
 ``repro.nn.layers``).
 
 ``dense`` runs the integer pipeline — dynamic per-tensor int8
@@ -101,4 +101,28 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-ACT = {"silu": silu}
+def in_dtype(c: float, dtype: torch.dtype) -> float:
+    """`c` rounded to `dtype`, as a Python float.  A tensor times this
+    scalar computes in f32 and rounds once to its dtype: what XLA does
+    with a constant of that dtype, and with no host-to-device copy."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU (the reference's
+    ``jax.nn.gelu(x, approximate=True)``), spelled as jax spells it —
+    0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3))) * x with
+    x**3 = x * (x * x) — with every constant rounded to x's dtype and
+    one rounding to that dtype per op, so that on bf16 GEMM outputs the
+    two agree bit for bit up to the ulp-level difference of the tanh."""
+    inner = in_dtype(math.sqrt(2 / math.pi), x.dtype) * (
+        x + in_dtype(0.044715, x.dtype) * (x * (x * x)))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """tanh logit soft-capping (Gemma-2)."""
+    return torch.tanh(x / cap) * cap
+
+
+ACT = {"silu": silu, "gelu": gelu_tanh}

@@ -1,25 +1,38 @@
-"""Decoder LM: the all-'global' subset of ``repro.nn.transformer``.
+"""Decoder LM: the attention-only subset of ``repro.nn.transformer``.
 
-Covers the families ``launch/serve.py`` serves: dense (Qwen2.5-3B) and
-MoE (OLMoE-1B-7B) — GQA attention with RoPE and optional QKV bias,
-RMSNorm, a SwiGLU MLP or a top-k MoE FFN (``nn/moe.py``), tied or
-untied embeddings.  Every dense GEMM (q, k, v, o, and a dense MLP's
-gate, up, down) goes through ``layers.dense`` under the runtime error
-config; a MoE layer's expert GEMMs run the grouped approx-MAC op, each
-expert at its own config when the config carries an expert axis
-((n_layers, E, g) tensors; the layer's dense GEMMs then run the
-expert-collapsed config).  ``ModelConfig`` raises on every other
-pattern or feature of the reference.
+Covers the families ``launch/serve.py`` serves: dense (Qwen2.5-3B,
+Gemma-2-27B) and MoE (OLMoE-1B-7B) — GQA attention with RoPE and
+optional QKV bias, "global" (causal) and "local" (sliding-window)
+layers in a repeating ``pattern``, a tanh softcap on the attention
+scores and on the final logits, RMSNorm before (and with ``post_norm``
+also after) each half-block, a SwiGLU or GeGLU MLP or a top-k MoE FFN
+(``nn/moe.py``), embeddings scaled by sqrt(d) (``embed_scale``), tied
+or untied, and an int8 KV cache (``kv_quant``).  Every dense GEMM (q,
+k, v, o, and a dense MLP's gate, up, down) goes through
+``layers.dense`` under the runtime error config; a MoE layer's expert
+GEMMs run the grouped approx-MAC op, each expert at its own config when
+the config carries an expert axis ((n_layers, E, g) tensors; the
+layer's dense GEMMs then run the expert-collapsed config).  Prefill
+attention is ``chunked_attention``: the flash-attention kernel on the
+card.  ``ModelConfig`` raises on every other pattern or feature of the
+reference (recurrent kinds; encoder-decoder models and vision prefixes
+have no fields here).
 
 Layout: params are plain dicts holding the reference's per-layer shapes
 (``wq`` (d, H, hd), ``wo`` (H, hd, d), MLP mats (in, out), MoE
 ``router`` (d, E) and expert banks (E, in, out)), with
 ``params["blocks"]`` a list of per-layer dicts instead of the
-reference's scan-stacked ``blocks.scan.b0``.  The KV cache is
-``{"pos", "k", "v"}`` with k/v stacked (n_layers, B, S, KV, hd) — the
-reference's ``cache["scan"]["b0"]`` layout.  The paged cache
-(``init_paged_cache``) stacks per-layer block pools the same way:
-k/v (n_layers, num_blocks, block_size, KV, hd).
+reference's scan-stacked ``blocks.scan.b{j}``.  The KV cache is
+``{"pos", "k", "v"}`` with k/v stacked over the GLOBAL layers, in
+layer order, as (n_global, B, max_len, KV, hd); the local layers' ring
+buffers, ``min(window, max_len)`` long, sit under ``cache["local"]``
+stacked the same way.  Under ``kv_quant`` k/v are int8 and each
+buffer has f32 scales ``k_s``/``v_s`` (n, B, S, KV) beside it.  For a
+model of one kind this is the reference's ``cache["scan"]["b0"]``
+layout; for Gemma-2's ("local", "global") it is its ``b1`` at the top
+and its ``b0`` under "local".  The paged cache (``init_paged_cache``,
+all-global float-KV models only) stacks per-layer block pools: k/v
+(n_layers, num_blocks, block_size, KV, hd).
 
 The reference's numerics are copied, not fixed: ``dense`` returns bf16
 whatever the model's compute dtype (the reference's ``_dense_kw`` does
@@ -45,7 +58,7 @@ from repro_torch.serve.paged_cache import TRASH_BLOCK
 from .attention import (_repeat_kv, _softmax_attend, chunked_attention,
                         decode_attention)
 from .layers import (ACT, MAC_BACKENDS, apply_rope, dense, dense_init,
-                     embed_init, rmsnorm)
+                     embed_init, in_dtype, rmsnorm, softcap)
 from .moe import moe_ffn, quantize_expert_bank
 
 Params = dict[str, Any]
@@ -63,11 +76,16 @@ class ModelConfig:
     d_ff: int = 1024
     vocab_size: int = 1024
     pattern: tuple[str, ...] = ("global",)
-    mlp: str = "swiglu"
+    window: int = 0                      # sliding window of "local" layers
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    mlp: str = "swiglu"                  # swiglu | geglu
     act: str = "silu"
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     query_scale: float | None = None     # None -> head_dim**-0.5
+    post_norm: bool = False              # gemma2's extra post-norms
+    embed_scale: bool = False            # gemma multiplies embed by sqrt(d)
     tie_embeddings: bool = False
     # MoE (family "moe"): top_k of n_experts per token, capacity
     # ceil(S_g * top_k / n_experts * capacity_factor) per dispatch group
@@ -88,13 +106,16 @@ class ModelConfig:
     mac_blocks: tuple[int, int, int] = (128, 128, 256)
     q_chunk: int = 1024
     compute_dtype: Any = torch.bfloat16
+    kv_quant: bool = False               # int8 KV cache
 
     def __post_init__(self):
-        if any(k != "global" for k in self.pattern):
+        if any(k not in ("global", "local") for k in self.pattern):
             raise NotImplementedError(
-                f"pattern {self.pattern}: only all-'global' decoders are "
-                "ported")
-        if self.mlp != "swiglu" or self.act not in ACT:
+                f"pattern {self.pattern}: only attention layers ('global', "
+                "'local') are ported")
+        if "local" in self.pattern and self.window <= 0:
+            raise ValueError("'local' layers need window > 0")
+        if self.mlp not in ("swiglu", "geglu") or self.act not in ACT:
             raise NotImplementedError(f"mlp {self.mlp!r}/{self.act!r}")
         if self.family not in ("dense", "moe"):
             raise NotImplementedError(f"family {self.family!r}")
@@ -108,6 +129,10 @@ class ModelConfig:
         if self.mac_backend not in MAC_BACKENDS:
             raise ValueError(f"mac_backend {self.mac_backend!r}")
 
+    def layer_kinds(self) -> list[str]:
+        return [self.pattern[i % len(self.pattern)]
+                for i in range(self.n_layers)]
+
     def smoke(self, **over) -> "ModelConfig":
         """Reduced same-family config for CPU tests (the reference's
         ``smoke`` values)."""
@@ -115,6 +140,7 @@ class ModelConfig:
             n_layers=max(2 * len(self.pattern), 2), d_model=64, n_heads=2,
             n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads > 1 else 1,
             head_dim=32, d_ff=128, vocab_size=128, q_chunk=8,
+            window=min(self.window, 16) if self.window else 0,
             n_experts=min(self.n_experts, 4) if self.n_experts else 0,
             top_k=min(self.top_k, 2) if self.top_k else 0, moe_groups=1,
             compute_dtype=torch.float32)
@@ -180,6 +206,8 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda", *,
                    "w_gate": dense_init(gen, d, f, device=device)}
         block = {"norm1": {"scale": zeros(d)}, "attn": attn,
                  "norm2": {"scale": zeros(d)}, "mlp": mlp}
+        if cfg.post_norm:
+            block.update(post1={"scale": zeros(d)}, post2={"scale": zeros(d)})
         blocks.append(_quantize_block(block) if quantized else block)
     params["blocks"] = blocks
     params["final_norm"] = {"scale": zeros(d)}
@@ -265,7 +293,8 @@ def _mlp_apply(p, x, cfg, approx_cfg):
                        backend=cfg.mac_backend)
         return y.reshape(b, s, d)
     kw = _dense_kw(cfg)
-    h = ACT[cfg.act](dense(x, p["w_gate"], approx_cfg=approx_cfg, **kw)) \
+    act = ACT["gelu" if cfg.mlp == "geglu" else cfg.act]
+    h = act(dense(x, p["w_gate"], approx_cfg=approx_cfg, **kw)) \
         * dense(x, p["w_up"], approx_cfg=approx_cfg, **kw)
     return dense(h, p["w_down"], approx_cfg=approx_cfg, **kw)
 
@@ -283,19 +312,29 @@ def _qkv(p, x, cfg, positions, approx_cfg):
 
 
 def _block_tail(p, x, attn, cfg, approx_cfg):
-    """Attention output projection + residual, then the MLP half."""
-    x = x + _attn_out(attn, p["attn"]["wo"], approx_cfg, cfg)
-    return x + _mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]["scale"]), cfg,
-                          approx_cfg)
+    """Attention output projection (+ post-norm) + residual, then the
+    MLP half (+ post-norm)."""
+    y = _attn_out(attn, p["attn"]["wo"], approx_cfg, cfg)
+    if cfg.post_norm:
+        y = rmsnorm(y, p["post1"]["scale"])
+    x = x + y
+    y = _mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]["scale"]), cfg,
+                   approx_cfg)
+    if cfg.post_norm:
+        y = rmsnorm(y, p["post2"]["scale"])
+    return x + y
 
 
-def _attention_block(p, x, cfg, *, positions, approx_cfg):
+def _attention_block(p, x, cfg, kind, *, positions, approx_cfg):
     """One full-sequence layer; returns (x, k, v) so prefill can cache
     the layer's K/V without projecting them a second time (the
-    reference recomputes them — same numbers)."""
+    reference recomputes them — same numbers).  Only "local" layers
+    pass the window."""
     q, k, v = _qkv(p, x, cfg, positions, approx_cfg)
-    attn = chunked_attention(q, k, v, scale=cfg.query_scale,
-                             q_chunk=cfg.q_chunk)
+    attn = chunked_attention(q, k, v, causal=True,
+                             window=cfg.window if kind == "local" else 0,
+                             logit_cap=cfg.attn_softcap,
+                             scale=cfg.query_scale, q_chunk=cfg.q_chunk)
     return _block_tail(p, x, attn, cfg, approx_cfg), k, v
 
 
@@ -318,43 +357,113 @@ def _layer_cfgs(approx_cfg, n_layers: int, device) -> list:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, cfg, tokens):
-    return params["embed"][tokens].to(cfg.compute_dtype)
+    x = params["embed"][tokens].to(cfg.compute_dtype)
+    if cfg.embed_scale:
+        # sqrt(d) in the compute dtype, as the reference rounds it (bf16
+        # sqrt(4608) is 68.0)
+        x = x * in_dtype(math.sqrt(cfg.d_model), x.dtype)
+    return x
 
 
 def logits_for(params, cfg, hidden):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return hidden @ w.to(hidden.dtype)
+    logits = hidden @ w.to(hidden.dtype)
+    if cfg.final_softcap > 0:
+        logits = softcap(logits.to(torch.float32), cfg.final_softcap)
+    return logits
 
 
 def forward(params, cfg: ModelConfig, tokens, *, approx_cfg=0):
     """tokens (B, S) -> final-norm hidden states (B, S, d)."""
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    for p, ac in zip(params["blocks"],
-                     _layer_cfgs(approx_cfg, cfg.n_layers, x.device)):
-        x, _, _ = _attention_block(p, x, cfg, positions=positions,
+    for p, kind, ac in zip(params["blocks"], cfg.layer_kinds(),
+                           _layer_cfgs(approx_cfg, cfg.n_layers, x.device)):
+        x, _, _ = _attention_block(p, x, cfg, kind, positions=positions,
                                    approx_cfg=ac)
     return rmsnorm(x, params["final_norm"]["scale"])
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device="cuda") -> Params:
+    """Zero KV cache for `batch_size` rows (layout in the module
+    docstring): the global layers' max_len buffers at the top, the local
+    layers' rings of min(window, max_len) under "local"; int8 values
+    with f32 scales under ``kv_quant``."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
-             cfg.head_dim)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+    kinds = cfg.layer_kinds()
+    kv_dtype = torch.int8 if cfg.kv_quant else cfg.compute_dtype
+
+    def buffers(n: int, s: int) -> Params:
+        shape = (n, batch_size, s, cfg.n_kv_heads, cfg.head_dim)
+        buf = {kv: torch.zeros(shape, dtype=kv_dtype, device=device)
+               for kv in ("k", "v")}
+        if cfg.kv_quant:
+            buf.update({f"{kv}_s": torch.zeros(shape[:-1],
+                                               dtype=torch.float32,
+                                               device=device)
+                        for kv in ("k", "v")})
+        return buf
+
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device),
+             **buffers(kinds.count("global"), max_len)}
+    if "local" in kinds:
+        cache["local"] = buffers(kinds.count("local"),
+                                 min(cfg.window, max_len))
+    return cache
 
 
-def _kv_write(cache: Params, layer: int, k_new, v_new, pos) -> None:
-    """Write (B, T, KV, hd) K/V at positions pos..pos+T-1 of `layer`
-    in place; `pos` may be a device tensor (no host sync).  A single
-    token lands at pos % S_max, as in the reference."""
-    idx = (pos % cache["k"].shape[2]
-           + torch.arange(k_new.shape[1], device=k_new.device))
-    cache["k"][layer].index_copy_(1, idx, k_new.to(cache["k"].dtype))
-    cache["v"][layer].index_copy_(1, idx, v_new.to(cache["v"].dtype))
+def _cache_slots(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """(kind, index among the layers of that kind) of every layer: where
+    its K/V sit in the cache."""
+    kinds = cfg.layer_kinds()
+    return [(kind, kinds[:i].count(kind)) for i, kind in enumerate(kinds)]
+
+
+def _buffers(cache: Params, kind: str) -> Params:
+    return cache["local"] if kind == "local" else cache
+
+
+# the int8 KV quantizer's constants, as the f32 values XLA folds in
+_INV_QMAX = float(np.float32(1 / 127))
+_KV_EPS = float(np.float32(1e-9))
+
+
+def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., hd) -> int8 values (..., hd) and f32 scales (...): per
+    position and head, scale = max|x| / 127 + 1e-9 and values =
+    round(x / scale) clipped to +-127, as the reference's jitted
+    programs compute it.  There XLA turns ``/ 127.0`` into a multiply by
+    the f32 reciprocal and LLVM contracts that multiply and the
+    ``+ 1e-9`` into one fused multiply-add.  The product is exact in
+    f64, so the f64 sum below rounds like the fma (but for f64 double
+    rounding ties, ~2**-29 of values); the eager division would differ
+    in ~4 % of scales."""
+    x = x.to(torch.float32)
+    amax = x.abs().amax(-1)
+    scale = (amax.to(torch.float64) * _INV_QMAX + _KV_EPS).to(torch.float32)
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_write(buf: Params, j: int, k_new, v_new, idx, cfg) -> None:
+    """Write (B, T, KV, hd) K/V into layer j of `buf` at the (T,) buffer
+    indices `idx`, in place (int8 values and scales under kv_quant);
+    `idx` may be a device tensor (no host sync)."""
+    for name, new in (("k", k_new), ("v", v_new)):
+        if cfg.kv_quant:
+            new, scale = kv_quantize(new)
+            buf[name + "_s"][j].index_copy_(1, idx, scale)
+        buf[name][j].index_copy_(1, idx, new.to(buf[name].dtype))
+
+
+def _kv_read(buf: Params, j: int, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer j's (B, S, KV, hd) K/V in the compute dtype (dequantized
+    under kv_quant)."""
+    if not cfg.kv_quant:
+        return buf["k"][j], buf["v"][j]
+    return tuple((buf[n][j].to(torch.float32) * buf[n + "_s"][j][..., None]
+                  ).to(cfg.compute_dtype) for n in ("k", "v"))
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
@@ -362,31 +471,50 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
     """Prompt prefill: (last-position logits (B, V), cache of length
     max_len holding the prompt's K/V and pos = S).
 
+    Each layer's buffer keeps the last positions it has room for: a
+    local layer's ring of s_buf = min(window, max_len) entries holds
+    position p at index p % s_buf (the reference's roll), so decode's
+    ``pos % s_buf`` writes line up.
+
     ``true_len`` marks the real prompt length inside right-padded
     ``tokens`` (the engine pads to ``prefill_pad``): K/V of the pad
     positions are zeroed, pos = true_len and the logits come from
     position true_len - 1.  Causality keeps every real position blind
     to the pads, but the pads do join each GEMM's per-tensor
-    activation scale, as in the reference."""
+    activation scale, as in the reference.  As there, it is refused
+    under ``kv_quant`` (int8 would stamp nonzero scales on the pads);
+    it is also refused where a local ring is shorter than the padded
+    prompt, where the reference keeps the last s_buf PADDED positions
+    and zeroes them by ring slot, not by position (ROADMAP Queue 3)."""
     b, s = tokens.shape
     max_len = max_len or s
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+    kinds = cfg.layer_kinds()
+    if true_len is not None:
+        if cfg.kv_quant:
+            raise ValueError("true_len= is incompatible with kv_quant")
+        if "local" in kinds and s > min(cfg.window, max_len):
+            raise NotImplementedError(
+                f"true_len= with a padded prompt of {s} tokens longer "
+                f"than the local ring ({min(cfg.window, max_len)})")
     dev = tokens.device
     cache = init_cache(cfg, b, max_len, dev)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, device=dev)[None]
-    zero = torch.zeros((), dtype=torch.long, device=dev)
     keep = (None if true_len is None else
             (torch.arange(s, device=dev) < true_len)[None, :, None, None])
-    for i, (p, ac) in enumerate(zip(params["blocks"],
-                                    _layer_cfgs(approx_cfg, cfg.n_layers,
-                                                dev))):
-        x, k, v = _attention_block(p, x, cfg, positions=positions,
+    for p, (kind, j), ac in zip(params["blocks"], _cache_slots(cfg),
+                                _layer_cfgs(approx_cfg, cfg.n_layers, dev)):
+        x, k, v = _attention_block(p, x, cfg, kind, positions=positions,
                                    approx_cfg=ac)
         if keep is not None:
             k, v = k * keep.to(k.dtype), v * keep.to(v.dtype)
-        _kv_write(cache, i, k, v, zero)
+        buf = _buffers(cache, kind)
+        s_buf = buf["k"].shape[2]
+        first = max(s - s_buf, 0)
+        idx = torch.arange(first, s, device=dev) % s_buf
+        _kv_write(buf, j, k[:, first:], v[:, first:], idx, cfg)
     last = s if true_len is None else int(true_len)
     cache["pos"] = torch.tensor(last, dtype=torch.int32, device=dev)
     x = rmsnorm(x, params["final_norm"]["scale"])
@@ -396,24 +524,32 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
 def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
                 approx_cfg=0):
     """token (B, 1) -> (logits (B, V), cache): every row decodes at the
-    scalar position cache["pos"] and attends to pos + 1 cache entries.
-    Updates cache["k"]/["v"] in place; the returned cache shares them."""
+    scalar position cache["pos"], writes its K/V at pos % s_buf and
+    attends to min(pos + 1, s_buf) cache entries (a local ring, as long
+    as the window, needs no window mask).  Updates the cache buffers in
+    place; the returned cache shares them."""
     pos = cache["pos"]
     dev = token.device
     x = embed_tokens(params, cfg, token)
     positions = pos.to(torch.long).reshape(1, 1)
-    cache_len = torch.clamp(pos + 1, max=cache["k"].shape[2])
-    for i, (p, ac) in enumerate(zip(params["blocks"],
-                                    _layer_cfgs(approx_cfg, cfg.n_layers,
-                                                dev))):
+    at, length = {}, {}
+    for kind in set(cfg.pattern):
+        s_buf = _buffers(cache, kind)["k"].shape[2]
+        at[kind] = (pos.to(torch.long) % s_buf).reshape(1)
+        length[kind] = torch.clamp(pos + 1, max=s_buf)
+    for p, (kind, j), ac in zip(params["blocks"], _cache_slots(cfg),
+                                _layer_cfgs(approx_cfg, cfg.n_layers, dev)):
+        buf = _buffers(cache, kind)
         q, k, v = _qkv(p, x, cfg, positions, ac)
-        _kv_write(cache, i, k, v, pos.to(torch.long))
-        attn = decode_attention(q, cache["k"][i], cache["v"][i], cache_len,
+        _kv_write(buf, j, k, v, at[kind], cfg)
+        kc, vc = _kv_read(buf, j, cfg)
+        attn = decode_attention(q, kc, vc, length[kind],
+                                logit_cap=cfg.attn_softcap,
                                 scale=cfg.query_scale)
         x = _block_tail(p, x, attn, cfg, ac)
     x = rmsnorm(x, params["final_norm"]["scale"])
     logits = logits_for(params, cfg, x[:, 0])
-    return logits, {"pos": pos + 1, "k": cache["k"], "v": cache["v"]}
+    return logits, {**cache, "pos": pos + 1}
 
 
 # ---------------------------------------------------------------------------
@@ -424,9 +560,17 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
 # Tables, sequence lengths and the active mask are device tensors the
 # engine uploads once per tick; nothing below reads one on the host.
 # Block ids 0/1 are reserved (serve/paged_cache.py): 0 is all-zero and
-# backs unallocated table entries, 1 absorbs masked-off writes.  The
-# reference's ``_paged_gate`` (all-'global', float KV, no encoder or
-# vision prefix) is what ``ModelConfig`` already enforces here.
+# backs unallocated table entries, 1 absorbs masked-off writes.
+
+def _paged_gate(cfg: ModelConfig) -> None:
+    """The reference's gate: the paged cache is for all-'global'
+    float-KV models (encoder-decoder and vision-prefix models are not
+    ported)."""
+    if any(k != "global" for k in cfg.layer_kinds()):
+        raise ValueError("paged cache needs an all-'global' pattern")
+    if cfg.kv_quant:
+        raise ValueError("paged cache is float-KV only (no kv_quant)")
+
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      device="cuda") -> Params:
@@ -434,6 +578,7 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     block_size, KV, hd), all zero.  Block 0 (ZERO_BLOCK) must never be
     written, so unowned table entries gather zeros, matching what the
     dense cache holds past ``pos``."""
+    _paged_gate(cfg)
     device = resolve_device(device)
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
              cfg.head_dim)

@@ -185,6 +185,11 @@ class Engine:
         self.slot_pos = np.zeros(max_batch, dtype=np.int64)
         self.paged = paged
         self.prefill_pad = int(prefill_pad)
+        if self.prefill_pad > 0 and paged is None and cfg.kv_quant:
+            # the reference's gate: padded prefill zeroes the pads' K/V,
+            # which int8 would stamp with nonzero scales
+            raise ValueError("prefill_pad needs an attention-only float-KV "
+                             "model")
         if paged is not None:
             if max_len % paged.block_size:
                 raise ValueError(f"max_len {max_len} is not a multiple of "
@@ -314,10 +319,16 @@ class Engine:
         return True
 
     def _splice_cache(self, slot: int, row_cache) -> None:
-        """Copy a one-row prefill cache (all max_len positions, zeros
-        past the prompt) into pool slot `slot`."""
-        self.cache["k"][:, slot] = row_cache["k"][:, 0]
-        self.cache["v"][:, slot] = row_cache["v"][:, 0]
+        """Copy a one-row prefill cache (every buffer whole, zeros past
+        the prompt; the local rings and int8 scales included) into pool
+        slot `slot`: batch is axis 1 of every leaf but "pos"."""
+        def splice(pool, row):
+            for key, leaf in pool.items():
+                if isinstance(leaf, dict):
+                    splice(leaf, row[key])
+                elif key != "pos":
+                    leaf[:, slot] = row[key][:, 0]
+        splice(self.cache, row_cache)
 
     def _energy_pj_mean(self, cfg_vec: np.ndarray) -> float:
         """Mean modeled per-MAC energy of one token under cfg_vec; an

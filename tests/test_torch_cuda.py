@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions: the fused, int and grouped approx-MAC GEMMs (bit for bit) and
-the paged decode attention (within the tolerance stated at
-``PAGED_TOL``).
+versions: the fused, int and grouped approx-MAC GEMMs (bit for bit),
+the paged decode attention and the flash attention (within the
+tolerances stated at ``PAGED_TOL`` and ``FLASH_TOL``).
 
 Every test here is marked ``cuda`` and skips with a reason where there
 is no CUDA device, so the CPU suite collects and skips them.  This file
@@ -16,7 +16,8 @@ The cases (``SHAPES``, ``_configs``, ``INT_SHAPES``, ``_int_case``,
 tests/test_torch_approx_mac.py, tests/test_torch_mlp.py and
 tests/test_torch_moe.py, which hold the plain versions against the
 reference's Pallas kernels on the same inputs; the paged cases are
-tests/test_torch_paged.py's shapes with bf16 and f32 pools."""
+tests/test_torch_paged.py's shapes with bf16 and f32 pools, and the
+flash cases tests/test_torch_flash.py's (``FLASH_CASES``)."""
 import numpy as np
 import pytest
 import torch
@@ -25,6 +26,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.quantization import quantize
 from repro_torch.kernels.approx_mac import approx_mac as A
 from repro_torch.kernels.approx_mac import ops
+from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.flash_attention import paged_attention as PA
 from repro_torch.nn import transformer as T
 
@@ -48,6 +50,27 @@ GROUPED_SHAPES = [(8, m, k, n) for m in (4, 32, 128)
 # f32: the sums' order differs, ~1e-7 relative
 PAGED_TOL = {torch.bfloat16: {"rtol": 1.6e-2, "atol": 1e-5},
              torch.float32: {"rtol": 1.3e-6, "atol": 1e-5}}
+# flash attention: bf16 as PAGED_TOL; f32 within 2e-5, the reference's own
+# tolerance for its kernel (tests/test_kernels.py): the online softmax
+# sums in another order than the plain one
+FLASH_TOL = {torch.bfloat16: {"rtol": 1.6e-2, "atol": 1e-5},
+             torch.float32: {"rtol": 2e-5, "atol": 2e-5}}
+# (b, sq, skv, h, kv, hd, causal, window, cap): tests/test_torch_flash.py's
+# cases, then Gemma-2-27B's prefill shapes (local and global layers)
+FLASH_CASES = [
+    (2, 128, 128, 4, 4, 128, True, 0, 0.0),
+    (2, 128, 128, 4, 2, 128, True, 0, 0.0),
+    (1, 256, 256, 4, 1, 128, True, 64, 0.0),
+    (1, 128, 128, 2, 2, 128, True, 0, 50.0),
+    (2, 100, 100, 4, 4, 120, True, 0, 0.0),
+    (1, 64, 192, 2, 2, 128, False, 0, 0.0),
+    (1, 96, 96, 2, 2, 128, True, 32, 30.0),
+    (1, 24, 80, 4, 2, 64, True, 16, 50.0),
+    (1, 40, 24, 2, 1, 32, True, 0, 0.0),
+    (1, 48, 48, 32, 16, 128, True, 4096, 50.0),
+    (1, 129, 129, 32, 16, 128, True, 0, 50.0),
+    (1, 70, 70, 16, 16, 256, True, 0, 0.0),
+]
 
 
 def _configs(n: int, bn: int = 128):
@@ -298,6 +321,71 @@ def test_cuda_moe_prefill_and_decode_equal_plain_path(cuda_device):
     finally:
         ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul
         ops.approx_mac_grouped_matmul = A.approx_mac_grouped_matmul
+    torch.cuda.synchronize()
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_attention_matches_plain_version(cuda_device, dtype,
+                                                    case):
+    """One launch per call, within FLASH_TOL of the plain version, and
+    the same bits from a second launch."""
+    b, sq, skv, h, kv, hd, causal, window, cap = case
+    rng = np.random.default_rng(sq + skv + hd)
+    q, k, v = (torch.as_tensor(rng.normal(size=(b, s, n, hd)).astype(
+        np.float32), device=cuda_device).to(dtype)
+        for s, n in ((sq, h), (skv, kv), (skv, kv)))
+    kw = dict(causal=causal, window=window, logit_cap=cap,
+              scale=1 / 12 if cap == 50.0 else None)
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(q, k, v, **kw)
+    again = FA.flash_attention(q, k, v, **kw)
+    ref = FA.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 2
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, **FLASH_TOL[dtype])
+    if causal and sq > skv:
+        assert not out[:, : sq - skv].any()
+
+
+@pytest.mark.cuda
+def test_cuda_gemma2_prefill_and_decode_equal_plain_path(cuda_device):
+    """The Gemma-2 smoke model (local and global layers, softcaps,
+    int8 KV) at a per-layer config: a 40-token prefill (the rings roll)
+    and a decode step through the approx-MAC kernel equal the same calls
+    through its plain version, with attention on the flash kernel in
+    both (one launch per layer per prefill, none in decode)."""
+    cfg = get_config("gemma2-27b").smoke(mac_backend="pallas")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = T.init_lm(gen, cfg, cuda_device, quantized=True)
+    toks = torch.randint(0, 128, (1, 40), device=cuda_device, generator=gen)
+    acfg = torch.tensor([8, 31, 0, 16], dtype=torch.int32,
+                        device=cuda_device)
+
+    def run():
+        logits, cache = T.prefill(params, cfg, toks, max_len=48,
+                                  approx_cfg=acfg)
+        tok = torch.argmax(logits, -1)[:, None]
+        step, cache = T.decode_step(params, cfg, cache, tok, approx_cfg=acfg)
+        return logits, step, cache["local"]["k"], cache["k_s"]
+
+    flash = FA.flash_attention.launches
+    fused = A.approx_mac_fused_matmul.launches
+    kernel = run()
+    assert FA.flash_attention.launches - flash == cfg.n_layers
+    assert A.approx_mac_fused_matmul.launches - fused == 7 * 4 * 2
+    ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul_ref
+    try:
+        plain = run()
+    finally:
+        ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul
     torch.cuda.synchronize()
     for a, b in zip(kernel, plain):
         assert torch.equal(a, b)

@@ -152,8 +152,8 @@ def test_prefill_and_decode_match_reference(models, mac_backend, acfg):
 
 def test_only_the_ported_family_is_accepted():
     with pytest.raises(NotImplementedError):
-        TT.ModelConfig(pattern=("global", "local"))
+        TT.ModelConfig(pattern=("local", "recurrent"), window=16)
     with pytest.raises(NotImplementedError):
-        tget("gemma2-27b")
+        tget("recurrentgemma-2b")
     with pytest.raises(ValueError):
         TT.ModelConfig(mac_backend="triton")
