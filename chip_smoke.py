@@ -10,7 +10,10 @@ Phases, each printing one JSON line:
 2. build   — nvcc builds every CUDA source of the port, one process per
              source, all started together (src/repro_torch/kernels/
              approx_mac/csrc/approx_mac.cu, flash_attention/csrc/
-             paged_attention.cu, flash_attention/csrc/flash_attention.cu).
+             paged_attention.cu, flash_attention/csrc/flash_attention.cu);
+             each kernel's registers and spill bytes (ptxas -v) and the
+             attention libraries' HMMA (tensor-core) instructions per
+             kernel (cuobjdump -sass).
 3. check   — the fused approx-MAC kernel equals its plain PyTorch version
              BIT FOR BIT (``torch.equal``) at every GEMM shape of the
              dense and paged paths (M in {4, 8, 24, 32}: dense decode and
@@ -41,14 +44,19 @@ Phases, each printing one JSON line:
 8. check_paged — the paged-attention kernel against its plain version at
              full-width shapes (H 16, KV 2, hd 128, bs 16, B in {1, 8,
              64}, P in {16, 128}, ragged lengths, random owned blocks,
-             logit_cap 0 and 50, bf16 pools and one f32 case), within
-             rtol 1.6e-2 / atol 1e-5 (bf16) and 1.3e-6 / 1e-5 (f32).
+             logit_cap 0 and 50, bf16 pools and one f32 case), then
+             lengths at the splits' edges (1, a split boundary and one
+             past it, one-page beside full-table rows; bf16 and f32),
+             short rows in a wide table (empty partials) and group 16;
+             within rtol 1.6e-2 / atol 1e-5 (bf16) and 1.3e-6 / 1e-5
+             (f32); two calls must give equal bits.
 9. timing_int, timing_paged — device times from CUDA graphs beside the
              bound, the plain version and the yardstick: torch._int_mm
              (config 0, padded) for the int kernel at batch 10,000; the
              gather ``k_pool[tables]`` then scaled_dot_product_attention
              on the gathered view for the paged kernel (B 8 / length 256
-             and B 64 / length 2048, pools rotated past the 50 MB L2).
+             and B 64 / length 2048, pools rotated past the 50 MB L2);
+             each row with its share of the bound (``bound_share``).
 10. mlp    — the port's QuantizedMLP (init_params seed 0, procedural
              MNIST 2000/2000): "kernel" int32 logits equal "operand"
              logits bit for bit for all 32 configs and a per-layer pair;
@@ -101,16 +109,20 @@ Phases, each printing one JSON line:
              Gemma-2-27B's prefill shapes (H 32, KV 16, hd 128, scale
              1/12, softcap 50, window 4096 and none, S in {1, 24, 48,
              129, 8192}), the decode offset Sq < Skv, a non-causal case,
-             hd 120 and 256, the Qwen2.5-3B shape (H 16, KV 2) and an f32
-             case, within rtol 1.6e-2 / atol 1e-5 (bf16) and 2e-5 (f32);
-             two launches must give equal bits.
+             hd 120 and 256, the Qwen2.5-3B shape (H 16, KV 2), an f32
+             case, the one-warp short-tile path (S 16, 17, hd 120 and
+             256) and Sq > Skv (rows with no visible key exactly 0),
+             within rtol 1.6e-2 / atol 2**-8 max|v| (bf16: p is rounded
+             to bf16 on the tensor cores) and 2e-5 (f32); two launches
+             must give equal bits.
 19. timing_flash — device times from CUDA graphs at Gemma-2-27B's serve
              prefill (S 48) and at S 4096 and 8192 (global, and local at
              8192) beside the bound (bytes at 3.35 TB/s vs 4 * hd
              operations per visible pair at 989 TFLOP/s), the plain
              version and, as a yardstick the port never calls,
              scaled_dot_product_attention (GQA, causal, the window as a
-             boolean mask; without the softcap, which it cannot express).
+             boolean mask; without the softcap, which it cannot express);
+             each row with its share of the bound and its TFLOP/s.
 20. gemma2_serve — the port's Engine on full-width Gemma-2-27B (random
              init from seed 0, each layer quantized as it is drawn,
              int8 KV cache, max_batch 4, max_len 128): 8 requests with
@@ -128,8 +140,10 @@ Phases, each printing one JSON line:
              and the static config 0: a 4,352-token prefill (max_len
              4,416) through the flash kernel and through its plain
              version; each layer's attention output within the bf16
-             tolerance, the local ring holding positions 256-4351 at
-             index p % 4096 (and the global buffer 0-4351), then 8 greedy
+             tolerance, the prefill's device time (CUDA events) and each
+             layer's flash time, the local ring holding positions
+             256-4351 at index p % 4096 (and the global buffer 0-4351),
+             then 8 greedy
              decode steps from each cache with the logits' difference and
              argmax agreement recorded.
 23. profile_gemma2 — torch.profiler over three decode steps and one
@@ -152,6 +166,8 @@ import dataclasses
 import itertools
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -187,6 +203,57 @@ MLP_GEMMS = ((62, 30), (30, 10))
 PAGED_NUM_BLOCKS = 2 + 28
 # decode steps with every slot active kept for the kernel/plain comparison
 PAGED_SNAPSHOTS = 3
+
+
+def _demangle(names: list[str]) -> list[str]:
+    """c++filt's names where the toolkit has it, else the mangled ones."""
+    try:
+        r = subprocess.run(["c++filt"], input="\n".join(names),
+                           capture_output=True, text=True, timeout=60)
+        out = r.stdout.splitlines()
+        return out if r.returncode == 0 and len(out) == len(names) else names
+    except OSError:
+        return names
+
+
+def ptxas_resources(log: str) -> list[dict]:
+    """Registers and spill bytes of every kernel in an `nvcc -Xptxas -v`
+    log."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"kernel": m.group(1)}
+            rows.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            cur["spill_stores"], cur["spill_loads"] = int(st), int(ld)
+        elif cur is not None and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+    for row, name in zip(rows, _demangle([r["kernel"] for r in rows])):
+        row["kernel"] = name[:160]
+    return rows
+
+
+def sass_hmma(lib: pathlib.Path) -> dict | None:
+    """HMMA (tensor-core) instructions per kernel in the library's SASS,
+    from cuobjdump; None where the toolkit has no cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(exe).exists():
+        return None
+    r = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                       text=True, timeout=300, check=True)
+    counts, cur = {}, None
+    for ln in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and "HMMA" in ln:
+            counts[cur] += 1
+    names = _demangle(list(counts))
+    return {n[:160]: c for n, c in zip(names, counts.values())}
 
 
 def emit(obj) -> None:
@@ -554,21 +621,57 @@ def _paged_case(torch, b, pages, dtype, gen, dev, *, h=16, kv=2, hd=128,
     return q, k_pool, v_pool, tables, lens
 
 
+def _split_lens(torch, b, pages, bs, kps, dev):
+    """Lengths at the split kernel's edges: 1, a split boundary and one
+    past it, a page and one past it, the full table, then one-page rows
+    beside full-table rows."""
+    full = pages * bs
+    edge = [1, kps, kps + 1, 2 * kps, bs, bs + 1, full - 1, full]
+    lens = [edge[i] if i < len(edge) else (full if i % 2 else 5)
+            for i in range(b)]
+    return torch.tensor([min(n, full) for n in lens], dtype=torch.int32,
+                        device=dev)
+
+
 def phase_check_paged(torch, PA, dev) -> float:
-    """Paged kernel vs plain version at full-width shapes."""
+    """Paged kernel vs plain version at full-width shapes: random
+    lengths, then lengths at the splits' edges (1, a split boundary and
+    one past it, one-page rows beside full-table rows), short rows in a
+    wide table (every split but the first empty) and group 16 (two head
+    chunks); two calls must give the same bits."""
     gen = torch.Generator(device=dev).manual_seed(4)
     worst, cases = 0.0, 0
-    runs = [(b, p, cap, torch.bfloat16) for b in (1, 8, 64)
+    runs = [(b, p, cap, torch.bfloat16, None) for b in (1, 8, 64)
             for p in (16, 128) for cap in (0.0, 50.0)]
-    runs.append((8, 16, 0.0, torch.float32))
-    for b, pages, cap, dtype in runs:
+    runs.append((8, 16, 0.0, torch.float32, None))
+    runs += [(b, p, 50.0, dt, "edges") for b, p in ((8, 16), (64, 128))
+             for dt in (torch.bfloat16, torch.float32)]
+    runs += [(2, 128, 0.0, torch.bfloat16, "short"),
+             (4, 16, 0.0, torch.bfloat16, "group16")]
+    splits = []
+    for b, pages, cap, dtype, kind in runs:
+        h, kv, bs = (16, 1, 16) if kind == "group16" else (16, 2, 16)
+        n_split, kps = PA.split_plan(b, h, kv, 128, dtype.itemsize, bs,
+                                     pages)
+        splits.append(n_split)
+        lens = None
+        if kind in ("edges", "group16"):
+            lens = _split_lens(torch, b, pages, bs, kps, dev)
+        elif kind == "short":
+            lens = torch.tensor([1, 3], dtype=torch.int32, device=dev)
         q, kp, vp, (tables,), lens = _paged_case(torch, b, pages, dtype,
-                                                 gen, dev)
+                                                 gen, dev, h=h, kv=kv,
+                                                 lens=lens)
         out = PA.paged_decode_attention(q, kp, vp, tables, lens,
                                         logit_cap=cap)
+        again = PA.paged_decode_attention(q, kp, vp, tables, lens,
+                                          logit_cap=cap)
         ref = PA.paged_attention_reference(q, kp, vp, tables, lens,
                                            logit_cap=cap)
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"paged kernel not deterministic at "
+                                 f"B {b} P {pages} {kind}")
         err = float((out.float() - ref.float()).abs().max())
         worst = max(worst, err)
         cases += 1
@@ -576,6 +679,7 @@ def phase_check_paged(torch, PA, dev) -> float:
                else {"rtol": 1.3e-6, "atol": 1e-5})
         torch.testing.assert_close(out, ref, **tol)
     emit({"phase": "check_paged", "cases": cases, "max_abs_err": worst,
+          "deterministic": True, "n_split": splits,
           "tolerance": "bf16 rtol 1.6e-2 atol 1e-5; f32 rtol 1.3e-6 "
                        "atol 1e-5"})
     return worst
@@ -658,7 +762,9 @@ def phase_timing_paged(torch, PA, dev) -> list:
                "bs": bs, "ms": t_kernel, "plain_ms": t_plain,
                "gather_ms": t_gather, "sdpa_ms": t_sdpa,
                "library_ms": t_gather + t_sdpa, "bound_ms": b_ms,
-               "bound_by": b_by, "table_sets": copies}
+               "bound_by": b_by, "bound_share": b_ms / t_kernel,
+               "n_split": PA.split_plan(b, h, kv, hd, 2, bs, pages)[0],
+               "table_sets": copies}
         emit({"phase": "timing_paged", **row})
         rows.append(row)
         del q, kp, vp, tables, idx, views
@@ -1382,6 +1488,22 @@ def _flash_inputs(torch, b, sq, skv, h, kv, hd, dtype, gen, dev, amp=1.0):
     return q, k, v
 
 
+FLASH_TOL_NOTE = ("bf16 rtol 1.6e-2 atol 2**-8 max|v| (p rounded to "
+                  "bf16 moves the output by <= 2**-9 max|v|); f32 rtol "
+                  "2e-5 atol 2e-5")
+
+
+def flash_tol(torch, dtype, v) -> dict:
+    """The flash kernel's tolerance against its plain version (as
+    tests/test_torch_cuda.py's FLASH_TOL): bf16 rtol 1.6e-2 and atol
+    2**-8 max|v|, twice the bound on what rounding p to bf16 moves;
+    f32 2e-5."""
+    if dtype == torch.bfloat16:
+        return {"rtol": 1.6e-2,
+                "atol": 2.0 ** -8 * float(v.float().abs().max())}
+    return {"rtol": 2e-5, "atol": 2e-5}
+
+
 def phase_check_flash(torch, FA, dev) -> float:
     """Flash kernel vs plain version: Gemma-2-27B's prefill shapes (H 32,
     KV 16, hd 128, scale 1/12, softcap 50; queries scaled so scores reach
@@ -1400,6 +1522,13 @@ def phase_check_flash(torch, FA, dev) -> float:
              dict(h=16, kv=2, hd=128, sq=24, skv=24),
              dict(h=16, kv=2, hd=128, sq=1024, skv=1024),
              dict(g, sq=200, skv=200, window=64, dtype=torch.float32)]
+    # the one-warp short-tile path, Sq > Skv causal (leading rows see no
+    # key) on both paths, hd 120 and 256 on the one-warp path
+    runs += [dict(g, sq=s, skv=s, window=0) for s in (16, 17)]
+    runs += [dict(g, sq=300, skv=100, window=0),
+             dict(g, sq=40, skv=24, window=0),
+             dict(h=8, kv=8, hd=120, sq=50, skv=50),
+             dict(h=4, kv=2, hd=256, sq=33, skv=33, window=16)]
     worst, cases = 0.0, 0
     for r in runs:
         dtype = r.get("dtype", torch.bfloat16)
@@ -1416,15 +1545,14 @@ def phase_check_flash(torch, FA, dev) -> float:
         err = float((out.float() - ref.float()).abs().max())
         worst = max(worst, err)
         cases += 1
-        tol = ({"rtol": 1.6e-2, "atol": 1e-5} if dtype == torch.bfloat16
-               else {"rtol": 2e-5, "atol": 2e-5})
-        torch.testing.assert_close(out, ref, **tol)
+        torch.testing.assert_close(out, ref, **flash_tol(torch, dtype, v))
+        if r.get("causal", True) and r["sq"] > r["skv"] and \
+                out[:, :r["sq"] - r["skv"]].any():
+            raise AssertionError(f"rows with no visible key not 0 at {r}")
         del q, k, v, out, again, ref
     torch.cuda.empty_cache()
     emit({"phase": "check_flash", "cases": cases, "max_abs_err": worst,
-          "deterministic": True,
-          "tolerance": "bf16 rtol 1.6e-2 atol 1e-5; f32 rtol 2e-5 "
-                       "atol 2e-5"})
+          "deterministic": True, "tolerance": FLASH_TOL_NOTE})
     return worst
 
 
@@ -1468,6 +1596,9 @@ def phase_timing_flash(torch, FA, dev) -> list:
         row = {"s": s, "window": window, "h": h, "kv": kv, "hd": hd,
                "ms": t_kernel, "plain_ms": t_plain, "sdpa_ms": t_sdpa,
                "bound_ms": b_ms, "bound_by": b_by,
+               "bound_share": b_ms / t_kernel,
+               "tflops": 4 * hd * h * flash_pairs(s, s, True, window)
+               / t_kernel / 1e9,
                "visible_pairs_per_head": flash_pairs(s, s, True, window),
                "sdpa_note": "no softcap (SDPA cannot express one)",
                "sdpa_error": sdpa_err}
@@ -1668,18 +1799,28 @@ def phase_gemma2_window(torch, T, FA, FAops, params, cfg, dev) -> dict:
             FAops.flash_attention = kernel
         return logits, cache, calls
 
+    prefill_ms = flash_ms = None
     if on_card:
         logits_k, cache_k, calls_k = prefill_with(kernel)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        T.prefill(p2, cfg2, toks, max_len=max_len, approx_cfg=0)
+        stop.record()
+        torch.cuda.synchronize()
+        prefill_ms = start.elapsed_time(stop)
+        flash_ms = [graph_ms(torch, lambda i, c=c: kernel(c[0], c[1], c[2],
+                                                          **c[3]), 3)
+                    for c in calls_k]
         logits_p, cache_p, calls_p = prefill_with(FA.flash_attention_ref)
     else:      # the rehearsal: chunked_attention runs its plain chunks
         logits_k, cache_k = T.prefill(p2, cfg2, toks, max_len=max_len)
         logits_p, cache_p = T.prefill(p2, cfg2, toks, max_len=max_len)
         calls_k = calls_p = []
-    tol = {"rtol": 1.6e-2, "atol": 1e-5}
     attn_err = 0.0
     for q, k, v, kw, ref in calls_p:
         out = kernel(q, k, v, **kw)
-        torch.testing.assert_close(out, ref, **tol)
+        torch.testing.assert_close(out, ref, **flash_tol(torch, q.dtype, v))
         attn_err = max(attn_err, float((out.float() - ref.float()).abs()
                                        .max()))
     if on_card:
@@ -1709,8 +1850,13 @@ def phase_gemma2_window(torch, T, FA, FAops, params, cfg, dev) -> dict:
            "prefill_tokens": s, "max_len": max_len, "window": cfg.window,
            "ring_holds": [s - cfg.window, s - 1],
            "attention_max_abs_err": attn_err,
-           "attention_tolerance": "per layer, elementwise: rtol 1.6e-2 "
-                                  "atol 1e-5",
+           "attention_tolerance": "per layer, elementwise: "
+                                  + FLASH_TOL_NOTE,
+           "prefill_device_ms": prefill_ms,
+           "prefill_flash_ms": flash_ms,
+           "prefill_timing": "CUDA events around one kernel-path prefill "
+                             "of the two layers; flash per layer from "
+                             "CUDA graphs on that prefill's inputs",
            "prefill_logits_max_abs_err": float((logits_k - logits_p).abs()
                                                .max()),
            "decode_logits_max_abs_err": logit_err,
@@ -1856,9 +2002,9 @@ def main(argv: list[str]) -> int:
     FA._lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [str(lib.relative_to(ROOT)) for lib, _ in built],
-          "ptxas": [ln.strip() for _, log in built
-                    for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "ptxas": [r for _, log in built for r in ptxas_resources(log)],
+          "sass_hmma": {lib.stem: sass_hmma(lib)
+                        for lib, _ in built[1:]}})
 
     worst = phase_check(torch, A, quantize, dev)
     int_err = phase_check_int(torch, A, ops, dev)

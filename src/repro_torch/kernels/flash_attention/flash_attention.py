@@ -16,6 +16,13 @@ through ctypes) for CUDA tensors, or raises; ``flash_attention_ref`` is
 its plain version, which ``ops.flash_attn`` runs for CPU tensors.
 Unlike the TPU kernel, nothing is padded: any hd <= 256 with
 hd % 8 == 0 and any sequence lengths are taken as they are.
+
+bf16 inputs run on the tensor cores with p rounded to bf16 before p.v;
+that moves each p_j by at most 2**-9 p_j, so the output by at most
+2**-9 max|v|: the kernel is held to its plain version within rtol
+1.6e-2, atol 2**-8 max|v| (twice that bound, for the order of the sums
+and the output's cast).  f32 inputs keep the CUDA-core body, within
+2e-5.
 """
 from __future__ import annotations
 
@@ -91,8 +98,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), CUDA, one dtype
     (float32 or bfloat16) -> (B, Sq, H, hd) in q's dtype.  Launches the
-    kernel (counted in ``.launches``) or raises; reads no device value
-    on the host."""
+    kernel or raises; reads no device value on the host.  ``.launches``
+    counts calls that reached the kernel (one CUDA launch each), as
+    ``paged_decode_attention.launches`` does."""
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}"
                          " (ops.flash_attn takes the plain version on the "

@@ -50,13 +50,31 @@ GROUPED_SHAPES = [(8, m, k, n) for m in (4, 32, 128)
 # f32: the sums' order differs, ~1e-7 relative
 PAGED_TOL = {torch.bfloat16: {"rtol": 1.6e-2, "atol": 1e-5},
              torch.float32: {"rtol": 1.3e-6, "atol": 1e-5}}
-# flash attention: bf16 as PAGED_TOL; f32 within 2e-5, the reference's own
-# tolerance for its kernel (tests/test_kernels.py): the online softmax
-# sums in another order than the plain one
-FLASH_TOL = {torch.bfloat16: {"rtol": 1.6e-2, "atol": 1e-5},
+# flash attention, bf16: the kernel rounds p to bf16 before p.v (the
+# tensor cores' A operand), which moves each p_j by at most 2**-9 p_j and
+# so the output sum_j p_j v_j / l by at most 2**-9 max|v|; the tolerance
+# is twice that bound (the sums' order and the output's cast) as an
+# absolute term, atol = ATOL_PER_MAX_V * max|v| per case, beside one bf16
+# ulp relative.  f32 within 2e-5, the reference's own tolerance for its
+# kernel (tests/test_kernels.py): the online softmax sums in another
+# order than the plain one.
+FLASH_TOL = {torch.bfloat16: {"rtol": 1.6e-2, "atol_per_max_v": 2.0 ** -8},
              torch.float32: {"rtol": 2e-5, "atol": 2e-5}}
+
+
+def flash_tol(dtype, v) -> dict:
+    """``FLASH_TOL[dtype]`` as assert_close's rtol and atol for values v."""
+    tol = dict(FLASH_TOL[dtype])
+    per_v = tol.pop("atol_per_max_v", None)
+    if per_v is not None:
+        tol["atol"] = per_v * float(torch.as_tensor(v).float().abs().max())
+    return tol
+
+
 # (b, sq, skv, h, kv, hd, causal, window, cap): tests/test_torch_flash.py's
-# cases, then Gemma-2-27B's prefill shapes (local and global layers)
+# cases, then Gemma-2-27B's prefill shapes (local and global layers), the
+# one-warp short-tile path (Sq 1, 16, 17, 48 at H 32) and Sq > Skv causal
+# on the 64-row path (the leading rows see no key and are exactly 0)
 FLASH_CASES = [
     (2, 128, 128, 4, 4, 128, True, 0, 0.0),
     (2, 128, 128, 4, 2, 128, True, 0, 0.0),
@@ -70,6 +88,11 @@ FLASH_CASES = [
     (1, 48, 48, 32, 16, 128, True, 4096, 50.0),
     (1, 129, 129, 32, 16, 128, True, 0, 50.0),
     (1, 70, 70, 16, 16, 256, True, 0, 0.0),
+    (1, 1, 1, 32, 16, 128, True, 0, 50.0),
+    (1, 16, 16, 32, 16, 128, True, 0, 50.0),
+    (1, 17, 17, 32, 16, 128, True, 4096, 50.0),
+    (1, 48, 48, 32, 16, 128, True, 0, 50.0),
+    (2, 200, 72, 32, 16, 128, True, 0, 0.0),
 ]
 
 
@@ -121,15 +144,21 @@ def _int_case(m, k, n, seed=0):
             rng.integers(-128, 128, (k, n)).astype(np.int8))
 
 
-def _attention_case(b=3, h=4, kv=2, hd=32, bs=4, pages=5, seed=0):
+def _attention_case(b=3, h=4, kv=2, hd=32, bs=4, pages=5, seed=0,
+                    lens=None):
+    """Pools, q, tables and lengths for paged attention: random lengths
+    with one full row, or the given `lens`; unowned table entries point
+    at block 0 (zeros)."""
     rng = np.random.default_rng(seed)
     nb = 2 + b * pages
     k_pool = rng.normal(size=(nb, bs, kv, hd)).astype(np.float32)
     v_pool = rng.normal(size=(nb, bs, kv, hd)).astype(np.float32)
     k_pool[0] = v_pool[0] = 0
     q = rng.normal(size=(b, 1, h, hd)).astype(np.float32)
-    lens = rng.integers(1, pages * bs + 1, b).astype(np.int32)
-    lens[0] = pages * bs                               # one full row
+    if lens is None:
+        lens = rng.integers(1, pages * bs + 1, b).astype(np.int32)
+        lens[0] = pages * bs                           # one full row
+    lens = np.asarray(lens, np.int32)
     perm = (rng.permutation(nb - 2) + 2).reshape(b, pages)
     owned = np.arange(pages)[None, :] * bs < lens[:, None]
     tables = np.where(owned, perm, 0).astype(np.int32)
@@ -258,6 +287,86 @@ def test_cuda_paged_attention_matches_plain_version(cuda_device, dtype, kv,
     torch.testing.assert_close(out, ref, **PAGED_TOL[dtype])
 
 
+def _split_lens(name, kps, bs, pages):
+    """Lengths that reach the split kernel's edges: 1, a split boundary
+    and one past it, a page and one past it, the full table; a one-page
+    row beside full-table rows; short rows in a wide table (every split
+    but the first empty)."""
+    full = pages * bs
+    return {"edges": [1, kps, kps + 1, 2 * kps, bs, bs + 1, full - 1, full],
+            "mixed": [5, full, bs, full],
+            "wide_short": [1, 3],
+            "mqa": [1, kps + 1, full]}[name]
+
+
+# (name, b, h, kv, pages): Qwen2.5-3B's heads (H 16, KV 2) at a serve
+# table (P 16) and a wide one (P 128); group 16 (two head chunks)
+SPLIT_CASES = [("edges", 8, 16, 2, 16), ("mixed", 4, 16, 2, 128),
+               ("wide_short", 2, 16, 2, 128), ("mqa", 3, 16, 1, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=str)
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: c[0])
+def test_cuda_paged_attention_splits_match_plain_version(cuda_device,
+                                                         dtype, case):
+    """Rows cut into several splits (empty ones included) and merged:
+    within PAGED_TOL of the plain version, one counted call, and the
+    same bits from a second call."""
+    name, b, h, kv, pages = case
+    bs, hd = 16, 128
+    n_split, kps = PA.split_plan(b, h, kv, hd, torch.tensor(
+        [], dtype=dtype).element_size(), bs, pages)
+    assert n_split > 1
+    lens = _split_lens(name, kps, bs, pages)
+    q, kp, vp, tables, lens = (
+        torch.as_tensor(t, device=cuda_device)
+        for t in _attention_case(b=b, h=h, kv=kv, hd=hd, bs=bs,
+                                 pages=pages, seed=len(name), lens=lens))
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    before = PA.paged_decode_attention.launches
+    out = PA.paged_decode_attention(q, kp, vp, tables, lens, logit_cap=30.0)
+    again = PA.paged_decode_attention(q, kp, vp, tables, lens,
+                                      logit_cap=30.0)
+    ref = PA.paged_attention_reference(q, kp, vp, tables, lens,
+                                       logit_cap=30.0)
+    torch.cuda.synchronize()
+    assert PA.paged_decode_attention.launches == before + 2
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, **PAGED_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_replays_in_a_graph(cuda_device):
+    """Captured once in a CUDA graph, the call replays after the lengths
+    change in place (the split plan depends on host ints only) and
+    matches the plain version at each."""
+    b, pages, bs = 8, 16, 16
+    q, kp, vp, tables, lens = (
+        torch.as_tensor(t, device=cuda_device).contiguous()
+        for t in _attention_case(b=b, h=16, kv=2, hd=128, bs=bs,
+                                 pages=pages, seed=9,
+                                 lens=[pages * bs] * b))
+    q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        PA.paged_decode_attention(q, kp, vp, tables, lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = PA.paged_decode_attention(q, kp, vp, tables, lens)
+    rng = np.random.default_rng(10)
+    for new in ([1] * b, rng.integers(1, pages * bs + 1, b),
+                [pages * bs] * b):
+        lens.copy_(torch.as_tensor(np.asarray(new, np.int32)))
+        graph.replay()
+        ref = PA.paged_attention_reference(q, kp, vp, tables, lens)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, **PAGED_TOL[torch.bfloat16])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", GROUPED_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
@@ -350,7 +459,7 @@ def test_cuda_flash_attention_matches_plain_version(cuda_device, dtype,
     assert FA.flash_attention.launches == before + 2
     assert out.dtype == dtype and out.shape == q.shape
     assert torch.equal(out, again)
-    torch.testing.assert_close(out, ref, **FLASH_TOL[dtype])
+    torch.testing.assert_close(out, ref, **flash_tol(dtype, v))
     if causal and sq > skv:
         assert not out[:, : sq - skv].any()
 

@@ -19,7 +19,9 @@ one bf16 ulp (``BF16_RTOL`` = 2**-7, an ulp relative to a value at the
 bottom of its binade) plus ``TOL``: both round an f32 result once, and
 one f32 ulp of difference can land either side of a bf16 rounding
 boundary.  The kernel itself runs only on the card
-(tests/test_torch_cuda.py)."""
+(tests/test_torch_cuda.py); its bf16 instance rounds p to bf16 before
+p.v, and ``test_bf16_p_stays_within_the_kernel_tolerance`` shows on
+data, here, that this rounding stays within ``FLASH_TOL[bf16]``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,7 @@ from repro.nn import attention as JA
 from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.nn import attention as TA
+from test_torch_cuda import FLASH_CASES, flash_tol
 
 TOL = 2e-5
 BF16_RTOL = 2.0 ** -7
@@ -89,6 +92,43 @@ def test_flash_attn_bf16_matches_pallas_kernel():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=BF16_RTOL,
                                atol=TOL)
+
+
+def _bf16_p_attention(q, k, v, *, causal, window, logit_cap, scale):
+    """The plain math with the bf16 kernel's one extra rounding: p (f32,
+    against the row max) rounded to bf16 before p.v; l sums the f32 p."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    k_r = TA._repeat_kv(k, h // k.shape[2]).float()
+    v_r = TA._repeat_kv(v, h // k.shape[2]).float()
+    q_pos = torch.arange(sq) + (skv - sq)
+    mask = TA._mask(q_pos, torch.arange(skv), causal, window)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_r) * scale
+    if logit_cap > 0:
+        s = torch.tanh(s / logit_cap) * logit_cap
+    s = torch.where(mask, s, FA.NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), v_r)
+    l = p.sum(-1).clamp(min=1e-30).transpose(1, 2)[..., None]
+    return (acc / l).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_bf16_p_stays_within_the_kernel_tolerance(case):
+    """Rounding p to bf16 (what the tensor-core kernel does) keeps bf16
+    outputs within FLASH_TOL[bf16] (atol 2**-8 max|v|) of the plain
+    version, on the CUDA tests' cases and inputs."""
+    b, sq, skv, h, kv, hd, causal, window, cap = case
+    rng = np.random.default_rng(sq + skv + hd)
+    q, k, v = (torch.as_tensor(rng.normal(size=(b, n_s, n, hd)).astype(
+        np.float32)).to(torch.bfloat16)
+        for n_s, n in ((sq, h), (skv, kv), (skv, kv)))
+    kw = dict(causal=causal, window=window, logit_cap=cap,
+              scale=1 / 12 if cap == 50.0 else hd ** -0.5)
+    got = _bf16_p_attention(q, k, v, **kw)
+    ref = FA.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, ref, **flash_tol(torch.bfloat16, v))
 
 
 def test_flash_attn_default_scale_is_the_true_head_dim():

@@ -125,6 +125,52 @@ def test_plain_paged_attention_matches_reference_and_kernel(logit_cap, kv):
                                    atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("logit_cap", [0.0, 30.0])
+@pytest.mark.parametrize("kps,streams", [(1, 1), (3, 1), (4, 4), (8, 4),
+                                         (13, 1), (12, 4), (64, 4)])
+def test_split_and_merge_model_matches_plain_version(kps, streams,
+                                                     logit_cap):
+    """The split kernel's arithmetic (f32 partials per split of `kps`
+    keys and per stream of a split, then merged) in plain PyTorch, held to
+    the plain version on _attention_case's inputs with a row of length 1:
+    splits of 1 key up to one split for the whole table, splits past a
+    row's length (empty partials, which the merge skips) and streams
+    without keys (which weigh nothing)."""
+    q, kp, vp, tables, lens = _attention_case(kv=2, seed=kps)
+    lens[1] = 1
+    args = [torch.as_tensor(a) for a in (q, kp, vp, tables, lens)]
+    got = TPA._merge_partials_ref(*args, kps=kps, streams=streams,
+                                  logit_cap=logit_cap)
+    ref = TPA.paged_attention_reference(*args, logit_cap=logit_cap)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("b,h,kv,hd,itemsize,bs,p", [
+    (8, 16, 2, 128, 2, 16, 16), (64, 16, 2, 128, 2, 16, 128),
+    (1, 16, 2, 128, 2, 16, 128), (3, 4, 2, 32, 4, 4, 5),
+    (3, 16, 1, 120, 2, 16, 5), (4, 32, 16, 256, 4, 16, 8),
+    (1, 8, 1, 256, 2, 16, 512)])
+def test_split_plan_covers_the_card_from_host_ints(b, h, kv, hd, itemsize,
+                                                   bs, p):
+    """n_split * kps covers the table with no empty tail split, splits
+    are whole multiples of the block's streams, and the grid reaches
+    twice the SMs wherever the table has keys enough; the serve shape (B
+    8, P 16) and the B 64 / length 2048 shape are among the cases."""
+    n_split, kps = TPA.split_plan(b, h, kv, hd, itemsize, bs, p)
+    streams = TPA.stream_count(h, kv, hd, itemsize)
+    assert streams >= 1 and kps % streams == 0
+    assert n_split == -(-(p * bs) // kps) and (n_split - 1) * kps < p * bs
+    assert n_split <= TPA.MAX_SPLITS
+    blocks = kv * -(-(h // kv) // TPA.HEADS_PER_BLOCK) * b
+    want = min(2 * TPA.NUM_SMS, TPA.MAX_SPLITS * blocks)
+    if -(-(p * bs) // streams) * blocks >= want:
+        assert blocks * n_split >= want
+    else:                     # as many splits as the streams allow
+        assert kps == streams
+
+
 def test_paged_attention_refuses_what_the_kernel_cannot_take():
     """On a CUDA-less machine the wrapper takes the plain version for CPU
     tensors; other devices are refused, not run on the CPU."""
