@@ -11,22 +11,34 @@ Phases, each printing one JSON line:
              source, all started together (src/repro_torch/kernels/
              approx_mac/csrc/approx_mac.cu, flash_attention/csrc/
              paged_attention.cu, flash_attention/csrc/flash_attention.cu);
-             each kernel's registers and spill bytes (ptxas -v) and the
-             attention libraries' HMMA (tensor-core) instructions per
-             kernel (cuobjdump -sass).
+             each kernel's registers and spill bytes (ptxas -v) and every
+             library's tensor-core instructions per kernel, HMMA (bf16),
+             IMMA (int8 mma.sync) and IGMMA (int8 wgmma), from
+             cuobjdump -sass (``sass_hmma``).
 3. check   — the fused approx-MAC kernel equals its plain PyTorch version
              BIT FOR BIT (``torch.equal``) at every GEMM shape of the
              dense and paged paths (M in {4, 8, 24, 32}: dense decode and
              prefill, paged decode at max_batch 8, paged prefill chunks of
-             32), under configs 0, 8, 31 and a random per-block vector.
-4. timing  — device times of the kernel at the decode shapes (M = 4),
-             from CUDA graphs of many launches timed with CUDA events,
-             beside the bound (bytes at 3.35 TB/s vs int8 operations at
-             1,979 TOP/s), the plain version and, as a yardstick the port
-             never calls, ``torch._int_mm`` on the config-0 int8 product
-             with M padded to 32.  Weights rotate through copies larger
-             than the 50 MB L2, as a decode step streams them.  Also the
-             time per call issued from Python (``host_issue_ms``).
+             32) under configs 0, 8, 31 and a random per-block vector, at
+             Gemma-2-27B's GEMMs at M 4 and 48 (configs 0, 16, a vector),
+             and at CHECK_EDGES: ragged K and M, config blocks of 32 and
+             96 under wider tiles, every tiling and K-split path of
+             ``approx_mac.gemm_plan`` (listed as ``plan_paths``) and
+             Gemma-2's k GEMM at M 4,352.
+4. timing  — device times of the kernel at the Qwen2.5-3B decode shapes
+             (M = 4) and Gemma-2-27B's GEMMs at M 4 and 48, from CUDA
+             graphs of many launches timed with CUDA events, beside the
+             bound (bytes at 3.35 TB/s vs int8 operations at 1,979
+             TOP/s) and its share, the plain version and, as a yardstick
+             the port never calls, ``torch._int_mm`` on the config-0 int8
+             product (M padded to 32 where it is 16 or fewer) with the
+             weight as stored (K, N) and as (N, K) rows, the faster as
+             ``library_ms`` with its ``library_layout``.  Weights rotate
+             through copies larger than the 50 MB L2, as a decode step
+             streams them.  Also the time per call issued from Python
+             (``host_issue_ms``) and the plan's tiling; and Gemma-2's k
+             GEMM at M 4,352, also with one config row a block
+             (``ms_block_configs``: x's rows truncated per column tile).
 5. serve   — the port's ``Engine`` on full-width Qwen2.5-3B (random init,
              seed 0): 8 requests with prompts of 4-24 tokens,
              max_batch 4, max_len 128, 16 new tokens each,
@@ -39,8 +51,10 @@ Phases, each printing one JSON line:
              kernel and the device's busy share of a decode step.
 7. check_int — the int approx-MAC kernel equals its plain version bit for
              bit at the paper MLP's GEMMs (M in {1, 16, 10000}), ragged
-             shapes and one Qwen2.5-3B GEMM, under configs 0, 8, 31, a
-             random per-block vector and a neuron-group vector.
+             shapes, one Qwen2.5-3B GEMM and the plan's tilings and K
+             splits (int8 rows through the ring, read directly, and kept
+             whole), under configs 0, 8, 31, a random per-block vector and
+             a neuron-group vector.
 8. check_paged — the paged-attention kernel against its plain version at
              full-width shapes (H 16, KV 2, hd 128, bs 16, B in {1, 8,
              64}, P in {16, 128}, ragged lengths, random owned blocks,
@@ -52,7 +66,8 @@ Phases, each printing one JSON line:
              (f32); two calls must give equal bits.
 9. timing_int, timing_paged — device times from CUDA graphs beside the
              bound, the plain version and the yardstick: torch._int_mm
-             (config 0, padded) for the int kernel at batch 10,000; the
+             (config 0, padded, both weight layouts) for the int kernel at
+             batch 10,000; the
              gather ``k_pool[tables]`` then scaled_dot_product_attention
              on the gathered view for the paged kernel (B 8 / length 256
              and B 64 / length 2048, pools rotated past the 50 MB L2);
@@ -150,7 +165,9 @@ Phases, each printing one JSON line:
              48-token prefill: device time by kernel, the flash and
              approx-MAC kernels' shares and the busy share of each.
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi line again, and, as the
+Then a ``{"kernels": [...]}`` line (the fused kernel's entry with a
+``rows`` list: one Qwen2.5-3B layer at M 4 and one Gemma-2-27B layer at M 4
+and at M 48), the nvidia-smi line again, and, as the
 last line, ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without a CUDA device, or without the repository beside
 this file, the script exits non-zero and prints no result.  The
@@ -182,6 +199,9 @@ DECODE_SHAPES = ((2048, 2048), (2048, 256), (2048, 11008), (11008, 2048))
 LAYER_GEMMS = ((2048, 2048), (2048, 256), (2048, 256), (2048, 2048),
                (2048, 11008), (2048, 11008), (11008, 2048))
 GEMMS_PER_LAYER = len(LAYER_GEMMS)
+# the seven GEMMs of one Gemma-2-27B layer: q, k, v, o, gate, up, down
+GEMMA_GEMMS = ((4608, 4096), (4608, 2048), (4608, 2048), (4096, 4608),
+               (4608, 36864), (4608, 36864), (36864, 4608))
 TPU_KERNEL = "src/repro/kernels/approx_mac/approx_mac.py:223"
 KERNEL_SOURCE = "src/repro_torch/kernels/approx_mac/csrc/approx_mac.cu"
 INT_TPU_KERNEL = "src/repro/kernels/approx_mac/approx_mac.py:193"
@@ -237,8 +257,10 @@ def ptxas_resources(log: str) -> list[dict]:
 
 
 def sass_hmma(lib: pathlib.Path) -> dict | None:
-    """HMMA (tensor-core) instructions per kernel in the library's SASS,
-    from cuobjdump; None where the toolkit has no cuobjdump."""
+    """Tensor-core instructions per kernel in the library's SASS, from
+    cuobjdump: HMMA (bf16/f16), IMMA (int8 mma.sync) and IGMMA (int8
+    wgmma), the kinds a kernel has; None where the toolkit has no
+    cuobjdump."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not pathlib.Path(exe).exists():
         return None
@@ -248,10 +270,12 @@ def sass_hmma(lib: pathlib.Path) -> dict | None:
     for ln in r.stdout.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            cur = m.group(1)
-            counts[cur] = 0
-        elif cur is not None and "HMMA" in ln:
-            counts[cur] += 1
+            cur = {}
+            counts[m.group(1)] = cur
+        elif cur is not None:
+            op = re.search(r"\b(HMMA|IMMA|IGMMA)\b", ln)
+            if op:
+                cur[op.group(1)] = cur.get(op.group(1), 0) + 1
     names = _demangle(list(counts))
     return {n[:160]: c for n, c in zip(names, counts.values())}
 
@@ -317,44 +341,97 @@ def graph_ms(torch, fn, iters: int, replays: int = 10) -> float:
     return start.elapsed_time(stop) / (replays * iters)
 
 
+def plan_path(A, m: int, k: int, n: int) -> str:
+    """The fused/int kernel's tiling of one GEMM, as a short name:
+    instance (mt x nt), warps across the columns, and whether K splits."""
+    mt, nt, wn, _, splits = A.gemm_plan(m, k, -(-n // 32) * 32)
+    return f"mt{mt}nt{nt}wn{wn}" + ("-split" if splits > 1 else "")
+
+
+# (M, K, N, cfg_bn) of check's edge cases: ragged K through the ring
+# (100) and through direct loads (130, 203), ragged M (5, 37, 100, 130),
+# every tiling and split path of the plan, config blocks of 32 and 96
+# under 128-column tiles, and Gemma-2's k GEMM at gemma2_window's M 4,352
+CHECK_EDGES = ((5, 100, 256, 128), (37, 203, 384, 128), (64, 2048, 2048, 128),
+               (4, 4608, 256, 128), (100, 2048, 64, 128),
+               (100, 2048, 256, 128), (130, 130, 160, 128),
+               (10000, 64, 32, 128), (48, 2048, 512, 32),
+               (100, 2048, 256, 32), (24, 1024, 384, 96),
+               (4352, 4608, 2048, 128))
+
+
 def phase_check(torch, A, quantize, dev) -> float:
-    """Kernel vs plain version at every GEMM shape of both serve paths."""
+    """Kernel vs plain version at every GEMM shape of both serve paths
+    and of Gemma-2 (M 4 and 48), then at CHECK_EDGES."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    worst, cases = 0.0, 0
-    for k, n in DECODE_SHAPES:
+    runs = [(m, k, n, 128, (0, 8, 31)) for k, n in DECODE_SHAPES
+            for m in (4, 8, 24, 32)]
+    runs += [(m, k, n, 128, (0, 16)) for k, n in sorted(set(GEMMA_GEMMS))
+             for m in (4, 48)]
+    runs += [(m, k, n, bn, (0, 8, 31)) for m, k, n, bn in CHECK_EDGES]
+    worst, cases, paths = 0.0, 0, set()
+    for m, k, n, cfg_bn, uniform in runs:
         w = quantize(torch.randn(k, n, device=dev, generator=gen) * 0.02,
                      axis=1)
-        nb = -(-n // 128)
-        for m in (4, 8, 24, 32):
-            x = torch.randn(m, k, device=dev, generator=gen)
-            xs = x.abs().amax().clamp(min=1e-12) * (1.0 / 127)
-            srow = xs * w.scale
-            vec = torch.randint(0, 32, (nb,), device=dev, generator=gen,
-                                dtype=torch.int32)
-            for cfg in (0, 8, 31, vec):
-                rows = A.config_operand(cfg, nb, dev)
-                out = A.approx_mac_fused_matmul(x, w.values, srow, xs, rows)
-                ref = A.approx_mac_fused_matmul_ref(x, w.values, srow, xs,
-                                                    rows)
-                torch.cuda.synchronize()
-                err = float((out - ref).abs().max())
-                worst = max(worst, err)
-                cases += 1
-                if not torch.equal(out, ref):
-                    raise AssertionError(
-                        f"kernel != plain version at M={m} K={k} N={n} "
-                        f"cfg={'vector' if cfg is vec else cfg}: "
-                        f"max |diff| {err}")
+        nb = -(-n // cfg_bn)
+        x = torch.randn(m, k, device=dev, generator=gen)
+        xs = x.abs().amax().clamp(min=1e-12) * (1.0 / 127)
+        srow = xs * w.scale
+        vec = torch.randint(0, 32, (nb,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        paths.add(plan_path(A, m, k, n))
+        for cfg in (*uniform, vec):
+            rows = A.config_operand(cfg, nb, dev)
+            out = A.approx_mac_fused_matmul(x, w.values, srow, xs, rows,
+                                            cfg_bn)
+            ref = A.approx_mac_fused_matmul_ref(x, w.values, srow, xs,
+                                                rows, cfg_bn)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            worst = max(worst, err)
+            cases += 1
+            if not torch.equal(out, ref):
+                raise AssertionError(
+                    f"kernel != plain version at M={m} K={k} N={n} "
+                    f"cfg_bn={cfg_bn} "
+                    f"cfg={'vector' if cfg is vec else cfg}: "
+                    f"max |diff| {err}")
+        del w, x, out, ref
+    torch.cuda.empty_cache()
     emit({"phase": "check", "cases": cases, "bit_identical": True,
-          "max_abs_err": worst})
+          "max_abs_err": worst, "plan_paths": sorted(paths)})
     return worst
 
 
+def int_mm_layouts(torch, x_q, ws, m: int) -> dict:
+    """torch._int_mm on x_q (M padded to 32 where M <= 16, its shape rule)
+    against weights ``ws`` as stored (K, N) and as (N, K) rows
+    (``w.t().contiguous().t()``, cuBLASLt's preferred int8 layout):
+    device ms per call of each (CUDA graphs, copies rotated), the faster
+    and its layout."""
+    x_pad = x_q if m > 16 else torch.nn.functional.pad(x_q,
+                                                       (0, 0, 0, 32 - m))
+    nk = [w.t().contiguous().t() for w in ws]
+    t_kn = graph_ms(torch, lambda i: torch._int_mm(x_pad, ws[i % len(ws)]),
+                    len(ws))
+    t_nk = graph_ms(torch, lambda i: torch._int_mm(x_pad, nk[i % len(nk)]),
+                    len(nk))
+    del nk
+    best = "(N, K)" if t_nk < t_kn else "(K, N)"
+    return {"int_mm_kn_ms": t_kn, "int_mm_nk_ms": t_nk,
+            "library_ms": min(t_kn, t_nk), "library_layout": best}
+
+
 def phase_timing(torch, A, quantize, dev) -> dict:
-    """Kernel, plain version and torch._int_mm at the decode shapes."""
+    """Kernel, plain version and torch._int_mm (both weight layouts) at
+    the Qwen2.5-3B decode shapes (M 4) and Gemma-2's seven GEMMs at M 4
+    and 48."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    rows_out, m = [], 4
-    for k, n in DECODE_SHAPES:
+    runs = [(4, k, n) for k, n in DECODE_SHAPES]
+    runs += [(m, k, n) for m in (4, 48) for k, n in sorted(set(GEMMA_GEMMS))]
+    runs.append((4352, 4608, 2048))   # Gemma-2's k GEMM, gemma2_window's M
+    rows_out = []
+    for m, k, n in runs:
         copies = max(2, -(-200_000_000 // (k * n)))   # > 4x the L2
         ws = [quantize(torch.randn(k, n, device=dev, generator=gen) * 0.02,
                        axis=1) for _ in range(copies)]
@@ -364,7 +441,6 @@ def phase_timing(torch, A, quantize, dev) -> dict:
         nb = -(-n // 128)
         rows = A.config_operand(16, nb, dev)
         x_q = torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
-        x_pad = torch.nn.functional.pad(x_q, (0, 0, 0, 32 - m))
 
         def kernel(i):
             w = ws[i % copies]
@@ -376,22 +452,31 @@ def phase_timing(torch, A, quantize, dev) -> dict:
             A.approx_mac_fused_matmul_ref(x, w.values, srows[i % copies], xs,
                                           rows)
 
-        def int_mm(i):
-            torch._int_mm(x_pad, ws[i % copies].values)
-
         t_kernel = graph_ms(torch, kernel, copies)
-        t_plain = graph_ms(torch, plain, min(copies, 20), replays=3)
-        t_int_mm = graph_ms(torch, int_mm, copies)
+        big = k * n * max(m, 16) > 800_000_000   # Gemma-2's gate, up, down
+        t_plain = graph_ms(torch, plain, 1 if big else min(copies, 20),
+                           replays=1 if big else 3)
+        lib = int_mm_layouts(torch, x_q, [w.values for w in ws], m)
         t_issue = cuda_ms(torch, kernel, 200)
         b_ms, b_by = bound(m, k, n)
         row = {"m": m, "k": k, "n": n, "ms": t_kernel, "plain_ms": t_plain,
-               "int_mm_ms": t_int_mm, "bound_ms": b_ms, "bound_by": b_by,
-               "host_issue_ms": t_issue, "weight_copies": copies}
+               **lib, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_share": b_ms / t_kernel, "host_issue_ms": t_issue,
+               "plan": plan_path(A, m, k, n), "weight_copies": copies}
+        if m > 64:
+            # one config row a block: x's int8 rows are truncated again by
+            # every column tile, where one row for all is truncated once
+            vec = A.config_operand(torch.randint(
+                1, 32, (nb,), device=dev, generator=gen), nb, dev)
+            row["ms_block_configs"] = graph_ms(
+                torch, lambda i: A.approx_mac_fused_matmul(
+                    x, ws[i % copies].values, srows[i % copies], xs, vec),
+                copies)
         emit({"phase": "timing", **row})
         rows_out.append(row)
         del ws, srows
         torch.cuda.empty_cache()
-    return {(r["k"], r["n"]): r for r in rows_out}
+    return {(r["m"], r["k"], r["n"]): r for r in rows_out}
 
 
 def phase_serve(torch, T, A, Engine, Request, cfg, dev) -> dict:
@@ -575,8 +660,15 @@ def phase_check_int(torch, A, ops, dev) -> float:
     shapes = [(m, k, n) for m in (1, 16, 10000) for k, n in MLP_GEMMS]
     shapes += [(4, 256, 256), (24, 200, 300), (1, 130, 129), (5, 64, 384),
                (24, 2048, 11008)]
-    cases = 0
+    # the tilings and splits of the plan: 128-row tiles, narrow tiles at
+    # large M, a split at M 64, 4-warp columns, ragged M with int8 rows
+    # through the ring (K 2048) and read directly (K 100, 203)
+    shapes += [(100, 2048, 256), (100, 2048, 64), (64, 2048, 2048),
+               (4, 4608, 256), (37, 203, 384), (777, 100, 96),
+               (4352, 2048, 2048)]
+    cases, paths = 0, set()
     for m, k, n in shapes:
+        paths.add(plan_path(A, m, k, n))
         a, b = _int_case(torch, m, k, n, gen, dev)
         nb = -(-n // 128)
         vec = torch.randint(0, 32, (nb,), device=dev, generator=gen,
@@ -596,7 +688,7 @@ def phase_check_int(torch, A, ops, dev) -> float:
                 raise AssertionError(f"int kernel != plain version at "
                                      f"M={m} K={k} N={n}: max |diff| {err}")
     emit({"phase": "check_int", "cases": cases, "bit_identical": True,
-          "max_abs_err": 0})
+          "max_abs_err": 0, "plan_paths": sorted(paths)})
     return 0.0
 
 
@@ -696,9 +788,9 @@ def _int_mm_operands(torch, a, b):
 
 
 def phase_timing_int(torch, A, dev) -> list:
-    """Int kernel, plain version and torch._int_mm at the MLP's GEMMs,
-    batch 10,000 (activations 620 KB: they stay in L2, as they do for
-    the MLP's back-to-back layers)."""
+    """Int kernel, plain version and torch._int_mm (both weight layouts)
+    at the MLP's GEMMs, batch 10,000 (activations 620 KB: they stay in
+    L2, as they do for the MLP's back-to-back layers)."""
     gen = torch.Generator(device=dev).manual_seed(5)
     rows, m = [], 10000
     for k, n in MLP_GEMMS:
@@ -709,11 +801,12 @@ def phase_timing_int(torch, A, dev) -> list:
         t_plain = graph_ms(torch, lambda i: A.approx_mac_matmul_ref(
             a, b, cfg_rows), 5, replays=3)
         a_pad, b_pad, lib_shape = _int_mm_operands(torch, a, b)
-        t_lib = graph_ms(torch, lambda i: torch._int_mm(a_pad, b_pad), 20)
+        lib = int_mm_layouts(torch, a_pad, [b_pad], m)
         b_ms, b_by = int_bound(m, k, n)
         row = {"m": m, "k": k, "n": n, "ms": t_kernel, "plain_ms": t_plain,
-               "int_mm_ms": t_lib, "int_mm_shape": lib_shape,
-               "bound_ms": b_ms, "bound_by": b_by}
+               **lib, "int_mm_shape": lib_shape, "bound_ms": b_ms,
+               "bound_by": b_by, "bound_share": b_ms / t_kernel,
+               "plan": plan_path(A, m, k, n)}
         emit({"phase": "timing_int", **row})
         rows.append(row)
     return rows
@@ -1929,6 +2022,18 @@ def phase_profile_gemma2(torch, T, eng, dev) -> None:
     emit(res)
 
 
+def layer_row(name: str, rows: list, launches: int) -> dict:
+    """One work row of a kernel's entry: the sums over a layer's GEMMs."""
+    return {"work": name, "launches": launches,
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                        for r in rows) else "operations"),
+            "library_ms": sum(r["library_ms"] for r in rows),
+            "library_layouts": [r["library_layout"] for r in rows]}
+
+
 def rehearse() -> int:
     """The serve, mlp, paged_serve, moe_serve, gemma2_serve and
     gemma2_window phases on a CPU at the smoke size: plain versions, no
@@ -2003,8 +2108,7 @@ def main(argv: list[str]) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [str(lib.relative_to(ROOT)) for lib, _ in built],
           "ptxas": [r for _, log in built for r in ptxas_resources(log)],
-          "sass_hmma": {lib.stem: sass_hmma(lib)
-                        for lib, _ in built[1:]}})
+          "sass_hmma": {lib.stem: sass_hmma(lib) for lib, _ in built}})
 
     worst = phase_check(torch, A, quantize, dev)
     int_err = phase_check_int(torch, A, ops, dev)
@@ -2051,7 +2155,8 @@ def main(argv: list[str]) -> int:
     del g_eng
     torch.cuda.empty_cache()
 
-    layer = [timing[s] for s in LAYER_GEMMS]
+    layer = [timing[(4, *s)] for s in LAYER_GEMMS]
+    gemma_rows = {m: [timing[(m, *s)] for s in GEMMA_GEMMS] for m in (4, 48)}
     # gate and up share a shape: the grouped row counts the first twice
     moe_layer = [timing_grouped[0], timing_grouped[0], timing_grouped[1]]
     serve_attn = timing_paged[0]
@@ -2068,11 +2173,18 @@ def main(argv: list[str]) -> int:
         "bound_ms": sum(r["bound_ms"] for r in layer),
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in layer)
                      else "operations"),
-        "library_ms": sum(r["int_mm_ms"] for r in layer),
+        "library_ms": sum(r["library_ms"] for r in layer),
         "work": "the 7 GEMMs of one Qwen2.5-3B layer at decode, M = 4; "
                 "launches from the dense serve run (the paged run's are "
-                "in paged_serve, the MoE run's in moe_serve); library_ms "
-                "is torch._int_mm at config 0 with M padded to 32",
+                "in paged_serve, the MoE run's in moe_serve, Gemma-2's in "
+                "gemma2_serve); library_ms is torch._int_mm at config 0 "
+                "with M padded to 32, each GEMM in its faster weight "
+                "layout (timing's library_layout)",
+        "rows": [layer_row("qwen2.5-3b layer, M 4", layer,
+                           serve["kernel_launches"])] + [
+            layer_row(f"gemma2-27b layer, M {m}", rows_,
+                      g_serve["fused_launches"])
+            for m, rows_ in gemma_rows.items()],
     }, {
         "name": "approx_mac_matmul",
         "route": "cuda",
@@ -2085,10 +2197,11 @@ def main(argv: list[str]) -> int:
         "bound_ms": sum(r["bound_ms"] for r in timing_int),
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
                                     for r in timing_int) else "operations"),
-        "library_ms": sum(r["int_mm_ms"] for r in timing_int),
+        "library_ms": sum(r["library_ms"] for r in timing_int),
         "work": "the paper MLP's two GEMMs (62x30, 30x10) at batch "
                 "10,000; library_ms is torch._int_mm at config 0 on "
-                "operands padded to its shape rules",
+                "operands padded to its shape rules, in the faster "
+                "weight layout",
     }, {
         "name": "paged_decode_attention",
         "route": "cuda",

@@ -18,10 +18,15 @@ and multiply-accumulate int8 in int32:
   ``ops.approx_dense_grouped_pallas``).
 
 For CUDA tensors each launches its hand-written kernel in
-``csrc/approx_mac.cu`` (one templated body, built with nvcc at first use
-into ``build/kernels/`` at the repository root, loaded through ctypes)
-or raises; for CPU tensors it runs its ``*_ref`` twin, the same function
-in plain PyTorch.  There is no fallback between the two.
+``csrc/approx_mac.cu`` (built with nvcc at first use into
+``build/kernels/`` at the repository root, loaded through ctypes) or
+raises; for CPU tensors it runs its ``*_ref`` twin, the same function in
+plain PyTorch.  There is no fallback between the two.  The fused and int
+GEMMs run int8 ``mma.sync`` with each block holding all of its rows, tiled
+and split along K by ``gemm_plan`` (host ints only); a fused GEMM of more
+than ``SLICE_ROWS`` rows first quantizes x in a kernel of its own (one
+wrapper call, one count in ``.launches``).  The grouped GEMM keeps the
+CUDA-core body of the first slices.
 """
 from __future__ import annotations
 
@@ -37,8 +42,17 @@ from repro_torch.core.quantization import QMAX, truncate_operand_lsb
 from repro_torch.kernels import build as _build
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc" / "approx_mac.cu"
-KERNEL_BN = 32          # the kernel's column tile; config blocks are
-#                         multiples of it
+KERNEL_BN = 32          # the column granularity: N is padded to it and
+#                         config blocks are multiples of it
+SMS = 132               # H100 SXM streaming multiprocessors
+MAX_SPLITS = 16         # a tile's K splits form one thread block cluster
+SPLIT_BLOCKS = 4 * SMS  # K is split towards this many blocks ...
+SPLIT_MIN_K = 256       # ... in slices of 4 or more 64-row stages, except
+#                         where shorter ones are needed to fill the SMs
+SLICE_ROWS = 16         # GEMMs of this many rows or fewer keep each
+SLICE_BYTES = 24 * 1024  # block's rows of its K slice in shared memory;
+#                         fused GEMMs of more rows quantize x once, in a
+#                         kernel of their own, into an int8 scratch
 
 
 def build() -> tuple[pathlib.Path, str]:
@@ -50,22 +64,60 @@ def build() -> tuple[pathlib.Path, str]:
 def _lib() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn = lib.approx_mac_fused_matmul
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                             ctypes.c_void_p]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn.argtypes = ([ptr] * 5 + [i32, i32] + [ptr] * 2 + [i32] * 7 + [ptr])
+    fn.restype = i32
     fn = lib.approx_mac_matmul
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                             ctypes.c_void_p]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn.argtypes = ([ptr] * 3 + [i32, i32, ptr] + [i32] * 7 + [ptr])
+    fn.restype = i32
     fn = lib.approx_mac_grouped_matmul
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn.argtypes = ([ptr] * 6 + [i32] * 3 + [ptr] + [i32] * 4 + [ptr])
+    fn.restype = i32
     return lib
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_plan(m: int, k: int, n: int) -> tuple[int, int, int, int, int]:
+    """The tiling of one fused or int GEMM of (m, k) x (k, n) (n a multiple
+    of 32): (mt, nt, warps_n, kslice, splits).  A block of 8 warps owns
+    (8 // warps_n) * mt * 16 rows and warps_n * nt * 8 columns.  Where the
+    (M, N) tiles are fewer than ``SPLIT_BLOCKS``, K is cut into `splits`
+    slices of `kslice` (a multiple of 32; the last may be shorter): towards
+    SPLIT_BLOCKS blocks in slices of at least ``SPLIT_MIN_K`` (so that the
+    last wave is short), in shorter ones where that is what it takes to
+    reach SMS blocks, and, at M <= SLICE_ROWS (where a block keeps its
+    rows' whole slice in shared memory), in slices whose rows take at most
+    ``SLICE_BYTES``; never into more than ``MAX_SPLITS`` (one cluster).
+    Host ints only, so a captured call replays the same launch."""
+    def tiles(mt, nt, wn):
+        return _cdiv(m, (8 // wn) * mt * 16) * _cdiv(n, wn * nt * 8)
+
+    if m > 64:                       # 128 x 128 tiles; narrow GEMMs
+        mt, nt, wn = ((1, 2, 4) if n <= 32 else (2, 2, 4) if n <= 64
+                      else (4, 4, 4))
+    else:                            # all rows in one tile, 128 columns,
+        for nt, wn in ((2, 8), (2, 4), (2, 2), (1, 2)):   # or narrower
+            mt = _cdiv(_cdiv(m, 16), 8 // wn)   # where K is too short to
+            if tiles(mt, nt, wn) * min(k // 128, MAX_SPLITS) >= SMS:
+                break                           # fill the SMs by splitting
+    count = tiles(mt, nt, wn)
+    splits = 1
+    if count < SPLIT_BLOCKS:
+        splits = max(_cdiv(SMS, count),
+                     min(_cdiv(SPLIT_BLOCKS, count), k // SPLIT_MIN_K))
+    if m <= SLICE_ROWS:
+        splits = max(splits, _cdiv(k, SLICE_BYTES // m // 128 * 128 - 128))
+    if splits <= 1:
+        return mt, nt, wn, _cdiv(k, 32) * 32, 1
+    kslice = max(32, k // splits // 32 * 32)
+    if _cdiv(k, kslice) > MAX_SPLITS:
+        kslice = _cdiv(_cdiv(k, MAX_SPLITS), 32) * 32
+    return mt, nt, wn, kslice, _cdiv(k, kslice)
 
 
 @functools.cache
@@ -187,7 +239,7 @@ def _check_operands(a, w_q, cfg_rows, cfg_bn: int) -> None:
         raise ValueError("cfg_rows must be int32 with unit column stride")
 
 
-def _padded_weight(w_q) -> tuple[torch.Tensor, int]:
+def _padded_weight(w_q, align: int = 16) -> tuple[torch.Tensor, int]:
     """The kernels take whole 32-column tiles: ragged N (the last dim of
     a (K, N) matrix or an (E, K, N) bank) is padded with zero columns
     (zero weights change no kept result)."""
@@ -195,8 +247,8 @@ def _padded_weight(w_q) -> tuple[torch.Tensor, int]:
     w = w_q.contiguous()
     if pad:
         w = torch.nn.functional.pad(w, (0, pad))
-    if w.data_ptr() % 8:
-        raise ValueError("weight rows must be 8-byte aligned")
+    if w.data_ptr() % align:
+        raise ValueError(f"weight rows must be {align}-byte aligned")
     return w, pad
 
 
@@ -230,10 +282,14 @@ def approx_mac_fused_matmul(x, w_q, scale_row, x_scale, cfg_rows,
         srow = torch.nn.functional.pad(srow, (0, pad))
     xs = x_scale.reshape(1).float().contiguous()
     out = torch.empty((m, n + pad), dtype=torch.float32, device=x.device)
+    mt, nt, wn, kslice, _ = gemm_plan(m, k, n + pad)
+    xq = (torch.empty((m, k), dtype=torch.int8, device=x.device)
+          if m > SLICE_ROWS else None)
     err = _lib().approx_mac_fused_matmul(
         x.data_ptr(), w.data_ptr(), srow.data_ptr(), xs.data_ptr(),
         cfg_rows.data_ptr(), cfg_rows.stride(0), cfg_bn, out.data_ptr(),
-        m, k, n + pad, torch.cuda.current_stream(x.device).cuda_stream)
+        xq.data_ptr() if xq is not None else None, m, k, n + pad, mt, nt, wn,
+        kslice, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"approx_mac_fused_matmul launch failed: CUDA "
                            f"error {err}")
@@ -262,9 +318,10 @@ def approx_mac_matmul(a, w_q, cfg_rows, cfg_bn: int = 128) -> torch.Tensor:
     a = a.contiguous()
     w, pad = _padded_weight(w_q)
     out = torch.empty((m, n + pad), dtype=torch.int32, device=a.device)
+    mt, nt, wn, kslice, _ = gemm_plan(m, k, n + pad)
     err = _lib().approx_mac_matmul(
         a.data_ptr(), w.data_ptr(), cfg_rows.data_ptr(), cfg_rows.stride(0),
-        cfg_bn, out.data_ptr(), m, k, n + pad,
+        cfg_bn, out.data_ptr(), m, k, n + pad, mt, nt, wn, kslice,
         torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"approx_mac_matmul launch failed: CUDA error "
@@ -312,7 +369,7 @@ def approx_mac_grouped_matmul(x, w_q, scale_rows, x_scale, group_rows,
             or group_rows.dtype != torch.int32:
         raise ValueError("cfg_rows and group_rows must be int32, cfg_rows "
                          "with unit last stride")
-    w, pad = _padded_weight(w_q)
+    w, pad = _padded_weight(w_q, align=8)
     srow = scale_rows.float().contiguous()
     if pad:
         srow = torch.nn.functional.pad(srow, (0, pad))

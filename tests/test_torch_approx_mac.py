@@ -106,3 +106,95 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     for module in (A, PA):
         with pytest.raises(RuntimeError, match="nvcc"):
             module.build()
+
+
+# (M, K, N) decode shapes the plan must spread over at least SMS blocks:
+# Qwen2.5-3B's and Gemma-2-27B's GEMMs at M 4 and 8 (q, k/v, o, gate/up,
+# down)
+DECODE_GEMMS = [(m, k, n) for m in (4, 8)
+                for k, n in ((2048, 2048), (2048, 256), (2048, 11008),
+                             (11008, 2048), (4608, 4096), (4608, 2048),
+                             (4096, 4608), (4608, 36864), (36864, 4608))]
+# plus prefill, ragged and large-M shapes for the tiling invariants
+PLAN_GEMMS = DECODE_GEMMS + [
+    (m, k, n) for m in (1, 16, 17, 24, 48, 64, 65, 100, 4352, 10000)
+    for k, n in ((62, 32), (30, 32), (200, 320), (130, 160), (2048, 256),
+                 (4608, 2048), (36864, 4608), (64, 64))]
+
+
+def _blocks(m, n, plan):
+    mt, nt, wn, _, splits = plan
+    return -(-m // ((8 // wn) * mt * 16)) * -(-n // (wn * nt * 8)) * splits
+
+
+def _built_instances():
+    """(mt, nt, warps_n) of every APPROX_MAC_CASE in the CUDA source:
+    those a float activation reaches (before the int8-only block) and all."""
+    import re
+    src = A._CSRC.read_text()
+    body = src[src.index("#define APPROX_MAC_CASE"):
+               src.index("#undef APPROX_MAC_CASE")]
+    cases = [tuple(map(int, c)) for c in
+             re.findall(r"APPROX_MAC_CASE\((\d+), (\d+), (\d+)\)\n", body)]
+    float_part = body[:body.index("if constexpr (sizeof(TA) == 1)")]
+    floats = [tuple(map(int, c)) for c in
+              re.findall(r"APPROX_MAC_CASE\((\d+), (\d+), (\d+)\)\n",
+                         float_part)]
+    return set(floats), set(cases)
+
+
+@pytest.mark.parametrize("shape", PLAN_GEMMS,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gemm_plan_is_host_ints_that_tile_k(shape):
+    """The plan is plain Python ints (so a captured call replays it), its
+    K slices tile K exactly, a split stays within one cluster, each tiling
+    is a built instance, and a block that keeps its rows' K slice in
+    shared memory fits the kernel's limit."""
+    m, k, n = shape
+    n = -(-n // 32) * 32
+    plan = A.gemm_plan(m, k, n)
+    assert all(type(v) is int for v in plan)
+    mt, nt, wn, kslice, splits = plan
+    assert kslice % 32 == 0 and 1 <= splits <= A.MAX_SPLITS
+    bounds = [(s * kslice, min((s + 1) * kslice, k)) for s in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    floats, built = _built_instances()
+    assert (mt, nt, wn) in (floats if m <= A.SLICE_ROWS else built)
+    if m <= A.SLICE_ROWS:
+        assert m * (-(-kslice // 128) * 128 + 16) <= 64 * 1024
+
+
+@pytest.mark.parametrize("shape", DECODE_GEMMS,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gemm_plan_fills_the_sms_at_decode(shape):
+    m, k, n = shape
+    assert _blocks(m, n, A.gemm_plan(m, k, n)) >= A.SMS
+
+
+@pytest.mark.parametrize("shape,cfg_bn",
+                         [((4, 2048, 256), 128), ((5, 200, 320), 32),
+                          ((48, 4608, 96), 96), ((16, 62, 32), 128),
+                          ((3, 700, 160), 32)],
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+def test_k_slices_sum_to_the_blocked_product(shape, cfg_bn):
+    """The plan's K split changes no bit: the int32 sums of the truncated
+    operands over its K slices add up to the whole product (per config
+    block, vector configs included)."""
+    m, k, n = shape
+    rng = np.random.default_rng(m * k + n)
+    a = torch.as_tensor(rng.integers(-128, 128, (m, k)).astype(np.int8))
+    w = torch.as_tensor(rng.integers(-128, 128, (k, n)).astype(np.int8))
+    nb = -(-n // cfg_bn)
+    rows = A.config_operand(torch.as_tensor(rng.integers(0, 32, nb)), nb,
+                            "cpu")
+    whole = A._blocked_int_matmul(a, w, rows, cfg_bn)
+    *_, kslice, splits = A.gemm_plan(m, k, -(-n // 32) * 32)
+    total = torch.zeros_like(whole)
+    for s in range(splits):
+        lo, hi = s * kslice, min((s + 1) * kslice, k)
+        total += A._blocked_int_matmul(a[:, lo:hi], w[lo:hi], rows, cfg_bn)
+    assert splits > 1 or k <= kslice
+    assert torch.equal(total, whole)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions: the fused, int and grouped approx-MAC GEMMs (bit for bit),
 the paged decode attention and the flash attention (within the
-tolerances stated at ``PAGED_TOL`` and ``FLASH_TOL``).
+tolerances stated at ``PAGED_TOL`` and ``FLASH_TOL``).  The fused and int
+GEMMs are also held to their plain versions at the edges of their
+tilings (``FUSED_EDGES``, ``INT_EDGES``) and replayed from a CUDA graph.
 
 Every test here is marked ``cuda`` and skips with a reason where there
 is no CUDA device, so the CPU suite collects and skips them.  This file
@@ -198,6 +200,118 @@ def test_cuda_kernel_equals_plain_version(cuda_device, shape):
         torch.cuda.synchronize()
         assert A.approx_mac_fused_matmul.launches == before + 1
         assert torch.equal(out, ref), (shape, _cfg_id(config))
+
+
+# (M, K, N, cfg_bn) at the edges of the fused kernel's tilings: Gemma-2-27B's
+# GEMM widths at decode (M 4) and prefill (M 48); ragged K through the
+# cp.async ring (100) and read directly (203); ragged M; config blocks of
+# 32 and 96 under 128-column tiles; every tiling and K-split path of
+# approx_mac.gemm_plan (one-n-tile, narrow, 128 x 128, split and not);
+# and Gemma-2's k GEMM at gemma2_window's M 4,352
+FUSED_EDGES = [(m, k, n, 128) for m in (4, 48)
+               for k, n in ((4608, 4096), (4608, 2048), (4096, 4608),
+                            (4608, 36864), (36864, 4608))] + [
+    (5, 100, 256, 128), (37, 203, 384, 128), (64, 2048, 2048, 128),
+    (4, 4608, 256, 128), (4, 2048, 256, 128), (100, 2048, 64, 128),
+    (100, 2048, 256, 128), (130, 130, 160, 128), (10000, 64, 32, 128),
+    (48, 2048, 512, 32), (100, 2048, 256, 32), (24, 1024, 384, 96),
+    (4352, 4608, 2048, 128)]
+# (M, K, N) of the int kernel at the same paths (int8 rows through the
+# ring, read directly, and kept whole at M <= 16)
+INT_EDGES = [(100, 2048, 256), (100, 2048, 64), (64, 2048, 2048),
+             (4, 4608, 256), (4, 2048, 256), (37, 203, 384), (777, 100, 96),
+             (4352, 2048, 2048), (16, 4608, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FUSED_EDGES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_fused_kernel_at_the_plans_edges(cuda_device, shape):
+    """Bit for bit at configs 0, 16 and 31 (one row for every column:
+    the activations are truncated once, before the GEMM, where M > 16) and
+    a per-block vector, one launch per call."""
+    m, k, n, cfg_bn = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n)
+    w = quantize(torch.randn(k, n, device=cuda_device, generator=gen) * 0.05,
+                 axis=1)
+    x = torch.randn(m, k, device=cuda_device, generator=gen) * 2
+    xs = x.abs().amax().clamp(min=1e-12) * (1.0 / 127)
+    srow = xs * w.scale
+    nb = -(-n // cfg_bn)
+    vec = torch.randint(0, 32, (nb,), device=cuda_device, generator=gen)
+    for config in (0, 16, 31, vec):
+        rows = A.config_operand(config, nb, cuda_device)
+        before = A.approx_mac_fused_matmul.launches
+        out = A.approx_mac_fused_matmul(x, w.values, srow, xs, rows, cfg_bn)
+        ref = A.approx_mac_fused_matmul_ref(x, w.values, srow, xs, rows,
+                                            cfg_bn)
+        torch.cuda.synchronize()
+        assert A.approx_mac_fused_matmul.launches == before + 1
+        assert torch.equal(out, ref), (shape, A.gemm_plan(m, k, n),
+                                       "vector" if config is vec else config)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INT_EDGES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_int_kernel_at_the_plans_edges(cuda_device, shape):
+    m, k, n = shape
+    a, b = (torch.as_tensor(t, device=cuda_device)
+            for t in _int_case(m, k, n, seed=n))
+    nb = -(-n // 128)
+    vec = torch.as_tensor(_configs(n)[3], device=cuda_device)
+    for config in (0, 16, 31, vec):
+        rows = A.config_operand(config, nb, cuda_device)
+        out = A.approx_mac_matmul(a, b, rows)
+        ref = A.approx_mac_matmul_ref(a, b, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (shape, A.gemm_plan(m, k, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,broadcast", [(4, False), (4, True),
+                                         (48, False), (48, True)])
+def test_cuda_fused_gemm_replays_in_a_graph(cuda_device, m, broadcast):
+    """One fused GEMM (K split across a cluster at both M; x quantized by
+    its own kernel at M 48) captured once in a CUDA graph and replayed
+    after new configs and new inputs are written into its tensors in place
+    gives the plain version's bits each time: the launch depends on host
+    ints only and leaves nothing behind that a replay would need cleared.
+    broadcast: one config row for every column (stride 0), else one row a
+    block."""
+    k, n = 2048, 2048
+    nb = n // 128
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    w = quantize(torch.randn(k, n, device=cuda_device, generator=gen) * 0.05,
+                 axis=1)
+    x = torch.randn(m, k, device=cuda_device, generator=gen)
+    xs = (x.abs().amax().clamp(min=1e-12) * (1.0 / 127)).reshape(1)
+    srow = xs * w.scale
+    base = A.config_operand(torch.randint(0, 32, (nb,), device=cuda_device,
+                                          generator=gen), nb, cuda_device)
+    base = base[:1].clone() if broadcast else base.clone()
+    rows = base.expand(nb, 4) if broadcast else base
+    assert A.gemm_plan(m, k, n)[4] > 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        A.approx_mac_fused_matmul(x, w.values, srow, xs, rows)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.approx_mac_fused_matmul(x, w.values, srow, xs, rows)
+    for config in (16, 0, 31, 8):
+        x.copy_(torch.randn(m, k, device=cuda_device, generator=gen) * 3)
+        xs.copy_(x.abs().amax().clamp(min=1e-12) * (1.0 / 127))
+        srow.copy_(xs * w.scale)
+        cfgs = torch.randint(0, 32, (base.shape[0],), device=cuda_device,
+                             generator=gen)
+        cfgs[0] = config
+        base.copy_(A.config_operand(cfgs, base.shape[0], cuda_device))
+        graph.replay()
+        ref = A.approx_mac_fused_matmul_ref(x, w.values, srow, xs, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (m, broadcast, config)
 
 
 @pytest.mark.cuda
