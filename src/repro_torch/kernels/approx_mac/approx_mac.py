@@ -21,12 +21,14 @@ For CUDA tensors each launches its hand-written kernel in
 ``csrc/approx_mac.cu`` (built with nvcc at first use into
 ``build/kernels/`` at the repository root, loaded through ctypes) or
 raises; for CPU tensors it runs its ``*_ref`` twin, the same function in
-plain PyTorch.  There is no fallback between the two.  The fused and int
-GEMMs run int8 ``mma.sync`` with each block holding all of its rows, tiled
-and split along K by ``gemm_plan`` (host ints only); a fused GEMM of more
-than ``SLICE_ROWS`` rows first quantizes x in a kernel of its own (one
-wrapper call, one count in ``.launches``).  The grouped GEMM keeps the
-CUDA-core body of the first slices.
+plain PyTorch.  There is no fallback between the two.  All three run
+one int8 ``mma.sync`` body with each block holding all of its rows (of
+one expert, grouped), tiled and split along K by ``gemm_plan`` or
+``grouped_plan`` (host ints only); a fused or grouped GEMM of more than
+``SLICE_ROWS`` rows first quantizes x in a kernel of its own (one wrapper
+call, one count in ``.launches``).  The grouped kernel reads each expert's
+row count on the device and skips the tiles past it, weight bytes
+included.
 """
 from __future__ import annotations
 
@@ -49,10 +51,13 @@ MAX_SPLITS = 16         # a tile's K splits form one thread block cluster
 SPLIT_BLOCKS = 4 * SMS  # K is split towards this many blocks ...
 SPLIT_MIN_K = 256       # ... in slices of 4 or more 64-row stages, except
 #                         where shorter ones are needed to fill the SMs
+GROUPED_SPLIT_BLOCKS = 2 * SMS  # the grouped GEMMs' target: at decode a
+#                         split's cluster sum costs more than its blocks gain
 SLICE_ROWS = 16         # GEMMs of this many rows or fewer keep each
 SLICE_BYTES = 24 * 1024  # block's rows of its K slice in shared memory;
-#                         fused GEMMs of more rows quantize x once, in a
-#                         kernel of their own, into an int8 scratch
+#                         fused and grouped GEMMs of more rows quantize x
+#                         once, in a kernel of their own, into an int8
+#                         scratch
 
 
 def build() -> tuple[pathlib.Path, str]:
@@ -72,13 +77,27 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = ([ptr] * 3 + [i32, i32, ptr] + [i32] * 7 + [ptr])
     fn.restype = i32
     fn = lib.approx_mac_grouped_matmul
-    fn.argtypes = ([ptr] * 6 + [i32] * 3 + [ptr] + [i32] * 4 + [ptr])
+    fn.argtypes = ([ptr] * 6 + [i32] * 3 + [ptr] * 2 + [i32] * 8 + [ptr])
     fn.restype = i32
     return lib
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _split_target(count: int, m: int, k: int,
+                  blocks: int = SPLIT_BLOCKS) -> int:
+    """The K splits ``count`` (M, N) tiles of an (m, k) GEMM ask for (see
+    ``gemm_plan``; towards `blocks` blocks), before they are capped and
+    cut into slices."""
+    splits = 1
+    if count < blocks:
+        splits = max(_cdiv(SMS, count),
+                     min(_cdiv(blocks, count), k // SPLIT_MIN_K))
+    if m <= SLICE_ROWS:
+        splits = max(splits, _cdiv(k, SLICE_BYTES // m // 128 * 128 - 128))
+    return splits
 
 
 @functools.lru_cache(maxsize=1024)
@@ -105,18 +124,36 @@ def gemm_plan(m: int, k: int, n: int) -> tuple[int, int, int, int, int]:
             mt = _cdiv(_cdiv(m, 16), 8 // wn)   # where K is too short to
             if tiles(mt, nt, wn) * min(k // 128, MAX_SPLITS) >= SMS:
                 break                           # fill the SMs by splitting
-    count = tiles(mt, nt, wn)
-    splits = 1
-    if count < SPLIT_BLOCKS:
-        splits = max(_cdiv(SMS, count),
-                     min(_cdiv(SPLIT_BLOCKS, count), k // SPLIT_MIN_K))
-    if m <= SLICE_ROWS:
-        splits = max(splits, _cdiv(k, SLICE_BYTES // m // 128 * 128 - 128))
+    splits = _split_target(tiles(mt, nt, wn), m, k)
     if splits <= 1:
         return mt, nt, wn, _cdiv(k, 32) * 32, 1
     kslice = max(32, k // splits // 32 * 32)
     if _cdiv(k, kslice) > MAX_SPLITS:
         kslice = _cdiv(_cdiv(k, MAX_SPLITS), 32) * 32
+    return mt, nt, wn, kslice, _cdiv(k, kslice)
+
+
+@functools.lru_cache(maxsize=1024)
+def grouped_plan(e: int, m: int, k: int, n: int
+                 ) -> tuple[int, int, int, int, int]:
+    """The tiling of one grouped GEMM of e experts' (m, k) x (k, n) (n a
+    multiple of 32): (mt, nt, warps_n, kslice, splits), as ``gemm_plan``'s.
+    At m <= 64 one block holds all of an expert's rows (mt = ceil(m / 16),
+    8 warps across 128 columns), so a touched bank is read once; above,
+    128 x 128 tiles, so a bank is read ceil(m / 128) times.  Which experts
+    hold rows is device data the plan never reads (a captured call replays
+    with new routing), so it counts min(e, m) of them as touched — at a
+    dropless decode m = tokens x top-k rows bound the experts that hold
+    one — and splits K, by ``gemm_plan``'s rule but towards
+    ``GROUPED_SPLIT_BLOCKS``, where their tiles are too few to fill the
+    SMs, into at most ``MAX_SPLITS`` slices of equal 32-row multiples (the
+    last may be shorter).  Host ints only."""
+    mt, nt, wn = (4, 4, 4) if m > 64 else (_cdiv(m, 16), 2, 8)
+    bm, bn = (8 // wn) * mt * 16, wn * nt * 8
+    count = min(e, m) * _cdiv(m, bm) * _cdiv(n, bn)
+    splits = min(_split_target(count, m, k, GROUPED_SPLIT_BLOCKS),
+                 MAX_SPLITS)
+    kslice = _cdiv(_cdiv(k, splits), 32) * 32
     return mt, nt, wn, kslice, _cdiv(k, kslice)
 
 
@@ -342,7 +379,8 @@ def approx_mac_grouped_matmul(x, w_q, scale_rows, x_scale, group_rows,
     int32 rows present per expert (rows at index >= group_rows[e] give
     zeros); cfg_rows: (E, ceil(N / cfg_bn), 4) int32 config rows
     (``grouped_config_operand``).  Returns (E, M, N) f32.  CUDA tensors
-    launch the kernel (counted in ``.launches``) or raise; CPU tensors
+    launch the kernel (counted in ``.launches``; at M > ``SLICE_ROWS`` a
+    quantize kernel runs first, in the same count) or raise; CPU tensors
     take the plain version."""
     if x.device.type == "cpu":
         return approx_mac_grouped_matmul_ref(x, w_q, scale_rows, x_scale,
@@ -369,7 +407,7 @@ def approx_mac_grouped_matmul(x, w_q, scale_rows, x_scale, group_rows,
             or group_rows.dtype != torch.int32:
         raise ValueError("cfg_rows and group_rows must be int32, cfg_rows "
                          "with unit last stride")
-    w, pad = _padded_weight(w_q, align=8)
+    w, pad = _padded_weight(w_q)
     srow = scale_rows.float().contiguous()
     if pad:
         srow = torch.nn.functional.pad(srow, (0, pad))
@@ -377,11 +415,15 @@ def approx_mac_grouped_matmul(x, w_q, scale_rows, x_scale, group_rows,
     rows = group_rows.contiguous()
     xs = x_scale.reshape(1).float().contiguous()
     out = torch.empty((e, m, n + pad), dtype=torch.float32, device=x.device)
+    mt, nt, wn, kslice, _ = grouped_plan(e, m, k, n + pad)
+    xq = (torch.empty((e, m, k), dtype=torch.int8, device=x.device)
+          if m > SLICE_ROWS else None)
     err = _lib().approx_mac_grouped_matmul(
         x.data_ptr(), w.data_ptr(), srow.data_ptr(), xs.data_ptr(),
         rows.data_ptr(), cfg_rows.data_ptr(), cfg_rows.stride(0),
-        cfg_rows.stride(1), cfg_bn, out.data_ptr(), e, m, k, n + pad,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cfg_rows.stride(1), cfg_bn, out.data_ptr(),
+        xq.data_ptr() if xq is not None else None, e, m, k, n + pad, mt, nt,
+        wn, kslice, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"approx_mac_grouped_matmul launch failed: CUDA "
                            f"error {err}")

@@ -10,11 +10,11 @@
 //   approx_mac_matmul (body `_kernel`), TA = int8, TOut = int32:
 //     out[m, n] = sum_k ta(a[m, k]) * tb(w[k, n])     (int32)
 //   approx_mac_grouped_matmul (body `_grouped_kernel`, approx_mac.py:326):
-//     E fused GEMMs in one launch, blockIdx.z = expert e, each with its own
-//     (M, K) activations, (K, N) int8 bank slice, (N,) combined scales and
+//     E fused GEMMs in one launch, each expert e with its own (M, K)
+//     activations, (K, N) int8 bank slice, (N,) combined scales and
 //     (n_blocks, 4) config rows, one shared x_scale; rows at index >=
-//     group_rows[e] are absent (their outputs are zero) and a tile with no
-//     present row writes zeros and returns before it reads a weight byte.
+//     group_rows[e] are absent: their outputs are zero whatever x holds
+//     there.
 //
 // ta/tb truncate operand LSBs with the (depth_a, depth_b, gate, rtn) row of
 // the output column's config block: cfg[(n / cfg_bn) * cfg_stride + 0..3]
@@ -25,26 +25,29 @@
 // int32 in any order, so the tensor cores and the K split across a
 // cluster of blocks change no bit.
 //
-// The fused and int GEMMs: `approx_mac_kernel_mma`.
+// All three run one body, `mma_body`: the fused and int GEMMs as
+// `approx_mac_kernel_mma`, the grouped ones as `approx_mac_kernel_grouped`.
 //
 // What bounds them on an H100.  At decode (M = 4) and prefill (M <= 64)
 // every weight byte is used for at most 64 MACs, far below the ~590 int8
 // operations per byte where the tensor cores would be the limit, so the
 // int8 weight bytes set the floor: one Gemma-2-27B layer's seven GEMMs
-// read 566 MB, 0.169 ms at 3.35 TB/s.  In practice the floor is the
-// instructions spent per weight byte on its way to the tensor cores: the
-// truncation (~3.5 a byte), the 4 x 4 transpose and the shared-memory
-// traffic, together more than the SMs issue in the time the bytes take to
-// arrive.  At M in the thousands the GEMM is bound by its int8 operations
-// (1,979 TOP/s).  The paper MLP (M = 10,000, K = 62 / 30, N = 30 / 10) is
-// bound by launch latency.
+// read 566 MB, 0.169 ms at 3.35 TB/s; an OLMoE-1B-7B decode step's expert
+// GEMMs read only the banks of the experts its tokens picked.  In practice
+// the floor is the instructions spent per weight byte on its way to the
+// tensor cores: the truncation (~3.5 a byte), the 4 x 4 transpose and the
+// shared-memory traffic, together more than the SMs issue in the time the
+// bytes take to arrive.  At M in the thousands the GEMM is bound by its
+// int8 operations (1,979 TOP/s).  The paper MLP (M = 10,000, K = 62 / 30,
+// N = 30 / 10) is bound by launch latency.
 //
 // The design:
 //   * a block owns BM = (8 / WN) * MT * 16 rows and BN = WN * NT * 8
 //     columns with all its rows in one tile, so a GEMM of M <= 64 reads
 //     every weight byte once (the earlier body re-read the weights for
-//     every 4 rows of M); the host's plan (approx_mac.gemm_plan) picks the
-//     instance (MT, NT, WN) and the K split from (M, K, N);
+//     every 4 rows of M); the host's plans (approx_mac.gemm_plan,
+//     approx_mac.grouped_plan) pick the instance (MT, NT, WN) and the K
+//     split from host ints;
 //   * int8 `mma.sync.m16n8k32` on the tensor cores: each warp owns an
 //     MT x NT grid of 16 x 8 output fragments and reads its operand
 //     fragments with ldmatrix;
@@ -64,11 +67,12 @@
 //     transposes;
 //   * activations: at M <= 16 a block quantizes (float) and truncates its
 //     rows of its whole K slice once, into shared memory, before the loop;
-//     at M > 16 the fused GEMM first quantizes x to int8 once in a kernel
-//     of its own (truncating it there when one config row serves every
-//     column), since every column tile would otherwise divide the same
-//     rows again, and the int8 rows stream through the ring (the int GEMM's
-//     rows too, or are read directly where K is ragged);
+//     at M > 16 the fused and grouped GEMMs first quantize x to int8 once
+//     in a kernel of their own (truncating it there when one config row
+//     serves every column, of the GEMM or of the expert), since every
+//     column tile would otherwise divide the same rows again, and the int8
+//     rows stream through the ring (the int GEMM's rows too, or are read
+//     directly where K is ragged);
 //   * a pass for stage k+1 and the products of stage k run between the
 //     same two barriers (double-buffered staged tiles), one barrier a stage;
 //   * where (M, N) tiles are fewer than 4 x 132, K is split across up to 16
@@ -77,235 +81,28 @@
 //     sums a share of the tile over all of them through distributed shared
 //     memory, so the split needs no global workspace, no atomics and no
 //     memset, and a captured call replays as it is;
-//   * the epilogue is one f32 multiply by the combined scale (fused) or the
-//     raw int32 sum (int).
+//   * the epilogue is one f32 multiply by the combined scale (fused,
+//     grouped) or the raw int32 sum (int);
+//   * grouped: blockIdx.y walks the experts and their row tiles; a block
+//     offsets a, w, scale_row, out and cfg by its expert and reads
+//     group_rows[e] on the device.  A tile with no present row writes
+//     zeros and returns before it reads a weight byte, so an expert no
+//     token picked costs launch slots and no bank bytes; the K splits of a
+//     tile share its expert and row tile, so a cluster exits whole or not
+//     at all.  Rows past the count inside a tile are neither quantized,
+//     loaded nor multiplied (a warp skips its fragments past them) and are
+//     stored as zeros.  The quantize kernel of M > 16 reads the present
+//     rows only.
 // At M 4,352 every 128-row tile streams the weights again (the x tile
 // stays in L2), and its int8 rows are truncated again for each 128-column
 // tile: 34 reads of the weights where one would do, which a persistent
 // grid that walks the rows of one column tile could save.
-
-// The grouped GEMMs keep the earlier CUDA-core body (`approx_mac_kernel`
-// with GROUPED = true): one block owns 4 rows x 32 columns of one expert,
-// 256 threads stream 8-byte weight row segments over 64 k-lanes and sum
-// them at the end; a tile past its expert's row count exits at once, so an
-// expert no token was routed to costs a launch slot per tile and no weight
-// bytes.  Reading a touched bank once for all its m-blocks is later work.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-// repro.core.quantization.truncate_operand_lsb on one int8 value: depth 0
-// is a strict identity (even for -128), magnitudes below the gate pass
-// through, round-to-nearest clamps the magnitude at 127.
-__device__ __forceinline__ int truncate_operand(int v, int depth, int gate,
-                                                int rtn) {
-  const int mag = v < 0 ? -v : v;
-  if (depth <= 0 || mag < gate) return v;
-  const int low_mask = (1 << depth) - 1;
-  int tmag;
-  if (rtn) {
-    tmag = min((mag + (1 << (depth - 1))) & ~low_mask, 127);
-  } else {
-    tmag = mag & ~low_mask;
-  }
-  return v < 0 ? -tmag : tmag;
-}
-
-// ---------------------------------------------------------------------------
-// The grouped instance: the CUDA-core body of the port's first slices.
-
-namespace grouped {
-
-constexpr int BM = 4;                               // output rows per block
-constexpr int BN = 32;                              // output columns per block
-constexpr int THREADS = 256;
-constexpr int COLS = 8;                             // columns per thread
-constexpr int COL_GROUPS = BN / COLS;               // 4
-constexpr int K_LANES = THREADS / COL_GROUPS;       // 64
-constexpr int WARPS = THREADS / 32;                 // 8
-constexpr int UNROLL = 4;                           // weight loads in flight
-constexpr int LUT_BYTES = 2 * 256 * sizeof(int);
-constexpr int RED_BYTES = WARPS * COL_GROUPS * BM * COLS * sizeof(int);
-
-// LUT index of an activation: float inputs are quantized first.
-__device__ __forceinline__ int activation_index(float x, float s) {
-  float v = rintf(__fdiv_rn(x, s));
-  v = fminf(fmaxf(v, -127.f), 127.f);
-  return (int)v + 128;
-}
-
-__device__ __forceinline__ void store(float* out, size_t i, int sum,
-                                      const float* scale_row, int n) {
-  out[i] = (float)sum * scale_row[n];
-}
-
-// The body the fused and int GEMMs ran in the port's first slices; only
-// the grouped instance <float, float, true> is built now: blockIdx.z is
-// the expert, which offsets a, w, scale_row, out and cfg, and rows at
-// index >= group_rows[e] are absent.
-template <typename TA, typename TOut, bool GROUPED>
-__global__ void __launch_bounds__(THREADS)
-approx_mac_kernel(const TA* __restrict__ a, const int8_t* __restrict__ w,
-                  const float* __restrict__ scale_row,
-                  const float* __restrict__ x_scale,
-                  const int32_t* __restrict__ cfg, int cfg_stride,
-                  int cfg_bn, const int32_t* __restrict__ group_rows,
-                  int cfg_expert_stride, TOut* __restrict__ out, int M,
-                  int K, int N) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* lut_a = reinterpret_cast<int*>(smem);
-  int* lut_b = lut_a + 256;
-  int8_t* xs = reinterpret_cast<int8_t*>(smem + LUT_BYTES);   // BM x K
-  int* red = reinterpret_cast<int*>(smem + LUT_BYTES);        // reuses xs
-
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  int rows = M;                       // rows present in this GEMM
-  if constexpr (GROUPED) {
-    const size_t e = blockIdx.z;
-    a += e * M * K;
-    w += e * K * N;
-    scale_row += e * N;
-    out += e * M * N;
-    cfg += e * cfg_expert_stride;
-    rows = min(M, max(group_rows[e], 0));
-    if (m0 >= rows) {
-      // no present row in this tile: zeros, what the MAC of its
-      // (absent, zero) rows would give, and no weight byte read
-      if (tid < BM * BN) {
-        const int m = tid / BN, n = tid % BN;
-        if (m0 + m < M && n0 + n < N)
-          out[(size_t)(m0 + m) * N + n0 + n] = (TOut)0;
-      }
-      return;
-    }
-  }
-
-  // this block's columns lie inside one config block (cfg_bn % BN == 0)
-  const int32_t* c = cfg + (size_t)(n0 / cfg_bn) * cfg_stride;
-  const int depth_a = c[0], depth_b = c[1], gate = c[2], rtn = c[3];
-  // LUT index of int8 value v is v + 128 (THREADS == 256 entries)
-  lut_a[tid] = truncate_operand(tid - 128, depth_a, gate, rtn);
-  lut_b[tid] = truncate_operand(tid - 128, depth_b, gate, rtn);
-  __syncthreads();
-
-  // quantize (float input) + truncate this block's activation rows once
-  const float s = x_scale != nullptr ? x_scale[0] : 1.f;
-  for (int i = tid; i < BM * K; i += THREADS) {
-    const int m = i / K;
-    const int k = i - m * K;
-    int q = 0;
-    if (m0 + m < rows)
-      q = lut_a[activation_index(a[(size_t)(m0 + m) * K + k], s)];
-    xs[i] = (int8_t)q;
-  }
-  __syncthreads();
-
-  const int cg = tid % COL_GROUPS;
-  const int kl = tid / COL_GROUPS;
-  const int8_t* wp = w + n0 + cg * COLS;
-  int acc[BM][COLS];
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) acc[m][j] = 0;
-
-  for (int k = kl; k < K; k += K_LANES * UNROLL) {
-    uint2 p[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int kk = k + u * K_LANES;
-      p[u] = kk < K
-          ? __ldg(reinterpret_cast<const uint2*>(wp + (size_t)kk * N))
-          : make_uint2(0u, 0u);
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int kk = k + u * K_LANES;
-      if (kk >= K) break;
-      int wt[COLS];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // byte b as int8 v has LUT index v + 128 == b ^ 0x80
-        wt[j] = lut_b[((p[u].x >> (8 * j)) & 0xffu) ^ 0x80u];
-        wt[j + 4] = lut_b[((p[u].y >> (8 * j)) & 0xffu) ^ 0x80u];
-      }
-#pragma unroll
-      for (int m = 0; m < BM; ++m) {
-        const int av = xs[m * K + kk];
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) acc[m][j] += av * wt[j];
-      }
-    }
-  }
-
-  // sum the k-lanes: first the 8 lanes of a warp that share a column
-  // group (lane bits 2..4), then the 8 warps through shared memory
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      int v = acc[m][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[m][j] = v;
-    }
-  __syncthreads();   // every thread is done reading xs
-  const int warp = tid / 32, lane = tid % 32;
-  if (lane < COL_GROUPS) {
-#pragma unroll
-    for (int m = 0; m < BM; ++m)
-#pragma unroll
-      for (int j = 0; j < COLS; ++j)
-        red[((warp * COL_GROUPS + lane) * BM + m) * COLS + j] = acc[m][j];
-  }
-  __syncthreads();
-  if (tid < BM * BN) {
-    const int m = tid / BN, n = tid % BN;
-    const int g = n / COLS, j = n % COLS;
-    int sum = 0;
-#pragma unroll
-    for (int wi = 0; wi < WARPS; ++wi)
-      sum += red[((wi * COL_GROUPS + g) * BM + m) * COLS + j];
-    if (m0 + m < M && n0 + n < N)
-      store(out, (size_t)(m0 + m) * N + n0 + n, sum, scale_row, n0 + n);
-  }
-}
-
-int launch(const float* x, const int8_t* w, const float* scale_rows,
-           const float* x_scale, const int32_t* cfg, int cfg_stride,
-           int cfg_bn, const int32_t* group_rows, int cfg_expert_stride,
-           float* out, int E, int M, int K, int N, void* stream) {
-  if (E <= 0 || E > 65535 || M <= 0 || K <= 0 || N <= 0 || N % BN != 0 ||
-      cfg_bn <= 0 || cfg_bn % BN != 0 || (M + BM - 1) / BM > 65535 ||
-      group_rows == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const size_t xs_bytes = (size_t)BM * K;
-  const size_t smem = LUT_BYTES + (xs_bytes > RED_BYTES ? xs_bytes
-                                                        : (size_t)RED_BYTES);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        approx_mac_kernel<float, float, true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(N / BN, (M + BM - 1) / BM, E);
-  approx_mac_kernel<float, float, true>
-      <<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-          x, w, scale_rows, x_scale, cfg, cfg_stride, cfg_bn, group_rows,
-          cfg_expert_stride, out, M, K, N);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace grouped
-
-// ---------------------------------------------------------------------------
-// The fused and int instances: int8 tensor cores, one tile of rows.
 
 constexpr int THREADS = 256;                // 8 warps
 constexpr int BK = 64;                      // k-rows per pipeline stage
@@ -373,11 +170,13 @@ __device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c,
                      0x5410);
 }
 
-// truncate_operand on the four int8 values of a word at once (no byte
-// carries: every per-byte sum below stays under 256).  One config row's
-// parameters, per byte: keep = ~low_mask, half = the rounding half
-// (0 without rtn), gate4 = 0x80 - gate (gate >= 1; gated false for gate
-// 0, where every magnitude truncates).  Depth 0 never gets here.
+// repro.core.quantization.truncate_operand_lsb on the four int8 values of
+// a word at once (no byte carries: every per-byte sum below stays under
+// 256): magnitudes below the gate pass through, round-to-nearest clamps
+// the magnitude at 127.  One config row's parameters, per byte: keep =
+// ~low_mask, half = the rounding half (0 without rtn), gate4 = 0x80 - gate
+// (gate >= 1; gated false for gate 0, where every magnitude truncates).
+// Depth 0, a strict identity (even for -128), never gets here.
 struct Trunc {
   uint32_t keep, half, gate4;
   int rtn, gated;
@@ -406,7 +205,7 @@ __device__ __forceinline__ uint32_t trunc4(uint32_t w, const Trunc& p) {
   return p.gated ? trunc4<false, true>(w, p) : trunc4<false, false>(w, p);
 }
 
-// truncate_operand on four words that share one config row: one branch
+// trunc4 on four words that share one config row: one branch
 // (uniform across the warp) for the four
 __device__ __forceinline__ void trunc16(uint32_t& w0, uint32_t& w1,
                                         uint32_t& w2, uint32_t& w3,
@@ -523,21 +322,78 @@ approx_mac_kernel_quantize(const float* __restrict__ x,
   }
 }
 
-// TA: float (quantized in-kernel with x_scale) or int8_t (used as is);
-// TOut: float (sum * scale_row[n]) or int32_t (the sum).  MT x NT: each
-// warp's 16 x 8 fragments; WN warps across the columns, 8 / WN across the
-// rows.  blockIdx = (column tile, row tile, K split); the K split z
-// covers [z * kslice, min((z + 1) * kslice, K)), and a tile's gridDim.z
-// blocks are launched as one cluster.  a_mode: how the activations
-// arrive (above; float rows only as A_SLICE).
-template <typename TA, typename TOut, int MT, int NT, int WN>
-__global__ void __launch_bounds__(THREADS, MT * NT >= 16 ? 2 : 3)
-approx_mac_kernel_mma(const TA* __restrict__ a, const int8_t* __restrict__ w,
-                      const float* __restrict__ scale_row,
-                      const float* __restrict__ x_scale,
-                      const int32_t* __restrict__ cfg, int cfg_stride,
-                      int cfg_bn, TOut* __restrict__ out, int M, int K,
-                      int N, int kslice, int a_mode) {
+// The present rows of an (E, M, K) f32 stack quantized to int8 once, for
+// the grouped GEMMs of M > SLICE_ROWS: block (i, e) takes expert e's rows
+// [i * rows_per_block, ...) below group_rows[e] (absent rows are neither
+// read nor written) and truncates them with the expert's first config row
+// when one row serves all its columns (truncate != 0).
+__global__ void __launch_bounds__(THREADS)
+approx_mac_kernel_grouped_quantize(const float* __restrict__ x,
+                                   const float* __restrict__ x_scale,
+                                   const int32_t* __restrict__ group_rows,
+                                   const int32_t* __restrict__ cfg,
+                                   int cfg_expert_stride, int truncate,
+                                   int8_t* __restrict__ q, int M, int K,
+                                   int rows_per_block, int vec) {
+  const int e = blockIdx.y;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(min(M, max(group_rows[e], 0)), r0 + rows_per_block);
+  if (r0 >= r1) return;
+  const int32_t* c = cfg + (size_t)e * cfg_expert_stride;
+  const bool cut = truncate && c[0] > 0 && c[2] <= 128;
+  const Trunc p = trunc_params(c[0], c[2], c[3]);
+  const float s = x_scale[0];
+  const size_t base = ((size_t)e * M + r0) * K;
+  const size_t n = (size_t)(r1 - r0) * K;
+  if (vec) {
+    const float4* xv = reinterpret_cast<const float4*>(x + base);
+    uint32_t* qv = reinterpret_cast<uint32_t*>(q + base);
+    for (size_t i = threadIdx.x; 4 * i < n; i += THREADS) {
+      const float4 f = xv[i];
+      const uint32_t b = pack4(quantize_byte(f.x, s), quantize_byte(f.y, s),
+                               quantize_byte(f.z, s), quantize_byte(f.w, s));
+      qv[i] = cut ? trunc4(b, p) : b;
+    }
+  } else {
+    for (size_t i = threadIdx.x; i < n; i += THREADS) {
+      const uint32_t b = quantize_byte(x[base + i], s);
+      q[base + i] = (int8_t)(cut ? trunc4(b, p) : b);
+    }
+  }
+}
+
+// zeros in rows [r0, r1) x columns [n0, n0 + ncols) of an f32 output of
+// row stride N (ncols even): the share `part` of `parts` (a tile's K
+// splits share the work)
+__device__ __forceinline__ void zero_rows(float* out, int r0, int r1,
+                                          int n0, int ncols, int N,
+                                          int part, int parts) {
+  const int half = ncols / 2;
+  const int pairs = max(r1 - r0, 0) * half;
+  const int lo = part * pairs / parts, hi = (part + 1) * pairs / parts;
+  for (int i = lo + (int)threadIdx.x; i < hi; i += THREADS) {
+    const int r = i / half, c = 2 * (i % half);
+    *reinterpret_cast<float2*>(out + (size_t)(r0 + r) * N + n0 + c) =
+        make_float2(0.f, 0.f);
+  }
+}
+
+// The GEMM body.  TA: float (quantized in-kernel with x_scale) or int8_t
+// (used as is); TOut: float (sum * scale_row[n]) or int32_t (the sum).
+// MT x NT: each warp's 16 x 8 fragments; WN warps across the columns,
+// 8 / WN across the rows.  blockIdx = (column tile, row tile, K split);
+// the K split z covers [z * kslice, min((z + 1) * kslice, K)), and a
+// tile's gridDim.z blocks are launched as one cluster.  a_mode: how the
+// activations arrive (above; float rows only as A_SLICE).  GROUPED:
+// blockIdx.y = expert * row tiles + row tile, rows of expert e at index
+// >= group_rows[e] absent (TOut float).
+template <typename TA, typename TOut, int MT, int NT, int WN, bool GROUPED>
+__device__ __forceinline__ void mma_body(
+    const TA* __restrict__ a, const int8_t* __restrict__ w,
+    const float* __restrict__ scale_row, const float* __restrict__ x_scale,
+    const int32_t* __restrict__ cfg, int cfg_stride, int cfg_bn,
+    const int32_t* __restrict__ group_rows, int cfg_expert_stride,
+    TOut* __restrict__ out, int M, int K, int N, int kslice, int a_mode) {
   constexpr int STAGES = stages_of(MT, NT);
   constexpr int BM = (8 / WN) * MT * 16, BN = WN * NT * 8;
   constexpr int CH = BN / 16;                     // 16 B chunks a k-row
@@ -552,12 +408,34 @@ approx_mac_kernel_mma(const TA* __restrict__ a, const int8_t* __restrict__ w,
                                                   // config block of tile
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  int m0 = blockIdx.y * BM;
+  int rows = M;                                   // rows present in the GEMM
+  if constexpr (GROUPED) {
+    const int mtiles = (M + BM - 1) / BM;
+    const size_t e = blockIdx.y / mtiles;
+    m0 = (blockIdx.y - (int)e * mtiles) * BM;
+    a += e * M * K;
+    w += e * K * N;
+    scale_row += e * N;
+    out += e * M * N;
+    cfg += e * cfg_expert_stride;
+    rows = min(M, max(group_rows[e], 0));
+  }
   const int kbeg = blockIdx.z * kslice;
   const int kend = min(K, kbeg + kslice);
   const int nk = (kend - kbeg + BK - 1) / BK;
-  const int arows = min(BM, M - m0);              // rows present
+  const int trows = min(BM, M - m0);              // rows of the tile
+  const int arows = min(BM, rows - m0);           // rows present
   const int ncols = min(BN, N - n0);              // columns present
+  if constexpr (GROUPED) {
+    if (arows <= 0) {
+      // no present row: zeros, and no weight byte read (every K split of
+      // the tile decides alike, so its cluster exits whole)
+      zero_rows(out, m0, m0 + trows, n0, ncols, N, blockIdx.z, gridDim.z);
+      return;
+    }
+  }
   const int first = n0 / cfg_bn;                  // config blocks spanned
   const int n_sub = (n0 + ncols - 1) / cfg_bn - first + 1;
   const int sst = slice_stride(kslice);
@@ -653,8 +531,9 @@ approx_mac_kernel_mma(const TA* __restrict__ a, const int8_t* __restrict__ w,
 
   // per stage (all modes but A_READY and a one-block A_SLICE): the stage's
   // activation words truncated once per config block into
-  // a_st[n_sub][BM][ST]; rows past M are left as they are (their products
-  // land in output rows that are never written)
+  // a_st[n_sub][BM][ST]; rows past the present ones are left as they are
+  // (their products land in output rows that are never written, or get
+  // zeros)
   auto pass_a = [&](int kt, uint8_t* dst) {
     const int kb = kbeg + kt * BK;
     const uint8_t* as = a_raw + (kt % STAGES) * BM * BK;
@@ -688,7 +567,11 @@ approx_mac_kernel_mma(const TA* __restrict__ a, const int8_t* __restrict__ w,
   // the products of one staged k-tile (A rows at stride as_stride, rows
   // past a_last read row a_last: they feed output rows never written);
   // the warp's columns lie in one 32-column group, so in one config block
-  // (cfg_bn % 32 == 0)
+  // (cfg_bn % 32 == 0); grouped, a fragment with no present row is
+  // skipped (warp-uniform)
+  auto frag_live = [&](int i) {
+    return !GROUPED || wrow + i * 16 < arows;
+  };
   auto mma_stage = [&](const uint8_t* as, int as_stride, int a_last,
                        const uint8_t* bs) {
 #pragma unroll
@@ -696,9 +579,10 @@ approx_mac_kernel_mma(const TA* __restrict__ a, const int8_t* __restrict__ w,
       uint32_t af[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(af[i],
-                    as + min(wrow + i * 16 + (lane & 15), a_last) * as_stride +
-                        ks * 32 + (lane >> 4) * 16);
+        if (frag_live(i))
+          ldmatrix_x4(af[i], as + min(wrow + i * 16 + (lane & 15), a_last) *
+                                      as_stride +
+                                 ks * 32 + (lane >> 4) * 16);
       uint32_t bf[NT][2];
       if constexpr (NT == 1)        // one n-tile: lanes 0-15 address it
         ldmatrix_x2(bf[0], bs + (wcol + (lane & 7)) * ST + ks * 32 +
@@ -716,8 +600,10 @@ approx_mac_kernel_mma(const TA* __restrict__ a, const int8_t* __restrict__ w,
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i)
+        if (frag_live(i))
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
+          for (int j = 0; j < NT; ++j)
+            mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
     }
   };
 
@@ -841,6 +727,8 @@ approx_mac_kernel_mma(const TA* __restrict__ a, const int8_t* __restrict__ w,
   // epilogue: fragment (i, j) holds rows g, g + 8 and columns 2t, 2t + 1
   const int g = lane >> 2, t = lane & 3;
   if (gridDim.z == 1) {
+    if constexpr (GROUPED)
+      zero_rows(out, m0 + arows, m0 + trows, n0, ncols, N, 0, 1);
     if (!warp_live) return;
 #pragma unroll
     for (int i = 0; i < MT; ++i)
@@ -850,7 +738,7 @@ approx_mac_kernel_mma(const TA* __restrict__ a, const int8_t* __restrict__ w,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int m = m0 + wrow + i * 16 + g + 8 * h;
-          if (m < M && n < N)
+          if (m < m0 + arows && n < N)
             store2(out + (size_t)m * N + n, acc[i][j][2 * h],
                    acc[i][j][2 * h + 1], scale_row, n);
         }
@@ -893,15 +781,60 @@ approx_mac_kernel_mma(const TA* __restrict__ a, const int8_t* __restrict__ w,
     }
     store2(out + (size_t)(m0 + r) * N + n0 + c, s0, s1, scale_row, n0 + c);
   }
+  if constexpr (GROUPED)
+    zero_rows(out, m0 + arows, m0 + trows, n0, ncols, N, rank, splits);
   cluster.sync();
 }
 
+// The fused and int GEMMs.
 template <typename TA, typename TOut, int MT, int NT, int WN>
+__global__ void __launch_bounds__(THREADS, MT * NT >= 16 ? 2 : 3)
+approx_mac_kernel_mma(const TA* __restrict__ a, const int8_t* __restrict__ w,
+                      const float* __restrict__ scale_row,
+                      const float* __restrict__ x_scale,
+                      const int32_t* __restrict__ cfg, int cfg_stride,
+                      int cfg_bn, const int32_t* __restrict__ group_rows,
+                      int cfg_expert_stride, TOut* __restrict__ out, int M,
+                      int K, int N, int kslice, int a_mode) {
+  mma_body<TA, TOut, MT, NT, WN, false>(a, w, scale_row, x_scale, cfg,
+                                        cfg_stride, cfg_bn, group_rows,
+                                        cfg_expert_stride, out, M, K, N,
+                                        kslice, a_mode);
+}
+
+// The grouped GEMMs (TOut float): the same parameters, with a, w,
+// scale_row, out and cfg the first expert's and group_rows (E,).
+template <typename TA, typename TOut, int MT, int NT, int WN>
+__global__ void __launch_bounds__(THREADS, MT * NT >= 16 ? 2 : 3)
+approx_mac_kernel_grouped(const TA* __restrict__ a,
+                          const int8_t* __restrict__ w,
+                          const float* __restrict__ scale_row,
+                          const float* __restrict__ x_scale,
+                          const int32_t* __restrict__ cfg, int cfg_stride,
+                          int cfg_bn, const int32_t* __restrict__ group_rows,
+                          int cfg_expert_stride, TOut* __restrict__ out,
+                          int M, int K, int N, int kslice, int a_mode) {
+  mma_body<TA, TOut, MT, NT, WN, true>(a, w, scale_row, x_scale, cfg,
+                                       cfg_stride, cfg_bn, group_rows,
+                                       cfg_expert_stride, out, M, K, N,
+                                       kslice, a_mode);
+}
+
+template <bool GROUPED, typename TA, typename TOut, int MT, int NT, int WN>
+auto kernel_of() {
+  if constexpr (GROUPED)
+    return approx_mac_kernel_grouped<TA, TOut, MT, NT, WN>;
+  else
+    return approx_mac_kernel_mma<TA, TOut, MT, NT, WN>;
+}
+
+template <bool GROUPED, typename TA, typename TOut, int MT, int NT, int WN>
 int launch_mma(const TA* a, const int8_t* w, const float* scale_row,
                const float* x_scale, const int32_t* cfg, int cfg_stride,
-               int cfg_bn, TOut* out, int M, int K, int N, int kslice,
-               int a_ready, void* stream) {
-  auto kernel = approx_mac_kernel_mma<TA, TOut, MT, NT, WN>;
+               int cfg_bn, const int32_t* group_rows, int cfg_expert_stride,
+               TOut* out, int E, int M, int K, int N, int kslice, int a_ready,
+               void* stream) {
+  auto kernel = kernel_of<GROUPED, TA, TOut, MT, NT, WN>();
   static int max_dynamic = -1;        // the block's limit less static smem
   if (max_dynamic < 0) {
     cudaFuncAttributes fa;
@@ -933,13 +866,13 @@ int launch_mma(const TA* a, const int8_t* w, const float* scale_row,
                                                   64 * 1024))
     return (int)cudaErrorInvalidValue;
   const int splits = (K + kslice - 1) / kslice;
+  const long row_tiles = (long)E * ((M + bm - 1) / bm);
   int smem = smem_bytes(MT, NT, bm, bn, n_sub, a_mode, kslice, M);
   if (splits > 1 && smem < bm * bn * 4) smem = bm * bn * 4;   // partials
-  if (smem > max_dynamic || (M + bm - 1) / bm > 65535 ||
-      splits > MAX_CLUSTER)
+  if (smem > max_dynamic || row_tiles > 65535 || splits > MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t lc = {};
-  lc.gridDim = dim3((N + bn - 1) / bn, (M + bm - 1) / bm, splits);
+  lc.gridDim = dim3((N + bn - 1) / bn, (unsigned)row_tiles, splits);
   lc.blockDim = dim3(THREADS);
   lc.dynamicSmemBytes = smem;
   lc.stream = (cudaStream_t)stream;
@@ -950,11 +883,18 @@ int launch_mma(const TA* a, const int8_t* w, const float* scale_row,
   attr.val.clusterDim.z = splits;
   lc.attrs = &attr;
   lc.numAttrs = splits > 1 ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(&lc, kernel, a, w, scale_row,
-                                           x_scale, cfg, cfg_stride, cfg_bn,
-                                           out, M, K, N, kslice, a_mode);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &lc, kernel, a, w, scale_row, x_scale, cfg, cfg_stride, cfg_bn,
+      group_rows, cfg_expert_stride, out, M, K, N, kslice, a_mode);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// the launch contract both dispatches check
+bool bad_gemm(const int8_t* w, int M, int K, int N, int cfg_bn, int kslice) {
+  return M <= 0 || K <= 0 || N <= 0 || N % 32 != 0 || cfg_bn <= 0 ||
+         cfg_bn % 32 != 0 || kslice <= 0 || kslice % 32 != 0 ||
+         reinterpret_cast<uintptr_t>(w) % 16 != 0;
 }
 
 // the plan's (mt, nt, warps_n) -> the built instance
@@ -963,15 +903,12 @@ int dispatch(int mt, int nt, int warps_n, const TA* a, const int8_t* w,
              const float* scale_row, const float* x_scale,
              const int32_t* cfg, int cfg_stride, int cfg_bn, TOut* out,
              int M, int K, int N, int kslice, int a_ready, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || N % 32 != 0 || cfg_bn <= 0 ||
-      cfg_bn % 32 != 0 || kslice <= 0 || kslice % 32 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (bad_gemm(w, M, K, N, cfg_bn, kslice)) return (int)cudaErrorInvalidValue;
 #define APPROX_MAC_CASE(MT_, NT_, WN_)                                      \
   if (mt == MT_ && nt == NT_ && warps_n == WN_)                             \
-    return launch_mma<TA, TOut, MT_, NT_, WN_>(                             \
-        a, w, scale_row, x_scale, cfg, cfg_stride, cfg_bn, out, M, K, N,    \
-        kslice, a_ready, stream);
+    return launch_mma<false, TA, TOut, MT_, NT_, WN_>(                      \
+        a, w, scale_row, x_scale, cfg, cfg_stride, cfg_bn, nullptr, 0, out, \
+        1, M, K, N, kslice, a_ready, stream);
   // approx_mac.gemm_plan's tilings: every row in one tile (M <= 64),
   // then 128 x 128 tiles and their narrow-N forms (M > 64); float rows
   // reach the GEMM only at M <= SLICE_ROWS (more are quantized once)
@@ -987,6 +924,36 @@ int dispatch(int mt, int nt, int warps_n, const TA* a, const int8_t* w,
     APPROX_MAC_CASE(4, 4, 4)
   }
 #undef APPROX_MAC_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// the grouped plan's (mt, nt, warps_n) -> the built grouped instance
+template <typename TA>
+int dispatch_grouped(int mt, int nt, int warps_n, const TA* a,
+                     const int8_t* w, const float* scale_rows,
+                     const float* x_scale, const int32_t* cfg,
+                     int cfg_stride, int cfg_bn, const int32_t* group_rows,
+                     int cfg_expert_stride, float* out, int E, int M, int K,
+                     int N, int kslice, int a_ready, void* stream) {
+  if (bad_gemm(w, M, K, N, cfg_bn, kslice) || E <= 0 ||
+      group_rows == nullptr)
+    return (int)cudaErrorInvalidValue;
+#define APPROX_MAC_GROUPED_CASE(MT_, NT_, WN_)                              \
+  if (mt == MT_ && nt == NT_ && warps_n == WN_)                             \
+    return launch_mma<true, TA, float, MT_, NT_, WN_>(                      \
+        a, w, scale_rows, x_scale, cfg, cfg_stride, cfg_bn, group_rows,     \
+        cfg_expert_stride, out, E, M, K, N, kslice, a_ready, stream);
+  // approx_mac.grouped_plan's tilings: an expert's rows in one tile of
+  // 128 columns (M <= 64), then 128 x 128 tiles (M > 64); float rows only
+  // at M <= SLICE_ROWS
+  APPROX_MAC_GROUPED_CASE(1, 2, 8)
+  if constexpr (sizeof(TA) == 1) {
+    APPROX_MAC_GROUPED_CASE(2, 2, 8)
+    APPROX_MAC_GROUPED_CASE(3, 2, 8)
+    APPROX_MAC_GROUPED_CASE(4, 2, 8)
+    APPROX_MAC_GROUPED_CASE(4, 4, 4)
+  }
+#undef APPROX_MAC_GROUPED_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1042,22 +1009,42 @@ extern "C" int approx_mac_matmul(const int8_t* a, const int8_t* w,
                                    kslice, 0, stream);
 }
 
-// x (E, M, K) f32, w (E, K, N) int8 with N % 32 == 0 and 8-byte aligned
+// x (E, M, K) f32, w (E, K, N) int8 with N % 32 == 0 and 16-byte aligned
 // rows, scale_rows (E, N) f32 = x_scale * w_scale[e] rounded once by the
 // caller, x_scale (1,) f32 shared by every expert, group_rows (E,) int32
 // rows present per expert, cfg rows of expert e's config block i at
 // cfg + e * cfg_expert_stride + i * cfg_stride, cfg_bn as above, out
-// (E, M, N) f32 (every element written: absent rows get zeros).
-extern "C" int approx_mac_grouped_matmul(const float* x, const int8_t* w,
-                                         const float* scale_rows,
-                                         const float* x_scale,
-                                         const int32_t* group_rows,
-                                         const int32_t* cfg,
-                                         int cfg_expert_stride,
-                                         int cfg_stride, int cfg_bn,
-                                         float* out, int E, int M, int K,
-                                         int N, void* stream) {
-  return grouped::launch(x, w, scale_rows, x_scale, cfg, cfg_stride, cfg_bn,
-                         group_rows, cfg_expert_stride, out, E, M, K, N,
-                         stream);
+// (E, M, N) f32 (every element written: absent rows get zeros); (mt, nt,
+// warps_n, kslice) from approx_mac.grouped_plan; xq (E, M, K) int8
+// scratch, needed where M > 16: the present rows of x are quantized into
+// it once by their own kernel (and truncated there with the expert's
+// config row when cfg_stride is 0).
+extern "C" int approx_mac_grouped_matmul(
+    const float* x, const int8_t* w, const float* scale_rows,
+    const float* x_scale, const int32_t* group_rows, const int32_t* cfg,
+    int cfg_expert_stride, int cfg_stride, int cfg_bn, float* out,
+    int8_t* xq, int E, int M, int K, int N, int mt, int nt, int warps_n,
+    int kslice, void* stream) {
+  if (M <= SLICE_ROWS)
+    return dispatch_grouped<float>(mt, nt, warps_n, x, w, scale_rows,
+                                   x_scale, cfg, cfg_stride, cfg_bn,
+                                   group_rows, cfg_expert_stride, out, E, M,
+                                   K, N, kslice, 0, stream);
+  if (xq == nullptr || E <= 0 || E > 65535 || K <= 0 || group_rows == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(xq) % 4 == 0;
+  const int rows_per_block = max(1, 8192 / K);    // ~32 KB of f32 a block
+  const int ready = cfg_stride == 0;
+  const dim3 grid((M + rows_per_block - 1) / rows_per_block, E);
+  approx_mac_kernel_grouped_quantize<<<grid, THREADS, 0,
+                                       (cudaStream_t)stream>>>(
+      x, x_scale, group_rows, cfg, cfg_expert_stride, ready, xq, M, K,
+      rows_per_block, vec ? 1 : 0);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return dispatch_grouped<int8_t>(mt, nt, warps_n, xq, w, scale_rows,
+                                  x_scale, cfg, cfg_stride, cfg_bn,
+                                  group_rows, cfg_expert_stride, out, E, M,
+                                  K, N, kslice, ready, stream);
 }

@@ -35,10 +35,14 @@ on the host (a decode step runs without a device sync).
 The one liberty: the reference's model path passes no ``group_rows``, so
 its kernel multiplies every buffer row, zero or not.  Here each expert's
 row count — one past the last row any group fills — goes to the grouped
-op, whose kernel then skips the tiles past it, and with them the weight
-bytes of experts no token picked.  Those rows are exactly zero, and
-zeros move neither the shared abs-max nor any output bit
-(tests/test_torch_moe.py runs both ways and compares).
+op, whose kernel reads it on the card: it neither quantizes, loads nor
+multiplies the rows past it, writes zeros for them, and skips every
+tile that holds none of an expert's rows before it reads a weight byte,
+so the banks of experts no token picked are never read (and at a decode
+step, where one tile holds all of an expert's rows, each picked bank is
+read once).  Those rows are exactly zero, and zeros move neither the
+shared abs-max nor any output bit (tests/test_torch_moe.py runs both
+ways and compares).
 
 Not ported: ``seq_chunks > 1``, expert parallelism (``ep``), the
 per-expert ``lax.map`` A/B path (``grouped=False``) and

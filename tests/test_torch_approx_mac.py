@@ -198,3 +198,121 @@ def test_k_slices_sum_to_the_blocked_product(shape, cfg_bn):
         total += A._blocked_int_matmul(a[:, lo:hi], w[lo:hi], rows, cfg_bn)
     assert splits > 1 or k <= kslice
     assert torch.equal(total, whole)
+
+
+# (E, M, K, N) of grouped GEMMs for the grouped plan's invariants: OLMoE-
+# 1B-7B's expert GEMMs (gate/up 2048 -> 1024, down 1024 -> 2048) at decode
+# buffers (M = tokens x top-8), the rows kept in shared memory (M <= 16),
+# one tile's edges (64, 65) and prefill buffers (128; 320 = 16 groups x
+# capacity 20), with 8 and 64 experts; ragged and narrow GEMMs
+GROUPED_PLAN_SHAPES = [
+    (e, m, k, n) for e in (8, 64)
+    for m in (1, 4, 8, 16, 17, 32, 48, 64, 65, 128, 320)
+    for k, n in ((2048, 1024), (1024, 2048), (203, 320), (64, 32))]
+# decode buffers of 1, 2 and 4 tokens x top-8 of 64 experts
+GROUPED_DECODE = [(64, m, k, n) for m in (8, 16, 32)
+                  for k, n in ((2048, 1024), (1024, 2048))]
+
+
+def _built_grouped_instances():
+    """(mt, nt, warps_n) of every APPROX_MAC_GROUPED_CASE in the CUDA
+    source: those a float activation reaches and all."""
+    import re
+    src = A._CSRC.read_text()
+    body = src[src.index("#define APPROX_MAC_GROUPED_CASE"):
+               src.index("#undef APPROX_MAC_GROUPED_CASE")]
+    pattern = r"APPROX_MAC_GROUPED_CASE\((\d+), (\d+), (\d+)\)\n"
+    cases = {tuple(map(int, c)) for c in re.findall(pattern, body)}
+    float_part = body[:body.index("if constexpr (sizeof(TA) == 1)")]
+    floats = {tuple(map(int, c)) for c in re.findall(pattern, float_part)}
+    return floats, cases
+
+
+def _grouped_tiles(m, n, plan):
+    """(row tiles, column tiles) of one expert under a plan."""
+    mt, nt, wn, *_ = plan
+    return -(-m // ((8 // wn) * mt * 16)), -(-n // (wn * nt * 8))
+
+
+@pytest.mark.parametrize("shape", GROUPED_PLAN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_grouped_plan_is_host_ints_that_tile_m_and_k(shape):
+    """The plan is plain Python ints (a captured call replays it with new
+    routing), its row tiles cover M, its K slices (multiples of 32) tile K
+    exactly within one cluster, each tiling is a built grouped instance,
+    and a block that keeps its rows' K slice in shared memory fits the
+    kernel's limit."""
+    e, m, k, n = shape
+    n = -(-n // 32) * 32
+    plan = A.grouped_plan(e, m, k, n)
+    assert all(type(v) is int for v in plan)
+    mt, nt, wn, kslice, splits = plan
+    rows, _ = _grouped_tiles(m, n, plan)
+    assert rows * (8 // wn) * mt * 16 >= m
+    assert kslice % 32 == 0 and 1 <= splits <= A.MAX_SPLITS
+    bounds = [(s * kslice, min((s + 1) * kslice, k)) for s in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    floats, built = _built_grouped_instances()
+    assert (mt, nt, wn) in (floats if m <= A.SLICE_ROWS else built)
+    if m <= A.SLICE_ROWS:
+        assert m * (-(-kslice // 128) * 128 + 16) <= 64 * 1024
+
+
+@pytest.mark.parametrize("shape", [s for s in GROUPED_PLAN_SHAPES
+                                   if s[1] <= 64],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_grouped_plan_holds_an_experts_rows_in_one_tile(shape):
+    """At M <= 64 one row tile holds all of an expert's rows, so a touched
+    bank is read once (per K split)."""
+    e, m, k, n = shape
+    plan = A.grouped_plan(e, m, k, -(-n // 32) * 32)
+    assert _grouped_tiles(m, n, plan)[0] == 1
+
+
+@pytest.mark.parametrize("shape", GROUPED_DECODE,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_grouped_plan_fills_the_sms_at_decode(shape):
+    """The min(E, M) experts the plan counts as touched spread over at
+    least SMS blocks."""
+    e, m, k, n = shape
+    plan = A.grouped_plan(e, m, k, n)
+    rows, cols = _grouped_tiles(m, n, plan)
+    assert min(e, m) * rows * cols * plan[4] >= A.SMS
+
+
+@pytest.mark.parametrize("shape", [(3, 7, 203, 320), (4, 33, 700, 96),
+                                   (2, 70, 300, 160)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_grouped_plain_version_zeros_absent_rows(shape):
+    """The grouped plain version, given x nonzero in every row: rows past
+    each expert's count are exactly 0 and the rest are each expert's fused
+    plain GEMM, summed over the grouped plan's K slices or not."""
+    e, m, k, n = shape
+    rng = np.random.default_rng(m * k)
+    x = torch.as_tensor(rng.normal(size=(e, m, k)).astype(np.float32))
+    w = torch.as_tensor(rng.integers(-127, 128, (e, k, n)).astype(np.int8))
+    xs = (x.abs().amax() / 127).reshape(1)
+    srow = xs * torch.as_tensor(rng.uniform(0.5, 1.5, (e, n))
+                                .astype(np.float32))
+    nb = -(-n // 128)
+    cfg = A.grouped_config_operand(torch.as_tensor(
+        rng.integers(0, 32, (e, nb))), e, nb, "cpu")
+    rows = torch.as_tensor([m, 0, m // 2, 1][:e], dtype=torch.int32)
+    out = A.approx_mac_grouped_matmul(x, w, srow, xs, rows, cfg)
+    x_q = torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
+    *_, kslice, splits = A.grouped_plan(e, m, k, -(-n // 32) * 32)
+    for i in range(e):
+        r = int(rows[i])
+        assert not out[i, r:].any()
+        if r == 0:
+            continue
+        whole = A.approx_mac_fused_matmul_ref(x[i, :r], w[i], srow[i], xs,
+                                              cfg[i])
+        assert torch.equal(out[i, :r], whole)
+        acc = sum(A._blocked_int_matmul(x_q[i, :r, lo:lo + kslice],
+                                        w[i, lo:lo + kslice], cfg[i], 128)
+                  for lo in range(0, k, kslice))
+        assert torch.equal(out[i, :r], acc.to(torch.float32) * srow[i])
+        assert splits == -(-k // kslice)

@@ -41,12 +41,17 @@ MAIN_PATH = [(m, k, n) for m in (4, 24)
 # (M, K, N) of the int kernel: the paper MLP's GEMMs, then ragged shapes
 INT_SHAPES = [(16, 62, 30), (1, 30, 10), (24, 200, 300), (5, 64, 384)]
 # (E, M, K, N) of the grouped kernel: OLMoE-1B-7B's expert GEMMs (gate/up
-# 2048 -> 1024, down 1024 -> 2048) at decode (M = 4), a decode pool's
-# buffer (M = 32) and prefill (M = 128), with 8 of its 64 experts; then a
-# ragged case (M % 4, K % 8, N % 32 all nonzero)
-GROUPED_SHAPES = [(8, m, k, n) for m in (4, 32, 128)
-                  for k, n in ((2048, 1024), (1024, 2048))] + [(5, 7, 203,
-                                                                300)]
+# 2048 -> 1024, down 1024 -> 2048) at M 1, decode (M = 4), M 16 (the last
+# of the rows kept in shared memory), a decode pool's buffer (M = 32) and
+# prefill (M = 128), with 8 of its 64 experts; a ragged case (M % 4, K % 8,
+# N % 32 all nonzero); the serve run's decode buffer (4 tokens x top-8 of
+# 64 experts, at most 4 rows an expert: DECODE_BUFFER) and a 2,048-token
+# prefill's buffer (16 groups x capacity 20, 128 x 128 tiles) with 16
+# experts
+DECODE_BUFFER = (64, 32, 2048, 1024)
+GROUPED_SHAPES = [(8, m, k, n) for m in (1, 4, 16, 32, 128)
+                  for k, n in ((2048, 1024), (1024, 2048))] + [
+    (5, 7, 203, 300), DECODE_BUFFER, (16, 320, 2048, 1024)]
 # bf16: the kernel rounds its f32 result once, the plain version after
 # other f32 sums, so the two can sit one bf16 ulp apart (2**-8 relative);
 # f32: the sums' order differs, ~1e-7 relative
@@ -124,12 +129,13 @@ def _grouped_case(e, m, k, n, seed=0):
     return x, w
 
 
-def _grouped_rows(e, m):
+def _grouped_rows(e, m, most=None):
     """Row counts per expert: full, ragged, zero for some experts, and
-    zero for all."""
+    zero for all; none above `most` (a decode buffer's tokens) if given."""
     ragged = (np.arange(e) * 7 + 3) % (m + 1)
     some = np.where(np.arange(e) % 2 == 1, 0, np.maximum(ragged, 1))
-    return [np.full(e, m), ragged, some, np.zeros(e, np.int64)]
+    forms = [np.full(e, m), ragged, some, np.zeros(e, np.int64)]
+    return forms if most is None else [np.minimum(f, most) for f in forms]
 
 
 def _grouped_configs(e, n, bn=128):
@@ -493,7 +499,7 @@ def test_cuda_grouped_kernel_equals_plain_version(cuda_device, shape):
     x, w = _grouped_case(e, m, k, n)
     xd = torch.as_tensor(x, device=cuda_device)
     bank = quantize_expert_bank(torch.as_tensor(w, device=cuda_device))
-    for rows in _grouped_rows(e, m):
+    for rows in _grouped_rows(e, m, 4 if shape == DECODE_BUFFER else None):
         rd = torch.as_tensor(rows, dtype=torch.int32, device=cuda_device)
         for config in _grouped_configs(e, n):
             cfg = torch.as_tensor(config, dtype=torch.int32,
@@ -509,6 +515,127 @@ def test_cuda_grouped_kernel_equals_plain_version(cuda_device, shape):
             assert A.approx_mac_grouped_matmul.launches == before + 1
             assert torch.equal(out, ref), (shape, rows.tolist(),
                                            _cfg_id(config))
+
+
+def _raw_grouped(e, m, k, n, dev, seed, broadcast=False):
+    """Operands of the raw grouped kernel: x nonzero in EVERY row (absent
+    ones too), a bank, combined scales and config rows, one row an expert
+    (broadcast over its blocks) or one a block."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bank = torch.randint(-127, 128, (e, k, n), dtype=torch.int8, device=dev,
+                         generator=gen)
+    x = torch.randn(e, m, k, device=dev, generator=gen) * 2
+    xs = (x.abs().amax().clamp(min=1e-12) * (1.0 / 127)).reshape(1)
+    srow = xs * (torch.rand(e, n, device=dev, generator=gen) + 0.5) * 1e-3
+    nb = -(-n // 128)
+    pick = torch.randint(0, 32, (e, 1 if broadcast else nb), device=dev,
+                         generator=gen)
+    cfg = A.grouped_config_operand(pick[:, 0] if broadcast else pick, e, nb,
+                                   dev)
+    return x, bank, srow, xs, cfg
+
+
+# (E, M, K, N) of the raw kernel's paths: rows kept in shared memory (M 4,
+# K split), quantized once and streamed (M 32; ragged K read directly, M
+# 40), and 128 x 128 tiles with a partly present last tile (M 200), over
+# narrow N (64, and 32 with ragged K)
+RAW_GROUPED = [(8, 4, 2048, 1024), (8, 32, 2048, 1024), (6, 40, 203, 320),
+               (8, 200, 512, 256), (6, 100, 256, 64), (3, 130, 130, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("broadcast", [False, True],
+                         ids=["block_cfgs", "expert_cfgs"])
+@pytest.mark.parametrize("shape", RAW_GROUPED,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_grouped_kernel_zeros_absent_rows(cuda_device, shape,
+                                               broadcast):
+    """Called directly, with x nonzero in the rows past each expert's
+    count: those rows come out exactly 0 and the rest equal the plain
+    version bit for bit, for every row-count form."""
+    e, m, k, n = shape
+    x, bank, srow, xs, cfg = _raw_grouped(e, m, k, n, cuda_device, m + k,
+                                          broadcast)
+    for rows in _grouped_rows(e, m):
+        rd = torch.as_tensor(rows, dtype=torch.int32, device=cuda_device)
+        out = A.approx_mac_grouped_matmul(x, bank, srow, xs, rd, cfg)
+        ref = A.approx_mac_grouped_matmul_ref(x, bank, srow, xs, rd, cfg)
+        torch.cuda.synchronize()
+        absent = torch.arange(m, device=cuda_device)[None, :] >= rd[:, None]
+        assert not out[absent].any(), (shape, rows.tolist())
+        assert torch.equal(out, ref), (shape, rows.tolist(),
+                                       A.grouped_plan(e, m, k, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 4, 2048, 1024), DECODE_BUFFER,
+                                   (16, 320, 2048, 1024)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_grouped_kernel_with_no_rows_writes_zeros(cuda_device, shape):
+    """Every expert empty: every tile exits before it reads a weight byte,
+    and still writes its zeros (the output's memory held NaNs before)."""
+    e, m, k, n = shape
+    x, bank, srow, xs, cfg = _raw_grouped(e, m, k, n, cuda_device, 3)
+    rows = torch.zeros(e, dtype=torch.int32, device=cuda_device)
+    for _ in range(2):
+        poison = torch.full((e, m, n), float("nan"), device=cuda_device)
+        del poison               # the caching allocator hands it out again
+        before = A.approx_mac_grouped_matmul.launches
+        out = A.approx_mac_grouped_matmul(x, bank, srow, xs, rows, cfg)
+        torch.cuda.synchronize()
+        assert A.approx_mac_grouped_matmul.launches == before + 1
+        assert out.shape == (e, m, n)
+        assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("broadcast", [False, True],
+                         ids=["block_cfgs", "expert_cfgs"])
+@pytest.mark.parametrize("e,m", [(64, 4), (64, 32), (16, 320)])
+def test_cuda_grouped_gemm_replays_in_a_graph(cuda_device, e, m, broadcast):
+    """One grouped GEMM (rows in shared memory with K split at M 4, x
+    quantized by its own kernel at M 32, 128 x 128 tiles at M 320) captured
+    once in a CUDA graph and replayed after new routing (row counts, all
+    empty and all full among them), new configs and new inputs are written
+    into its tensors in place gives the plain version's bits each time:
+    the plan reads no row count on the host."""
+    k, n = 2048, 1024
+    nb = n // 128
+    x, bank, srow, xs, cfg = _raw_grouped(e, m, k, n, cuda_device, e + m,
+                                          broadcast)
+    base = cfg[:, :1].clone() if broadcast else cfg.clone()
+    rows_cfg = base.expand(e, nb, 4) if broadcast else base
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    rows = torch.full((e,), m, dtype=torch.int32, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        A.approx_mac_grouped_matmul(x, bank, srow, xs, rows, rows_cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.approx_mac_grouped_matmul(x, bank, srow, xs, rows, rows_cfg)
+    routings = [torch.randint(0, m + 1, (e,), device=cuda_device,
+                              generator=gen), torch.zeros(e),
+                torch.full((e,), m), torch.randint(0, 2, (e,), device=
+                                                   cuda_device,
+                                                   generator=gen) * m]
+    for i, new_rows in enumerate(routings):
+        rows.copy_(new_rows.to(torch.int32))
+        x.copy_(torch.randn(e, m, k, device=cuda_device, generator=gen) * 3)
+        xs.copy_(x.abs().amax().clamp(min=1e-12) * (1.0 / 127))
+        srow.copy_(xs * (torch.rand(e, n, device=cuda_device, generator=gen)
+                         + 0.5) * 1e-3)
+        pick = torch.randint(0, 32, (e, base.shape[1]), device=cuda_device,
+                             generator=gen)
+        pick[0] = (16, 0, 31, 8)[i]
+        base.copy_(A.grouped_config_operand(pick, e, base.shape[1],
+                                            cuda_device))
+        graph.replay()
+        ref = A.approx_mac_grouped_matmul_ref(x, bank, srow, xs, rows,
+                                              rows_cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (e, m, broadcast, i)
 
 
 @pytest.mark.cuda
