@@ -95,6 +95,17 @@ Phases, each printing one JSON line:
              through the fused approx-MAC kernel against the same calls
              through its plain version, bit for bit.
 12. profile_paged — torch.profiler over three paged decode steps.
+12b. sched_serve — the power loop on the dense serve run's params: the
+             Engine with PowerBudgetScheduler(0.85 x exact pJ/token,
+             probe_every 4, retune_every 8, seed 0), 16 requests of 4-24
+             tokens, 32 new tokens each.  After a warm-up engine no
+             kernel library may be built or loaded; the fused kernel must
+             launch 7 times per layer per prefill, decode step and probe,
+             flash once per layer per prefill; the second probe's tick
+             must leave the cache equal bit for bit to a copy taken after
+             its served step.  Reports probe, served-step and ``plan()``
+             ms, the loop's ms a tick, pJ/token over the budget and the
+             serve phase's decode step and tokens/s beside its own.
 13. check_grouped — the grouped approx-MAC kernel equals its plain
              version bit for bit through ops.approx_dense_grouped_pallas
              at OLMoE-1B-7B's expert GEMMs (E 64, K x N 2048 x 1024 and
@@ -143,6 +154,10 @@ Phases, each printing one JSON line:
              prefill through the grouped kernel's plain version bit for
              bit; with ``--parent``, the parent's grouped kernel in turns
              (parent, change, change, parent), logits equal too.
+17c. sched_moe — the same on moe_serve's params (cfg_experts 64: 1,024
+             (layer, expert) keys), 8 requests, 16 new tokens, probe and
+             retune every 4 ticks; grouped 3 and fused 4 launches per
+             layer per prefill, decode step and probe.
 18. check_flash — the flash-attention kernel against its plain version:
              Gemma-2-27B's prefill shapes (H 32, KV 16, hd 128, scale
              1/12, softcap 50, window 4096 and none, S in {1, 24, 48,
@@ -191,12 +206,14 @@ Phases, each printing one JSON line:
 Then a ``{"kernels": [...]}`` line (the fused kernel's entry with a
 ``rows`` list: one Qwen2.5-3B layer at M 4 and one Gemma-2-27B layer at M 4
 and at M 48; the grouped kernel's: one OLMoE-1B-7B layer at decode and at
-the 2,048-token prefill), the nvidia-smi line again, and, as the
-last line, ``{"ok": true, "device": {...}}``.  Any failure raises and
+the 2,048-token prefill; both counts include the sched_serve and
+sched_moe runs), the nvidia-smi line again, and, as the last line,
+``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without a CUDA device, or without the repository beside
 this file, the script exits non-zero and prints no result.  The
-rehearsal walks the serve, mlp, paged_serve, moe_serve, moe_prefill,
-gemma2_serve and gemma2_window phases at the smoke size on the CPU and
+rehearsal walks the serve, mlp, paged_serve, sched_serve, moe_serve,
+moe_prefill, sched_moe, gemma2_serve and gemma2_window phases at the
+smoke size on the CPU and
 never prints the
 ``ok`` line.  Since the flash kernel carries every prefill attention on
 the card, the serve, paged_serve and moe_serve prefills run it too.
@@ -243,6 +260,16 @@ FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
 GEMMA_WINDOW = 4096                # Gemma-2-27B's local window
 # the paper MLP's two GEMMs (K, N) and the batches they run at
 MLP_GEMMS = ((62, 30), (30, 10))
+# the power loop's two runs (phase_sched): load, probe and retune cadence,
+# and each approx-MAC wrapper's launches per layer per prefill, decode
+# step or probe
+SCHED_SERVE = dict(name="sched_serve", n_req=16, max_new=32, probe_every=4,
+                   retune_every=8,
+                   per_call={"approx_mac_fused_matmul": GEMMS_PER_LAYER})
+SCHED_MOE = dict(name="sched_moe", n_req=8, max_new=16, probe_every=4,
+                 retune_every=4,
+                 per_call={"approx_mac_grouped_matmul": 3,
+                           "approx_mac_fused_matmul": 4})
 # paged serve: a pool too small for 8 streams of up to 7 blocks each,
 # so admission waits and decode preempts (the allocation schedule
 # depends only on token counts: the CPU rehearsal shows the same counts)
@@ -2320,6 +2347,236 @@ def phase_profile_gemma2(torch, T, eng, dev) -> None:
     emit(res)
 
 
+def cache_leaves(cache, prefix: str = ""):
+    """(path, tensor) of every tensor of a (nested) cache dict."""
+    for key in sorted(cache):
+        leaf = cache[key]
+        if isinstance(leaf, dict):
+            yield from cache_leaves(leaf, f"{prefix}{key}/")
+        else:
+            yield prefix + key, leaf
+
+
+def built_state(libs) -> tuple:
+    """What the kernel builds have made so far: each source's library
+    loads (``_lib`` cache misses) and the built libraries on disk."""
+    from repro_torch.kernels.build import BUILD_DIR
+    files = sorted(p.name for p in BUILD_DIR.glob("*")) \
+        if BUILD_DIR.is_dir() else []
+    return [m._lib.cache_info().misses for m in libs], files
+
+
+def _sched_prompts(Request, n_req, max_new, vocab):
+    """Prompts of 4-24 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return [Request(rid=rid, prompt=rng.integers(
+        0, min(vocab, 50000), int(rng.integers(4, 25))).astype(np.int32),
+        max_new_tokens=max_new) for rid in range(n_req)]
+
+
+def phase_sched(torch, T, A, libs, Engine, Request, Scheduler, params, cfg,
+                dev, *, name: str, n_req: int, max_new: int,
+                probe_every: int, retune_every: int, per_call: dict,
+                baseline: dict, **engine_kw) -> dict:
+    """The power loop on the main path: the port's Engine with a
+    PowerBudgetScheduler (budget 0.85 x the exact-mode pJ/token) over
+    already quantized params.  A warm-up engine probes every step and
+    retunes every tick; from then on no kernel library may be built or
+    loaded.  One probed tick's cache is held against a copy taken after
+    its served step (the cache a tick without the probe ends with), bit
+    for bit.  Served decode steps, probes and ``plan()`` are timed apart
+    (the probe's own decode step is not a served one); then the same
+    requests on an engine without the loop, at the loop's final configs,
+    give the unscheduled decode step at the same load; ``per_call`` gives
+    each approx-MAC wrapper's launches per layer per prefill, decode
+    step or probe.  On a CPU (the rehearsal) the plain versions run and
+    no kernel launch is expected."""
+    import numpy as np
+    from repro_torch.core.power_model import energy_per_token_pj
+    on_card = dev.type == "cuda"
+    FA = libs[-1]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    kw = dict(max_batch=4, max_len=128, device=dev, quantize_weights=False,
+              **engine_kw)
+
+    def scheduled(probe, retune):
+        sched = Scheduler(0.0, probe_every=probe, retune_every=retune,
+                          seed=0)
+        eng = Engine(params, cfg, scheduler=sched, **kw)
+        exact = energy_per_token_pj(np.zeros_like(eng.approx_cfg),
+                                    eng.macs_per_token, eng._moe_mac_frac)
+        sched.set_budget(0.85 * exact)
+        return eng, sched, exact
+
+    warm, warm_sched, _ = scheduled(1, 1)
+    warm.submit(Request(rid=-1, prompt=list(range(1, 9)), max_new_tokens=4))
+    warm.run()
+    assert warm_sched.n_probes > 0 and warm_sched.tick > 0
+    del warm, warm_sched
+    sync()
+    built = built_state(libs)
+
+    eng, sched, exact = scheduled(probe_every, retune_every)
+    budget = sched.budget_pj_per_token
+    for r in _sched_prompts(Request, n_req, max_new, cfg.vocab_size):
+        eng.submit(r)
+    timed = {"prefill": [], "decode": [], "probe": [], "plan": []}
+    state = {"in_probe": False, "checked": 0}
+    fns = (T.prefill, T.decode_step)
+    shadow, plan = eng._shadow_decode, sched.plan
+
+    def timer(kind, fn):
+        def run(*args, **kwargs):
+            if state["in_probe"]:
+                return fn(*args, **kwargs)
+            sync()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            timed[kind].append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    def probe(cache, token, cfg_vec):
+        # the second probe's tick: the cache after the served step is
+        # what the tick leaves without the probe
+        check = state["checked"] == 0 and sched.n_probes == 1
+        if check:
+            before = {n: t.clone() for n, t in cache_leaves(eng.cache)}
+        sync()
+        t = time.perf_counter()
+        state["in_probe"] = True
+        try:
+            out = shadow(cache, token, cfg_vec)
+        finally:
+            state["in_probe"] = False
+        timed["probe"].append((time.perf_counter() - t) * 1e3)
+        if check:
+            after = dict(cache_leaves(eng.cache))
+            assert after.keys() == before.keys()
+            for n, t in before.items():
+                assert torch.equal(after[n], t), n
+            state["checked"] = len(before)
+        return out
+
+    def timed_plan():
+        t = time.perf_counter()
+        out = plan()
+        timed["plan"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng._shadow_decode, sched.plan = probe, timed_plan
+    T.prefill, T.decode_step = timer("prefill", fns[0]), timer("decode",
+                                                               fns[1])
+    try:
+        for fn in per_call:
+            getattr(A, fn).launches = 0
+        FA.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        ticks = 0
+        while eng.queue or any(s is not None for s in eng.slots):
+            eng.step()
+            ticks += 1
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {fn: getattr(A, fn).launches for fn in per_call}
+        flash = FA.flash_attention.launches
+    finally:
+        T.prefill, T.decode_step = fns
+    assert built_state(libs) == built, (built_state(libs), built)
+    done = eng.completed
+    assert len(done) == n_req, len(done)
+    assert all(len(r.tokens) == max_new and r.status == "done"
+               for r in done), [len(r.tokens) for r in done]
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.tokens)
+    n_prefill, n_decode = len(timed["prefill"]), eng.n_decode_steps
+    n_probe = sched.n_probes
+    assert n_prefill == n_req and n_decode == len(timed["decode"])
+    assert n_probe == len(timed["probe"]) > 1 and state["checked"] > 0
+    calls = n_prefill + n_decode + n_probe
+    expected = {fn: per * cfg.n_layers * calls if on_card else 0
+                for fn, per in per_call.items()}
+    assert launches == expected, (launches, expected)
+    exp_flash = cfg.n_layers * n_prefill if on_card else 0
+    assert flash == exp_flash, (flash, exp_flash)
+    probe_rows = [n for kind, n, _, _ in eng.energy_log if kind == "probe"]
+    assert len(probe_rows) == n_probe
+    assert eng.n_serve_tokens_charged + sum(probe_rows) == \
+        eng.n_tokens_charged
+    retunes = [h for h in sched.history if h["event"] == "retune"]
+    assert retunes and retunes[-1]["modeled_pj_per_token"] <= \
+        budget * (1 + 1e-12)
+    rep = sched.report()
+    last = retunes[-1]
+    tokens = sum(len(r.tokens) for r in done)
+    asg = np.asarray(rep["assignment"])
+
+    # the same load without the loop, at its final configs
+    plain = Engine(params, cfg, approx_cfg=asg, **kw)
+    for r in _sched_prompts(Request, n_req, max_new, cfg.vocab_size):
+        plain.submit(r)
+    served_steps, timed["decode"] = timed["decode"], []
+    T.decode_step = timer("decode", fns[1])
+    try:
+        t0 = time.perf_counter()
+        plain.run()
+        sync()
+        plain_wall = time.perf_counter() - t0
+    finally:
+        T.decode_step = fns[1]
+    plain_steps, timed["decode"] = timed["decode"], served_steps
+    assert len(plain_steps) == plain.n_decode_steps
+    res = {"phase": name, "arch": cfg.name, "layers": cfg.n_layers,
+           "keys": len(sched.keys), "ladder": len(sched.probe_configs),
+           "requests": n_req, "max_new_tokens": max_new,
+           "probe_every": probe_every, "retune_every": retune_every,
+           "ticks": sched.tick, "prefills": n_prefill,
+           "decode_steps": n_decode, "probes": n_probe,
+           "retunes": rep["retunes"], "backoffs": rep["backoffs"],
+           "agreement": rep["agreement"],
+           "window_agreement": last["window_agreement"],
+           "window_agreements": [h["window_agreement"] for h in retunes],
+           "budget_pj_per_token": budget, "exact_pj_per_token": exact,
+           "modeled_over_budget": last["modeled_pj_per_token"] / budget,
+           "measured_over_budget": (last["measured_pj_per_token"] / budget
+                                    if last["measured_pj_per_token"]
+                                    else None),
+           "measured_median_over_budget":
+               rep["measured_median_pj_per_token"] / budget,
+           "final_configs": {int(c): int(n) for c, n in
+                             zip(*np.unique(asg, return_counts=True))},
+           "prefill_ms_mean": sum(timed["prefill"]) / n_prefill,
+           "decode_step_ms_mean": sum(timed["decode"]) / n_decode,
+           "decode_step_ms_min": min(timed["decode"]),
+           "probe_ms_mean": sum(timed["probe"]) / n_probe,
+           "probe_ms_min": min(timed["probe"]),
+           "plan_ms_mean": sum(timed["plan"]) / len(timed["plan"]),
+           "plan_ms_max": max(timed["plan"]), "plans": len(timed["plan"]),
+           "loop_ms_per_tick": (sum(timed["probe"]) + sum(timed["plan"]))
+           / sched.tick,
+           "wall_s": wall, "tick_ms_mean": wall * 1e3 / ticks,
+           "tokens": tokens, "tokens_per_s": tokens / wall,
+           "unscheduled_decode_step_ms_mean":
+               sum(plain_steps) / len(plain_steps),
+           "unscheduled_decode_step_ms_min": min(plain_steps),
+           "unscheduled_tokens_per_s": tokens / plain_wall,
+           "serve_decode_step_ms_mean": baseline["decode_step_ms_mean"],
+           "serve_decode_step_ms_min": baseline["decode_step_ms_min"],
+           "serve_tokens_per_s": baseline["tokens_per_s"],
+           "launches": launches, "expected_launches": expected,
+           "flash_launches": flash, "expected_flash": exp_flash,
+           "cache_bit_identical_after_probe": True,
+           "cache_tensors_checked": state["checked"],
+           "libraries_built_after_warmup": 0}
+    emit(res)
+    return res
+
+
 def layer_row(name: str, rows: list, launches: int) -> dict:
     """One work row of a kernel's entry: the sums over a layer's GEMMs."""
     return {"work": name, "launches": launches,
@@ -2333,9 +2590,10 @@ def layer_row(name: str, rows: list, launches: int) -> dict:
 
 
 def rehearse() -> int:
-    """The serve, mlp, paged_serve, moe_serve, moe_prefill, gemma2_serve
-    and gemma2_window phases on a CPU at the smoke size: plain versions,
-    no build, no timing, and never the ok line."""
+    """The serve, mlp, paged_serve, sched_serve, moe_serve, moe_prefill,
+    sched_moe, gemma2_serve and gemma2_window phases on a CPU at the
+    smoke size: plain versions, no build, no timing, and never the ok
+    line."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.configs.registry import get_config
@@ -2346,15 +2604,23 @@ def rehearse() -> int:
     from repro_torch.nn import transformer as T
     from repro_torch.serve.engine import Engine, Request
     from repro_torch.serve.paged_cache import PagedCacheConfig
+    from repro_torch.serve.scheduler import PowerBudgetScheduler
     cpu = torch.device("cpu")
     cfg = get_config("qwen2.5-3b").smoke()
-    _, eng = phase_serve(torch, T, A, Engine, Request, cfg, cpu)
+    serve, eng = phase_serve(torch, T, A, Engine, Request, cfg, cpu)
     phase_mlp(torch, A, cpu, n_data=200, n_sim=8)
     phase_paged_serve(torch, T, A, PA, Engine, Request, PagedCacheConfig,
                       eng.params, cfg, cpu)
+    phase_sched(torch, T, A, (A, PA, FA), Engine, Request,
+                PowerBudgetScheduler, eng.params, cfg, cpu, **SCHED_SERVE,
+                baseline=serve)
     moe_cfg = get_config("olmoe-1b-7b").smoke(mac_backend="pallas")
-    _, moe_eng = phase_moe_serve(torch, T, A, Engine, Request, moe_cfg, cpu)
+    moe, moe_eng = phase_moe_serve(torch, T, A, Engine, Request, moe_cfg,
+                                   cpu)
     phase_moe_prefill(torch, T, A, None, moe_eng.params, moe_cfg, cpu)
+    phase_sched(torch, T, A, (A, PA, FA), Engine, Request,
+                PowerBudgetScheduler, moe_eng.params, moe_cfg, cpu,
+                **SCHED_MOE, baseline=moe, cfg_experts=moe_cfg.n_experts)
     g_cfg = get_config("gemma2-27b").smoke()
     _, g_eng = phase_gemma2_serve(torch, T, A, FA, Engine, Request, g_cfg,
                                   cpu)
@@ -2401,6 +2667,7 @@ def main(argv: list[str]) -> int:
     from repro_torch.nn.moe import quantize_expert_bank
     from repro_torch.serve.engine import Engine, Request
     from repro_torch.serve.paged_cache import PagedCacheConfig
+    from repro_torch.serve.scheduler import PowerBudgetScheduler
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2448,6 +2715,9 @@ def main(argv: list[str]) -> int:
     phase_paged_check(torch, T, PA, A, ops, params, cfg, snaps, chunk_snap)
     phase_profile_paged(torch, T, params, cfg, snaps[0],
                         paged["decode_step_ms_mean"])
+    sched_serve = phase_sched(torch, T, A, (A, PA, FA), Engine, Request,
+                              PowerBudgetScheduler, params, cfg, dev,
+                              **SCHED_SERVE, baseline=serve)
     # free Qwen2.5-3B before OLMoE-1B-7B
     del params, snaps, chunk_snap
     torch.cuda.empty_cache()
@@ -2459,6 +2729,10 @@ def main(argv: list[str]) -> int:
     phase_profile_moe(torch, T, moe_eng, dev, moe["decode_step_ms_mean"])
     moe_prefill = phase_moe_prefill(torch, T, A, ops, moe_eng.params,
                                     moe_cfg, dev, parent)
+    sched_moe = phase_sched(torch, T, A, (A, PA, FA), Engine, Request,
+                            PowerBudgetScheduler, moe_eng.params, moe_cfg,
+                            dev, **SCHED_MOE, baseline=moe,
+                            cfg_experts=moe_cfg.n_experts)
     # free OLMoE-1B-7B before Gemma-2-27B
     del moe_eng
     torch.cuda.empty_cache()
@@ -2478,7 +2752,9 @@ def main(argv: list[str]) -> int:
                           [timing_grouped[(kind, *s)] for s in MOE_GEMMS],
                           launches)
                 for kind, what, launches in (
-                    ("decode", "decode, M 32", moe["grouped_launches"]),
+                    ("decode", "decode, M 32",
+                     moe["grouped_launches"]
+                     + sched_moe["launches"]["approx_mac_grouped_matmul"]),
                     ("prefill", "2,048-token prefill, M 320",
                      moe_prefill["grouped_launches"]))]
     serve_attn = timing_paged[0]
@@ -2488,7 +2764,8 @@ def main(argv: list[str]) -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
-        "launches": serve["kernel_launches"],
+        "launches": (serve["kernel_launches"]
+                     + sched_serve["launches"]["approx_mac_fused_matmul"]),
         "max_abs_err": worst,
         "ms": sum(r["ms"] for r in layer),
         "plain_ms": sum(r["plain_ms"] for r in layer),
@@ -2497,9 +2774,10 @@ def main(argv: list[str]) -> int:
                      else "operations"),
         "library_ms": sum(r["library_ms"] for r in layer),
         "work": "the 7 GEMMs of one Qwen2.5-3B layer at decode, M = 4; "
-                "launches from the dense serve run (the paged run's are "
-                "in paged_serve, the MoE run's in moe_serve, Gemma-2's in "
-                "gemma2_serve); library_ms is torch._int_mm at config 0 "
+                "launches from the dense serve and sched_serve runs (the "
+                "paged run's are in paged_serve, the MoE runs' in "
+                "moe_serve and sched_moe, Gemma-2's in gemma2_serve); "
+                "library_ms is torch._int_mm at config 0 "
                 "with M padded to 32, each GEMM in its faster weight "
                 "layout (timing's library_layout)",
         "rows": [layer_row("qwen2.5-3b layer, M 4", layer,
@@ -2544,13 +2822,15 @@ def main(argv: list[str]) -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": GROUPED_TPU_KERNEL,
-        "launches": moe["grouped_launches"],
+        "launches": (moe["grouped_launches"]
+                     + sched_moe["launches"]["approx_mac_grouped_matmul"]),
         "max_abs_err": grouped_err,
         **{key: moe_rows[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
         "work": "the 3 expert GEMMs (gate, up, down) of one OLMoE-1B-7B "
                 "layer at decode: 4 tokens, top-8 of 64 experts from a "
-                "real routing, M 32; launches from the MoE serve run; "
+                "real routing, M 32; launches from the moe_serve and "
+                "sched_moe runs; "
                 "library_ms is a torch._int_mm loop over the touched "
                 "experts at config 0, each GEMM in its faster weight "
                 "layout (timing_grouped's library_layout)",

@@ -16,8 +16,11 @@ dense or paged (``--paged``, all-'global' float-KV models), with every
 dense GEMM through the fused approx-MAC CUDA kernel, every expert GEMM
 through the grouped one, every prefill attention through the
 flash-attention kernel and paged decode attention through the
-paged-attention kernel — and the paper's
-own 62-30-10 MLP (``nn/mlp_paper.py``, ``core/hw_sim.py``,
+paged-attention kernel; the online power loop on that engine
+(``serve/scheduler.py``'s ``PowerBudgetScheduler`` with its telemetry,
+``serve/telemetry.py``, the offline controller it shares its greedy
+core with, ``core/controller.py``, and the admission power cap); and
+the paper's own 62-30-10 MLP (``nn/mlp_paper.py``, ``core/hw_sim.py``,
 ``data/synthetic_mnist.py``), whose "kernel" method runs the int
 approx-MAC CUDA kernel.
 """

@@ -4,6 +4,7 @@
       --arch {qwen2.5-3b,olmoe-1b-7b,gemma2-27b} \
       [--smoke] [--requests 8] [--max-batch 4] [--max-len 128] \
       [--max-new 16] [--approx-cfg 0] [--device cuda] \
+      [--budget-frac F] [--power-cap-frac F] \
       [--paged [--num-blocks N] [--block-size 16] [--prefill-chunk 32]]
 
 Serves random init (seed 0) through ``repro_torch.serve.engine.Engine``:
@@ -15,10 +16,12 @@ reduced config so the loop runs on the CPU.  --paged serves from a
 block-pool KV cache (chunked prefill, prefix sharing, preemption by
 recompute) whose decode attention runs the paged-attention kernel; as
 in the reference, it refuses models with local layers or an int8 KV
-cache (Gemma-2).
-Counterpart of ``repro.launch.serve`` without its checkpoint,
-scheduler, mesh, resilience, traffic and speculative options (not
-ported yet).
+cache (Gemma-2).  --budget-frac attaches a ``PowerBudgetScheduler``
+whose budget is that fraction of the model's exact-mode pJ/token, and
+prints its report at the end; --power-cap-frac caps admission at that
+fraction of max_batch exact-mode tokens a tick.
+Counterpart of ``repro.launch.serve`` without its checkpoint, mesh,
+resilience, traffic and speculative options (not ported yet).
 """
 from __future__ import annotations
 
@@ -29,9 +32,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.core.power_model import energy_per_token_pj
 from repro_torch.nn import transformer as T
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.paged_cache import N_RESERVED, PagedCacheConfig
+from repro_torch.serve.scheduler import PowerBudgetScheduler
 
 
 def main(argv=None) -> dict:
@@ -43,6 +48,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--approx-cfg", type=int, default=0)
+    ap.add_argument("--budget-frac", type=float, default=None,
+                    help="attach a PowerBudgetScheduler targeting this "
+                         "fraction of exact-mode joules/token")
+    ap.add_argument("--power-cap-frac", type=float, default=None,
+                    help="admission power cap as a fraction of "
+                         "max_batch exact-config tokens/tick")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache: block pool + per-request "
                          "block tables, chunked prefill, prefix "
@@ -78,12 +89,26 @@ def main(argv=None) -> dict:
               f"({paged.usable_blocks * args.block_size} usable), "
               f"prefill chunk {args.prefill_chunk}")
     gen = torch.Generator(device=device).manual_seed(0)
+    # budget set below from the model's exact-mode pJ/token
+    sched = (PowerBudgetScheduler(0.0) if args.budget_frac is not None
+             else None)
     # quantized as drawn: a full-width MoE model's f32 expert banks
     # (25.8 GB for OLMoE-1B-7B) then exist one layer at a time
     eng = Engine(T.init_lm(gen, cfg, device, quantized=True), cfg,
                  max_batch=args.max_batch,
                  max_len=args.max_len, approx_cfg=args.approx_cfg,
-                 paged=paged, device=device)
+                 paged=paged, scheduler=sched, device=device)
+    exact_pj = energy_per_token_pj(np.zeros_like(eng.approx_cfg),
+                                   eng.macs_per_token, eng._moe_mac_frac)
+    if sched is not None:
+        sched.set_budget(args.budget_frac * exact_pj)
+        print(f"power-budget scheduler: {args.budget_frac:.2f} x exact = "
+              f"{sched.budget_pj_per_token/1e6:.3f} uJ/token")
+    if args.power_cap_frac is not None:
+        eng.power_cap_pj_per_tick = (args.power_cap_frac
+                                     * args.max_batch * exact_pj)
+        print(f"admission power cap: {args.power_cap_frac:.2f} x "
+              f"{args.max_batch} exact tokens/tick")
     rng = np.random.default_rng(0)
     t0 = time.time()
     for rid in range(args.requests):
@@ -105,6 +130,15 @@ def main(argv=None) -> dict:
           f"{rep['modeled_mac_energy_j']*1e3:.2f} mJ "
           f"(exact {rep['exact_mac_energy_j']*1e3:.2f} mJ, "
           f"saving {rep['saving_frac']*100:.2f}%)")
+    if sched is not None:
+        s = sched.report()
+        measured = s["measured_pj_per_token"] or s["modeled_pj_per_token"]
+        print(f"scheduler: {s['retunes']} retunes, {s['probes']} probes "
+              f"(agree {100*(s['agreement'] or 0):.1f}%, "
+              f"{s['backoffs']} backoffs), energy/token "
+              f"{measured/1e6:.3f} uJ vs budget "
+              f"{s['budget_pj_per_token']/1e6:.3f} uJ")
+        print(f"scheduler report: {s}")
     if paged is not None:
         bp = eng.backpressure
         print(f"paged: {eng.n_preempted} preemptions, "

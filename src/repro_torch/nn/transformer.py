@@ -593,6 +593,17 @@ def _pool_write(pool: torch.Tensor, blocks, offsets, new) -> None:
     pool.view(nb * bs, kv, hd).index_copy_(0, idx, new.to(pool.dtype))
 
 
+def _paged_decode_slots(tables, seq_lens, active, bs: int):
+    """(blocks, offsets), each (B,): where a paged decode step writes each
+    row's K/V — an active row's tail block at seq_len % bs, an inactive
+    row's the trash block."""
+    # clamp like the reference's gather (JAX clamps out-of-range indices);
+    # a live row's page is always in range
+    page = torch.clamp(seq_lens // bs, max=tables.shape[1] - 1)
+    tail = torch.gather(tables, 1, page[:, None].to(torch.long))[:, 0]
+    return torch.where(active, tail, TRASH_BLOCK), seq_lens % bs
+
+
 def _paged_attn_block(p, x, cache, layer, cfg, tables, seq_lens, active,
                       approx_cfg):
     """One paged layer, one token per row.  x: (B, 1, d); tables (B, P)
@@ -602,14 +613,10 @@ def _paged_attn_block(p, x, cache, layer, cfg, tables, seq_lens, active,
     kernel (its plain version on the CPU)."""
     q, k, v = _qkv(p, x, cfg, seq_lens[:, None], approx_cfg)
     k_pool, v_pool = cache["k"][layer], cache["v"][layer]
-    bs = k_pool.shape[1]
-    # clamp like the reference's gather (JAX clamps out-of-range indices);
-    # a live row's page is always in range
-    page = torch.clamp(seq_lens // bs, max=tables.shape[1] - 1)
-    tail = torch.gather(tables, 1, page[:, None].to(torch.long))[:, 0]
-    blocks = torch.where(active, tail, TRASH_BLOCK)
-    _pool_write(k_pool, blocks, seq_lens % bs, k[:, 0])
-    _pool_write(v_pool, blocks, seq_lens % bs, v[:, 0])
+    blocks, offsets = _paged_decode_slots(tables, seq_lens, active,
+                                          k_pool.shape[1])
+    _pool_write(k_pool, blocks, offsets, k[:, 0])
+    _pool_write(v_pool, blocks, offsets, v[:, 0])
     attn = paged_decode_attention(q, k_pool, v_pool, tables, seq_lens + 1,
                                   scale=cfg.query_scale)
     return _block_tail(p, x, attn, cfg, approx_cfg)
@@ -636,6 +643,43 @@ def paged_decode_step(params, cfg: ModelConfig, cache: Params, token, *,
     x = rmsnorm(x, params["final_norm"]["scale"])
     return (logits_for(params, cfg, x[:, 0]),
             {"k": cache["k"], "v": cache["v"]})
+
+
+def decode_writes(cache: Params) -> list:
+    """Snapshot of the cache entries one decode step on `cache` writes:
+    ``decode_step`` writes every layer's K/V (int8 values and scales
+    under kv_quant) at each buffer's ``pos % s_buf``,
+    ``paged_decode_step`` (a cache with "tables") each row's slot from
+    ``_paged_decode_slots``.  Returns (tensor, dim, index, values) entries
+    for ``restore_writes``; reads no device value on the host."""
+    saved = []
+    if "tables" in cache:
+        n, nb, bs, kv, hd = cache["k"].shape
+        blocks, offsets = _paged_decode_slots(
+            cache["tables"], cache["seq_lens"], cache["active"], bs)
+        idx = blocks.to(torch.long) * bs + offsets.to(torch.long)
+        for name in ("k", "v"):
+            flat = cache[name].view(n, nb * bs, kv, hd)
+            saved.append((flat, 1, idx, flat.index_select(1, idx)))
+        return saved
+    pos = cache["pos"].to(torch.long)
+    for buf in (cache, cache.get("local")):
+        if buf is None:
+            continue
+        at = (pos % buf["k"].shape[2]).reshape(1)
+        for name in ("k", "v", "k_s", "v_s"):
+            if name in buf:
+                saved.append((buf[name], 2, at,
+                              buf[name].index_select(2, at)))
+    return saved
+
+
+def restore_writes(saved: list) -> None:
+    """Write a ``decode_writes`` snapshot back, in place.  Indices that
+    repeat (inactive paged rows sharing a trash slot) hold equal values,
+    so the order of the writes cannot matter."""
+    for tensor, dim, idx, values in saved:
+        tensor.index_copy_(dim, idx, values)
 
 
 def paged_prefill_chunk(params, cfg: ModelConfig, cache: Params, tokens, *,

@@ -43,10 +43,18 @@ kernel, the layer's dense GEMMs run the expert-collapsed config, and the
 energy integral weights the expert axis by the expert GEMMs' share of a
 layer's MACs.
 
+The power loop (``scheduler=``, ``serve/scheduler.py``): after every
+decode step the scheduler's ``on_step`` may shadow-decode the same
+pre-step state at the exact config (``_shadow_decode``, which undoes
+the probe's cache writes), and at the end of every tick its
+``on_tick`` may retune the engine config; probe decodes are billed as
+``kind="probe"`` rows, outside the serve-only counters the budget reads.
+``power_cap_pj_per_tick`` holds admission (head of line) while the
+pool's modeled energy per tick would pass the cap.
+
 Not ported yet (the reference's knobs for them do not exist here):
-speculative decoding, the scheduler and telemetry, fault injection and
-deadline expiry, brownout, traffic classes' budgets, the power cap,
-checkpointing and sharding.
+speculative decoding, fault injection, deadline expiry and NaN
+quarantine, brownout, checkpointing and sharding.
 
 Runs on ``device="cuda"`` unless told otherwise; without a GPU the
 default raises rather than falling back to the CPU.
@@ -103,6 +111,19 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+class _HostArray:
+    """A device tensor that numpy reads as a host array
+    (``np.asarray``), copied only when read: the scheduler reads the
+    served logits on the steps it probes alone, with no tensor API."""
+
+    def __init__(self, tensor: torch.Tensor):
+        self._tensor = tensor
+
+    def __array__(self, dtype=None, copy=None):
+        host = self._tensor.float().cpu().numpy()
+        return host if dtype is None else host.astype(dtype)
+
+
 @dataclass
 class Request:
     rid: int
@@ -127,7 +148,9 @@ class Engine:
                  clock: Callable[[], float] = time.time,
                  queue_capacity: int = 256,
                  paged: PagedCacheConfig | None = None,
-                 prefill_pad: int = 0, device="cuda"):
+                 prefill_pad: int = 0, scheduler=None,
+                 power_cap_pj_per_tick: float | None = None,
+                 device="cuda"):
         """max_batch: decode-pool slots; max_len: KV-cache length
         (prompt + generated); approx_cfg: engine-wide error config (int
         or per-layer[/per-group] array); seed: seed of the sampling
@@ -142,7 +165,11 @@ class Engine:
         ``PagedCacheConfig`` for the block-pool cache (None: the dense
         pool; needs ``max_len % block_size == 0``); prefill_pad: pad
         prompts to a multiple of this many tokens (paged mode pads to
-        the chunk); device: where params, cache and every step live."""
+        the chunk); scheduler: a ``PowerBudgetScheduler`` hooked into
+        every tick (attached once the cache exists);
+        power_cap_pj_per_tick: admission power gate in modeled pJ per
+        tick (None: no cap); device: where params, cache and every step
+        live."""
         self.device = T.resolve_device(device)
         if (cfg_groups > 1 or cfg_experts > 1) \
                 and cfg.mac_backend != "pallas":
@@ -219,12 +246,26 @@ class Engine:
         self.n_prefill_tokens = 0
         self.mac_energy_pj_per_param = 0.0   # sum over tokens of E(cfg)
         self.exact_energy_pj_per_param = 0.0
-        # every charge in order: (kind, tokens, per-MAC pJ, class) —
-        # rows sum to the report totals; bounded audit window
+        self.n_tokens_charged = 0
+        # serve-only twins of the integrals above: every charge but
+        # kind="probe" (shadow probes are measurement, not service
+        # traffic), whole and split by traffic class — what the
+        # scheduler's measured-pJ/token feedback reads
+        self.serve_mac_energy_pj_per_param = 0.0
+        self.n_serve_tokens_charged = 0
+        self.serve_energy_by_class: dict[str, float] = {}
+        self.serve_tokens_by_class: dict[str, int] = {}
+        # every charge in order: (kind, tokens, per-MAC pJ, class; None
+        # on probe rows) — rows sum to the report totals; bounded audit
+        # window
         self.energy_log: deque[tuple[str, int, float, str | None]] = \
             deque(maxlen=65536)
         self.completed: list[Request] = []
         self._macs_per_token: float | None = None
+        self.power_cap_pj_per_tick = power_cap_pj_per_tick
+        self.scheduler = scheduler
+        if scheduler is not None:
+            scheduler.attach(self)
 
     # -- config management ----------------------------------------------
     def _as_layer_vector(self, approx_cfg) -> np.ndarray:
@@ -290,12 +331,16 @@ class Engine:
                 vec[i, expert] = int(c)
         self.set_approx_cfg(vec)
 
+    def _active_cfgs(self) -> list[np.ndarray]:
+        """The config of each active slot: pinned slots their own,
+        unpinned the engine's."""
+        return [self.slot_cfg[i] if self.slot_pinned[i] else self.approx_cfg
+                for i, r in enumerate(self.slots) if r is not None]
+
     def _pool_cfg(self) -> np.ndarray:
         """Decode-pool config: the pool join of the active slots'
-        configs (pinned slots their own, unpinned the engine's)."""
-        active = [self.slot_cfg[i] if self.slot_pinned[i]
-                  else self.approx_cfg
-                  for i, r in enumerate(self.slots) if r is not None]
+        configs."""
+        active = self._active_cfgs()
         if not active:
             return self.approx_cfg
         return pool_join(np.stack(active))
@@ -352,21 +397,53 @@ class Engine:
         pj = self._energy_pj_mean(cfg_vec)
         self.mac_energy_pj_per_param += tokens * pj
         self.exact_energy_pj_per_param += tokens * float(ENERGY_PER_MAC_PJ[0])
+        self.n_tokens_charged += tokens
+        if kind == "probe":
+            # billed (a real executed decode), but no class's traffic
+            self.energy_log.append((kind, tokens, pj, None))
+            return
         if isinstance(cls, str) or cls is None:
             split = {cls or "default": int(tokens)}
         else:
             split = {str(c): int(n) for c, n in cls.items() if n}
         assert sum(split.values()) == int(tokens), (split, tokens)
+        self.serve_mac_energy_pj_per_param += tokens * pj
+        self.n_serve_tokens_charged += tokens
+        for c, n in split.items():
+            self.serve_energy_by_class[c] = (
+                self.serve_energy_by_class.get(c, 0.0) + n * pj)
+            self.serve_tokens_by_class[c] = (
+                self.serve_tokens_by_class.get(c, 0) + n)
         for c, n in sorted(split.items()):
             self.energy_log.append((kind, n, pj, c))
+
+    def _admission_power_ok(self, req_cfg: np.ndarray,
+                            pinned: bool) -> bool:
+        """Power gate: admit only while the pool's modeled energy rate —
+        (active + 1) tokens a tick at the candidate pool config, joined
+        as ``_pool_cfg`` will join it — stays under
+        ``power_cap_pj_per_tick``.  Stepping configs down lowers
+        pJ/token, so more slots fit under the cap."""
+        if self.power_cap_pj_per_tick is None:
+            return True
+        stack = self._active_cfgs()
+        stack.append(req_cfg if pinned else self.approx_cfg)
+        cand = pool_join(np.stack(stack))
+        pj_per_tick = (len(stack) * self._energy_pj_mean(cand)
+                       * self.macs_per_token)
+        return pj_per_tick <= self.power_cap_pj_per_tick
 
     def _admit(self) -> None:
         for slot in range(self.max_batch):
             if self.slots[slot] is None and self.queue:
-                req = self.queue.popleft()
+                req = self.queue[0]
                 req_cfg = self._as_layer_vector(req.approx_cfg)
+                pinned = req.approx_cfg is not None
+                if not self._admission_power_ok(req_cfg, pinned):
+                    break       # a head-of-line wait, not a skip (FIFO)
+                self.queue.popleft()
                 req.status = "active"
-                self.slot_pinned[slot] = req.approx_cfg is not None
+                self.slot_pinned[slot] = pinned
                 toks = np.asarray(req.prompt, np.int32).reshape(-1)
                 true_len = toks.shape[0]
                 if self.prefill_pad > 0:
@@ -485,7 +562,7 @@ class Engine:
         """FIFO admission into free slots: reuse any cached prompt prefix
         (fork its blocks), reserve the first chunk's blocks, and register
         the request for chunked prefill.  Block shortage is a
-        head-of-line wait."""
+        head-of-line wait, like the power gate."""
         p = self.paged
         bs = p.block_size
         for slot in range(self.max_batch):
@@ -493,6 +570,9 @@ class Engine:
                 continue
             req = self.queue[0]
             req_cfg = self._as_layer_vector(req.approx_cfg)
+            pinned = req.approx_cfg is not None
+            if not self._admission_power_ok(req_cfg, pinned):
+                break
             # a preempted request re-prefills prompt + generated; the
             # LAST generated token stays out — it is the next decode input
             toks = np.asarray(req.prompt, np.int32).reshape(-1)
@@ -521,7 +601,7 @@ class Engine:
                 break                      # wait for blocks, FIFO order
             self.queue.popleft()
             req.status = "active"
-            self.slot_pinned[slot] = req.approx_cfg is not None
+            self.slot_pinned[slot] = pinned
             self.slot_cfg[slot] = req_cfg
             blocks = self.allocator.fork(shared)
             self.n_shared_blocks += len(shared)
@@ -699,15 +779,44 @@ class Engine:
         cache = dict(self.cache)
         cache["pos"] = torch.tensor(pos, dtype=torch.int32,
                                     device=self.device)
+        token = torch.as_tensor(token, device=self.device)
         logits, self.cache = T.decode_step(
-            self.params, self.cfg, cache,
-            torch.as_tensor(token, device=self.device),
+            self.params, self.cfg, cache, token,
             approx_cfg=self._device_cfg(pool_cfg))
+        return self._finish_tick(active, cache, token, logits, pool_cfg)
+
+    def _finish_tick(self, active, cache, token, logits, pool_cfg) -> bool:
+        """After a tick's decode step: charge it, let the scheduler probe
+        the step (`cache` still holds the pre-step operands), emit the
+        tokens, then the scheduler's end-of-tick hook."""
         self.n_decode_steps += 1
         self._count_energy(len(active), pool_cfg,
                            cls=self._cls_counts(active))
+        if self.scheduler is not None:
+            self.scheduler.on_step(self, active, cache, token,
+                                   _HostArray(logits), pool_cfg)
         self._emit(active, self._next_tokens(logits, active))
+        if self.scheduler is not None:
+            self.scheduler.on_tick(self)
         return True
+
+    def _shadow_decode(self, cache, token, cfg_vec) -> np.ndarray:
+        """The scheduler's probe: the tick's decode step again at
+        `cfg_vec`, on the tick's pre-step operands (`cache`, `token`)
+        through the same step function and kernels, with the cache
+        entries the step writes saved before and written back after, so
+        the cache ends bit-identical to an unprobed tick.  Each layer
+        writes its own K/V before it reads, so the probe sees the
+        pre-step state plus its own K/V, as the reference's functional
+        probe does.  Returns the probe's (B, V) logits on the host (the
+        one sync it adds)."""
+        saved = T.decode_writes(cache)
+        step = (T.decode_step if self.paged is None
+                else T.paged_decode_step)
+        logits, _ = step(self.params, self.cfg, cache, token,
+                         approx_cfg=self._device_cfg(cfg_vec))
+        T.restore_writes(saved)
+        return logits.float().cpu().numpy()
 
     def _step_paged(self) -> bool:
         """One paged tick: admission, one chunk for every mid-prefill
@@ -726,15 +835,12 @@ class Engine:
             token[i, 0] = self.slots[i].tokens[-1]
             active_mask[i] = True
         pool_cfg = self._pool_cfg()
+        cache = self._paged_operands(active_mask)
+        token = torch.as_tensor(token, device=self.device)
         logits, self.cache = T.paged_decode_step(
-            self.params, self.cfg, self._paged_operands(active_mask),
-            torch.as_tensor(token, device=self.device),
+            self.params, self.cfg, cache, token,
             approx_cfg=self._device_cfg(pool_cfg))
-        self.n_decode_steps += 1
-        self._count_energy(len(active), pool_cfg,
-                           cls=self._cls_counts(active))
-        self._emit(active, self._next_tokens(logits, active))
-        return True
+        return self._finish_tick(active, cache, token, logits, pool_cfg)
 
     def run(self, max_ticks: int = 10000) -> list[Request]:
         """Tick until the queue and slots drain (or `max_ticks`)."""

@@ -25,12 +25,16 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.core.power_model import energy_per_token_pj
 from repro_torch.core.quantization import quantize
 from repro_torch.kernels.approx_mac import approx_mac as A
 from repro_torch.kernels.approx_mac import ops
 from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.flash_attention import paged_attention as PA
 from repro_torch.nn import transformer as T
+from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.paged_cache import PagedCacheConfig
+from repro_torch.serve.scheduler import PowerBudgetScheduler
 
 # (M, K, N): a main-path-like tile, then ragged M/K/N that need padding
 SHAPES = [(4, 256, 256), (24, 200, 300), (1, 130, 129), (5, 64, 384)]
@@ -739,3 +743,100 @@ def test_cuda_gemma2_prefill_and_decode_equal_plain_path(cuda_device):
     torch.cuda.synchronize()
     for a, b in zip(kernel, plain):
         assert torch.equal(a, b)
+
+
+def _cache_leaves(cache, prefix=""):
+    for key in sorted(cache):
+        if isinstance(cache[key], dict):
+            yield from _cache_leaves(cache[key], f"{prefix}{key}/")
+        else:
+            yield prefix + key, cache[key]
+
+
+def _scheduled_engine(cfg, params, dev, probe_every, retune_every, **kw):
+    sched = PowerBudgetScheduler(0.0, probe_every=probe_every,
+                                 retune_every=retune_every, seed=0)
+    eng = Engine(params, cfg, scheduler=sched, device=dev,
+                 quantize_weights=False, **kw)
+    exact = energy_per_token_pj(np.zeros_like(eng.approx_cfg),
+                                eng.macs_per_token, eng._moe_mac_frac)
+    sched.set_budget(0.8 * exact)
+    return eng, sched
+
+
+@pytest.mark.cuda
+def test_cuda_scheduler_run_builds_nothing_after_warmup(cuda_device):
+    """The power loop on the card: after a warm-up run no kernel library
+    is built or loaded again, and every prefill, served decode step and
+    probe launches the fused kernel once per GEMM."""
+    cfg = get_config("qwen2.5-3b").smoke(mac_backend="pallas")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = T.quantize_lm_params(T.init_lm(gen, cfg, cuda_device), cfg)
+    warm, _ = _scheduled_engine(cfg, params, cuda_device, 1, 1,
+                                max_batch=2, max_len=32)
+    warm.submit(Request(rid=-1, prompt=list(range(1, 7)), max_new_tokens=4))
+    warm.run()
+    libs = (A, PA, FA)
+    loaded = [m._lib.cache_info().misses for m in libs]
+    eng, sched = _scheduled_engine(cfg, params, cuda_device, 2, 3,
+                                   max_batch=2, max_len=32)
+    for rid in range(4):
+        eng.submit(Request(rid=rid, prompt=np.arange(3 + 2 * rid) % 128,
+                           max_new_tokens=10))
+    before = A.approx_mac_fused_matmul.launches
+    eng.run()
+    torch.cuda.synchronize()
+    assert [m._lib.cache_info().misses for m in libs] == loaded
+    assert sched.n_probes > 2 and sched.tick > 6
+    calls = len(eng.completed) + eng.n_decode_steps + sched.n_probes
+    assert A.approx_mac_fused_matmul.launches - before == \
+        7 * cfg.n_layers * calls
+    assert all(len(r.tokens) == 10 for r in eng.completed)
+
+
+PROBE_CASES = {
+    "dense": ("qwen2.5-3b", {}, dict(max_batch=3, max_len=40)),
+    "paged": ("qwen2.5-3b", dict(paged=PagedCacheConfig(
+        num_blocks=2 + 12, block_size=8, prefill_chunk=16)),
+        dict(max_batch=3, max_len=64)),
+    "kv_quant": ("gemma2-27b", {}, dict(max_batch=3, max_len=48)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+def test_cuda_probe_leaves_the_cache_unchanged(cuda_device, case):
+    """Every tick probed: after each probe the cache equals, bit for bit,
+    the copy taken after the tick's served step (what the tick leaves
+    without the probe: local rings, int8 scales and the whole block pool
+    included), and the streams equal an unprobed engine's."""
+    arch, extra, kw = PROBE_CASES[case]
+    cfg = get_config(arch).smoke(mac_backend="pallas")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = T.quantize_lm_params(T.init_lm(gen, cfg, cuda_device), cfg)
+    probed, sched = _scheduled_engine(cfg, params, cuda_device, 1, 10**9,
+                                      approx_cfg=16, **extra, **kw)
+    sched.hysteresis = 10**9
+    plain = Engine(params, cfg, approx_cfg=16, device=cuda_device,
+                   quantize_weights=False, **extra, **kw)
+    shadow, checked = probed._shadow_decode, []
+
+    def probe(cache, token, cfg_vec):
+        before = {n: t.clone() for n, t in _cache_leaves(probed.cache)}
+        out = shadow(cache, token, cfg_vec)
+        after = dict(_cache_leaves(probed.cache))
+        assert after.keys() == before.keys()
+        for n, t in before.items():
+            assert torch.equal(after[n], t), (case, n)
+        checked.append(len(before))
+        return out
+
+    probed._shadow_decode = probe
+    for eng in (probed, plain):
+        for i, n in enumerate((5, 29, 11, 17, 8, 23)):
+            eng.submit(Request(rid=i, prompt=np.arange(n) * 7 % 128,
+                               max_new_tokens=14))
+        eng.run()
+    assert len(checked) == sched.n_probes == probed.n_decode_steps > 10
+    assert [r.tokens for r in probed.completed] == \
+        [r.tokens for r in plain.completed]

@@ -213,7 +213,7 @@ def test_default_device_is_cuda():
             TE.T.init_lm(gen, cfg)
 
 
-@pytest.mark.parametrize("knob", ["spec", "scheduler", "mapping",
+@pytest.mark.parametrize("knob", ["spec", "brownout", "mapping",
                                   "cfg_experts", "fault_injector",
                                   "checkpointer"])
 def test_unported_engine_knobs_raise(knob):
@@ -231,3 +231,21 @@ def test_unported_engine_knobs_raise(knob):
         return
     with pytest.raises(TypeError):
         TE.Engine(params, cfg, max_len=16, device="cpu", **{knob: 1})
+
+
+def test_power_loop_knobs_are_accepted():
+    """The scheduler and the admission power cap, now ported, are taken
+    (the scheduler attached to the engine) and are off by default."""
+    from repro_torch.serve.scheduler import PowerBudgetScheduler
+    cfg = tget("qwen2.5-3b").smoke()
+    params = TE.T.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    plain = TE.Engine(params, cfg, max_len=16, device="cpu")
+    assert plain.scheduler is None and plain.power_cap_pj_per_tick is None
+    assert plain._admission_power_ok(plain.approx_cfg, False)
+    sched = PowerBudgetScheduler(1.0)
+    eng = TE.Engine(params, cfg, max_len=16, device="cpu", scheduler=sched,
+                    power_cap_pj_per_tick=0.0)
+    assert eng.scheduler is sched and sched.engine is eng
+    assert sched.shape == eng.approx_cfg.shape
+    assert eng.power_cap_pj_per_tick == 0.0
+    assert not eng._admission_power_ok(eng.approx_cfg, False)
