@@ -203,19 +203,54 @@ Phases, each printing one JSON line:
              48-token prefill: device time by kernel, the flash and
              approx-MAC kernels' shares and the busy share of each.
 
+24. check_flash_grad — the flash kernel under autograd
+             (``ops.flash_attn``'s Function): dq, dk, dv equal, bit for
+             bit, torch.autograd through the plain twin at the same
+             inputs (its backward is that gradient), at Qwen2.5-3B's
+             training attention (B 2, S 256, H 16, KV 2, hd 128, bf16,
+             causal) and a Gemma-2-27B local layer (H 32, KV 16, softcap
+             50, window 128, S 512); the forward within the kernel's
+             tolerance; a direct kernel call on inputs that require grad
+             raises.
+25. train  — full-width, full-depth Qwen2.5-3B: f32 params from init_lm
+             (seed 0), bf16 compute, remat, 8 loss chunks, AdamW
+             (warmup-cosine 3e-4 over 6 steps, weight decay 0.01, clip
+             1.0), batches of 2 x 256 from SyntheticLM (seed 0).  The
+             first batch's gradient must be finite and nonzero on every
+             leaf; one warm-up step, then 5 timed ones, each with exactly
+             72 flash launches (36 forward, 36 remat recompute) and no
+             approx-MAC launch.  Reports losses, step ms (mean, min),
+             tokens/s, the optimizer's ms (CUDA events), peak memory,
+             ``mfu`` and, from torch.profiler over one more step, device
+             ms by kind of kernel and the busy share.
+26. train_resume — ``repro_torch.launch.train`` on the smoke Qwen2.5-3B:
+             an uninterrupted 12-step run (checkpoints every 4 steps),
+             the same command again after its step-12 checkpoint is
+             deleted (resumes at 8), and a 12-step run whose step 6
+             fails once (replays from the step-4 checkpoint); the
+             resumed and replayed losses equal the uninterrupted ones
+             within rtol 1e-5.
+27. mlp_train — the port's ``examples/train_mnist_mlp`` on the card at
+             the reference driver's settings (procedural MNIST 8,000 /
+             2,000, seed 0, 40 epochs of batch 128): float and int8
+             accuracy at all 32 configs through the int kernel and the
+             LUT, the worst-config drop, hw_sim power at configs 0 and
+             31, training seconds; "kernel" logits equal "operand" logits
+             bit for bit at every config on the trained weights.
+
 Then a ``{"kernels": [...]}`` line (the fused kernel's entry with a
 ``rows`` list: one Qwen2.5-3B layer at M 4 and one Gemma-2-27B layer at M 4
 and at M 48; the grouped kernel's: one OLMoE-1B-7B layer at decode and at
 the 2,048-token prefill; both counts include the sched_serve and
-sched_moe runs), the nvidia-smi line again, and, as the last line,
+sched_moe runs; flash's adds the train run's, the int kernel's
+mlp_train's), the nvidia-smi line again, and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without a CUDA device, or without the repository beside
 this file, the script exits non-zero and prints no result.  The
 rehearsal walks the serve, mlp, paged_serve, sched_serve, moe_serve,
-moe_prefill, sched_moe, gemma2_serve and gemma2_window phases at the
-smoke size on the CPU and
-never prints the
-``ok`` line.  Since the flash kernel carries every prefill attention on
+moe_prefill, sched_moe, gemma2_serve, gemma2_window, train (remat on),
+train_resume and mlp_train (2 epochs) phases at the smoke size on the
+CPU and never prints the ``ok`` line.  Since the flash kernel carries every prefill attention on
 the card, the serve, paged_serve and moe_serve prefills run it too.
 """
 from __future__ import annotations
@@ -276,6 +311,29 @@ SCHED_MOE = dict(name="sched_moe", n_req=8, max_new=16, probe_every=4,
 PAGED_NUM_BLOCKS = 2 + 28
 # decode steps with every slot active kept for the kernel/plain comparison
 PAGED_SNAPSHOTS = 3
+# training (phase_train): Qwen2.5-3B's batch, sequence and lr schedule,
+# one warm-up step, then the timed steps
+TRAIN = dict(batch=2, seq=256, timed_steps=5, peak_lr=3e-4, warmup=2,
+             total=6)
+# (name, b, s, h, kv, hd, window, softcap, scale) of check_flash_grad:
+# the train phase's attention, and a Gemma-2-27B local layer
+FLASH_GRAD_CASES = (("qwen2.5-3b train", 2, 256, 16, 2, 128, 0, 0.0, None),
+                    ("gemma2-27b local", 1, 512, 32, 16, 128, 128, 50.0,
+                     1 / 12))
+# train_resume: launch.train's smoke run of 12 steps (checkpoints every
+# 4), run again after losing its last checkpoint, and a run whose step 6
+# fails once
+RESUME_ARGS = ["--arch", "qwen2.5-3b", "--smoke", "--batch", "4", "--seq",
+               "32", "--ckpt-every", "4", "--steps", "12"]
+RESUME_RTOL = 1e-5
+# the train step's device time by kind of kernel, told apart by the
+# profiler's kernel names (the first kind that matches; "other" if none)
+TRAIN_KERNEL_KINDS = {
+    "flash": ("flash_kernel",),
+    "gemm": ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas"),
+    "elementwise": ("elementwise",),
+    "reduce": ("reduce",)}
+SCRATCH = ROOT / "build" / "chip_smoke"
 
 
 def _demangle(names: list[str]) -> list[str]:
@@ -2577,6 +2635,309 @@ def phase_sched(torch, T, A, libs, Engine, Request, Scheduler, params, cfg,
     return res
 
 
+def phase_check_flash_grad(torch, FA, FAops, dev) -> dict:
+    """The flash kernel under autograd (ops.flash_attn's Function): dq,
+    dk, dv against torch.autograd through the plain twin at the same
+    inputs — the Function's backward IS that gradient, so the bits must
+    be equal — at the train phase's attention and a Gemma-2 local layer;
+    the forward within the kernel's tolerance; and a direct kernel call
+    on inputs that require grad must raise."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for name, b, s, h, kv, hd, window, cap, scale in FLASH_GRAD_CASES:
+        q, k, v = _flash_inputs(torch, b, s, s, h, kv, hd, torch.bfloat16,
+                                gen, dev)
+        go = torch.randn(b, s, h, hd, device=dev, generator=gen).to(q.dtype)
+        kw = dict(causal=True, window=window, logit_cap=cap, scale=scale)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        FA.flash_attention.launches = 0
+        out = FAops.flash_attn(*ins, **kw)
+        launches = FA.flash_attention.launches
+        grads = torch.autograd.grad(out, ins, go)
+        ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = FA.flash_attention_ref(*ref_ins, **kw)
+        ref_grads = torch.autograd.grad(ref, ref_ins, go)
+        torch.testing.assert_close(out, ref, **flash_tol(torch, q.dtype, v))
+        equal = [bool(torch.equal(g, r)) for g, r in zip(grads, ref_grads)]
+        if not all(equal) or launches != 1:
+            raise AssertionError(f"{name}: gradients equal {equal}, "
+                                 f"{launches} launches")
+        rows.append({"case": name, "shape": [b, s, h, kv, hd],
+                     "window": window, "softcap": cap, "launches": launches,
+                     "grads_equal_plain": equal,
+                     "grad_max_abs": [float(g.float().abs().max())
+                                      for g in grads],
+                     "out_max_abs_err": float((out - ref).detach().float()
+                                              .abs().max())})
+    raised = False
+    try:
+        FA.flash_attention(*[t.clone().requires_grad_() for t in (q, k, v)],
+                           causal=True)
+    except RuntimeError as e:
+        raised = "requires grad" in str(e)
+    if not raised:
+        raise AssertionError("a direct flash_attention call on inputs "
+                             "that require grad did not raise")
+    res = {"phase": "check_flash_grad", "cases": rows,
+           "direct_call_under_grad_raises": True}
+    emit(res)
+    return res
+
+
+def _launch_counts(A, FA, PA) -> dict:
+    return {"flash_attention": FA.flash_attention.launches,
+            "paged_decode_attention": PA.paged_decode_attention.launches,
+            **{name: getattr(A, name).launches
+               for name in ("approx_mac_fused_matmul", "approx_mac_matmul",
+                            "approx_mac_grouped_matmul")}}
+
+
+def _zero_launches(A, FA, PA) -> None:
+    FA.flash_attention.launches = 0
+    PA.paged_decode_attention.launches = 0
+    for name in ("approx_mac_fused_matmul", "approx_mac_matmul",
+                 "approx_mac_grouped_matmul"):
+        getattr(A, name).launches = 0
+
+
+def phase_train(torch, T, A, FA, PA, cfg, dev) -> dict:
+    """Train steps of `cfg` (full-width, full-depth Qwen2.5-3B on the
+    card): f32 params from init_lm (seed 0), the config's compute dtype,
+    remat and loss chunks; AdamW on warmup-cosine, weight decay 0.01,
+    clip 1.0; batches from SyntheticLM (seed 0).  The first batch's
+    gradient must be finite and nonzero on every leaf; then one warm-up
+    step and the timed ones, each launching the flash kernel twice per
+    layer (forward and remat recompute) and no approx-MAC kernel."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.synthetic_lm import SyntheticLM, SyntheticLMConfig
+    from repro_torch.train.optimizer import adamw, tree_leaves
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.step import (build_train_step, init_state,
+                                        value_and_grad)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    data = SyntheticLM(SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+        global_batch=TRAIN["batch"], seed=0))
+    batches = [to_device(data.batch(s), dev)
+               for s in range(TRAIN["timed_steps"] + 2)]
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+
+    # the first step's gradient, leaf by leaf
+    loss0, grads = value_and_grad(lambda p, b: T.lm_loss(p, cfg, b), params,
+                                  batches[0])
+    leaves = tree_leaves(grads)
+    stats = torch.stack([torch.stack([torch.isfinite(g).all().float(),
+                                      g.abs().amax().float()])
+                         for g in leaves]).cpu()
+    del grads, leaves
+    finite, nonzero = bool(stats[:, 0].all()), bool((stats[:, 1] > 0).all())
+    if not (finite and nonzero):
+        raise AssertionError(f"train: gradient finite {finite}, nonzero on "
+                             f"every leaf {nonzero}")
+
+    opt = adamw(warmup_cosine(TRAIN["peak_lr"], TRAIN["warmup"],
+                              TRAIN["total"]),
+                weight_decay=0.01, grad_clip_norm=1.0)
+    opt_events = []
+
+    def timed_step_(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True) if on_card else None
+        stop = torch.cuda.Event(enable_timing=True) if on_card else None
+        if on_card:
+            start.record()
+        out = opt.step_(*args, **kw)
+        if on_card:
+            stop.record()
+            opt_events.append((start, stop))
+        return out
+
+    step_fn = build_train_step(cfg, opt._replace(step_=timed_step_))
+    state = init_state(params, opt)
+    state, m = step_fn(state, batches[0])              # warm-up
+    losses = [float(m["loss"])]
+    opt_events.clear()
+    _zero_launches(A, FA, PA)
+    step_ms, per_step_flash = [], []
+    for s in range(1, TRAIN["timed_steps"] + 1):
+        before = FA.flash_attention.launches
+        sync()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[s])
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step_flash.append(FA.flash_attention.launches - before)
+        losses.append(float(m["loss"]))
+    counts = _launch_counts(A, FA, PA)
+    expected_flash = 2 * cfg.n_layers if on_card else 0
+    others = {k: v for k, v in counts.items() if k != "flash_attention"}
+    if any(n != expected_flash for n in per_step_flash) or any(
+            others.values()):
+        raise AssertionError(f"train launches: flash per step "
+                             f"{per_step_flash} (expected "
+                             f"{expected_flash}), others {others}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: losses {losses}")
+    opt_ms = ([a.elapsed_time(b) for a, b in opt_events] if on_card
+              else None)
+    mean_s = sum(step_ms) / len(step_ms) / 1e3
+    res = {"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": n_params,
+           "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+           "compute_dtype": str(cfg.compute_dtype), "remat": cfg.remat,
+           "loss_chunks": cfg.loss_chunks, "grad_leaves": len(stats),
+           "grads_finite": finite, "grads_nonzero": nonzero,
+           "grad_min_leaf_absmax": float(stats[:, 1].min()),
+           "first_loss": float(loss0), "losses": losses,
+           "flash_launches": counts["flash_attention"],
+           "flash_launches_per_step": per_step_flash}
+    if on_card:
+        res.update({
+            "step_ms": step_ms, "step_ms_mean": mean_s * 1e3,
+            "step_ms_min": min(step_ms), "tokens_per_s": tokens / mean_s,
+            "optimizer_ms": opt_ms,
+            "optimizer_ms_mean": sum(opt_ms) / len(opt_ms),
+            "mfu": 6 * n_params * tokens / mean_s / BF16_FLOPS_PER_S,
+            "mfu_note": "6 x params x tokens a step (remat recompute not "
+                        "counted) over the mean step and 989 TFLOP/s"})
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res.update(_profile_train_step(torch, step_fn, state,
+                                       batches[-1], res["step_ms_mean"]))
+    emit(res)
+    return res
+
+
+def _profile_train_step(torch, step_fn, state, batch, step_ms) -> dict:
+    """Device time by kernel over one profiled train step, and the
+    device's busy share of the unprofiled mean step."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+    by_kernel = kernel_ms(prof, 1)
+    device_ms = sum(t for t, _ in by_kernel.values())
+    kinds = dict.fromkeys([*TRAIN_KERNEL_KINDS, "other"], 0.0)
+    for name, (t, _) in by_kernel.items():
+        kinds[next((kind for kind, keys in TRAIN_KERNEL_KINDS.items()
+                    if any(key in name for key in keys)), "other")] += t
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"profile_device_ms": device_ms if device_ms else None,
+            "profile_ms_by_kind": kinds if device_ms else None,
+            "profile_kernels": sum(c for _, c in by_kernel.values()),
+            "device_busy_share": device_ms / step_ms if device_ms else None,
+            "profile_top": [{"kernel": k[:80], "ms": t, "count": c}
+                            for k, (t, c) in top]}
+
+
+def phase_train_resume(torch, dev) -> dict:
+    """launch.train's main on the smoke Qwen2.5-3B: an uninterrupted
+    12-step run (checkpoints at steps 4, 8 and 12); the same command
+    again after its step-12 checkpoint is deleted (resumes at step 8);
+    and a 12-step run whose step 6 fails once (replays from the step-4
+    checkpoint).  The resumed and replayed steps' losses equal the
+    uninterrupted run's within RESUME_RTOL (not bit for bit: the
+    embedding's backward accumulates with atomics on the card)."""
+    from repro_torch.launch import train as LT
+    root = SCRATCH / "train_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    base = RESUME_ARGS + ["--device", dev.type]
+
+    def args(name):
+        return base + ["--ckpt-dir", str(root / name)]
+
+    whole = LT.main(args("resumed"))
+    shutil.rmtree(root / "resumed" / "step_0000000012")
+    resumed = LT.main(args("resumed"))
+    seen = []
+
+    def fail_once_at_6(step):
+        seen.append(step)
+        if step == 6 and seen.count(6) == 1:
+            raise RuntimeError("injected failure at step 6")
+
+    replayed = LT.run(LT.parse_args(args("replayed")),
+                      fail_injector=fail_once_at_6)
+    want = [whole["losses"][s] for s in range(1, 13)]
+    got_resumed = [resumed["losses"][s] for s in range(9, 13)]
+    got_replayed = [replayed["losses"][s] for s in range(1, 13)]
+    if sorted(resumed["losses"]) != list(range(9, 13)):
+        raise AssertionError(f"resume ran steps {sorted(resumed['losses'])}")
+    if seen[:10] != [0, 1, 2, 3, 4, 5, 6, 4, 5, 6]:
+        raise AssertionError(f"replay ran steps {seen}")
+
+    def worst(got, from_step):
+        return max(abs(a - b) / abs(b)
+                   for a, b in zip(got, want[from_step - 1:]))
+
+    err_resumed = worst(got_resumed, 9)
+    err_replayed = worst(got_replayed, 1)
+    if max(err_resumed, err_replayed) > RESUME_RTOL:
+        raise AssertionError(f"train_resume: rel err resumed {err_resumed}, "
+                             f"replayed {err_replayed}")
+    res = {"phase": "train_resume", "args": base, "losses": want,
+           "resumed_from": 8, "replayed_steps": seen,
+           "resumed_rel_err": err_resumed, "replayed_rel_err": err_replayed,
+           "rtol": RESUME_RTOL,
+           "latest_checkpoints": [whole["latest"], resumed["latest"],
+                                  replayed["latest"]]}
+    emit(res)
+    return res
+
+
+def phase_mlp_train(torch, A, dev, rehearse: bool = False) -> dict:
+    """The port's train_mnist_mlp driver at the reference driver's
+    settings (procedural MNIST 8,000 / 2,000, seed 0, 40 epochs, batch
+    128; reduced in the rehearsal): float and int8 accuracy at all 32
+    configs through the int kernel and the LUT oracle, hw_sim power at
+    configs 0 and 31; then "kernel" logits must equal "operand" logits
+    bit for bit at every config on the trained weights."""
+    from repro_torch.examples import train_mnist_mlp as TM
+    root = SCRATCH / "mlp_train"
+    shutil.rmtree(root, ignore_errors=True)
+    size = (["--epochs", "2", "--n-train", "256", "--n-test", "64"]
+            if rehearse else [])
+    args = TM.parse_args(["--device", dev.type, "--out",
+                          str(root / "results.json"), "--ckpt-dir",
+                          str(root / "ckpt"), *size])
+    A.approx_mac_matmul.launches = 0
+    results, qm, data = TM.run(args)
+    launches = A.approx_mac_matmul.launches
+    expected = 2 * 32 if dev.type == "cuda" else 0
+    if launches != expected:
+        raise AssertionError(f"mlp_train: {launches} int kernel launches, "
+                             f"expected {expected}")
+    x_q = torch.as_tensor(qm.quantize_input(data.test_x), device=dev)
+    for cfg in range(32):
+        if not torch.equal(qm.apply(x_q, cfg, "kernel"),
+                           qm.apply(x_q, cfg, "operand")):
+            raise AssertionError(f"mlp_train: kernel logits != operand "
+                                 f"logits at config {cfg}")
+    lut, kern = results["acc_per_config"], results["acc_per_config_kernel"]
+    res = {"phase": "mlp_train", "data": results["dataset"],
+           "note": "procedural digits, not MNIST: the paper's numbers are "
+                   "on MNIST and on its ASIC model",
+           "epochs": args.epochs, "n_train": args.n_train,
+           "n_test": args.n_test, "train_seconds": results["train_seconds"],
+           "float_acc": results["float_acc"], "acc_lut": lut,
+           "acc_kernel": kern,
+           "drop_worst_lut": results["acc_drop_worst"],
+           "drop_worst_kernel": kern["0"] - min(kern.values()),
+           "paper_drop_worst": 0.0092,
+           "hw_sim_power_mw": [results["hw_sim"]["power_exact_mw"],
+                               results["hw_sim"]["power_cfg31_mw"]],
+           "paper_power_mw": [5.55, 4.81],
+           "controller_cfg_1pct": results["controller_cfg_1pct"],
+           "kernel_equals_operand": True, "kernel_launches": launches}
+    emit(res)
+    return res
+
+
 def layer_row(name: str, rows: list, launches: int) -> dict:
     """One work row of a kernel's entry: the sums over a layer's GEMMs."""
     return {"work": name, "launches": launches,
@@ -2591,9 +2952,9 @@ def layer_row(name: str, rows: list, launches: int) -> dict:
 
 def rehearse() -> int:
     """The serve, mlp, paged_serve, sched_serve, moe_serve, moe_prefill,
-    sched_moe, gemma2_serve and gemma2_window phases on a CPU at the
-    smoke size: plain versions, no build, no timing, and never the ok
-    line."""
+    sched_moe, gemma2_serve, gemma2_window, train, train_resume and
+    mlp_train phases on a CPU at the smoke size: plain versions, no
+    build, no timing, and never the ok line."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.configs.registry import get_config
@@ -2625,6 +2986,11 @@ def rehearse() -> int:
     _, g_eng = phase_gemma2_serve(torch, T, A, FA, Engine, Request, g_cfg,
                                   cpu)
     phase_gemma2_window(torch, T, FA, FAops, g_eng.params, g_cfg, cpu)
+    phase_train(torch, T, A, FA, PA,
+                get_config("qwen2.5-3b").smoke(remat=True, loss_chunks=8),
+                cpu)
+    phase_train_resume(torch, cpu)
+    phase_mlp_train(torch, A, cpu, rehearse=True)
     emit({"rehearsal": True, "ok": False})
     return 0
 
@@ -2744,6 +3110,11 @@ def main(argv: list[str]) -> int:
     phase_profile_gemma2(torch, T, g_eng, dev)
     del g_eng
     torch.cuda.empty_cache()
+    phase_check_flash_grad(torch, FA, FAops, dev)
+    train = phase_train(torch, T, A, FA, PA, get_config("qwen2.5-3b"), dev)
+    torch.cuda.empty_cache()
+    phase_train_resume(torch, dev)
+    mlp_train = phase_mlp_train(torch, A, dev)
 
     layer = [timing[(4, *s)] for s in LAYER_GEMMS]
     gemma_rows = {m: [timing[(m, *s)] for s in GEMMA_GEMMS] for m in (4, 48)}
@@ -2790,7 +3161,7 @@ def main(argv: list[str]) -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": INT_TPU_KERNEL,
-        "launches": mlp["kernel_launches"],
+        "launches": mlp["kernel_launches"] + mlp_train["kernel_launches"],
         "max_abs_err": int_err,
         "ms": sum(r["ms"] for r in timing_int),
         "plain_ms": sum(r["plain_ms"] for r in timing_int),
@@ -2799,9 +3170,10 @@ def main(argv: list[str]) -> int:
                                     for r in timing_int) else "operations"),
         "library_ms": sum(r["library_ms"] for r in timing_int),
         "work": "the paper MLP's two GEMMs (62x30, 30x10) at batch "
-                "10,000; library_ms is torch._int_mm at config 0 on "
-                "operands padded to its shape rules, in the faster "
-                "weight layout",
+                "10,000; launches from the mlp (untrained) and mlp_train "
+                "(trained, the 32-config sweep) runs; library_ms is "
+                "torch._int_mm at config 0 on operands padded to its "
+                "shape rules, in the faster weight layout",
     }, {
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -2840,7 +3212,7 @@ def main(argv: list[str]) -> int:
         "route": "cuda",
         "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL,
-        "launches": g_serve["flash_launches"],
+        "launches": g_serve["flash_launches"] + train["flash_launches"],
         "max_abs_err": flash_err,
         "ms": serve_flash["ms"],
         "plain_ms": serve_flash["plain_ms"],
@@ -2850,7 +3222,8 @@ def main(argv: list[str]) -> int:
         "work": "one Gemma-2-27B layer's prefill attention at the serve "
                 "run's longest prompt, S 48 (H 32, KV 16, hd 128, bf16, "
                 "scale 1/12, softcap 50); launches from the gemma2_serve "
-                "run; library_ms is scaled_dot_product_attention (GQA, "
+                "run and the train run's timed steps (forward and remat "
+                "recompute); library_ms is scaled_dot_product_attention (GQA, "
                 "causal) without the softcap, which it cannot express",
     }]})
     print(smi, flush=True)

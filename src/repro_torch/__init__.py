@@ -22,5 +22,9 @@ paged-attention kernel; the online power loop on that engine
 core with, ``core/controller.py``, and the admission power cap); and
 the paper's own 62-30-10 MLP (``nn/mlp_paper.py``, ``core/hw_sim.py``,
 ``data/synthetic_mnist.py``), whose "kernel" method runs the int
-approx-MAC CUDA kernel.
+approx-MAC CUDA kernel; and training (``train/``, ``checkpoint/``,
+``dist/fault_tolerance.py``, ``launch/train.py``, ``examples/``): AdamW
+with an in-place update, ``lm_loss`` with remat, the train step, the
+reference's checkpoint format and the fault-tolerant loop, with the
+flash kernel differentiable through its plain twin's gradient.
 """

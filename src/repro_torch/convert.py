@@ -13,7 +13,9 @@ layer's ``router`` (d, E) and expert banks ``w_gate``/``w_up``
 ``post2`` ride along); the port's ``Engine`` quantizes the float weights once, like the
 reference's.
 
-The paper's MLP crosses the same way: ``mlp_params_from_numpy`` takes
+``params_to_numpy`` goes the other way (the checkpointer writes the
+port's params, gradients and optimizer moments in the reference's
+layout through it).  The paper's MLP crosses the same way: ``mlp_params_from_numpy`` takes
 the reference's float ``{"hidden": {"w", "b"}, "out": {...}}`` tree as
 numpy, and ``quantized_mlp_from_fields`` rebuilds a reference
 ``QuantizedMLP`` (whose fields are numpy already) field by field.
@@ -61,6 +63,45 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Params:
            if k != "blocks"}
     out["blocks"] = [_to_torch(layer(i // npat, stacked[f"b{i % npat}"]),
                                device) for i in range(cfg.n_layers)]
+    return out
+
+
+def stack_blocks(blocks: list, npat: int, stack) -> dict:
+    """The reference's ``{"scan": {"b{j}": ...}}`` from the port's
+    per-layer list of a P-kind pattern: `stack` turns one key's leaves
+    of layers j, j + P, j + 2P, ... into that key's stacked leaf."""
+    if len(blocks) % npat:
+        raise ValueError(f"{len(blocks)} layers for a pattern of {npat}")
+
+    def go(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: go([n[k] for n in nodes]) for k in nodes[0]}
+        return stack(nodes)
+
+    return {"scan": {f"b{j}": go(blocks[j::npat]) for j in range(npat)}}
+
+
+def leaf_to_numpy(leaf) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def params_to_numpy(params: Params, cfg: ModelConfig) -> dict:
+    """The port's float params (or any tree of their layout: gradients,
+    optimizer moments) -> numpy in the reference's layout, the inverse
+    of ``params_from_numpy``: layer g * P + j becomes group g of
+    ``blocks.scan.b{j}``."""
+    def to_numpy(tree):
+        if isinstance(tree, dict):
+            return {k: to_numpy(v) for k, v in tree.items()}
+        return leaf_to_numpy(tree)
+
+    out = {k: to_numpy(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = stack_blocks(
+        params["blocks"], len(cfg.pattern),
+        lambda leaves: np.stack([leaf_to_numpy(leaf) for leaf in leaves]))
     return out
 
 

@@ -69,6 +69,11 @@ def network_power_mw(config: int) -> float:
     return NETWORK_OTHER_MW + N_PHYSICAL_NEURONS * neuron_power_mw(config)
 
 
+def network_improvement_pct(config: int) -> float:
+    """Paper Fig 5: % improvement vs exact mode."""
+    return 100.0 * (1.0 - network_power_mw(config) / NETWORK_POWER_EXACT_MW)
+
+
 def energy_per_mac_pj(config: int) -> float:
     return MAC_ENERGY_EXACT_PJ * (1.0 - mac_saving(config))
 

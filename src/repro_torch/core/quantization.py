@@ -86,6 +86,43 @@ def quantize(x: torch.Tensor, axis: int | None = None) -> QTensor:
     return QTensor(q, scale.to(torch.float32), axis)
 
 
+def _fake_quant_values(x: torch.Tensor, axis: int | None) -> torch.Tensor:
+    if axis is None:
+        amax = x.abs().amax()
+        shape = ()
+    else:
+        if axis < 0:
+            raise ValueError(f"axis {axis}: the reference's fake_quant "
+                             "fails on a negative axis (compute_scale "
+                             "reduces every axis for it)")
+        reduce = tuple(i for i in range(x.ndim) if i != axis)
+        amax = x.abs().amax(dim=reduce)
+        shape = [1] * x.ndim
+        shape[axis] = -1
+    scale = (torch.clamp(amax, min=1e-12) * (1.0 / QMAX)).reshape(shape)
+    q = torch.clamp(torch.round(x / scale), -QMAX, QMAX).to(torch.int8)
+    return q.to(torch.float32) * scale
+
+
+class _FakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _fake_quant_values(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def fake_quant(x: torch.Tensor, axis: int | None = None) -> torch.Tensor:
+    """Quantize + dequantize with a straight-through gradient (QAT): the
+    forward is ``quantize(x, axis).dequantize()`` as the reference's
+    jitted training step computes it (the scale is max|x| times the f32
+    reciprocal of 127, per tensor or per `axis`); the gradient passes
+    through unchanged."""
+    return _FakeQuant.apply(x, axis)
+
+
 def quantize_np(x: np.ndarray, axis: int | None = None):
     """numpy twin of ``quantize`` (the paper MLP's quantizer and the
     hardware simulator's): returns (int8 values, f32 scale)."""

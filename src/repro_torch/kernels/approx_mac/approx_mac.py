@@ -305,6 +305,7 @@ def approx_mac_fused_matmul(x, w_q, scale_row, x_scale, cfg_rows,
         raise ValueError(f"no approx-MAC kernel for device {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"need f32 x, got {x.dtype}")
+    _build.refuse_grad("approx_mac_fused_matmul", x, scale_row, x_scale)
     _check_operands(x, w_q, cfg_rows, cfg_bn)
     m, k = x.shape
     n = w_q.shape[1]
@@ -390,6 +391,7 @@ def approx_mac_grouped_matmul(x, w_q, scale_rows, x_scale, group_rows,
     if x.dtype != torch.float32 or w_q.dtype != torch.int8:
         raise TypeError(f"need f32 x and int8 w, got {x.dtype}, "
                         f"{w_q.dtype}")
+    _build.refuse_grad("approx_mac_grouped_matmul", x, scale_rows, x_scale)
     e, m, k = x.shape
     n = w_q.shape[2]
     n_blocks = -(-n // cfg_bn)

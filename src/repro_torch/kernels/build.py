@@ -7,6 +7,11 @@ and kept in ``build/kernels/`` at the repository root (gitignored).  A
 library that is already there is reused.  Nothing here runs at import
 time: the kernels' wrappers build at their first launch, and
 ``chip_smoke.py`` builds all sources at once in parallel.
+
+``refuse_grad`` is the guard every ctypes wrapper runs before a launch:
+a kernel's output is written through a raw pointer, outside autograd,
+so a launch under autograd on an input that requires grad would drop
+that input's gradient without a word.
 """
 from __future__ import annotations
 
@@ -17,9 +22,23 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if grad mode is on and one of `tensors` requires grad (the
+    flash kernel's ``autograd.Function`` launches it with grad mode off,
+    and supplies the gradient itself)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, and the kernel's output "
+            "would carry none; call it under torch.no_grad(), or, for "
+            "flash attention, through ops.flash_attn")
 
 
 def _nvcc() -> str:

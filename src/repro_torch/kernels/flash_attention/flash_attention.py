@@ -120,6 +120,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     for t in (k, v):
         if t.device != q.device:
             raise ValueError(f"tensor on {t.device}, expected {q.device}")
+    _build.refuse_grad("flash_attention", q, k, v)
     scale = hd ** -0.5 if scale is None else scale
     q_c, k_c, v_c = _operand(q), _operand(k), _operand(v)
     out = torch.empty_like(q_c)

@@ -193,6 +193,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, cache_len, *,
             raise ValueError("pools, tables and lengths must be contiguous")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("pools must be 16-byte aligned")
+    _build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     scale = hd ** -0.5 if scale is None else scale
     p = tables.shape[1]
     n_split, kps = split_plan(b, h, kv, hd, k_pool.element_size(), bs, p)

@@ -5,7 +5,10 @@ RoPE, activations, the logit softcap, initializers.  Plain functions over tensor
 ``dense`` runs the integer pipeline — dynamic per-tensor int8
 activations, operand-LSB truncation, int8 MAC into int32, one f32
 rescale — whenever the config is a tensor or a nonzero int, and a float
-matmul only for the static exact config 0 (a Python int).  Its output
+matmul only for the static exact config 0 (a Python int).  Under
+autograd the integer pipeline raises: its gradient would reach a weight
+only through the quantization scales (the reference's fault, ROADMAP
+Queue 3), so training runs config 0 or ``qat_dense``.  Its output
 is bf16, as the reference's is for every model.  The integer
 pipeline is ONE operation on both ``mac_backend`` values: the fused
 approx-MAC kernel for CUDA tensors, its plain twin for CPU tensors.
@@ -16,7 +19,7 @@ import math
 
 import torch
 
-from repro_torch.core.quantization import QTensor, quantize
+from repro_torch.core.quantization import QTensor, fake_quant, quantize
 
 MAC_BACKENDS = ("xla", "pallas")
 
@@ -51,6 +54,13 @@ def dense(x: torch.Tensor, w, *, approx_cfg=0, backend: str = "xla",
         raise ValueError(f"unknown mac backend {backend!r}")
     is_tensor = isinstance(approx_cfg, torch.Tensor)
     if is_tensor or approx_cfg > 0:
+        if torch.is_grad_enabled() and (x.requires_grad or (
+                isinstance(w, torch.Tensor) and w.requires_grad)):
+            raise NotImplementedError(
+                "the integer pipeline under autograd: its gradient "
+                "reaches a weight only through the quantization scales "
+                "(ROADMAP Queue 3, training at approx_cfg > 0); train at "
+                "config 0, or fake-quantized through qat_dense")
         if is_tensor and approx_cfg.ndim >= 1 and backend != "pallas":
             raise ValueError("per-block and per-expert configs require "
                              "backend='pallas'")
@@ -64,6 +74,15 @@ def dense(x: torch.Tensor, w, *, approx_cfg=0, backend: str = "xla",
     if isinstance(w, QTensor):
         w = w.dequantize()
     return x @ w.to(x.dtype)
+
+
+def qat_dense(x: torch.Tensor, w: torch.Tensor, *,
+              compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Quantization-aware training path: both operands fake-quantized
+    (x per tensor, w per output column) with the straight-through
+    gradient, then a float matmul."""
+    return (fake_quant(x.to(torch.float32))
+            @ fake_quant(w.to(torch.float32), axis=1)).to(compute_dtype)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,

@@ -14,7 +14,9 @@ GEMMs run the grouped approx-MAC op, each expert at its own config when
 the config carries an expert axis ((n_layers, E, g) tensors; the
 layer's dense GEMMs then run the expert-collapsed config).  Prefill
 attention is ``chunked_attention``: the flash-attention kernel on the
-card.  ``ModelConfig`` raises on every other pattern or feature of the
+card.  ``lm_loss`` is the training loss (chunked-vocab cross entropy,
+each layer recomputed in the backward under ``remat``; dense models
+only).  ``ModelConfig`` raises on every other pattern or feature of the
 reference (recurrent kinds; encoder-decoder models and vision prefixes
 have no fields here).
 
@@ -44,12 +46,14 @@ PLACE (the reference is functional) and return the same tensors.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.quantization import QTensor, quantize
 from repro_torch.kernels.flash_attention.paged_attention import \
@@ -107,6 +111,12 @@ class ModelConfig:
     q_chunk: int = 1024
     compute_dtype: Any = torch.bfloat16
     kv_quant: bool = False               # int8 KV cache
+    # training: recompute each layer in the backward (activation
+    # checkpointing; only the "nothing saved" policy is ported) and the
+    # vocab cross entropy in loss_chunks sequence chunks
+    remat: bool = True
+    remat_policy: str = "nothing"        # nothing | dots
+    loss_chunks: int = 8
 
     def __post_init__(self):
         if any(k not in ("global", "local") for k in self.pattern):
@@ -128,6 +138,10 @@ class ModelConfig:
             raise NotImplementedError("moe_seq_chunks > 1 is not ported")
         if self.mac_backend not in MAC_BACKENDS:
             raise ValueError(f"mac_backend {self.mac_backend!r}")
+        if self.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat_policy {self.remat_policy!r}: only 'nothing' is "
+                "ported")
 
     def layer_kinds(self) -> list[str]:
         return [self.pattern[i % len(self.pattern)]
@@ -143,7 +157,7 @@ class ModelConfig:
             window=min(self.window, 16) if self.window else 0,
             n_experts=min(self.n_experts, 4) if self.n_experts else 0,
             top_k=min(self.top_k, 2) if self.top_k else 0, moe_groups=1,
-            compute_dtype=torch.float32)
+            remat=False, loss_chunks=2, compute_dtype=torch.float32)
         base.update(over)
         return dataclasses.replace(self, **base)
 
@@ -365,23 +379,70 @@ def embed_tokens(params, cfg, tokens):
     return x
 
 
-def logits_for(params, cfg, hidden):
+def head_weight(params, cfg, dtype) -> torch.Tensor:
+    """The (d, vocab) output projection in `dtype`."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = hidden @ w.to(hidden.dtype)
+    return w.to(dtype)
+
+
+def logits_for(params, cfg, hidden, w: torch.Tensor | None = None):
+    """Logits of `hidden` (B, ..., d); `w` is ``head_weight`` when the
+    caller already has it in hidden's dtype."""
+    w = head_weight(params, cfg, hidden.dtype) if w is None else w
+    logits = hidden @ w
     if cfg.final_softcap > 0:
         logits = softcap(logits.to(torch.float32), cfg.final_softcap)
     return logits
 
 
+def _layer(p, x, cfg, kind, positions, approx_cfg):
+    return _attention_block(p, x, cfg, kind, positions=positions,
+                            approx_cfg=approx_cfg)[0]
+
+
 def forward(params, cfg: ModelConfig, tokens, *, approx_cfg=0):
-    """tokens (B, S) -> final-norm hidden states (B, S, d)."""
+    """tokens (B, S) -> final-norm hidden states (B, S, d).  Under
+    autograd with ``cfg.remat`` each layer is recomputed in the backward
+    (``torch.utils.checkpoint``, the reference's ``nothing_saveable``
+    policy)."""
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None]
+    remat = cfg.remat and torch.is_grad_enabled()
     for p, kind, ac in zip(params["blocks"], cfg.layer_kinds(),
                            _layer_cfgs(approx_cfg, cfg.n_layers, x.device)):
-        x, _, _ = _attention_block(p, x, cfg, kind, positions=positions,
-                                   approx_cfg=ac)
+        layer = functools.partial(_layer, cfg=cfg, kind=kind,
+                                  positions=positions, approx_cfg=ac)
+        x = (torch.utils.checkpoint.checkpoint(
+                layer, p, x, use_reentrant=False, preserve_rng_state=False)
+             if remat else layer(p, x))
     return rmsnorm(x, params["final_norm"]["scale"])
+
+
+def lm_loss(params, cfg: ModelConfig, batch, *, approx_cfg=0):
+    """Chunked-vocab cross entropy, mean over the labels that are not -1.
+    batch: ``tokens`` and ``labels``, (B, S) int tensors.  The logits of
+    one of ``cfg.loss_chunks`` sequence chunks exist at a time (in f32);
+    the output projection is cast to the hidden dtype once for all."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE training needs load_balancing_loss, not ported yet "
+            "(ROADMAP Queue 1 item 7)")
+    hidden = forward(params, cfg, batch["tokens"], approx_cfg=approx_cfg)
+    labels = batch["labels"]
+    s = hidden.shape[1]
+    n_chunks = cfg.loss_chunks if s % cfg.loss_chunks == 0 else 1
+    w = head_weight(params, cfg, hidden.dtype)
+    losses, counts = [], []
+    for h, lab in zip(hidden.chunk(n_chunks, dim=1),
+                      labels.chunk(n_chunks, dim=1)):
+        logits = logits_for(params, cfg, h, w).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab.clamp(min=0)[..., None])[..., 0]
+        mask = (lab >= 0).to(torch.float32)
+        losses.append(torch.sum((logz - gold) * mask))
+        counts.append(torch.sum(mask))
+    return (torch.sum(torch.stack(losses))
+            / torch.clamp(torch.sum(torch.stack(counts)), min=1.0))
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,

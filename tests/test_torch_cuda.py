@@ -840,3 +840,145 @@ def test_cuda_probe_leaves_the_cache_unchanged(cuda_device, case):
     assert len(checked) == sched.n_probes == probed.n_decode_steps > 10
     assert [r.tokens for r in probed.completed] == \
         [r.tokens for r in plain.completed]
+
+
+# (b, s, h, kv, hd, window, softcap, scale): Qwen2.5-3B's training
+# attention and a Gemma-2-27B local layer
+FLASH_GRAD_CASES = [(2, 256, 16, 2, 128, 0, 0.0, None),
+                    (1, 512, 32, 16, 128, 128, 50.0, 1 / 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES,
+                         ids=["qwen_train", "gemma2_local"])
+def test_cuda_flash_gradients_equal_plain_twin(cuda_device, case):
+    """ops.flash_attn under autograd: the forward launches the kernel
+    (within FLASH_TOL of the plain version) and dq, dk, dv equal, bit for
+    bit, autograd through the plain twin at the same inputs."""
+    from repro_torch.kernels.flash_attention import ops as FAops
+    b, s, h, kv, hd, window, cap, scale = case
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, go = (torch.randn(b, s, n, hd, generator=gen,
+                               device=cuda_device).to(torch.bfloat16)
+                   for n in (h, kv, kv, h))
+    kw = dict(causal=True, window=window, logit_cap=cap, scale=scale)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = FA.flash_attention.launches
+    out = FAops.flash_attn(*ins, **kw)
+    assert FA.flash_attention.launches == before + 1
+    ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = FA.flash_attention_ref(*ref_ins, **kw)
+    torch.testing.assert_close(out, ref, **flash_tol(torch.bfloat16, v))
+    for got, want in zip(torch.autograd.grad(out, ins, go),
+                         torch.autograd.grad(ref, ref_ins, go)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_inputs_that_require_grad(cuda_device):
+    """No kernel output leaves the graph silently: each ctypes wrapper
+    raises on an input that requires grad (under torch.no_grad it runs),
+    and dense refuses the integer pipeline under grad."""
+    dev = cuda_device
+    x = torch.randn(4, 256, device=dev, requires_grad=True)
+    w_q = torch.randint(-127, 128, (256, 256), dtype=torch.int8, device=dev)
+    srow = torch.full((256,), 1e-3, device=dev)
+    xs = torch.ones((), device=dev)
+    rows = A.config_operand(8, 2, dev)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        A.approx_mac_fused_matmul(x, w_q, srow, xs, rows)
+    with torch.no_grad():
+        A.approx_mac_fused_matmul(x, w_q, srow, xs, rows)
+    xe = torch.randn(2, 4, 256, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        A.approx_mac_grouped_matmul(
+            xe, w_q.expand(2, -1, -1), srow.expand(2, -1), xs,
+            torch.full((2,), 4, dtype=torch.int32, device=dev),
+            rows.expand(2, -1, -1))
+    q = torch.randn(1, 8, 2, 128, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.randn(1, 8, 2, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        FA.flash_attention(q, kv, kv)
+    pool = torch.zeros(2, 16, 2, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        PA.paged_decode_attention(
+            q[:, :1], pool, pool,
+            torch.ones((1, 1), dtype=torch.int32, device=dev),
+            torch.ones((1,), dtype=torch.int32, device=dev))
+    from repro_torch.nn.layers import dense
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        dense(x, torch.randn(256, 64, device=dev), approx_cfg=5)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """One train step of the smoke Qwen2.5-3B (f32, remat on) on the card
+    against the same step on the CPU: loss, grad norm and every param
+    but the k bias within rtol 1e-4 (atol 1e-6); the flash kernel runs
+    twice per layer (forward and remat recompute) and no approx-MAC
+    kernel runs.  The k bias's value is not compared across the devices:
+    its gradient is exactly zero in exact arithmetic (softmax ignores a
+    constant added to every key's score), so each device's is rounding
+    noise, which AdamW's m / sqrt(v) turns into a step of up to lr
+    either way.  Held instead, on each device: the step moves ``bk``,
+    from zero, by at most lr (AdamW's bound at step 1), and it moves
+    (tests/test_torch_train.py holds the same leaf the same way against
+    the reference)."""
+    from repro_torch.data.synthetic_lm import SyntheticLM, SyntheticLMConfig
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.step import build_train_step, init_state
+    cfg = get_config("qwen2.5-3b").smoke(remat=True)
+    params = T.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=32, global_batch=4)).batch(0)
+    out = []
+    for dev in ("cpu", cuda_device):
+        opt = adamw(warmup_cosine(3e-4, 2, 6), weight_decay=0.01,
+                    grad_clip_norm=1.0)
+        state = init_state(_to_device(params, dev), opt)
+        before = (FA.flash_attention.launches,
+                  A.approx_mac_fused_matmul.launches)
+        state, m = build_train_step(cfg, opt)(
+            state, {k: torch.as_tensor(v, device=dev)
+                    for k, v in batch.items()})
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    _named_leaves(_to_device(state["params"], "cpu"))))
+        launches = (FA.flash_attention.launches - before[0],
+                    A.approx_mac_fused_matmul.launches - before[1])
+    assert launches == (2 * cfg.n_layers, 0)
+    (l_cpu, n_cpu, p_cpu), (l_gpu, n_gpu, p_gpu) = out
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
+    np.testing.assert_allclose(n_gpu, n_cpu, rtol=1e-4)
+    lr = float(warmup_cosine(3e-4, 2, 6)(1))
+    assert p_gpu.keys() == p_cpu.keys()
+    bk = [n for n in p_gpu if n.endswith("/bk")]
+    for side in (p_gpu, p_cpu):
+        assert all(float(side[n].abs().max()) <= lr * (1 + 1e-6) for n in bk)
+        assert any(float(side[n].abs().max()) > 0 for n in bk)
+    for name, a in p_gpu.items():
+        if name not in bk:
+            torch.testing.assert_close(a, p_cpu[name], rtol=1e-4, atol=1e-6,
+                                       msg=name)
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev, copy=True)
+
+
+def _named_leaves(tree, prefix="") -> dict:
+    """{"blocks/0/attn/bk": tensor, ...} of a param tree."""
+    items = (tree.items() if isinstance(tree, dict) else enumerate(tree)
+             if isinstance(tree, list) else None)
+    if items is None:
+        return {prefix: tree}
+    out = {}
+    for key, sub in items:
+        out.update(_named_leaves(sub, f"{prefix}/{key}" if prefix
+                                 else str(key)))
+    return out
