@@ -23,10 +23,14 @@ Phases, each printing one JSON line:
              cuobjdump -sass (``sass_hmma``).
 3. check   — the fused approx-MAC kernel equals its plain PyTorch version
              BIT FOR BIT (``torch.equal``) at every GEMM shape of the
-             dense and paged paths (M in {4, 8, 24, 32}: dense decode and
-             prefill, paged decode at max_batch 8, paged prefill chunks of
-             32) under configs 0, 8, 31 and a random per-block vector, at
-             Gemma-2-27B's GEMMs at M 4 and 48 (configs 0, 16, a vector),
+             dense and paged paths (M in {4, 8, 16, 24, 32}: dense decode
+             and prefill, paged decode at max_batch 8, paged prefill chunks
+             of 32, spec_serve's paged verify in chunks of 16 and its dense
+             verify of 4 x 8 rows) under configs 0, 8, 31 and a random
+             per-block vector, at Gemma-2-27B's GEMMs at M 4 and 48
+             (configs 0, 16, a vector), at spec_check's demo LM GEMMs (K 32
+             and 64, N 32 and 64; M 4, 16 and 24: its drafts, prefills and
+             paged verify chunks, and its dense verify of 4 x 6 rows),
              and at CHECK_EDGES: ragged K and M, config blocks of 32 and
              96 under wider tiles, every tiling and K-split path of
              ``approx_mac.gemm_plan`` (listed as ``plan_paths``) and
@@ -106,6 +110,42 @@ Phases, each printing one JSON line:
              its served step.  Reports probe, served-step and ``plan()``
              ms, the loop's ms a tick, pJ/token over the budget and the
              serve phase's decode step and tokens/s beside its own.
+12c. spec_check — stream identity of speculative decoding on a trained
+             model: the reference speculative test's demo LM (d 32, 2
+             layers, hd 16, vocab 64, f32) trained on the card by the
+             port's train step (AdamW 4e-3, 300 steps of SyntheticLM seq
+             48 x batch 16, 4 templates), then its sweeps through
+             ``set_spec`` ((seed, k, draft config) = (0, 3, 8), (1, 5, 8),
+             (2, 2, 20), (3, 4, 31) dense; (0, 3, 8), (1, 5, 20) paged,
+             40 blocks of 16, chunk 16; max_k 5, max_batch 4, max_len 64):
+             every speculative stream equals a plain engine's; the paged
+             pool consistent and free again; no library built or loaded
+             after the first tick; a draft step forced non-finite once
+             skips its tick (one abort) and leaves the stream equal.
+12d. spec_serve — speculative decoding on the serve phase's full-width
+             Qwen2.5-3B params and requests (8 of 4-24 tokens, 16 new,
+             max_batch 4, max_len 128), SpecConfig(draft 8, k 3, max_k 7)
+             then set_spec to (k 5, draft 20) and (k 2, draft 31), dense
+             and paged (34 blocks of 16, chunk 16), each beside a plain
+             twin engine on the same requests.  Asserted: every
+             speculative tick launches the fused kernel 7 times per
+             layer per draft step and per verify call (dense one, paged
+             one per slot), the paged kernel once per layer per paged
+             draft step and flash never; every emitted token is the
+             argmax of the verify row it came from; no library built or
+             loaded after the warm-up; the paged pools drain.  Reported
+             per run: mean accepted drafts and their histogram, tokens
+             per verify step, ms per emitted token (wall, and without the
+             prefills) and modeled serve pJ per emitted token beside the
+             plain twin's, and the share of each stream equal to the
+             plain twin's up to the first divergence (reported, not
+             asserted: a random-init model's argmaxes are near ties).
+12e. spec_sched — spec_serve's dense engine under a PowerBudgetScheduler
+             (0.85 x exact, probe_every 4, retune_every 8), 16 requests
+             of 4-24 tokens, 32 new tokens each: the draft depth within
+             [1, max_k] after every tick and followed by the engine's
+             ``_spec_k``; its backoff and recovery events and pJ per
+             emitted token over the budget.
 13. check_grouped — the grouped approx-MAC kernel equals its plain
              version bit for bit through ops.approx_dense_grouped_pallas
              at OLMoE-1B-7B's expert GEMMs (E 64, K x N 2048 x 1024 and
@@ -158,6 +198,13 @@ Phases, each printing one JSON line:
              (layer, expert) keys), 8 requests, 16 new tokens, probe and
              retune every 4 ticks; grouped 3 and fused 4 launches per
              layer per prefill, decode step and probe.
+17d. spec_moe — spec_serve on moe_serve's params and requests at
+             SpecConfig(draft 8, k 3, max_k 7), dense only: the fused
+             kernel 4 and the grouped kernel 3 times per layer per draft
+             step and verify; the same reports, and the expert entries
+             the verify's dispatch groups drop (counted from the router's
+             top-k and the capacity: the verify runs under
+             ``capacity_factor``, a one-token decode does not).
 18. check_flash — the flash-attention kernel against its plain version:
              Gemma-2-27B's prefill shapes (H 32, KV 16, hd 128, scale
              1/12, softcap 50, window 4096 and none, S in {1, 24, 48,
@@ -242,15 +289,19 @@ Then a ``{"kernels": [...]}`` line (the fused kernel's entry with a
 ``rows`` list: one Qwen2.5-3B layer at M 4 and one Gemma-2-27B layer at M 4
 and at M 48; the grouped kernel's: one OLMoE-1B-7B layer at decode and at
 the 2,048-token prefill; both counts include the sched_serve and
-sched_moe runs; flash's adds the train run's, the int kernel's
-mlp_train's), the nvidia-smi line again, and, as the last line,
+sched_moe runs and the speculative phases'; flash's adds the train
+run's and the speculative phases', the paged kernel's the speculative
+phases', the int kernel's mlp_train's), the nvidia-smi line again, and,
+as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without a CUDA device, or without the repository beside
 this file, the script exits non-zero and prints no result.  The
-rehearsal walks the serve, mlp, paged_serve, sched_serve, moe_serve,
-moe_prefill, sched_moe, gemma2_serve, gemma2_window, train (remat on),
-train_resume and mlp_train (2 epochs) phases at the smoke size on the
-CPU and never prints the ``ok`` line.  Since the flash kernel carries every prefill attention on
+rehearsal walks the serve, mlp, paged_serve, sched_serve, spec_check (60
+training steps, one sweep entry a mode), spec_serve, spec_sched,
+moe_serve, moe_prefill, sched_moe, spec_moe (fewer, shorter requests),
+gemma2_serve, gemma2_window, train (remat on), train_resume and
+mlp_train (2 epochs) phases at the smoke size on the CPU and never
+prints the ``ok`` line.  Since the flash kernel carries every prefill attention on
 the card, the serve, paged_serve and moe_serve prefills run it too.
 """
 from __future__ import annotations
@@ -333,6 +384,23 @@ TRAIN_KERNEL_KINDS = {
     "gemm": ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas"),
     "elementwise": ("elementwise",),
     "reduce": ("reduce",)}
+# speculative decoding: the engines' SpecConfig and the (k, draft config)
+# retargets through set_spec (phase_spec_serve); spec_check's demo LM
+# (the reference speculative test's) with its max_k and its sweeps
+# (request seed, k, draft config)
+SPEC = dict(draft_cfg=8, k=3, max_k=7)
+SPEC_SWEEP = ((3, 8), (5, 20), (2, 31))
+DEMO_LM = dict(name="demo", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+               head_dim=16, d_ff=64, vocab_size=64, remat=False, q_chunk=8,
+               loss_chunks=1)
+DEMO_MAX_K = 5
+# the demo LM's GEMM shapes (K, N): q, k, v, o; gate, up; down
+DEMO_GEMMS = ((DEMO_LM["d_model"], DEMO_LM["n_heads"] * DEMO_LM["head_dim"]),
+              (DEMO_LM["d_model"], DEMO_LM["d_ff"]),
+              (DEMO_LM["d_ff"], DEMO_LM["d_model"]))
+DEMO_DENSE_SWEEP = ((0, 3, 8), (1, 5, 8), (2, 2, 20), (3, 4, 31))
+DEMO_PAGED_SWEEP = ((0, 3, 8), (1, 5, 20))
+REHEARSE_DEMO_STEPS = 60
 SCRATCH = ROOT / "build" / "chip_smoke"
 
 
@@ -484,12 +552,15 @@ CHECK_EDGES = ((5, 100, 256, 128), (37, 203, 384, 128), (64, 2048, 2048, 128),
 
 def phase_check(torch, A, quantize, dev) -> float:
     """Kernel vs plain version at every GEMM shape of both serve paths
-    and of Gemma-2 (M 4 and 48), then at CHECK_EDGES."""
+    and of the speculative ones, of Gemma-2 (M 4 and 48) and of the demo
+    LM (M 4, 16 and 24), then at CHECK_EDGES."""
     gen = torch.Generator(device=dev).manual_seed(1)
     runs = [(m, k, n, 128, (0, 8, 31)) for k, n in DECODE_SHAPES
-            for m in (4, 8, 24, 32)]
+            for m in (4, 8, 16, 24, 32)]
     runs += [(m, k, n, 128, (0, 16)) for k, n in sorted(set(GEMMA_GEMMS))
              for m in (4, 48)]
+    runs += [(m, k, n, 128, (0, 8, 20, 31)) for k, n in DEMO_GEMMS
+             for m in (4, 16, 24)]
     runs += [(m, k, n, bn, (0, 8, 31)) for m, k, n, bn in CHECK_EDGES]
     worst, cases, paths = 0.0, 0, set()
     for m, k, n, cfg_bn, uniform in runs:
@@ -599,6 +670,16 @@ def phase_timing(torch, A, quantize, dev) -> dict:
         del ws, srows
         torch.cuda.empty_cache()
     return {(r["m"], r["k"], r["n"]): r for r in rows_out}
+
+
+def _serve_prompts(Request, n_req, max_new, vocab):
+    """The serve phase's requests: prompts of 4-24 tokens, drawn as it
+    draws them."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [Request(rid=rid, prompt=rng.integers(
+        0, vocab, size=int(rng.integers(4, 25))), max_new_tokens=max_new)
+        for rid in range(n_req)]
 
 
 def phase_serve(torch, T, A, Engine, Request, cfg, dev) -> dict:
@@ -2938,6 +3019,523 @@ def phase_mlp_train(torch, A, dev, rehearse: bool = False) -> dict:
     return res
 
 
+# --- speculative decoding (phases spec_check, spec_serve, spec_moe,
+# spec_sched) --------------------------------------------------------------
+
+def train_demo_lm(torch, T, dev, steps: int):
+    """The reference speculative test's demo LM (d 32, 2 layers, 2 heads,
+    hd 16, vocab 64, f32) trained by the port's own train step: AdamW at
+    4e-3 over `steps` batches of SyntheticLM (vocab 64, seq 48, batch 16,
+    4 templates, seed 0).  Returns (cfg, params, [first, last loss])."""
+    from repro_torch.data.synthetic_lm import SyntheticLM, SyntheticLMConfig
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.step import build_train_step, init_state
+    cfg = T.ModelConfig(compute_dtype=torch.float32, **DEMO_LM)
+    opt = adamw(lr=4e-3)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_state(T.init_lm(gen, cfg, dev), opt)
+    step = build_train_step(cfg, opt)
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=64, seq_len=48,
+                                         global_batch=16, n_templates=4,
+                                         seed=0))
+    losses = []
+    for i in range(steps):
+        state, m = step(state, {k: torch.as_tensor(v, device=dev)
+                                for k, v in data.batch(i).items()})
+        if i in (0, steps - 1):
+            losses.append(float(m["loss"]))
+    return cfg, state["params"], losses
+
+
+def _streams(eng, reqs, after_first_tick=None) -> dict:
+    """Serve `reqs` to the end; {rid: tokens}.  `after_first_tick` runs
+    once the first tick is done."""
+    for r in reqs:
+        assert eng.submit(r)
+    if after_first_tick is not None:
+        eng.step()
+        after_first_tick()
+    eng.run()
+    assert all(r.status == "done" for r in reqs), [r.status for r in reqs]
+    return {r.rid: list(r.tokens) for r in reqs}
+
+
+def _nan_draft(torch, T, name: str, draft_cfg: int, n: int = 2):
+    """(original, wrapper) of step function T.`name`: the wrapper's
+    `n`-th call at `draft_cfg` (a draft step; the pool runs another
+    config) returns non-finite logits."""
+    fn = getattr(T, name)
+    calls = []
+
+    def wrapped(*args, **kw):
+        logits, cache = fn(*args, **kw)
+        if int(kw["approx_cfg"].max()) == draft_cfg:
+            calls.append(1)
+            if len(calls) == n:
+                logits = torch.full_like(logits, float("nan"))
+        return logits, cache
+    return fn, wrapped
+
+
+def _demo_requests(Request, seed: int) -> list:
+    """The reference test's requests: 4 prompts of 16 tokens, 12 new."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [Request(rid=100 * seed + i, prompt=rng.integers(1, 64, 16),
+                    max_new_tokens=12) for i in range(4)]
+
+
+def phase_spec_check(torch, T, libs, Engine, Request, SpecConfig,
+                     PagedCacheConfig, dev, steps: int = 300,
+                     sweeps=(DEMO_DENSE_SWEEP, DEMO_PAGED_SWEEP)) -> dict:
+    """Stream identity on a trained model: the demo LM trained here, then
+    the reference test's sweeps through set_spec, dense and paged, each
+    run's speculative streams equal to a plain engine's; the paged pool
+    consistent and free again; no library built or loaded after the
+    first tick; a draft step forced non-finite once skips its tick and
+    leaves the stream equal."""
+    A, PA, FA = libs
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    cfg, params, losses = train_demo_lm(torch, T, dev, steps)
+    if on_card:
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    state = {}
+
+    def first_tick():
+        if on_card:
+            torch.cuda.synchronize()
+        state.setdefault("built", built_state(libs))
+
+    res = {"phase": "spec_check", "train_steps": steps,
+           "train_losses": losses, "train_s": train_s, "modes": {}}
+    _zero_launches(A, FA, PA)
+    for mode, sweep in zip(("dense", "paged"), sweeps):
+        paged = (PagedCacheConfig(num_blocks=40, block_size=16,
+                                  prefill_chunk=16) if mode == "paged"
+                 else None)
+        kw = dict(max_batch=4, max_len=64, device=dev, paged=paged)
+        spec = Engine(params, cfg, spec=SpecConfig(draft_cfg=8, k=3,
+                                                   max_k=DEMO_MAX_K), **kw)
+        plain = Engine(spec.params, cfg, quantize_weights=False, **kw)
+        want = {}
+        state.clear()             # each mode's first tick is its own
+        for seed, k, dcfg in sweep:
+            spec.set_spec(SpecConfig(draft_cfg=dcfg, k=k, max_k=DEMO_MAX_K))
+            got = _streams(spec, _demo_requests(Request, seed), first_tick)
+            want[seed] = _streams(plain, _demo_requests(Request, seed))
+            assert got == want[seed], (mode, seed, k, dcfg)
+        assert spec.n_spec_ticks > 0
+        if on_card:
+            torch.cuda.synchronize()
+        assert built_state(libs) == state["built"], (mode, built_state(libs),
+                                                     state["built"])
+        if paged is not None:
+            spec.allocator.check_consistency(spec._slot_blocks)
+            assert spec.allocator.free_blocks() == paged.usable_blocks
+        # the draft-abort path: the second draft step of the first
+        # speculative tick gives non-finite logits
+        name = "paged_decode_step" if paged else "decode_step"
+        fn, nan_once = _nan_draft(torch, T, name, 8)
+        aborted = Engine(spec.params, cfg, quantize_weights=False,
+                         spec=SpecConfig(draft_cfg=8, k=3, max_k=DEMO_MAX_K),
+                         **kw)
+        setattr(T, name, nan_once)
+        try:
+            got = _streams(aborted, _demo_requests(Request, 0))
+        finally:
+            setattr(T, name, fn)
+        assert got == want[0], mode
+        assert aborted.n_spec_aborts == 1, aborted.n_spec_aborts
+        if paged is not None:
+            aborted.allocator.check_consistency(aborted._slot_blocks)
+            assert aborted.allocator.free_blocks() == paged.usable_blocks
+        res["modes"][mode] = {
+            "sweep": [list(s) for s in sweep], "streams_equal_plain": True,
+            "spec_ticks": spec.n_spec_ticks,
+            "tokens_per_verify": spec.n_spec_emitted / spec.n_verify_steps,
+            "draft_abort_stream_equal": True,
+            "draft_aborts": aborted.n_spec_aborts}
+    if on_card:
+        torch.cuda.synchronize()
+    res["launches"] = _launch_counts(A, FA, PA)
+    res["libraries_built_after_first_tick"] = 0
+    if on_card:
+        assert res["launches"]["approx_mac_fused_matmul"] > 0
+        assert res["launches"]["paged_decode_attention"] > 0
+        assert res["launches"]["flash_attention"] > 0
+    emit(res)
+    return res
+
+
+def spec_run(torch, T, libs, E, eng, reqs, per_call: dict,
+             moe_window: int = 0) -> dict:
+    """Serve `reqs` on `eng` to the end and measure the run: wall ms per
+    emitted token, prefill ms (host clock around each prefill and chunk
+    with a sync), modeled serve pJ per emitted token, and for a
+    speculative engine, per speculative tick: each wrapper's launches
+    (asserted: ``per_call`` launches per layer per draft step and per
+    verify call — dense one verify, paged one per slot — and the paged
+    kernel once per layer per paged draft step), the accepted drafts of
+    every slot and the tokens each slot emitted, asserted to be the
+    argmax of the verify row they came from.  ``moe_window`` > 0 counts
+    the expert entries that the verify's ``moe_ffn`` calls (that many
+    tokens) drop, on the device."""
+    import numpy as np
+    A, PA, FA = libs
+    on_card = eng.device.type == "cuda"
+    paged = eng.paged is not None
+    L = eng.cfg.n_layers
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    fns = {n: getattr(T, n) for n in ("prefill", "paged_prefill_chunk",
+                                      "decode_verify", "moe_ffn")}
+    lap = E.longest_agreeing_prefix
+    st = {"in_tick": False, "prefill_ms": 0.0, "rows": [], "drops": [],
+          "accepted": [], "ticks": []}
+
+    def wrap(fn, record: bool):
+        """Outside a speculative tick: a prefill (or prompt chunk), timed.
+        Inside one, a `record` call is a verify: keep its rows' argmax
+        (on the device)."""
+        def run(*args, **kw):
+            if st["in_tick"]:
+                out = fn(*args, **kw)
+                if record:
+                    rows = out[0][0, :kw["count"]] if "count" in kw \
+                        else out[0]
+                    st["rows"].append((kw.get("slot"),
+                                       torch.argmax(rows, -1)))
+                return out
+            sync()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            st["prefill_ms"] += (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    def moe_ffn(x, p, **kw):
+        y, aux = fns["moe_ffn"](x, p, **kw)
+        if st["in_tick"] and x.shape[0] == moe_window:
+            g, e, k = kw["n_groups"], kw["n_experts"], kw["top_k"]
+            sg = x.shape[0] // g
+            cap = min(int(np.ceil(sg * k / e * kw["capacity_factor"])),
+                      sg * k)
+            st["drops"].append((aux["slot"] == e * cap).sum())
+        return y, aux
+
+    def counting_lap(d, e):
+        js = lap(d, e)
+        st["accepted"].append(js)
+        return js
+
+    tick_name = "_spec_tick_paged" if paged else "_spec_tick_dense"
+    tick_fn = getattr(eng, tick_name)
+
+    def tick(active):
+        live = {i: (eng.slots[i], len(eng.slots[i].tokens)) for i in active}
+        before = _launch_counts(A, FA, PA)
+        k = eng._spec_k()
+        st["rows"] = []
+        st["in_tick"] = True
+        try:
+            out = tick_fn(active)
+        finally:
+            st["in_tick"] = False
+        after = _launch_counts(A, FA, PA)
+        st["ticks"].append({
+            "k": k, "active": len(active),
+            "launches": {n: after[n] - before[n] for n in after},
+            "emitted": {i: req.tokens[n:] for i, (req, n) in live.items()},
+            "rows": st["rows"]})
+        return out
+
+    counters = ("serve_mac_energy_pj_per_param", "n_tokens_emitted",
+                "n_spec_ticks", "n_spec_emitted", "n_verify_steps",
+                "n_draft_tokens", "n_decode_steps", "n_spec_aborts")
+    start = {c: getattr(eng, c) for c in counters}
+    setattr(eng, tick_name, tick)
+    T.prefill = wrap(fns["prefill"], False)
+    T.paged_prefill_chunk = wrap(fns["paged_prefill_chunk"], paged)
+    T.decode_verify = wrap(fns["decode_verify"], True)
+    T.moe_ffn = moe_ffn
+    E.longest_agreeing_prefix = counting_lap
+    try:
+        for r in reqs:
+            assert eng.submit(r)
+        sync()
+        t0 = time.perf_counter()
+        eng.run()
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        for n, fn in fns.items():
+            setattr(T, n, fn)
+        E.longest_agreeing_prefix = lap
+        delattr(eng, tick_name)
+    assert all(r.status == "done" for r in reqs), [r.status for r in reqs]
+    d = {c: getattr(eng, c) - start[c] for c in counters}
+    assert d["n_spec_aborts"] == 0, d
+    for t in st["ticks"]:
+        calls = t["k"] + (t["active"] if paged else 1)
+        for fn, per in per_call.items():
+            assert t["launches"][fn] == (per * L * calls if on_card else 0), \
+                (fn, t)
+        if paged:
+            assert t["launches"]["paged_decode_attention"] == \
+                (L * t["k"] if on_card else 0), t
+        assert t["launches"]["flash_attention"] == 0, t
+        # every emitted token is the argmax of the verify row it came from
+        exact = {}
+        for slot, rows in t["rows"]:
+            rows = rows.cpu().numpy()
+            if slot is None:
+                exact.update({i: rows[i] for i in t["emitted"]})
+            else:
+                exact[slot] = rows
+        for i, toks in t["emitted"].items():
+            assert 1 <= len(toks) <= t["k"] + 1, (i, toks, t["k"])
+            assert toks == exact[i][:len(toks)].tolist(), (i, toks)
+    tokens = d["n_tokens_emitted"]
+    assert tokens == sum(len(r.tokens) for r in reqs)
+    out = {"wall_s": wall, "tokens": tokens,
+           "ms_per_token": wall * 1e3 / tokens,
+           "prefill_ms": st["prefill_ms"],
+           "decode_ms_per_token": (wall * 1e3 - st["prefill_ms"])
+           / (tokens - len(reqs)),
+           "pj_per_token": d["serve_mac_energy_pj_per_param"]
+           * eng.macs_per_token / tokens,
+           "decode_steps": d["n_decode_steps"]}
+    if eng.spec is not None:
+        acc = st["accepted"]
+        out.update({
+            "spec_ticks": d["n_spec_ticks"],
+            "draft_tokens": d["n_draft_tokens"],
+            "verify_steps": d["n_verify_steps"],
+            "spec_emitted": d["n_spec_emitted"],
+            "tokens_per_verify": d["n_spec_emitted"] / d["n_verify_steps"],
+            "accepted_mean": sum(acc) / len(acc),
+            "accepted_hist": [acc.count(j) for j in range(max(acc) + 1)],
+            "launches_per_tick_checked": len(st["ticks"]),
+            "emitted_are_verify_argmax": True})
+        if moe_window:
+            drops = [int(x) for x in st["drops"]]
+            out.update({"verify_moe_calls": len(drops),
+                        "verify_dropped_entries": sum(drops),
+                        "verify_dropped_per_tick":
+                            sum(drops) / d["n_spec_ticks"]})
+    return out
+
+
+def verify_vs_decode(torch, T, Engine, params, cfg, dev, reqs,
+                     window: int, **engine_kw) -> dict:
+    """How far the verify's window moves the logits: a dense pool
+    prefilled with `reqs` (at most max_batch 4), one decode step at
+    config 0 and, on the same cache, ``decode_verify`` at config 0 over
+    a window holding the same input token then pads, and over a window
+    of that token alone.  Row 0 of the verify scores the decode step's
+    position; its GEMMs quantize the activations of the whole window
+    with one scale (a window of one is the decode step's arithmetic).
+    Returns the largest logit difference for both windows, the argmax
+    agreement over the active rows and the decode rows' top-1/top-2
+    logit gaps (median, smallest)."""
+    eng = Engine(params, cfg, max_batch=4, max_len=128, device=dev,
+                 quantize_weights=False, **engine_kw)
+    for r in reqs[:4]:
+        assert eng.submit(r)
+    eng._admit()
+    active = [i for i, r in enumerate(eng.slots) if r is not None]
+    pos = int(eng.slot_pos[active].max())
+    tokens = torch.zeros((4, window), dtype=torch.long, device=dev)
+    for i in active:
+        tokens[i, 0] = eng.slots[i].tokens[-1]
+    acfg = eng._device_cfg(eng._as_layer_vector(0))
+    saved = {n: t.clone() for n, t in cache_leaves(eng.cache)}
+    cache = dict(eng.cache)
+    cache["pos"] = torch.tensor(pos, dtype=torch.int32, device=dev)
+    dec, _ = T.decode_step(eng.params, cfg, cache, tokens[:, :1],
+                           approx_cfg=acfg)
+    ver = {}
+    for w in (window, 1):
+        for n, t in cache_leaves(eng.cache):
+            t.copy_(saved[n])
+        ver[w] = T.decode_verify(eng.params, cfg, eng.cache, tokens[:, :w],
+                                 pos, approx_cfg=acfg)[0][active, 0].float()
+    dec = dec[active].float()
+    top = torch.topk(dec, 2, dim=-1).values
+    gaps = (top[:, 0] - top[:, 1]).cpu()
+    return {"rows": len(active), "window": window, "max_abs_logit_diff":
+            float((dec - ver[window]).abs().max()),
+            "max_abs_logit_diff_window1": float((dec - ver[1]).abs().max()),
+            "logit_std": float(dec.std()),
+            "argmax_agree": float((dec.argmax(-1) == ver[window].argmax(-1))
+                                  .float().mean()),
+            "top2_gap_median": float(gaps.median()),
+            "top2_gap_min": float(gaps.min())}
+
+
+def _agreement(spec: dict, plain: dict) -> float:
+    """Mean over requests of the share of the plain stream that the
+    speculative stream equals up to their first divergence."""
+    shares = []
+    for rid, want in plain.items():
+        got = spec[rid]
+        n = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 min(len(got), len(want)))
+        shares.append(n / len(want))
+    return sum(shares) / len(shares)
+
+
+def phase_spec_serve(torch, T, libs, E, Engine, Request, SpecConfig,
+                     PagedCacheConfig, params, cfg, dev, *, name: str,
+                     prompts, per_call: dict, modes=("dense", "paged"),
+                     sweep=SPEC_SWEEP, **engine_kw) -> dict:
+    """Speculative serving of a full-width model (the serve phase's
+    quantized params): SpecConfig(SPEC), then set_spec through `sweep`
+    (k, draft config), in each mode, each beside a plain twin engine on
+    the same requests in the same call.  On the card a warm-up pair of
+    engines runs first; from then on no library may be built or loaded.  Reports per
+    run spec_run's numbers and the share of tokens equal to the plain
+    twin's stream up to the first divergence (reported, not asserted: a
+    random-init model's logits are near ties), and ``verify_vs_decode``:
+    how far the verify window moves the logits of a decode step."""
+    import numpy as np
+    A, PA, FA = libs
+    on_card = dev.type == "cuda"
+    max_len = 128
+    paged_cfg = PagedCacheConfig(num_blocks=2 + 4 * max_len // 16,
+                                 block_size=16, prefill_chunk=16)
+    res = {"phase": name, "arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "requests": len(prompts()),
+           "spec": dict(SPEC), "runs": []}
+
+    def engine(mode, spec):
+        return Engine(params, cfg, max_batch=4, max_len=max_len, device=dev,
+                      quantize_weights=False,
+                      paged=paged_cfg if mode == "paged" else None,
+                      spec=spec, **engine_kw)
+
+    if on_card:                 # warm-up (nothing is built on a CPU)
+        for mode in modes:
+            for spec in (SpecConfig(**SPEC), None):
+                _streams(engine(mode, spec), prompts()[:2])
+        torch.cuda.synchronize()
+    built = built_state(libs)
+    res["verify_vs_decode"] = verify_vs_decode(
+        torch, T, Engine, params, cfg, dev, prompts(), SPEC["max_k"] + 1,
+        **engine_kw)
+    if on_card:
+        torch.cuda.synchronize()
+    _zero_launches(A, FA, PA)    # count the plain and speculative runs only
+    for mode in modes:
+        plain_eng = engine(mode, None)
+        plain_reqs = prompts()
+        plain = spec_run(torch, T, libs, E, plain_eng, plain_reqs, per_call)
+        plain_streams = {r.rid: list(r.tokens) for r in plain_reqs}
+        eng = engine(mode, SpecConfig(**SPEC))
+        for k, dcfg in sweep:
+            eng.set_spec(SpecConfig(draft_cfg=dcfg, k=k,
+                                    max_k=SPEC["max_k"]))
+            reqs = prompts()
+            run = spec_run(torch, T, libs, E, eng, reqs, per_call,
+                           moe_window=4 * (SPEC["max_k"] + 1)
+                           if cfg.n_experts and mode == "dense" else 0)
+            run.update(mode=mode, k=k, draft_cfg=dcfg,
+                       plain_ms_per_token=plain["ms_per_token"],
+                       plain_decode_ms_per_token=plain["decode_ms_per_token"],
+                       plain_pj_per_token=plain["pj_per_token"],
+                       plain_decode_steps=plain["decode_steps"],
+                       agreement_with_plain=_agreement(
+                           {r.rid: list(r.tokens) for r in reqs},
+                           plain_streams))
+            res["runs"].append(run)
+        if mode == "paged":
+            for e in (eng, plain_eng):
+                e.allocator.check_consistency(e._slot_blocks)
+                assert e.allocator.free_blocks() == paged_cfg.usable_blocks
+    if on_card:
+        torch.cuda.synchronize()
+    res["launches"] = _launch_counts(A, FA, PA)
+    assert built_state(libs) == built, (built_state(libs), built)
+    res["libraries_built_after_warmup"] = 0
+    if on_card:
+        assert all(res["launches"][fn] > 0 for fn in per_call)
+        assert res["launches"]["flash_attention"] > 0
+        if "paged" in modes:
+            assert res["launches"]["paged_decode_attention"] > 0
+    emit(res)
+    return res
+
+
+def phase_spec_sched(torch, T, libs, E, Engine, Request, SpecConfig,
+                     Scheduler, params, cfg, dev, n_req: int = 16,
+                     max_new: int = 32) -> dict:
+    """spec_serve's dense engine under a PowerBudgetScheduler (0.85 x the
+    exact-mode pJ/token, probe_every 4, retune_every 8): the draft depth
+    after every tick within [1, max_k] and followed by the engine's
+    ``_spec_k``; reports its history (backoff and recovery events) and
+    pJ per emitted token over the budget."""
+    import numpy as np
+    from repro_torch.core.power_model import energy_per_token_pj
+    A, PA, FA = libs
+    on_card = dev.type == "cuda"
+    sched = Scheduler(0.0, probe_every=4, retune_every=8, seed=0)
+    eng = Engine(params, cfg, max_batch=4, max_len=128, device=dev,
+                 quantize_weights=False, scheduler=sched,
+                 spec=SpecConfig(**SPEC))
+    exact = energy_per_token_pj(np.zeros_like(eng.approx_cfg),
+                                eng.macs_per_token, eng._moe_mac_frac)
+    sched.set_budget(0.85 * exact)
+    for r in _sched_prompts(Request, n_req, max_new, cfg.vocab_size):
+        assert eng.submit(r)
+    _zero_launches(A, FA, PA)
+    depths = []
+    t0 = time.perf_counter()
+    while eng.queue or any(s is not None for s in eng.slots):
+        eng.step()
+        depths.append(sched.draft_k)
+        assert 1 <= sched.draft_k <= SPEC["max_k"], sched.draft_k
+        assert eng._spec_k() == sched.draft_k, (eng._spec_k(),
+                                                 sched.draft_k)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert all(len(r.tokens) == max_new for r in eng.completed)
+    rep = sched.report()
+    events = [h for h in sched.history if h["event"] == "spec_backoff"]
+    recoveries = [(i, b) for i, (a, b) in enumerate(zip(depths, depths[1:]))
+                  if b > a]
+    pj = eng.serve_mac_energy_pj_per_param * eng.macs_per_token \
+        / eng.n_tokens_emitted
+    res = {"phase": "spec_sched", "arch": cfg.name, "requests": n_req,
+           "max_new_tokens": max_new, "spec": dict(SPEC),
+           "ticks": sched.tick,
+           "spec_ticks": eng.n_spec_ticks, "decode_steps": eng.n_decode_steps,
+           "probes": sched.n_probes, "retunes": rep["retunes"],
+           "draft_k_final": sched.draft_k,
+           "draft_k_min": min(depths), "draft_k_max": max(depths),
+           "spec_backoffs": [(h["tick"], h["draft_k"]) for h in events],
+           "draft_k_recoveries": recoveries,
+           "tokens_per_verify": eng.n_spec_emitted / eng.n_verify_steps,
+           "budget_pj_per_token": sched.budget_pj_per_token,
+           "exact_pj_per_token": exact,
+           "pj_per_emitted_token": pj,
+           "pj_per_emitted_token_over_budget":
+               pj / sched.budget_pj_per_token,
+           "final_configs": {int(c): int(n) for c, n in zip(*np.unique(
+               np.asarray(rep["assignment"]), return_counts=True))},
+           "wall_s": wall,
+           "tokens_per_s": eng.n_tokens_emitted / wall,
+           "launches": _launch_counts(A, FA, PA)}
+    emit(res)
+    return res
+
+
 def layer_row(name: str, rows: list, launches: int) -> dict:
     """One work row of a kernel's entry: the sums over a layer's GEMMs."""
     return {"work": name, "launches": launches,
@@ -2951,10 +3549,11 @@ def layer_row(name: str, rows: list, launches: int) -> dict:
 
 
 def rehearse() -> int:
-    """The serve, mlp, paged_serve, sched_serve, moe_serve, moe_prefill,
-    sched_moe, gemma2_serve, gemma2_window, train, train_resume and
-    mlp_train phases on a CPU at the smoke size: plain versions, no
-    build, no timing, and never the ok line."""
+    """The serve, mlp, paged_serve, sched_serve, spec_check, spec_serve,
+    spec_sched, moe_serve, moe_prefill, sched_moe, spec_moe,
+    gemma2_serve, gemma2_window, train, train_resume and mlp_train
+    phases on a CPU at the smoke size: plain versions, no build, no
+    timing, and never the ok line."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.configs.registry import get_config
@@ -2963,10 +3562,13 @@ def rehearse() -> int:
     from repro_torch.kernels.flash_attention import ops as FAops
     from repro_torch.kernels.flash_attention import paged_attention as PA
     from repro_torch.nn import transformer as T
+    from repro_torch.serve import engine as E
     from repro_torch.serve.engine import Engine, Request
     from repro_torch.serve.paged_cache import PagedCacheConfig
     from repro_torch.serve.scheduler import PowerBudgetScheduler
+    from repro_torch.serve.speculative import SpecConfig
     cpu = torch.device("cpu")
+    libs = (A, PA, FA)
     cfg = get_config("qwen2.5-3b").smoke()
     serve, eng = phase_serve(torch, T, A, Engine, Request, cfg, cpu)
     phase_mlp(torch, A, cpu, n_data=200, n_sim=8)
@@ -2975,6 +3577,21 @@ def rehearse() -> int:
     phase_sched(torch, T, A, (A, PA, FA), Engine, Request,
                 PowerBudgetScheduler, eng.params, cfg, cpu, **SCHED_SERVE,
                 baseline=serve)
+    # the speculative phases cut to fit the rehearsal's time: fewer
+    # training steps, one sweep entry a mode, fewer and shorter requests
+    phase_spec_check(torch, T, libs, Engine, Request, SpecConfig,
+                     PagedCacheConfig, cpu, steps=REHEARSE_DEMO_STEPS,
+                     sweeps=(DEMO_DENSE_SWEEP[:1], DEMO_PAGED_SWEEP[:1]))
+    phase_spec_serve(torch, T, libs, E, Engine, Request, SpecConfig,
+                     PagedCacheConfig, eng.params, cfg, cpu,
+                     name="spec_serve",
+                     prompts=lambda: _serve_prompts(Request, 4, 8,
+                                                    cfg.vocab_size),
+                     per_call={"approx_mac_fused_matmul": GEMMS_PER_LAYER},
+                     sweep=SPEC_SWEEP[:1])
+    phase_spec_sched(torch, T, libs, E, Engine, Request, SpecConfig,
+                     PowerBudgetScheduler, eng.params, cfg, cpu, n_req=4,
+                     max_new=8)
     moe_cfg = get_config("olmoe-1b-7b").smoke(mac_backend="pallas")
     moe, moe_eng = phase_moe_serve(torch, T, A, Engine, Request, moe_cfg,
                                    cpu)
@@ -2982,6 +3599,14 @@ def rehearse() -> int:
     phase_sched(torch, T, A, (A, PA, FA), Engine, Request,
                 PowerBudgetScheduler, moe_eng.params, moe_cfg, cpu,
                 **SCHED_MOE, baseline=moe, cfg_experts=moe_cfg.n_experts)
+    phase_spec_serve(torch, T, libs, E, Engine, Request, SpecConfig,
+                     PagedCacheConfig, moe_eng.params, moe_cfg, cpu,
+                     name="spec_moe",
+                     prompts=lambda: _moe_prompts(Request, 5, 4,
+                                                  moe_cfg.vocab_size),
+                     per_call=SCHED_MOE["per_call"], modes=("dense",),
+                     sweep=((SPEC["k"], SPEC["draft_cfg"]),),
+                     cfg_experts=moe_cfg.n_experts)
     g_cfg = get_config("gemma2-27b").smoke()
     _, g_eng = phase_gemma2_serve(torch, T, A, FA, Engine, Request, g_cfg,
                                   cpu)
@@ -3031,9 +3656,11 @@ def main(argv: list[str]) -> int:
     from repro_torch.kernels.flash_attention import paged_attention as PA
     from repro_torch.nn import transformer as T
     from repro_torch.nn.moe import quantize_expert_bank
+    from repro_torch.serve import engine as E
     from repro_torch.serve.engine import Engine, Request
     from repro_torch.serve.paged_cache import PagedCacheConfig
     from repro_torch.serve.scheduler import PowerBudgetScheduler
+    from repro_torch.serve.speculative import SpecConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3084,6 +3711,17 @@ def main(argv: list[str]) -> int:
     sched_serve = phase_sched(torch, T, A, (A, PA, FA), Engine, Request,
                               PowerBudgetScheduler, params, cfg, dev,
                               **SCHED_SERVE, baseline=serve)
+    libs = (A, PA, FA)
+    spec_check = phase_spec_check(torch, T, libs, Engine, Request,
+                                  SpecConfig, PagedCacheConfig, dev)
+    spec_serve = phase_spec_serve(
+        torch, T, libs, E, Engine, Request, SpecConfig, PagedCacheConfig,
+        params, cfg, dev, name="spec_serve",
+        prompts=lambda: _serve_prompts(Request, 8, 16, cfg.vocab_size),
+        per_call={"approx_mac_fused_matmul": GEMMS_PER_LAYER})
+    spec_sched = phase_spec_sched(torch, T, libs, E, Engine, Request,
+                                  SpecConfig, PowerBudgetScheduler, params,
+                                  cfg, dev)
     # free Qwen2.5-3B before OLMoE-1B-7B
     del params, snaps, chunk_snap
     torch.cuda.empty_cache()
@@ -3099,6 +3737,13 @@ def main(argv: list[str]) -> int:
                             PowerBudgetScheduler, moe_eng.params, moe_cfg,
                             dev, **SCHED_MOE, baseline=moe,
                             cfg_experts=moe_cfg.n_experts)
+    spec_moe = phase_spec_serve(
+        torch, T, libs, E, Engine, Request, SpecConfig, PagedCacheConfig,
+        moe_eng.params, moe_cfg, dev, name="spec_moe",
+        prompts=lambda: _moe_prompts(Request, 8, 16, moe_cfg.vocab_size),
+        per_call=SCHED_MOE["per_call"], modes=("dense",),
+        sweep=((SPEC["k"], SPEC["draft_cfg"]),),
+        cfg_experts=moe_cfg.n_experts)
     # free OLMoE-1B-7B before Gemma-2-27B
     del moe_eng
     torch.cuda.empty_cache()
@@ -3130,13 +3775,18 @@ def main(argv: list[str]) -> int:
                      moe_prefill["grouped_launches"]))]
     serve_attn = timing_paged[0]
     serve_flash = timing_flash[0]
+    spec_phases = (spec_check, spec_serve, spec_sched, spec_moe)
+
+    def spec_launches(fn):
+        return sum(p["launches"][fn] for p in spec_phases)
     emit({"kernels": [{
         "name": "approx_mac_fused_matmul",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": (serve["kernel_launches"]
-                     + sched_serve["launches"]["approx_mac_fused_matmul"]),
+                     + sched_serve["launches"]["approx_mac_fused_matmul"]
+                     + spec_launches("approx_mac_fused_matmul")),
         "max_abs_err": worst,
         "ms": sum(r["ms"] for r in layer),
         "plain_ms": sum(r["plain_ms"] for r in layer),
@@ -3145,9 +3795,11 @@ def main(argv: list[str]) -> int:
                      else "operations"),
         "library_ms": sum(r["library_ms"] for r in layer),
         "work": "the 7 GEMMs of one Qwen2.5-3B layer at decode, M = 4; "
-                "launches from the dense serve and sched_serve runs (the "
-                "paged run's are in paged_serve, the MoE runs' in "
-                "moe_serve and sched_moe, Gemma-2's in gemma2_serve); "
+                "launches from the dense serve, sched_serve and the four "
+                "speculative runs (spec_check, spec_serve, spec_sched, "
+                "spec_moe; the plain paged run's are in paged_serve, "
+                "the other MoE runs' in moe_serve and sched_moe, "
+                "Gemma-2's in gemma2_serve); "
                 "library_ms is torch._int_mm at config 0 "
                 "with M padded to 32, each GEMM in its faster weight "
                 "layout (timing's library_layout)",
@@ -3179,7 +3831,8 @@ def main(argv: list[str]) -> int:
         "route": "cuda",
         "source": PAGED_SOURCE,
         "replaces": PAGED_TPU_KERNEL,
-        "launches": paged["paged_attention_launches"],
+        "launches": (paged["paged_attention_launches"]
+                     + spec_launches("paged_decode_attention")),
         "max_abs_err": paged_err,
         "ms": serve_attn["ms"],
         "plain_ms": serve_attn["plain_ms"],
@@ -3187,7 +3840,9 @@ def main(argv: list[str]) -> int:
         "bound_by": serve_attn["bound_by"],
         "library_ms": serve_attn["library_ms"],
         "work": "one layer's paged decode attention at B 8, length 256 "
-                "(H 16, KV 2, hd 128, bs 16, bf16); library_ms is the "
+                "(H 16, KV 2, hd 128, bs 16, bf16); launches from the "
+                "paged serve run and the paged speculative drafts of "
+                "spec_check and spec_serve; library_ms is the "
                 "gather k_pool[tables] plus scaled_dot_product_attention",
     }, {
         "name": "approx_mac_grouped_matmul",
@@ -3195,14 +3850,15 @@ def main(argv: list[str]) -> int:
         "source": KERNEL_SOURCE,
         "replaces": GROUPED_TPU_KERNEL,
         "launches": (moe["grouped_launches"]
-                     + sched_moe["launches"]["approx_mac_grouped_matmul"]),
+                     + sched_moe["launches"]["approx_mac_grouped_matmul"]
+                     + spec_launches("approx_mac_grouped_matmul")),
         "max_abs_err": grouped_err,
         **{key: moe_rows[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
         "work": "the 3 expert GEMMs (gate, up, down) of one OLMoE-1B-7B "
                 "layer at decode: 4 tokens, top-8 of 64 experts from a "
-                "real routing, M 32; launches from the moe_serve and "
-                "sched_moe runs; "
+                "real routing, M 32; launches from the moe_serve, "
+                "sched_moe and spec_moe runs; "
                 "library_ms is a torch._int_mm loop over the touched "
                 "experts at config 0, each GEMM in its faster weight "
                 "layout (timing_grouped's library_layout)",
@@ -3212,7 +3868,8 @@ def main(argv: list[str]) -> int:
         "route": "cuda",
         "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL,
-        "launches": g_serve["flash_launches"] + train["flash_launches"],
+        "launches": (g_serve["flash_launches"] + train["flash_launches"]
+                     + spec_launches("flash_attention")),
         "max_abs_err": flash_err,
         "ms": serve_flash["ms"],
         "plain_ms": serve_flash["plain_ms"],
@@ -3222,8 +3879,9 @@ def main(argv: list[str]) -> int:
         "work": "one Gemma-2-27B layer's prefill attention at the serve "
                 "run's longest prompt, S 48 (H 32, KV 16, hd 128, bf16, "
                 "scale 1/12, softcap 50); launches from the gemma2_serve "
-                "run and the train run's timed steps (forward and remat "
-                "recompute); library_ms is scaled_dot_product_attention (GQA, "
+                "run, the train run's timed steps (forward and remat "
+                "recompute) and the speculative runs' prefills; "
+                "library_ms is scaled_dot_product_attention (GQA, "
                 "causal) without the softcap, which it cannot express",
     }]})
     print(smi, flush=True)

@@ -5,6 +5,7 @@
       [--smoke] [--requests 8] [--max-batch 4] [--max-len 128] \
       [--max-new 16] [--approx-cfg 0] [--device cuda] \
       [--budget-frac F] [--power-cap-frac F] \
+      [--draft-cfg CFG [--draft-k 3]] \
       [--paged [--num-blocks N] [--block-size 16] [--prefill-chunk 32]]
 
 Serves random init (seed 0) through ``repro_torch.serve.engine.Engine``:
@@ -19,9 +20,13 @@ in the reference, it refuses models with local layers or an int8 KV
 cache (Gemma-2).  --budget-frac attaches a ``PowerBudgetScheduler``
 whose budget is that fraction of the model's exact-mode pJ/token, and
 prints its report at the end; --power-cap-frac caps admission at that
-fraction of max_batch exact-mode tokens a tick.
+fraction of max_batch exact-mode tokens a tick.  --draft-cfg turns on
+speculative decoding (``serve/speculative.py``): k = --draft-k drafts
+at that config, verified at the service config, with max_k =
+max(draft_k, 4) as in the reference; the closing line gives ticks,
+emitted/drafted tokens, tokens per verify step and aborts.
 Counterpart of ``repro.launch.serve`` without its checkpoint, mesh,
-resilience, traffic and speculative options (not ported yet).
+resilience and traffic options (not ported yet).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from repro_torch.nn import transformer as T
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.paged_cache import N_RESERVED, PagedCacheConfig
 from repro_torch.serve.scheduler import PowerBudgetScheduler
+from repro_torch.serve.speculative import SpecConfig
 
 
 def main(argv=None) -> dict:
@@ -66,6 +72,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="prompt tokens advanced per engine tick "
                          "(multiple of --block-size)")
+    ap.add_argument("--draft-cfg", type=int, default=None, metavar="CFG",
+                    help="speculative decoding: draft at this error "
+                         "config, verify at the service config")
+    ap.add_argument("--draft-k", type=int, default=3,
+                    help="draft depth per speculative tick (the "
+                         "scheduler may lower it live)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain "
                          "versions); no fallback between the two")
@@ -88,6 +100,12 @@ def main(argv=None) -> dict:
         print(f"paged KV: {num_blocks} blocks x {args.block_size} tokens "
               f"({paged.usable_blocks * args.block_size} usable), "
               f"prefill chunk {args.prefill_chunk}")
+    spec = None
+    if args.draft_cfg is not None:
+        spec = SpecConfig(draft_cfg=args.draft_cfg, k=args.draft_k,
+                          max_k=max(args.draft_k, 4))
+        print(f"speculative decoding: draft cfg {args.draft_cfg}, "
+              f"k={args.draft_k} (verify at the service config)")
     gen = torch.Generator(device=device).manual_seed(0)
     # budget set below from the model's exact-mode pJ/token
     sched = (PowerBudgetScheduler(0.0) if args.budget_frac is not None
@@ -97,7 +115,7 @@ def main(argv=None) -> dict:
     eng = Engine(T.init_lm(gen, cfg, device, quantized=True), cfg,
                  max_batch=args.max_batch,
                  max_len=args.max_len, approx_cfg=args.approx_cfg,
-                 paged=paged, scheduler=sched, device=device)
+                 paged=paged, scheduler=sched, spec=spec, device=device)
     exact_pj = energy_per_token_pj(np.zeros_like(eng.approx_cfg),
                                    eng.macs_per_token, eng._moe_mac_frac)
     if sched is not None:
@@ -139,6 +157,13 @@ def main(argv=None) -> dict:
               f"{measured/1e6:.3f} uJ vs budget "
               f"{s['budget_pj_per_token']/1e6:.3f} uJ")
         print(f"scheduler report: {s}")
+    if spec is not None:
+        tv = (eng.n_spec_emitted / eng.n_verify_steps
+              if eng.n_verify_steps else 0.0)
+        print(f"speculative: {eng.n_spec_ticks} ticks, "
+              f"{eng.n_spec_emitted}/{eng.n_draft_tokens} "
+              f"emitted/drafted, {tv:.2f} tokens/verify-step, "
+              f"{eng.n_spec_aborts} aborts")
     if paged is not None:
         bp = eng.backpressure
         print(f"paged: {eng.n_preempted} preemptions, "

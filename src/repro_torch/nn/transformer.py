@@ -39,9 +39,10 @@ all-global float-KV models only) stacks per-layer block pools: k/v
 The reference's numerics are copied, not fixed: ``dense`` returns bf16
 whatever the model's compute dtype (the reference's ``_dense_kw`` does
 not pass one), and the decode pool runs every row at one scalar
-position.  ``decode_step``, ``paged_decode_step`` and
-``paged_prefill_chunk`` write the new K/V into the cache tensors IN
-PLACE (the reference is functional) and return the same tensors.
+position.  ``decode_step``, ``decode_verify`` (the speculative verify
+window), ``paged_decode_step`` and ``paged_prefill_chunk`` write the new
+K/V into the cache tensors IN PLACE (the reference is functional) and
+return the same tensors.
 """
 from __future__ import annotations
 
@@ -611,6 +612,72 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
     x = rmsnorm(x, params["final_norm"]["scale"])
     logits = logits_for(params, cfg, x[:, 0])
     return logits, {**cache, "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# serving: speculative verify (DESIGN.md §12)
+# ---------------------------------------------------------------------------
+
+def verify_gate(cfg: ModelConfig) -> None:
+    """Speculative draft/verify covers the paged cache's family:
+    all-'global' attention and float KV."""
+    if any(k != "global" for k in cfg.layer_kinds()):
+        raise ValueError("speculative verify needs an all-'global' pattern")
+    if cfg.kv_quant:
+        raise ValueError("speculative verify is float-KV only (no "
+                         "kv_quant)")
+
+
+def _verify_block(p, x, buf, j, cfg, positions, n_write, approx_cfg):
+    """One all-'global' layer over a W-token window against the dense
+    cache.  x: (B, W, d); positions: (W,) absolute entries of the window
+    tokens.  The first `n_write` lanes' K/V go into layer j of `buf` in
+    place (lanes past the buffer end are dropped), then every window
+    position attends causally over the whole updated buffer in f32."""
+    q, k, v = _qkv(p, x, cfg, positions[None], approx_cfg)
+    _kv_write(buf, j, k[:, :n_write], v[:, :n_write],
+              positions[:n_write], cfg)
+    kc, vc = buf["k"][j], buf["v"][j]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    scale = (cfg.query_scale if cfg.query_scale is not None
+             else cfg.head_dim ** -0.5)
+    key_pos = torch.arange(kc.shape[1], device=x.device)
+    valid = (key_pos[None, :] <= positions[:, None])[None, None]
+    attn = _softmax_attend(q, _repeat_kv(kc, n_rep), _repeat_kv(vc, n_rep),
+                           valid, scale, cfg.attn_softcap).to(q.dtype)
+    return _block_tail(p, x, attn, cfg, approx_cfg)
+
+
+def decode_verify(params, cfg: ModelConfig, cache: Params, tokens, pos: int,
+                  *, approx_cfg=0):
+    """Score a W-token window in one pass against the dense cache: the
+    speculative verify step.
+
+    tokens: (B, W) int — row b holds ``[pending input, draft_1 ..
+    draft_k]`` right-padded to the window W (= max_k + 1, whatever the
+    live k).  pos: host int, the absolute cache entry of tokens[:, 0]
+    (the dense pool position).  The window's K/V, computed at this
+    call's config, overwrite entries pos..pos+W-1 IN PLACE (lanes past
+    the buffer end are dropped, as the reference's scatter drops them);
+    row w of the returned (B, W, V) logits scores position pos+w.  Rows
+    past the valid count depend only on pad tokens: the engine ignores
+    their logits, and their K/V land past the committed length, masked
+    by the pool position and rewritten before any read.  Returns
+    (logits, cache) with the cache's buffers shared and pos + W."""
+    verify_gate(cfg)
+    dev = tokens.device
+    w = tokens.shape[1]
+    pos = int(pos)
+    positions = pos + torch.arange(w, device=dev)
+    n_write = max(0, min(w, cache["k"].shape[2] - pos))
+    x = embed_tokens(params, cfg, tokens)
+    for p, (kind, j), ac in zip(params["blocks"], _cache_slots(cfg),
+                                _layer_cfgs(approx_cfg, cfg.n_layers, dev)):
+        x = _verify_block(p, x, _buffers(cache, kind), j, cfg, positions,
+                          n_write, ac)
+    x = rmsnorm(x, params["final_norm"]["scale"])
+    return logits_for(params, cfg, x), {
+        **cache, "pos": torch.tensor(pos + w, dtype=torch.int32, device=dev)}
 
 
 # ---------------------------------------------------------------------------

@@ -52,9 +52,27 @@ the probe's cache writes), and at the end of every tick its
 ``power_cap_pj_per_tick`` holds admission (head of line) while the
 pool's modeled energy per tick would pass the cap.
 
+Speculative decoding (``spec=SpecConfig(...)``, ``serve/speculative.py``,
+DESIGN.md §12): an eligible tick (every participant greedy, the window
+inside the cache) runs ``k`` draft decode steps at the draft config and
+one verify pass at the pool config, and emits each slot's verified
+tokens up to its longest agreeing prefix plus one.  Dense: the drafts
+write the cache in place and ``decode_verify`` overwrites every entry
+they wrote (each layer writes the window before it attends), so the
+cache ends as the reference's functional drafts leave it; the lockstep
+pool advances the minimum acceptance.  Paged: per slot, the verify runs
+``paged_prefill_chunk`` over the window, then ``seq_lens`` rewinds and
+the blocks the tick allocated past the acceptance point go back.  Drafts
+bill as ``kind="spec_draft"`` at the draft config, verifies as
+``"spec_verify"`` (one pool-config charge per slot); an attached
+scheduler gets ``record_spec`` with the draft config and steers the
+draft depth.  A non-finite draft row skips the tick (paged: rolled
+back); a non-finite verify row, or any exception, rolls back and
+raises, since the reference's retry and NaN quarantine are not ported.
+
 Not ported yet (the reference's knobs for them do not exist here):
-speculative decoding, fault injection, deadline expiry and NaN
-quarantine, brownout, checkpointing and sharding.
+fault injection, retry, deadline expiry and NaN quarantine, brownout,
+checkpointing and sharding.
 
 Runs on ``device="cuda"`` unless told otherwise; without a GPU the
 default raises rather than falling back to the CPU.
@@ -77,6 +95,13 @@ from repro_torch.core.quantization import QTensor
 from repro_torch.nn import transformer as T
 from .paged_cache import ZERO_BLOCK, PageAllocator, PagedCacheConfig
 from .sampling import sample
+from .speculative import SpecConfig, longest_agreeing_prefix
+
+
+class _SpecAbort(RuntimeError):
+    """Roll back a speculative tick: the draft config produced a
+    non-finite row.  The pool config is innocent, so the tick is skipped,
+    not failed."""
 
 
 def pool_join(stack) -> np.ndarray:
@@ -150,7 +175,7 @@ class Engine:
                  paged: PagedCacheConfig | None = None,
                  prefill_pad: int = 0, scheduler=None,
                  power_cap_pj_per_tick: float | None = None,
-                 device="cuda"):
+                 spec: SpecConfig | None = None, device="cuda"):
         """max_batch: decode-pool slots; max_len: KV-cache length
         (prompt + generated); approx_cfg: engine-wide error config (int
         or per-layer[/per-group] array); seed: seed of the sampling
@@ -168,8 +193,10 @@ class Engine:
         the chunk); scheduler: a ``PowerBudgetScheduler`` hooked into
         every tick (attached once the cache exists);
         power_cap_pj_per_tick: admission power gate in modeled pJ per
-        tick (None: no cap); device: where params, cache and every step
-        live."""
+        tick (None: no cap); spec: a ``SpecConfig`` for speculative
+        decoding (None: off; all-'global' float-KV models, and paged
+        needs ``max_k + 1 <= prefill_chunk``); device: where params,
+        cache and every step live."""
         self.device = T.resolve_device(device)
         if (cfg_groups > 1 or cfg_experts > 1) \
                 and cfg.mac_backend != "pallas":
@@ -263,9 +290,32 @@ class Engine:
         self.completed: list[Request] = []
         self._macs_per_token: float | None = None
         self.power_cap_pj_per_tick = power_cap_pj_per_tick
+        # every token appended to a request: the pJ per emitted token
+        # denominator (a verify pass emits up to k + 1 of them)
+        self.n_tokens_emitted = 0
+        self.spec = spec
+        self.n_spec_ticks = 0        # speculative ticks committed
+        self.n_spec_aborts = 0       # speculative ticks rolled back
+        self.n_draft_tokens = 0      # draft-config tokens executed
+        self.n_spec_emitted = 0      # tokens emitted by verify passes
+        self.n_verify_steps = 0      # verify passes committed (per slot)
+        if spec is not None:
+            T.verify_gate(cfg)
+            window = spec.max_k + 1
+            if paged is not None and window > paged.prefill_chunk:
+                # the paged verify runs one prefill chunk over the window
+                raise ValueError(f"speculative window max_k + 1 = {window} "
+                                 f"exceeds prefill_chunk "
+                                 f"{paged.prefill_chunk}")
+            if paged is None and window >= max_len:
+                raise ValueError(f"speculative window {window} needs "
+                                 f"max_len > {window}, got {max_len}")
         self.scheduler = scheduler
         if scheduler is not None:
             scheduler.attach(self)
+            if spec is not None:
+                # the draft depth becomes the scheduler's second axis
+                scheduler.configure_spec(spec.k)
 
     # -- config management ----------------------------------------------
     def _as_layer_vector(self, approx_cfg) -> np.ndarray:
@@ -464,6 +514,7 @@ class Engine:
                 self.slot_cfg[slot] = req_cfg
                 first = sample(logits, self.gen, temperature=req.temperature)
                 req.tokens.append(int(first[0]))
+                self.n_tokens_emitted += 1
                 req.first_token_at = self.clock()
                 self.slots[slot] = req
 
@@ -685,6 +736,7 @@ class Engine:
                     first = sample(logits, self.gen,
                                    temperature=req.temperature)
                     req.tokens.append(int(first[0]))
+                    self.n_tokens_emitted += 1
                 if req.first_token_at is None:
                     req.first_token_at = self.clock()
 
@@ -742,23 +794,35 @@ class Engine:
 
     def _emit(self, active: list[int], nxt: np.ndarray) -> None:
         """Append each active row's token; finish the requests that hit
-        max_new_tokens or the cache end (paged: free their blocks)."""
+        max_new_tokens or the cache end."""
         for i in active:
             req = self.slots[i]
             req.tokens.append(int(nxt[i]))
+            self.n_tokens_emitted += 1
             self.slot_pos[i] += 1
             if self.paged is not None:
                 self.seq_lens[i] += 1
-            if (len(req.tokens) >= req.max_new_tokens
-                    or self.slot_pos[i] >= self.max_len - 1):
-                req.done = True
-                req.status = "done"
-                req.finished_at = self.clock()
-                self.completed.append(req)
-                self.slots[i] = None
-                if self.paged is not None:
-                    self._release_slot(i)
-                    self.slot_pos[i] = 0
+            if self._done(i):
+                self._finish(i)
+
+    def _done(self, i: int, ahead: int = 0) -> bool:
+        """Whether slot i's request is finished: max_new_tokens emitted,
+        or the cache end reached ``ahead`` positions past slot_pos."""
+        return (len(self.slots[i].tokens) >= self.slots[i].max_new_tokens
+                or self.slot_pos[i] + ahead >= self.max_len - 1)
+
+    def _finish(self, i: int) -> None:
+        """Complete slot i's request and free the slot (paged: its
+        blocks too)."""
+        req = self.slots[i]
+        req.done = True
+        req.status = "done"
+        req.finished_at = self.clock()
+        self.completed.append(req)
+        self.slots[i] = None
+        if self.paged is not None:
+            self._release_slot(i)
+            self.slot_pos[i] = 0
 
     def step(self) -> bool:
         """One tick: admit queued requests into free slots, then one
@@ -770,6 +834,8 @@ class Engine:
         active = [i for i, r in enumerate(self.slots) if r is not None]
         if not active:
             return False
+        if self.spec is not None and self._spec_ok_dense(active):
+            return self._spec_tick_dense(active)
         token = np.zeros((self.max_batch, 1), dtype=np.int32)
         for i in active:
             token[i, 0] = self.slots[i].tokens[-1]
@@ -829,6 +895,8 @@ class Engine:
         if not active:
             return bool(self.queue
                         or any(s is not None for s in self.slots))
+        if self.spec is not None and self._spec_ok_paged(active):
+            return self._spec_tick_paged(active)
         token = np.zeros((self.max_batch, 1), dtype=np.int32)
         active_mask = np.zeros(self.max_batch, dtype=bool)
         for i in active:
@@ -841,6 +909,253 @@ class Engine:
             self.params, self.cfg, cache, token,
             approx_cfg=self._device_cfg(pool_cfg))
         return self._finish_tick(active, cache, token, logits, pool_cfg)
+
+    # -- speculative decoding (DESIGN.md §12) ----------------------------
+    def _spec_k(self) -> int:
+        """Live draft depth: the attached scheduler's draft-depth axis,
+        else the configured k; capped by max_k (a host loop count)."""
+        k = self.spec.k
+        if self.scheduler is not None:
+            k = self.scheduler.draft_k or k
+        return max(1, min(int(k), self.spec.max_k))
+
+    def set_spec(self, spec: SpecConfig) -> None:
+        """Retarget the draft axis live.  The draft config is a device
+        tensor and k a loop count, so nothing is built; only ``max_k``
+        (the verify window) is pinned."""
+        if self.spec is None:
+            raise ValueError("set_spec needs an Engine(spec=...)")
+        if spec.max_k != self.spec.max_k:
+            raise ValueError(f"max_k {spec.max_k} != the engine's "
+                             f"{self.spec.max_k}")
+        self.spec = spec
+        if self.scheduler is not None:
+            self.scheduler.configure_spec(spec.k)
+
+    def _trim_slot_blocks(self, slot: int, keep: int) -> None:
+        """Release a paged slot's owned blocks past index ``keep`` (the
+        speculative rewind; table columns back to the zero block).
+        Callers pass keep >= the pre-tick block count, so only blocks
+        the tick allocated, never shared prefix blocks, go back."""
+        surplus = self._slot_blocks[slot][keep:]
+        if not surplus:
+            return
+        self.allocator.release(surplus)
+        del self._slot_blocks[slot][keep:]
+        self.block_tables[slot, keep:] = ZERO_BLOCK
+
+    def _rewind_slot(self, slot: int, new_len: int, keep: int) -> None:
+        """Roll a paged slot back to ``new_len`` committed entries and
+        release the tick's surplus blocks.  Stale K/V past new_len is
+        masked by seq_lens and rewritten before any read."""
+        self.seq_lens[slot] = new_len
+        self._trim_slot_blocks(slot, keep)
+
+    def _spec_ok_dense(self, active: list[int]) -> bool:
+        """Every participant greedy, and the whole window inside the
+        cache at the pool position."""
+        if any(self.slots[i].temperature > 0.0 for i in active):
+            return False
+        pos = int(self.slot_pos[active].max())
+        return pos + self.spec.max_k + 1 <= self.max_len
+
+    def _spec_ok_paged(self, active: list[int]) -> bool:
+        """Every participant greedy, each window inside its cache, and
+        every window's blocks allocatable up front, so the draft loop
+        never preempts a participant."""
+        if any(self.slots[i].temperature > 0.0 for i in active):
+            return False
+        k = self._spec_k()
+        p = self.paged
+        need = 0
+        for i in active:
+            end = int(self.seq_lens[i]) + k + 1
+            if end > self.max_len:
+                return False
+            need += max(0, p.blocks_for(end) - len(self._slot_blocks[i]))
+        return self.allocator.can_alloc(need)
+
+    def _draft(self, logits: torch.Tensor, rows: torch.Tensor) -> np.ndarray:
+        """A draft step's (B,) greedy tokens; raises ``_SpecAbort`` if a
+        participant's row is not finite."""
+        if not bool(torch.isfinite(logits[rows]).all()):
+            raise _SpecAbort("non-finite draft logits")
+        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+
+    def _verified(self, logits: torch.Tensor) -> np.ndarray:
+        """The argmax of verify rows (..., V) on the host; raises where
+        a row is not finite (the reference quarantines the pool config,
+        which is not ported: ROADMAP Queue 1 item 6)."""
+        if not bool(torch.isfinite(logits).all()):
+            raise RuntimeError("non-finite verify logits at the pool "
+                               "config (NaN quarantine is not ported)")
+        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+
+    def _emit_verified(self, i: int, toks) -> bool:
+        """Append verified tokens to slot i's request until it finishes
+        (max_new_tokens or the cache end); returns whether it did."""
+        req = self.slots[i]
+        for j, t in enumerate(toks):
+            req.tokens.append(int(t))
+            self.n_spec_emitted += 1
+            self.n_tokens_emitted += 1
+            if self._done(i, j + 1):
+                return True
+        return False
+
+    def _spec_tick_dense(self, active: list[int]) -> bool:
+        """k draft steps at the draft config, then ONE ``decode_verify``
+        at the pool config over the window at the pool position P.  The
+        drafts write entries P..P+k-1 in place; the verify overwrites
+        P..P+W-1 before any layer reads them, so the committed cache is
+        the pool config's.  The lockstep pool advances the minimum
+        acceptance over the participants; each slot emits its own
+        verified tokens."""
+        spec = self.spec
+        k = self._spec_k()
+        pos = int(self.slot_pos[active].max())
+        draft_vec = self._as_layer_vector(spec.draft_cfg)
+        pool_cfg = self._pool_cfg()
+        tokens = np.zeros((self.max_batch, spec.max_k + 1), np.int32)
+        for i in active:
+            tokens[i, 0] = self.slots[i].tokens[-1]
+        rows = torch.as_tensor(active, device=self.device)
+        cache = dict(self.cache)
+        cache["pos"] = torch.tensor(pos, dtype=torch.int32,
+                                    device=self.device)
+        draft_acfg = self._device_cfg(draft_vec)
+        try:
+            for j in range(1, k + 1):
+                logits, cache = T.decode_step(
+                    self.params, self.cfg, cache,
+                    torch.as_tensor(tokens[:, j - 1:j], device=self.device),
+                    approx_cfg=draft_acfg)
+                tokens[:, j] = self._draft(logits, rows)
+                self._count_energy(len(active), draft_vec, "spec_draft",
+                                   cls=self._cls_counts(active))
+                self.n_draft_tokens += len(active)
+            vlogits, new_cache = T.decode_verify(
+                self.params, self.cfg, cache,
+                torch.as_tensor(tokens, device=self.device), pos,
+                approx_cfg=self._device_cfg(pool_cfg))
+            exact = self._verified(vlogits[rows, :k + 1])
+        except _SpecAbort:
+            # nothing committed: the drafts' entries lie past the pool
+            # position, masked and rewritten before any read
+            self.n_spec_aborts += 1
+            return True
+        except Exception:
+            self.n_spec_aborts += 1
+            raise
+        self.cache = new_cache
+        self.n_spec_ticks += 1
+        self.n_verify_steps += len(active)
+        # one pool-config weight pass per slot covers the whole window
+        self._count_energy(len(active), pool_cfg, "spec_verify",
+                           cls=self._cls_counts(active))
+        accepted = [longest_agreeing_prefix(tokens[i, 1:k + 1], exact[r, :k])
+                    for r, i in enumerate(active)]
+        a_pool = min(js + 1 for js in accepted)
+        if self.scheduler is not None:
+            for js in accepted:
+                self.scheduler.record_spec(js, k, draft_vec)
+        for r, i in enumerate(active):
+            done = self._emit_verified(i, exact[r, :a_pool])
+            self.slot_pos[i] += a_pool
+            if done:
+                self._finish(i)
+        if self.scheduler is not None:
+            self.scheduler.on_tick(self)
+        return True
+
+    def _spec_tick_paged(self, active: list[int]) -> bool:
+        """k draft steps at the draft config (entries P..P+k-1 of each
+        slot), then per slot ONE ``paged_prefill_chunk`` over its window
+        at the pool config, per-slot acceptance, and a rewind of
+        seq_lens and of the tick's blocks past the acceptance point.
+        Every window is verified before any slot commits (the reference
+        commits slot by slot; the outcome is the same, as a slot's
+        verify reads only its own blocks)."""
+        p = self.paged
+        k = self._spec_k()
+        start = {i: int(self.seq_lens[i]) for i in active}
+        pre_blocks = {i: len(self._slot_blocks[i]) for i in active}
+        draft_vec = self._as_layer_vector(self.spec.draft_cfg)
+        pool_cfg = self._pool_cfg()
+        active_mask = np.zeros(self.max_batch, dtype=bool)
+        active_mask[active] = True
+        tokens = np.zeros((self.max_batch, k + 1), np.int32)
+        for i in active:
+            tokens[i, 0] = self.slots[i].tokens[-1]
+        rows = torch.as_tensor(active, device=self.device)
+        draft_acfg = self._device_cfg(draft_vec)
+
+        def rollback(slots):
+            for s in slots:
+                self._rewind_slot(s, start[s], pre_blocks[s])
+
+        try:
+            for j in range(1, k + 1):
+                # the gate checked that the window's blocks fit: no
+                # participant is preempted here
+                self._ensure_write_blocks(active)
+                logits, self.cache = T.paged_decode_step(
+                    self.params, self.cfg, self._paged_operands(active_mask),
+                    torch.as_tensor(tokens[:, j - 1:j], device=self.device),
+                    approx_cfg=draft_acfg)
+                tokens[:, j] = self._draft(logits, rows)
+                self._count_energy(len(active), draft_vec, "spec_draft",
+                                   cls=self._cls_counts(active))
+                self.n_draft_tokens += len(active)
+                for i in active:
+                    self.seq_lens[i] += 1
+        except _SpecAbort:
+            rollback(active)
+            self.n_spec_aborts += 1
+            return True
+        except Exception:
+            rollback(active)
+            self.n_spec_aborts += 1
+            raise
+        # one more writable page for the window's last entry P + k
+        self._ensure_write_blocks(active)
+        pool_acfg = self._device_cfg(pool_cfg)
+        try:
+            windows = []
+            for i in active:
+                buf = np.zeros((1, p.prefill_chunk), np.int32)
+                buf[0, :k + 1] = tokens[i, :k + 1]
+                vlogits, self.cache = T.paged_prefill_chunk(
+                    self.params, self.cfg, self._paged_operands(),
+                    torch.as_tensor(buf, device=self.device), slot=i,
+                    start=start[i], count=k + 1, approx_cfg=pool_acfg)
+                windows.append(vlogits[0, :k + 1])
+            exact = self._verified(torch.stack(windows))
+        except Exception:
+            # nothing committed: every window lies past its slot's
+            # committed length once seq_lens rewinds
+            rollback(active)
+            self.n_spec_aborts += 1
+            raise
+        for r, i in enumerate(active):
+            self._count_energy(1, pool_cfg, "spec_verify",
+                               cls=self.slots[i].cls)
+            self.n_verify_steps += 1
+            js = longest_agreeing_prefix(tokens[i, 1:k + 1], exact[r, :k])
+            if self.scheduler is not None:
+                self.scheduler.record_spec(js, k, draft_vec)
+            done = self._emit_verified(i, exact[r, :js + 1])
+            self.seq_lens[i] = start[i] + js + 1
+            self.slot_pos[i] += js + 1
+            if done:
+                self._finish(i)
+            else:
+                self._trim_slot_blocks(
+                    i, max(p.blocks_for(start[i] + js + 1), pre_blocks[i]))
+        self.n_spec_ticks += 1
+        if self.scheduler is not None:
+            self.scheduler.on_tick(self)
+        return True
 
     def run(self, max_ticks: int = 10000) -> list[Request]:
         """Tick until the queue and slots drain (or `max_ticks`)."""

@@ -51,11 +51,10 @@ token-weighted sum of the targets is the global budget and the planner
 still plans ONE pool; each retune diffs the engine's per-class serve
 counters (``Request.cls``) and re-splits the shares from measured usage
 (``resplit_shares``).  The speculative draft-depth axis
-(``configure_spec`` / ``record_spec``) is ported with the rest and works
-on the scheduler alone: the port's engine has no speculative decoding
-yet.  All smoothed signals — the probe-agreement window, the backoff
-streaks, the measured-energy median and its spike early-warning — read
-through ``serve.telemetry``.
+(``configure_spec`` / ``record_spec``) is fed by the engine's
+speculative ticks (``Engine(spec=...)``).  All smoothed signals — the
+probe-agreement window, the backoff streaks, the measured-energy median
+and its spike early-warning — read through ``serve.telemetry``.
 
 Usage::
 
@@ -499,8 +498,8 @@ class PowerBudgetScheduler:
 
     # -- speculative draft-depth axis --------------------------------------
     def configure_spec(self, k: int) -> None:
-        """Arm the draft-depth control axis at depth ``k`` (the
-        reference's ``Engine(spec=...)`` calls it)."""
+        """Arm the draft-depth control axis at depth ``k``
+        (``Engine(spec=...)`` and ``Engine.set_spec`` call it)."""
         self._k0 = int(k)
         self.draft_k = int(k)
         self.spec_streak.reset()

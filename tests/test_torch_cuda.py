@@ -982,3 +982,87 @@ def _named_leaves(tree, prefix="") -> dict:
         out.update(_named_leaves(sub, f"{prefix}/{key}" if prefix
                                  else str(key)))
     return out
+
+
+# --- speculative decoding ------------------------------------------------------
+
+DEMO_LM = dict(name="demo", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+               head_dim=16, d_ff=64, vocab_size=64, remat=False, q_chunk=8,
+               loss_chunks=1)
+
+
+@pytest.fixture(scope="module")
+def trained_demo():
+    """The reference speculative test's demo LM trained on the card by
+    the port's train step (AdamW 4e-3, 300 SyntheticLM batches): trained
+    margins keep the verify's argmaxes off near ties."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    cuda_device = torch.device("cuda")
+    from repro_torch.data.synthetic_lm import SyntheticLM, SyntheticLMConfig
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.step import build_train_step, init_state
+    cfg = T.ModelConfig(compute_dtype=torch.float32, **DEMO_LM)
+    opt = adamw(lr=4e-3)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state = init_state(T.init_lm(gen, cfg, cuda_device), opt)
+    step = build_train_step(cfg, opt)
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=64, seq_len=48,
+                                         global_batch=16, n_templates=4,
+                                         seed=0))
+    for i in range(300):
+        state, _ = step(state, {k: torch.as_tensor(v, device=cuda_device)
+                                for k, v in data.batch(i).items()})
+    return cfg, state["params"]
+
+
+def _demo_streams(eng, seed):
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(1, 64, 16),
+                    max_new_tokens=12) for i in range(4)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    assert all(r.status == "done" for r in reqs)
+    return [list(r.tokens) for r in reqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_cuda_spec_streams_equal_plain_streams(cuda_device, trained_demo,
+                                               paged):
+    """Speculative streams on the card equal the same engine's plain
+    (non-speculative) greedy streams across a (k, draft config) sweep,
+    and every speculative tick launches the fused kernel 7 times per
+    layer per draft step and per verify call (dense: one verify; paged:
+    one per slot)."""
+    from repro_torch.serve.speculative import SpecConfig
+    cfg, params = trained_demo
+    pool = (PagedCacheConfig(num_blocks=40, block_size=16, prefill_chunk=16)
+            if paged else None)
+    kw = dict(max_batch=4, max_len=64, device=cuda_device, paged=pool)
+    spec = Engine(params, cfg, spec=SpecConfig(draft_cfg=8, k=3, max_k=5),
+                  **kw)
+    plain = Engine(spec.params, cfg, quantize_weights=False, **kw)
+    name = "_spec_tick_paged" if paged else "_spec_tick_dense"
+    tick = getattr(spec, name)
+    per_tick = []
+
+    def counted(active):
+        k, before = spec._spec_k(), A.approx_mac_fused_matmul.launches
+        out = tick(active)
+        calls = k + (len(active) if paged else 1)
+        per_tick.append((A.approx_mac_fused_matmul.launches - before,
+                         7 * cfg.n_layers * calls))
+        return out
+
+    setattr(spec, name, counted)
+    for seed, k, dcfg in ((0, 3, 8), (1, 5, 20), (2, 2, 31)):
+        spec.set_spec(SpecConfig(draft_cfg=dcfg, k=k, max_k=5))
+        assert _demo_streams(spec, seed) == _demo_streams(plain, seed), \
+            (seed, k, dcfg)
+    assert spec.n_spec_ticks == len(per_tick) > 0
+    assert all(got == want for got, want in per_tick), per_tick
+    if paged:
+        spec.allocator.check_consistency(spec._slot_blocks)
+        assert spec.allocator.free_blocks() == pool.usable_blocks

@@ -213,9 +213,8 @@ def test_default_device_is_cuda():
             TE.T.init_lm(gen, cfg)
 
 
-@pytest.mark.parametrize("knob", ["spec", "brownout", "mapping",
-                                  "cfg_experts", "fault_injector",
-                                  "checkpointer"])
+@pytest.mark.parametrize("knob", ["brownout", "mapping", "cfg_experts",
+                                  "fault_injector", "checkpointer"])
 def test_unported_engine_knobs_raise(knob):
     """The reference's knobs for features not ported yet are refused,
     not ignored; the expert axis, now ported, is refused on a model
@@ -249,3 +248,21 @@ def test_power_loop_knobs_are_accepted():
     assert sched.shape == eng.approx_cfg.shape
     assert eng.power_cap_pj_per_tick == 0.0
     assert not eng._admission_power_ok(eng.approx_cfg, False)
+
+
+def test_spec_knob_is_accepted():
+    """Speculative decoding, now ported, is taken (its draft depth
+    handed to an attached scheduler) and is off by default."""
+    from repro_torch.serve.scheduler import PowerBudgetScheduler
+    from repro_torch.serve.speculative import SpecConfig
+    cfg = tget("qwen2.5-3b").smoke()
+    params = TE.T.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    plain = TE.Engine(params, cfg, max_len=16, device="cpu")
+    assert plain.spec is None and plain.n_spec_ticks == 0
+    spec = SpecConfig(draft_cfg=20, k=2, max_k=4)
+    sched = PowerBudgetScheduler(1.0)
+    eng = TE.Engine(params, cfg, max_len=16, device="cpu", spec=spec,
+                    scheduler=sched)
+    assert eng.spec is spec and sched.draft_k == 2 and eng._spec_k() == 2
+    eng.set_spec(SpecConfig(draft_cfg=8, k=3, max_k=4))
+    assert sched.draft_k == 3 and eng._spec_k() == 3
