@@ -146,6 +146,36 @@ Phases, each printing one JSON line:
              [1, max_k] after every tick and followed by the engine's
              ``_spec_k``; its backoff and recovery events and pJ per
              emitted token over the budget.
+12f. chaos_serve — benchmarks/resilience.py's chaos matrix on the serve
+             phase's full-width Qwen2.5-3B params (dense, max_batch 2,
+             max_len 64, its first 3 prompts, 10 new tokens, SLOs of 60 s
+             on a FakeClock): an uninjected baseline, then NaN and Inf
+             logits, two step failures, clock skew, a stall, nan_cache
+             (snapshot_every 2, nan_max_strikes 1) and kill-and-restore (a
+             snapshot after 4 ticks, a fresh Engine restores and
+             finishes).  Asserted: every stream equals the baseline's,
+             every injector fires its whole plan, a retry's last_error is
+             an InjectedFault (the baseline has none), no library built or
+             loaded after the baseline.  Reported: resilience_report() per
+             scenario, snapshot bytes, save_snapshot and restore_snapshot
+             ms.
+12g. spike_serve — benchmarks/resilience.py's overload spike on the same
+             params: max_batch 4, queue_capacity 6, admission capped at
+             2.5 x the exact pJ per token, class chat (prompt 6, 6 new
+             tokens) at 0.15 arrivals a tick (seed 11), x4 on ticks 10-70,
+             110 ticks and a drain, with BrownoutController(ladder (0, 31),
+             high 0.3, low 0.1, hold 4) and without.  Asserted: equal
+             offered loads, availability 1.0 with brownout and below 1.0
+             without, escalations recovered, the config back at 0, lower
+             modeled pJ per token with brownout.  Reported: wall ms per
+             tick, tokens/s and pJ per token of both arms.
+12h. interactions — tests/test_interactions.py's live matrix on
+             spec_check's trained demo LM: dense and paged, plain and
+             speculative, each with chaos (two step failures, NaN logits,
+             a duplicated probe) and a scheduler at a 1e9 budget; every
+             stream equals its layout's uninjected exact run and its own
+             arm's uninjected run, the energy rows sum to the totals, no
+             library built or loaded after the first tick.
 13. check_grouped — the grouped approx-MAC kernel equals its plain
              version bit for bit through ops.approx_dense_grouped_pallas
              at OLMoE-1B-7B's expert GEMMs (E 64, K x N 2048 x 1024 and
@@ -291,14 +321,18 @@ and at M 48; the grouped kernel's: one OLMoE-1B-7B layer at decode and at
 the 2,048-token prefill; both counts include the sched_serve and
 sched_moe runs and the speculative phases'; flash's adds the train
 run's and the speculative phases', the paged kernel's the speculative
-phases', the int kernel's mlp_train's), the nvidia-smi line again, and,
+phases', the int kernel's mlp_train's; the fused, flash and paged
+kernels' counts include chaos_serve, spike_serve and interactions), the
+nvidia-smi line again, and,
 as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without a CUDA device, or without the repository beside
 this file, the script exits non-zero and prints no result.  The
 rehearsal walks the serve, mlp, paged_serve, sched_serve, spec_check (60
 training steps, one sweep entry a mode), spec_serve, spec_sched,
-moe_serve, moe_prefill, sched_moe, spec_moe (fewer, shorter requests),
+chaos_serve, spike_serve, interactions (12 new tokens; a speculative arm
+held to its own uninjected run, as the briefly trained model's near-ties
+may flip a verify's argmax), moe_serve, moe_prefill, sched_moe, spec_moe (fewer, shorter requests),
 gemma2_serve, gemma2_window, train (remat on), train_resume and
 mlp_train (2 epochs) phases at the smoke size on the CPU and never
 prints the ``ok`` line.  Since the flash kernel carries every prefill attention on
@@ -401,6 +435,7 @@ DEMO_GEMMS = ((DEMO_LM["d_model"], DEMO_LM["n_heads"] * DEMO_LM["head_dim"]),
 DEMO_DENSE_SWEEP = ((0, 3, 8), (1, 5, 8), (2, 2, 20), (3, 4, 31))
 DEMO_PAGED_SWEEP = ((0, 3, 8), (1, 5, 20))
 REHEARSE_DEMO_STEPS = 60
+RESILIENCE_PHASES = "chaos_serve, spike_serve and interactions"
 SCRATCH = ROOT / "build" / "chip_smoke"
 
 
@@ -550,18 +585,34 @@ CHECK_EDGES = ((5, 100, 256, 128), (37, 203, 384, 128), (64, 2048, 2048, 128),
                (4352, 4608, 2048, 128))
 
 
-def phase_check(torch, A, quantize, dev) -> float:
-    """Kernel vs plain version at every GEMM shape of both serve paths
-    and of the speculative ones, of Gemma-2 (M 4 and 48) and of the demo
-    LM (M 4, 16 and 24), then at CHECK_EDGES."""
-    gen = torch.Generator(device=dev).manual_seed(1)
+# the M of every fused GEMM of the serve paths: decode pools of 2 and 4
+# (chaos_serve, spike_serve), 6-token prefills (spike_serve), the
+# speculative windows (8, 16, 24) and the M 32 of the prefills and windows
+DECODE_MS = (2, 4, 6, 8, 16, 24, 32)
+# the demo LM's: decode (4), paged chunks and dense windows (16, 24) and
+# interactions' prefill_pad 32
+DEMO_MS = (4, 16, 24, 32)
+
+
+def check_runs() -> list:
+    """(M, K, N, cfg_bn, uniform configs) of every case phase_check
+    holds bit for bit."""
     runs = [(m, k, n, 128, (0, 8, 31)) for k, n in DECODE_SHAPES
-            for m in (4, 8, 16, 24, 32)]
+            for m in DECODE_MS]
     runs += [(m, k, n, 128, (0, 16)) for k, n in sorted(set(GEMMA_GEMMS))
              for m in (4, 48)]
     runs += [(m, k, n, 128, (0, 8, 20, 31)) for k, n in DEMO_GEMMS
-             for m in (4, 16, 24)]
+             for m in DEMO_MS]
     runs += [(m, k, n, bn, (0, 8, 31)) for m, k, n, bn in CHECK_EDGES]
+    return runs
+
+
+def check_fused(torch, A, quantize, dev, runs, seed: int) -> tuple:
+    """The fused kernel against its plain version, bit for bit, at each
+    (M, K, N, cfg_bn, uniform configs) of `runs`: every uniform config
+    and one random per-block vector.  Returns (worst |diff|, cases,
+    tilings covered).  On a CPU the wrapper is the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     worst, cases, paths = 0.0, 0, set()
     for m, k, n, cfg_bn, uniform in runs:
         w = quantize(torch.randn(k, n, device=dev, generator=gen) * 0.02,
@@ -579,7 +630,6 @@ def phase_check(torch, A, quantize, dev) -> float:
                                             cfg_bn)
             ref = A.approx_mac_fused_matmul_ref(x, w.values, srow, xs,
                                                 rows, cfg_bn)
-            torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             worst = max(worst, err)
             cases += 1
@@ -590,9 +640,56 @@ def phase_check(torch, A, quantize, dev) -> float:
                     f"cfg={'vector' if cfg is vec else cfg}: "
                     f"max |diff| {err}")
         del w, x, out, ref
-    torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return worst, cases, paths
+
+
+def phase_check(torch, A, quantize, dev) -> float:
+    """Kernel vs plain version at every GEMM shape of both serve paths
+    and of the speculative and resilience ones, of Gemma-2 (M 4 and 48)
+    and of the demo LM, then at CHECK_EDGES."""
+    worst, cases, paths = check_fused(torch, A, quantize, dev, check_runs(),
+                                      seed=1)
     emit({"phase": "check", "cases": cases, "bit_identical": True,
           "max_abs_err": worst, "plan_paths": sorted(paths)})
+    return worst
+
+
+class fused_shapes:
+    """Records the (M, K, N) of every fused approx-MAC GEMM the models
+    run inside the block (the calls of ``ops.approx_mac_fused_matmul``),
+    with the wrapper's launch count untouched."""
+
+    def __enter__(self) -> set:
+        from repro_torch.kernels.approx_mac import ops
+        self.ops, self.orig, seen = ops, ops.approx_mac_fused_matmul, set()
+
+        def record(x, w_q, *args, **kw):
+            seen.add((x.shape[0], x.shape[1], w_q.shape[1]))
+            return self.orig(x, w_q, *args, **kw)
+        ops.approx_mac_fused_matmul = record
+        return seen
+
+    def __exit__(self, *exc) -> None:
+        self.ops.approx_mac_fused_matmul = self.orig
+
+
+def phase_check_seen(torch, A, quantize, dev, name: str, seen: set) -> float:
+    """Every fused GEMM shape that `name`'s phases ran and phase_check did
+    not cover, held bit for bit to the plain version as phase_check
+    holds its own; these launches compare and are not counted."""
+    covered = {(m, k, n) for m, k, n, *_ in check_runs()}
+    extra = sorted(seen - covered)
+    launches = A.approx_mac_fused_matmul.launches
+    worst, cases, _ = check_fused(
+        torch, A, quantize, dev,
+        [(m, k, n, 128, (0, 8, 20, 31)) for m, k, n in extra], seed=5)
+    A.approx_mac_fused_matmul.launches = launches
+    emit({"phase": "check_seen", "of": name, "shapes": len(seen),
+          "covered_by_check": len(seen) - len(extra),
+          "checked_here": [list(s) for s in extra], "cases": cases,
+          "bit_identical": True, "max_abs_err": worst})
     return worst
 
 
@@ -682,6 +779,35 @@ def _serve_prompts(Request, n_req, max_new, vocab):
         for rid in range(n_req)]
 
 
+def rollback_cost(torch, T, eng, sync, step_ms: float, n: int = 50) -> dict:
+    """What the rollback adds to every plain decode tick, on `eng`'s live
+    cache and a (B, V) logits tensor, host wall ms per call with the card
+    synced: ``decode_writes`` (the snapshot of the entries the step
+    writes) and the tick's host read with the finite guard
+    (``_argmax_guard``) beside the argmax read alone; their sum as a
+    share of the decode step."""
+    logits = torch.randn(eng.max_batch, eng.cfg.vocab_size,
+                         device=eng.device)
+
+    def per_call(fn):
+        fn()
+        sync()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        sync()
+        return (time.perf_counter() - t) * 1e3 / n
+
+    snap = per_call(lambda: T.decode_writes(eng.cache))
+    guard = per_call(lambda: eng._argmax_guard(logits[:, None]))
+    plain = per_call(lambda: torch.argmax(logits, dim=-1).to(torch.int32)
+                     .cpu().numpy())
+    added = snap + guard - plain
+    return {"decode_writes_ms": snap, "guarded_read_ms": guard,
+            "argmax_read_ms": plain, "added_ms": added,
+            "share_of_decode_step": added / step_ms, "calls": n}
+
+
 def phase_serve(torch, T, A, Engine, Request, cfg, dev) -> dict:
     """The main path through the port's Engine; on a CPU (the rehearsal)
     the plain versions run and no kernel launch is expected."""
@@ -763,6 +889,8 @@ def phase_serve(torch, T, A, Engine, Request, cfg, dev) -> dict:
            "decode_step_ms_min": min(timed["decode"]),
            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
            "energy_report": rep}
+    res["rollback_cost"] = rollback_cost(torch, T, eng, sync,
+                                         res["decode_step_ms_mean"])
     emit(res)
 
     # one full-width prefill through the kernel and through the plain
@@ -3087,13 +3215,14 @@ def _demo_requests(Request, seed: int) -> list:
 
 def phase_spec_check(torch, T, libs, Engine, Request, SpecConfig,
                      PagedCacheConfig, dev, steps: int = 300,
-                     sweeps=(DEMO_DENSE_SWEEP, DEMO_PAGED_SWEEP)) -> dict:
+                     sweeps=(DEMO_DENSE_SWEEP, DEMO_PAGED_SWEEP)) -> tuple:
     """Stream identity on a trained model: the demo LM trained here, then
     the reference test's sweeps through set_spec, dense and paged, each
     run's speculative streams equal to a plain engine's; the paged pool
     consistent and free again; no library built or loaded after the
     first tick; a draft step forced non-finite once skips its tick and
-    leaves the stream equal."""
+    leaves the stream equal.  Returns (result, (cfg, params) of the
+    trained demo LM)."""
     A, PA, FA = libs
     on_card = dev.type == "cuda"
     t0 = time.perf_counter()
@@ -3166,6 +3295,368 @@ def phase_spec_check(torch, T, libs, Engine, Request, SpecConfig,
         assert res["launches"]["paged_decode_attention"] > 0
         assert res["launches"]["flash_attention"] > 0
     emit(res)
+    return res, (cfg, params)
+
+
+class FakeClock:
+    """Deterministic injected time source: each read advances 1 ms (the
+    reference resilience benchmark's clock)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 1e-3
+        return self.t
+
+
+def strict_engine(Engine, F):
+    """The port's Engine under this run's rule: only an injected fault
+    (``F.InjectedFault``) may be absorbed as a retry, and only an engine
+    with a fault injector may quarantine non-finite logits.  Any other
+    failure of a tick (a launch error, an out-of-memory, a real NaN)
+    fails the run instead of being retried or quarantined."""
+
+    class StrictEngine(Engine):
+        def _record_failure(self, active, now, err):
+            if not isinstance(err, F.InjectedFault):
+                raise AssertionError(
+                    f"a tick's real error was retried: {err!r}") from err
+            super()._record_failure(active, now, err)
+
+        def _quarantine(self, bad, pool_cfg):
+            if self.fault_injector is None:
+                raise AssertionError(f"non-finite logits in slots {bad} "
+                                     "with no fault injected")
+            super()._quarantine(bad, pool_cfg)
+    return StrictEngine
+
+
+def _dir_bytes(path: pathlib.Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def chaos_plans(F) -> dict:
+    """benchmarks/resilience.py's fault plans, plus nan_cache (run with
+    snapshot_every 2 and nan_max_strikes 1, as tests/test_resilience.py
+    runs it)."""
+    E = F.FaultEvent
+    return {"nan_logits": [E(tick=2, kind="nan_logits"),
+                           E(tick=5, kind="nan_logits", slot=1,
+                             value=float("inf"))],
+            "step_fail": [E(tick=2, kind="step_fail"),
+                          E(tick=3, kind="step_fail")],
+            "clock_skew": [E(tick=3, kind="clock_skew", skew_s=2.0)],
+            "stall": [E(tick=4, kind="stall", stall_s=2.0)],
+            "nan_cache": [E(tick=4, kind="nan_cache", slot=1)]}
+
+
+def phase_chaos_serve(torch, libs, Engine, Request, F, Checkpointer, params,
+                      cfg, dev, *, n_req: int = 3, max_new: int = 10) -> dict:
+    """benchmarks/resilience.py's chaos matrix on the port at full width:
+    the serve phase's params and first prompts, dense, max_batch 2,
+    max_len 64, an uninjected baseline, each fault plan, then
+    kill-and-restore (snapshot after 4 ticks, a fresh Engine restores and
+    finishes).  Every stream must equal the baseline's, every injector
+    fire its whole plan, only an ``InjectedFault`` may be retried, and no
+    kernel library may be built or loaded after the baseline."""
+    import numpy as np
+    A, PA, FA = libs
+    on_card = dev.type == "cuda"
+    root = SCRATCH / "chaos_serve"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def serve(inj=None, ck=None, **kw):
+        eng = Engine(params, cfg, max_batch=2, max_len=64, device=dev,
+                     quantize_weights=False, clock=FakeClock(),
+                     fault_injector=inj, checkpointer=ck,
+                     retry_base_s=1e-3, retry_cap_s=4e-3, seed=0, **kw)
+        for r in _serve_prompts(Request, n_req, max_new, cfg.vocab_size):
+            r.ttft_slo_s = r.e2e_slo_s = 60.0
+            eng.submit(r)
+        return eng
+
+    def streams(eng):
+        return sorted((r.rid, tuple(r.tokens)) for r in eng.completed
+                      if r.status == "done")
+
+    _zero_launches(A, FA, PA)
+    sync()
+    t0 = time.perf_counter()
+    base = serve()
+    base.run(max_ticks=400)
+    sync()
+    base_s = time.perf_counter() - t0
+    want = streams(base)
+    assert len(want) == n_req, want
+    assert base.n_retries == 0 and base.n_nan_events == 0 \
+        and base.last_error is None, base.resilience_report()
+    built = built_state(libs)
+    res = {"phase": "chaos_serve", "arch": cfg.name, "layers": cfg.n_layers,
+           "requests": n_req, "max_new": max_new,
+           "scenarios": [{"scenario": "baseline", "wall_s": base_s,
+                          "decode_steps": base.n_decode_steps,
+                          **base.resilience_report()}]}
+    for name, plan in chaos_plans(F).items():
+        inj = F.FaultInjector(plan, seed=0)
+        kw = {}
+        if name == "nan_cache":
+            kw = dict(ck=Checkpointer(str(root / name)), snapshot_every=2,
+                      nan_max_strikes=1)
+        t0 = time.perf_counter()
+        eng = serve(inj, **kw)
+        eng.run(max_ticks=400)
+        sync()
+        wall = time.perf_counter() - t0
+        assert streams(eng) == want, (name, streams(eng), want)
+        planned = {k: sum(e.kind == k for e in plan) for k in inj.counts}
+        assert inj.counts == planned, (name, inj.counts, planned)
+        assert eng.n_retries == inj.counts["step_fail"], \
+            (name, eng.n_retries, inj.counts)
+        if eng.n_retries:
+            assert eng.last_error.startswith("InjectedFault"), \
+                (name, eng.last_error)
+        else:
+            assert eng.last_error is None, (name, eng.last_error)
+        if name == "nan_cache":
+            assert eng.n_restores >= 1 and eng.n_nan_events >= 1, name
+        res["scenarios"].append({
+            "scenario": name, "wall_s": wall,
+            "decode_steps": eng.n_decode_steps,
+            "extra_decode_steps": eng.n_decode_steps - base.n_decode_steps,
+            "faults_fired": inj.report()["fired"], "stream_equal": True,
+            **eng.resilience_report()})
+    # kill-and-restore: a successor engine finishes the stream
+    ck = Checkpointer(str(root / "kill"))
+    eng = serve(ck=ck)
+    for _ in range(4):
+        eng.step()
+    sync()
+    t0 = time.perf_counter()
+    step = eng.save_snapshot()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    del eng
+    succ = Engine(params, cfg, max_batch=2, max_len=64, device=dev,
+                  quantize_weights=False, clock=FakeClock(), checkpointer=ck,
+                  seed=0)
+    sync()
+    t0 = time.perf_counter()
+    succ.restore_snapshot(step)
+    sync()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    succ.run(max_ticks=400)
+    assert streams(succ) == want, ("kill_restore", streams(succ), want)
+    assert succ.n_retries == 0 and succ.last_error is None, \
+        succ.resilience_report()
+    sync()
+    assert built_state(libs) == built, (built_state(libs), built)
+    res["launches"] = _launch_counts(A, FA, PA)
+    if on_card:
+        assert res["launches"]["approx_mac_fused_matmul"] > 0
+        assert res["launches"]["flash_attention"] > 0
+    res["scenarios"].append({
+        "scenario": "kill_restore", "stream_equal": True,
+        "snapshot_bytes": _dir_bytes(pathlib.Path(ck._step_dir(step))),
+        "save_snapshot_ms": save_ms, "restore_snapshot_ms": restore_ms,
+        **succ.resilience_report()})
+    res["libraries_built_after_baseline"] = 0
+    emit(res)
+    return res
+
+
+def phase_spike_serve(torch, libs, Engine, F, B, TR, params, cfg, dev, *,
+                      ticks: int = 110, spike=(10, 70, 4.0)) -> dict:
+    """benchmarks/resilience.py's overload spike on the port at full
+    width: max_batch 4, queue_capacity 6, admission capped at 2.5 x the
+    exact pJ per token, class "chat" (prompt 6, 6 new tokens) at 0.15
+    arrivals a tick (seed 11) with a x4 spike on ticks 10-70, `ticks`
+    ticks and a drain; with BrownoutController(ladder (0, 31), high 0.3,
+    low 0.1, hold 4) and without it."""
+    A, PA, FA = libs
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    probe = Engine(params, cfg, device=dev, quantize_weights=False)
+    cap = 2.5 * probe._energy_pj_mean(probe.approx_cfg) * probe.macs_per_token
+    del probe
+
+    def run(with_brownout: bool) -> dict:
+        gen = TR.TrafficGenerator(
+            (TR.TrafficClass("chat", prompt_len=6, max_new_tokens=6),),
+            rate_per_tick=0.15, seed=11, spikes=(spike,))
+        bo = (B.BrownoutController(ladder=(0, 31), high_watermark=0.3,
+                                   low_watermark=0.1, hold_ticks=4)
+              if with_brownout else None)
+        eng = Engine(params, cfg, max_batch=4, max_len=64, device=dev,
+                     quantize_weights=False, queue_capacity=6,
+                     power_cap_pj_per_tick=cap, brownout=bo,
+                     clock=FakeClock(), seed=0)
+        offered = []
+        sync()
+        t0 = time.perf_counter()
+        for t in range(ticks):
+            for r in gen.arrivals(t):
+                offered.append(r)
+                eng.submit(r)
+            eng.step()
+        n_ticks = ticks
+        while eng.queue or any(s is not None for s in eng.slots):
+            eng.step()
+            n_ticks += 1
+        sync()
+        wall = time.perf_counter() - t0
+        assert eng.n_retries == 0 and eng.last_error is None, \
+            eng.resilience_report()
+        rep = TR.slo_report(offered)
+        tokens = sum(len(r.tokens) for r in offered)
+        out = {"offered": len(offered), "ticks": n_ticks,
+               "wall_ms_per_tick": wall * 1e3 / n_ticks,
+               "tokens": tokens, "tokens_per_s": tokens / wall,
+               "pj_per_token": (eng.mac_energy_pj_per_param
+                                / max(eng.n_tokens_charged, 1)
+                                * eng.macs_per_token),
+               "availability": rep["total"]["availability"],
+               "slo_attainment": rep["total"]["slo_attainment"],
+               "approx_cfg_end": eng.approx_cfg.tolist(),
+               **eng.resilience_report()}
+        if bo is not None:
+            out["brownout"] = bo.report()
+        return out
+
+    _zero_launches(A, FA, PA)
+    with_b, without = run(True), run(False)
+    res = {"phase": "spike_serve", "arch": cfg.name,
+           "power_cap_pj_per_tick": cap, "brownout": with_b,
+           "exact_only": without}
+    assert with_b["offered"] == without["offered"], res
+    assert with_b["availability"] == 1.0, with_b
+    assert without["availability"] < 1.0, without
+    bo = with_b["brownout"]
+    assert bo["escalations"] >= 1, bo
+    assert bo["level"] == 0 and bo["recoveries"] == bo["escalations"], bo
+    assert set(with_b["approx_cfg_end"]) == {0}, with_b["approx_cfg_end"]
+    assert with_b["pj_per_token"] < without["pj_per_token"], res
+    sync()
+    res["launches"] = _launch_counts(A, FA, PA)
+    if on_card:
+        assert res["launches"]["approx_mac_fused_matmul"] > 0
+        assert res["launches"]["flash_attention"] > 0
+    res["brownout_energy_saving"] = (1.0 - with_b["pj_per_token"]
+                                     / without["pj_per_token"])
+    emit(res)
+    return res
+
+
+def phase_interactions(torch, libs, Engine, Request, F, S, SpecConfig,
+                       PagedCacheConfig, demo, dev,
+                       spec_equals_exact: bool = True,
+                       max_new: int = 24) -> dict:
+    """tests/test_interactions.py's live matrix on the card: spec_check's
+    trained demo LM, dense (prefill_pad 32) and paged (40 blocks of 16,
+    chunk 16), plain and speculative (draft 8, k 3), each with a
+    scheduler at a 1e9 budget (probe 2, retune 4) and the chaos plan
+    (step failures at ticks 2 and 3, NaN logits at 5, a duplicated probe
+    at 7).  Every stream must equal the uninjected exact run of its
+    layout (and the uninjected run of its own arm), the energy log must
+    sum to the totals, and nothing may be built or loaded after the
+    first tick.  ``spec_equals_exact=False`` (the rehearsal's briefly
+    trained model, whose near-ties let a verify window's argmax differ
+    from a one-token decode's) holds a speculative arm to its own
+    uninjected run only and records whether it equals the exact run."""
+    import numpy as np
+    A, PA, FA = libs
+    cfg, params = demo            # weights quantized
+    on_card = dev.type == "cuda"
+
+    def requests():
+        rng = np.random.default_rng(0)
+        return [Request(rid=i, prompt=rng.integers(1, 64, size=n),
+                        max_new_tokens=max_new)
+                for i, n in enumerate((10, 20, 8, 12))]
+
+    def engine(paged, **kw):
+        if paged:
+            kw["paged"] = PagedCacheConfig(num_blocks=40, block_size=16,
+                                           prefill_chunk=16)
+        else:
+            kw["prefill_pad"] = 32
+        return Engine(params, cfg, max_batch=4, max_len=64, device=dev,
+                      quantize_weights=False, **kw)
+
+    def drain(eng, after_first_tick=None):
+        return _streams(eng, requests(), after_first_tick)
+
+    state = {}
+
+    def first_tick():
+        if on_card:
+            torch.cuda.synchronize()
+        state.setdefault("built", built_state(libs))
+
+    _zero_launches(A, FA, PA)
+    res = {"phase": "interactions", "arms": {}}
+    for paged in (False, True):
+        layout = "paged" if paged else "dense"
+        want = drain(engine(paged, clock=FakeClock()), first_tick)
+        for spec in (False, True):
+            spec_cfg = (SpecConfig(draft_cfg=8, k=3, max_k=3) if spec
+                        else None)
+            # the uninjected run of this arm (plain: the exact run)
+            clean = (drain(engine(paged, clock=FakeClock(), spec=spec_cfg))
+                     if spec else want)
+            inj = F.FaultInjector([
+                F.FaultEvent(tick=2, kind="step_fail"),
+                F.FaultEvent(tick=3, kind="step_fail"),
+                F.FaultEvent(tick=5, kind="nan_logits"),
+                F.FaultEvent(tick=7, kind="dup_probe")])
+            sched = S.PowerBudgetScheduler(1e9, retune_every=4,
+                                           probe_every=2)
+            eng = engine(paged, scheduler=sched, fault_injector=inj,
+                         clock=FakeClock(), retry_base_s=0.01,
+                         retry_cap_s=0.05, spec=spec_cfg)
+            got = drain(eng)
+            arm = f"{layout}_{'spec' if spec else 'plain'}"
+            assert got == clean, arm
+            if spec_equals_exact or not spec:
+                assert got == want, arm
+            assert eng.n_retries == inj.counts["step_fail"] >= 1, \
+                (arm, eng.n_retries, inj.counts)
+            assert eng.last_error.startswith("InjectedFault"), arm
+            if inj.counts["nan_logits"]:
+                assert eng.n_nan_events >= 1, arm
+            else:
+                assert paged and spec, arm
+            rows = list(eng.energy_log)
+            assert math.isclose(sum(t * pj for _, t, pj, _ in rows),
+                                eng.mac_energy_pj_per_param, rel_tol=1e-12)
+            assert sum(t for _, t, *_ in rows) == eng.n_tokens_charged, arm
+            res["arms"][arm] = {
+                "stream_equal_uninjected": True,
+                "stream_equal_exact": got == want,
+                "injector": inj.report()["counts"],
+                "spec_ticks": eng.n_spec_ticks,
+                "spec_aborts": eng.n_spec_aborts,
+                **eng.resilience_report()}
+            if paged:
+                eng.allocator.check_consistency(eng._slot_blocks)
+    if on_card:
+        torch.cuda.synchronize()
+    assert built_state(libs) == state["built"], (built_state(libs),
+                                                 state["built"])
+    res["launches"] = _launch_counts(A, FA, PA)
+    if on_card:
+        for fn in ("approx_mac_fused_matmul", "flash_attention",
+                   "paged_decode_attention"):
+            assert res["launches"][fn] > 0, fn
+    res["libraries_built_after_first_tick"] = 0
+    emit(res)
     return res
 
 
@@ -3237,14 +3728,14 @@ def spec_run(torch, T, libs, E, eng, reqs, per_call: dict,
     tick_name = "_spec_tick_paged" if paged else "_spec_tick_dense"
     tick_fn = getattr(eng, tick_name)
 
-    def tick(active):
+    def tick(active, *rest):
         live = {i: (eng.slots[i], len(eng.slots[i].tokens)) for i in active}
         before = _launch_counts(A, FA, PA)
         k = eng._spec_k()
         st["rows"] = []
         st["in_tick"] = True
         try:
-            out = tick_fn(active)
+            out = tick_fn(active, *rest)
         finally:
             st["in_tick"] = False
         after = _launch_counts(A, FA, PA)
@@ -3567,21 +4058,30 @@ def rehearse() -> int:
     from repro_torch.serve.paged_cache import PagedCacheConfig
     from repro_torch.serve.scheduler import PowerBudgetScheduler
     from repro_torch.serve.speculative import SpecConfig
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.serve import brownout as B
+    from repro_torch.serve import faults as F
+    from repro_torch.serve import scheduler as SchedMod
+    from repro_torch.serve import traffic as TR
+    from repro_torch.core.quantization import quantize
+    Engine = strict_engine(Engine, F)
     cpu = torch.device("cpu")
     libs = (A, PA, FA)
     cfg = get_config("qwen2.5-3b").smoke()
     serve, eng = phase_serve(torch, T, A, Engine, Request, cfg, cpu)
-    phase_mlp(torch, A, cpu, n_data=200, n_sim=8)
+    phase_mlp(torch, A, cpu, n_data=100, n_sim=4)
     phase_paged_serve(torch, T, A, PA, Engine, Request, PagedCacheConfig,
                       eng.params, cfg, cpu)
     phase_sched(torch, T, A, (A, PA, FA), Engine, Request,
-                PowerBudgetScheduler, eng.params, cfg, cpu, **SCHED_SERVE,
+                PowerBudgetScheduler, eng.params, cfg, cpu,
+                **{**SCHED_SERVE, "n_req": 8, "max_new": 16},
                 baseline=serve)
     # the speculative phases cut to fit the rehearsal's time: fewer
     # training steps, one sweep entry a mode, fewer and shorter requests
-    phase_spec_check(torch, T, libs, Engine, Request, SpecConfig,
-                     PagedCacheConfig, cpu, steps=REHEARSE_DEMO_STEPS,
-                     sweeps=(DEMO_DENSE_SWEEP[:1], DEMO_PAGED_SWEEP[:1]))
+    _, demo = phase_spec_check(
+        torch, T, libs, Engine, Request, SpecConfig, PagedCacheConfig, cpu,
+        steps=REHEARSE_DEMO_STEPS,
+        sweeps=(DEMO_DENSE_SWEEP[:1], DEMO_PAGED_SWEEP[:1]))
     phase_spec_serve(torch, T, libs, E, Engine, Request, SpecConfig,
                      PagedCacheConfig, eng.params, cfg, cpu,
                      name="spec_serve",
@@ -3592,6 +4092,19 @@ def rehearse() -> int:
     phase_spec_sched(torch, T, libs, E, Engine, Request, SpecConfig,
                      PowerBudgetScheduler, eng.params, cfg, cpu, n_req=4,
                      max_new=8)
+    # the resilience phases on the demo LM (quantized once, as an Engine
+    # would): the size of the reference resilience benchmark's model,
+    # which keeps the rehearsal short
+    demo = (demo[0], T.quantize_lm_params(demo[1], demo[0]))
+    with fused_shapes() as seen:
+        phase_chaos_serve(torch, libs, Engine, Request, F, Checkpointer,
+                          demo[1], demo[0], cpu, n_req=2, max_new=8)
+        phase_spike_serve(torch, libs, Engine, F, B, TR, demo[1], demo[0],
+                          cpu)
+        phase_interactions(torch, libs, Engine, Request, F, SchedMod,
+                           SpecConfig, PagedCacheConfig, demo, cpu,
+                           spec_equals_exact=False, max_new=12)
+    phase_check_seen(torch, A, quantize, cpu, RESILIENCE_PHASES, seen)
     moe_cfg = get_config("olmoe-1b-7b").smoke(mac_backend="pallas")
     moe, moe_eng = phase_moe_serve(torch, T, A, Engine, Request, moe_cfg,
                                    cpu)
@@ -3661,7 +4174,13 @@ def main(argv: list[str]) -> int:
     from repro_torch.serve.paged_cache import PagedCacheConfig
     from repro_torch.serve.scheduler import PowerBudgetScheduler
     from repro_torch.serve.speculative import SpecConfig
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.serve import brownout as B
+    from repro_torch.serve import faults as F
+    from repro_torch.serve import scheduler as SchedMod
+    from repro_torch.serve import traffic as TR
 
+    Engine = strict_engine(Engine, F)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3712,8 +4231,8 @@ def main(argv: list[str]) -> int:
                               PowerBudgetScheduler, params, cfg, dev,
                               **SCHED_SERVE, baseline=serve)
     libs = (A, PA, FA)
-    spec_check = phase_spec_check(torch, T, libs, Engine, Request,
-                                  SpecConfig, PagedCacheConfig, dev)
+    spec_check, demo = phase_spec_check(torch, T, libs, Engine, Request,
+                                        SpecConfig, PagedCacheConfig, dev)
     spec_serve = phase_spec_serve(
         torch, T, libs, E, Engine, Request, SpecConfig, PagedCacheConfig,
         params, cfg, dev, name="spec_serve",
@@ -3722,6 +4241,19 @@ def main(argv: list[str]) -> int:
     spec_sched = phase_spec_sched(torch, T, libs, E, Engine, Request,
                                   SpecConfig, PowerBudgetScheduler, params,
                                   cfg, dev)
+    with fused_shapes() as seen:
+        chaos = phase_chaos_serve(torch, libs, Engine, Request, F,
+                                  Checkpointer, params, cfg, dev)
+        spike = phase_spike_serve(torch, libs, Engine, F, B, TR, params,
+                                  cfg, dev)
+        # the demo LM's weights quantized once, as an Engine would
+        demo = (demo[0], T.quantize_lm_params(demo[1], demo[0]))
+        interactions = phase_interactions(torch, libs, Engine, Request, F,
+                                          SchedMod, SpecConfig,
+                                          PagedCacheConfig, demo, dev)
+    del demo
+    worst = max(worst, phase_check_seen(torch, A, quantize, dev,
+                                        RESILIENCE_PHASES, seen))
     # free Qwen2.5-3B before OLMoE-1B-7B
     del params, snaps, chunk_snap
     torch.cuda.empty_cache()
@@ -3776,9 +4308,13 @@ def main(argv: list[str]) -> int:
     serve_attn = timing_paged[0]
     serve_flash = timing_flash[0]
     spec_phases = (spec_check, spec_serve, spec_sched, spec_moe)
+    resilience_phases = (chaos, spike, interactions)
 
     def spec_launches(fn):
         return sum(p["launches"][fn] for p in spec_phases)
+
+    def resilience_launches(fn):
+        return sum(p["launches"][fn] for p in resilience_phases)
     emit({"kernels": [{
         "name": "approx_mac_fused_matmul",
         "route": "cuda",
@@ -3786,7 +4322,8 @@ def main(argv: list[str]) -> int:
         "replaces": TPU_KERNEL,
         "launches": (serve["kernel_launches"]
                      + sched_serve["launches"]["approx_mac_fused_matmul"]
-                     + spec_launches("approx_mac_fused_matmul")),
+                     + spec_launches("approx_mac_fused_matmul")
+                     + resilience_launches("approx_mac_fused_matmul")),
         "max_abs_err": worst,
         "ms": sum(r["ms"] for r in layer),
         "plain_ms": sum(r["plain_ms"] for r in layer),
@@ -3797,7 +4334,8 @@ def main(argv: list[str]) -> int:
         "work": "the 7 GEMMs of one Qwen2.5-3B layer at decode, M = 4; "
                 "launches from the dense serve, sched_serve and the four "
                 "speculative runs (spec_check, spec_serve, spec_sched, "
-                "spec_moe; the plain paged run's are in paged_serve, "
+                "spec_moe), chaos_serve, spike_serve and interactions "
+                "(the plain paged run's are in paged_serve, "
                 "the other MoE runs' in moe_serve and sched_moe, "
                 "Gemma-2's in gemma2_serve); "
                 "library_ms is torch._int_mm at config 0 "
@@ -3832,7 +4370,8 @@ def main(argv: list[str]) -> int:
         "source": PAGED_SOURCE,
         "replaces": PAGED_TPU_KERNEL,
         "launches": (paged["paged_attention_launches"]
-                     + spec_launches("paged_decode_attention")),
+                     + spec_launches("paged_decode_attention")
+                     + resilience_launches("paged_decode_attention")),
         "max_abs_err": paged_err,
         "ms": serve_attn["ms"],
         "plain_ms": serve_attn["plain_ms"],
@@ -3841,8 +4380,9 @@ def main(argv: list[str]) -> int:
         "library_ms": serve_attn["library_ms"],
         "work": "one layer's paged decode attention at B 8, length 256 "
                 "(H 16, KV 2, hd 128, bs 16, bf16); launches from the "
-                "paged serve run and the paged speculative drafts of "
-                "spec_check and spec_serve; library_ms is the "
+                "paged serve run, the paged speculative drafts of "
+                "spec_check and spec_serve and the paged arms of "
+                "interactions; library_ms is the "
                 "gather k_pool[tables] plus scaled_dot_product_attention",
     }, {
         "name": "approx_mac_grouped_matmul",
@@ -3869,7 +4409,8 @@ def main(argv: list[str]) -> int:
         "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL,
         "launches": (g_serve["flash_launches"] + train["flash_launches"]
-                     + spec_launches("flash_attention")),
+                     + spec_launches("flash_attention")
+                     + resilience_launches("flash_attention")),
         "max_abs_err": flash_err,
         "ms": serve_flash["ms"],
         "plain_ms": serve_flash["plain_ms"],
@@ -3880,7 +4421,8 @@ def main(argv: list[str]) -> int:
                 "run's longest prompt, S 48 (H 32, KV 16, hd 128, bf16, "
                 "scale 1/12, softcap 50); launches from the gemma2_serve "
                 "run, the train run's timed steps (forward and remat "
-                "recompute) and the speculative runs' prefills; "
+                "recompute), the speculative runs' prefills and those of "
+                "chaos_serve, spike_serve and interactions; "
                 "library_ms is scaled_dot_product_attention (GQA, "
                 "causal) without the softcap, which it cannot express",
     }]})

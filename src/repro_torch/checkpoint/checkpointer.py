@@ -239,6 +239,11 @@ def _write_like(arr: np.ndarray, like):
     """`arr` written over the tensor `like` (its device and dtype kept);
     an array of `like`'s dtype where `like` is not a tensor."""
     if isinstance(like, torch.Tensor):
+        if like.dtype == torch.bfloat16:
+            # bf16 travels as its 2-byte words (``leaf_to_numpy``)
+            like.view(torch.int16).copy_(
+                torch.as_tensor(np.asarray(arr).view(np.int16)))
+            return like
         return like.copy_(torch.as_tensor(arr))
     return np.asarray(arr, dtype=np.asarray(like).dtype)
 

@@ -82,10 +82,39 @@ def stack_blocks(blocks: list, npat: int, stack) -> dict:
 
 
 def leaf_to_numpy(leaf) -> np.ndarray:
-    """A tensor (on any device) or array-like as a numpy array."""
+    """A tensor (on any device) or array-like as a numpy array.  numpy
+    has no bfloat16: a bf16 tensor comes out as its 2-byte words
+    (``V2``), which is what the reference's npz holds for a bf16 array."""
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return leaf.detach().view(torch.int16).cpu().numpy().view("V2")
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def cache_to_reference(cache: dict, cfg: ModelConfig) -> dict:
+    """The port's KV cache in the reference's tree, every leaf a view of
+    the live tensor (writing a leaf writes the cache).
+
+    Dense: ``{"pos", "scan": {"b{j}": buffers}}``, ``b{j}`` the buffers
+    of the pattern's j-th kind (one stack per kind: Gemma-2's b0 is the
+    local rings under ``cache["local"]``, its b1 the global buffers at
+    the top; a one-kind model's b0 is the top).  Paged (a ``{"k",
+    "v"}`` pool): ``{"scan": {"b0": {"k", "v"}}}``."""
+    if "pos" not in cache:
+        return {"scan": {"b0": {"k": cache["k"], "v": cache["v"]}}}
+    if len(set(cfg.pattern)) != len(cfg.pattern):
+        raise NotImplementedError(
+            f"pattern {cfg.pattern}: a kind that repeats within the "
+            "pattern interleaves the reference's stacks")
+
+    def buffers(kind):
+        buf = cache["local"] if kind == "local" else cache
+        return {k: v for k, v in buf.items() if k not in ("pos", "local")}
+
+    return {"pos": cache["pos"],
+            "scan": {f"b{j}": buffers(kind)
+                     for j, kind in enumerate(cfg.pattern)}}
 
 
 def params_to_numpy(params: Params, cfg: ModelConfig) -> dict:

@@ -6,7 +6,11 @@
       [--max-new 16] [--approx-cfg 0] [--device cuda] \
       [--budget-frac F] [--power-cap-frac F] \
       [--draft-cfg CFG [--draft-k 3]] \
-      [--paged [--num-blocks N] [--block-size 16] [--prefill-chunk 32]]
+      [--paged [--num-blocks N] [--block-size 16] [--prefill-chunk 32]] \
+      [--ckpt DIR] [--queue-capacity 256] [--ttft-slo S] [--e2e-slo S] \
+      [--brownout LADDER] [--chaos SEED] \
+      [--traffic RATE [--spike START:END:MULT] [--ticks 60] \
+       [--classes NAME:WEIGHT[:SHARE],...]]
 
 Serves random init (seed 0) through ``repro_torch.serve.engine.Engine``:
 every dense GEMM runs the fused approx-MAC kernel and every MoE expert
@@ -25,8 +29,25 @@ speculative decoding (``serve/speculative.py``): k = --draft-k drafts
 at that config, verified at the service config, with max_k =
 max(draft_k, 4) as in the reference; the closing line gives ticks,
 emitted/drafted tokens, tokens per verify step and aborts.
-Counterpart of ``repro.launch.serve`` without its checkpoint, mesh,
-resilience and traffic options (not ported yet).
+
+Resilience (``serve/faults.py``, ``serve/brownout.py``,
+``serve/traffic.py``): --traffic RATE drives the engine from the
+replayable Poisson generator for --ticks ticks (--spike START:END:MULT
+adds a burst window, --classes a weighted class mix whose budget
+shares split the --budget-frac budget), --ttft-slo / --e2e-slo stamp
+deadlines, --queue-capacity bounds admission, --brownout LADDER steps
+down the config ladder under pressure, and --chaos SEED replays the
+reference's seeded fault plan (NaN logits, a step failure, a stall).
+The closing "resilience:", "brownout:", "chaos fired:" and "traffic:"
+lines report them, e.g.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+      --smoke --device cpu --chaos 0 --brownout 0,16,31 --traffic 0.5
+
+--ckpt DIR serves the params of a checkpoint in the reference's format
+(``{"params": ...}``, read by the port's ``Checkpointer``) instead of
+the random init.  Counterpart of ``repro.launch.serve`` without its
+mesh options (sharding is not ported).
 """
 from __future__ import annotations
 
@@ -36,13 +57,18 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.registry import get_config
 from repro_torch.core.power_model import energy_per_token_pj
 from repro_torch.nn import transformer as T
+from repro_torch.serve.brownout import BrownoutController
 from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.faults import FaultEvent, FaultInjector
 from repro_torch.serve.paged_cache import N_RESERVED, PagedCacheConfig
 from repro_torch.serve.scheduler import PowerBudgetScheduler
 from repro_torch.serve.speculative import SpecConfig
+from repro_torch.serve.traffic import (TrafficClass, TrafficGenerator,
+                                       class_budget_shares, slo_report)
 
 
 def main(argv=None) -> dict:
@@ -78,6 +104,33 @@ def main(argv=None) -> dict:
     ap.add_argument("--draft-k", type=int, default=3,
                     help="draft depth per speculative tick (the "
                          "scheduler may lower it live)")
+    ap.add_argument("--ckpt", default=None,
+                    help="serve the params of this checkpoint directory "
+                         "(reference format) instead of random init")
+    ap.add_argument("--queue-capacity", type=int, default=256,
+                    help="bounded admission queue; overflow is an "
+                         "explicit rejection")
+    ap.add_argument("--ttft-slo", type=float, default=None,
+                    help="per-request time-to-first-token SLO (s)")
+    ap.add_argument("--e2e-slo", type=float, default=None,
+                    help="per-request end-to-end SLO (s)")
+    ap.add_argument("--brownout", default=None, metavar="LADDER",
+                    help="comma-separated config ladder for graceful "
+                         "degradation under pressure, e.g. 0,16,31")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="inject a seeded, replayable fault plan (NaN "
+                         "logits, step failure, stall)")
+    ap.add_argument("--traffic", type=float, default=None, metavar="RATE",
+                    help="drive from a replayable Poisson arrival stream "
+                         "at RATE requests/tick instead of --requests")
+    ap.add_argument("--spike", default=None, metavar="START:END:MULT",
+                    help="traffic burst window (ticks), e.g. 10:40:4.0")
+    ap.add_argument("--ticks", type=int, default=60,
+                    help="engine ticks to drive under --traffic")
+    ap.add_argument("--classes", default=None, metavar="SPEC",
+                    help="mixed-class traffic under --traffic: comma list "
+                         "of NAME:WEIGHT[:BUDGET_SHARE]; budget shares "
+                         "split the --budget-frac budget across classes")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain "
                          "versions); no fallback between the two")
@@ -107,15 +160,37 @@ def main(argv=None) -> dict:
         print(f"speculative decoding: draft cfg {args.draft_cfg}, "
               f"k={args.draft_k} (verify at the service config)")
     gen = torch.Generator(device=device).manual_seed(0)
+    if args.ckpt:
+        ck = Checkpointer(args.ckpt, cfg=cfg)
+        state, _ = ck.restore({"params": T.init_lm(gen, cfg, device)})
+        params = state["params"]
+        print(f"restored checkpoint step {ck.latest_step()}")
+    else:
+        # quantized as drawn: a full-width MoE model's f32 expert banks
+        # (25.8 GB for OLMoE-1B-7B) then exist one layer at a time
+        params = T.init_lm(gen, cfg, device, quantized=True)
     # budget set below from the model's exact-mode pJ/token
     sched = (PowerBudgetScheduler(0.0) if args.budget_frac is not None
              else None)
-    # quantized as drawn: a full-width MoE model's f32 expert banks
-    # (25.8 GB for OLMoE-1B-7B) then exist one layer at a time
-    eng = Engine(T.init_lm(gen, cfg, device, quantized=True), cfg,
-                 max_batch=args.max_batch,
+    brownout = None
+    if args.brownout is not None:
+        brownout = BrownoutController(
+            ladder=tuple(int(x) for x in args.brownout.split(",")))
+    injector = None
+    if args.chaos is not None:
+        r = np.random.default_rng(args.chaos)
+        injector = FaultInjector(
+            [FaultEvent(tick=int(r.integers(2, 12)), kind="nan_logits"),
+             FaultEvent(tick=int(r.integers(4, 16)), kind="step_fail"),
+             FaultEvent(tick=int(r.integers(6, 20)), kind="stall",
+                        stall_s=0.05)], seed=args.chaos)
+        print(f"chaos plan (seed {args.chaos}): "
+              f"{[(e.tick, e.kind) for e in injector.plan]}")
+    eng = Engine(params, cfg, max_batch=args.max_batch,
                  max_len=args.max_len, approx_cfg=args.approx_cfg,
-                 paged=paged, scheduler=sched, spec=spec, device=device)
+                 paged=paged, scheduler=sched, spec=spec,
+                 queue_capacity=args.queue_capacity, brownout=brownout,
+                 fault_injector=injector, device=device)
     exact_pj = energy_per_token_pj(np.zeros_like(eng.approx_cfg),
                                    eng.macs_per_token, eng._moe_mac_frac)
     if sched is not None:
@@ -129,12 +204,52 @@ def main(argv=None) -> dict:
               f"{args.max_batch} exact tokens/tick")
     rng = np.random.default_rng(0)
     t0 = time.time()
-    for rid in range(args.requests):
-        eng.submit(Request(
-            rid=rid, prompt=rng.integers(0, cfg.vocab_size,
-                                         size=int(rng.integers(4, 24))),
-            max_new_tokens=args.max_new))
-    done = eng.run()
+    offered = None
+    if args.traffic is not None:
+        spikes = ()
+        if args.spike:
+            a, b, m = args.spike.split(":")
+            spikes = ((int(a), int(b), float(m)),)
+        slo = dict(ttft_slo_s=args.ttft_slo, e2e_slo_s=args.e2e_slo,
+                   prompt_len=8, max_new_tokens=args.max_new)
+        if args.classes:
+            classes = []
+            for item in args.classes.split(","):
+                parts = item.split(":")
+                classes.append(TrafficClass(
+                    parts[0], **slo,
+                    weight=float(parts[1]) if len(parts) > 1 else 1.0,
+                    budget_share=(float(parts[2]) if len(parts) > 2
+                                  else None)))
+            classes = tuple(classes)
+            shares = class_budget_shares(classes)
+            if shares:
+                if sched is None:
+                    raise ValueError("--classes budget shares need "
+                                     "--budget-frac")
+                sched.set_class_budgets(shares)
+                print(f"per-class budgets: {shares} "
+                      f"(re-split from usage each retune)")
+        else:
+            classes = (TrafficClass("cli", **slo),)
+        traffic = TrafficGenerator(classes, rate_per_tick=args.traffic,
+                                   seed=0, vocab_size=cfg.vocab_size,
+                                   spikes=spikes)
+        offered = []
+        for t in range(args.ticks):
+            for req in traffic.arrivals(t):
+                offered.append(req)
+                eng.submit(req)
+            eng.step()
+        done = eng.run()           # drain the tail
+    else:
+        for rid in range(args.requests):
+            eng.submit(Request(
+                rid=rid, prompt=rng.integers(0, cfg.vocab_size,
+                                             size=int(rng.integers(4, 24))),
+                max_new_tokens=args.max_new,
+                ttft_slo_s=args.ttft_slo, e2e_slo_s=args.e2e_slo))
+        done = eng.run()
     dt = time.time() - t0
     total_new = sum(len(r.tokens) for r in done)
     ttfts = [r.first_token_at - r.submitted_at for r in done
@@ -157,6 +272,21 @@ def main(argv=None) -> dict:
               f"{measured/1e6:.3f} uJ vs budget "
               f"{s['budget_pj_per_token']/1e6:.3f} uJ")
         print(f"scheduler report: {s}")
+        if sched.class_shares:
+            for name in sorted(sched.class_shares):
+                dn = eng.serve_tokens_by_class.get(name, 0)
+                de = eng.serve_energy_by_class.get(name, 0.0)
+                pj = de / dn * eng.macs_per_token if dn else 0.0
+                print(f"  class {name}: {dn} tokens, "
+                      f"{pj/1e6:.3f} uJ/token, final share "
+                      f"{sched.class_shares[name]:.3f}")
+    rr = eng.resilience_report()
+    if any((rr["rejected"], rr["expired"], rr["failed"], rr["retries"],
+            rr["nan_events"], injector, brownout)):
+        print(f"resilience: rejected {rr['rejected']}, expired "
+              f"{rr['expired']}, failed {rr['failed']}, retries "
+              f"{rr['retries']}, nan events {rr['nan_events']}, "
+              f"quarantined {rr['quarantined']}")
     if spec is not None:
         tv = (eng.n_spec_emitted / eng.n_verify_steps
               if eng.n_verify_steps else 0.0)
@@ -169,6 +299,18 @@ def main(argv=None) -> dict:
         print(f"paged: {eng.n_preempted} preemptions, "
               f"{eng.n_shared_blocks} shared prefix blocks, "
               f"{bp['kv_free_blocks']}/{paged.usable_blocks} blocks free")
+    if brownout is not None:
+        b = brownout.report()
+        print(f"brownout: {b['escalations']} escalations, "
+              f"{b['recoveries']} recoveries, final level "
+              f"{b['level']} (ladder {b['ladder']})")
+    if injector is not None:
+        print(f"chaos fired: {injector.report()['counts']}")
+    if offered is not None:
+        tot = slo_report(offered)["total"]
+        print(f"traffic: {tot['offered']} offered, availability "
+              f"{tot['availability']*100:.1f}%, SLO attainment "
+              f"{tot['slo_attainment']*100:.1f}%")
     return rep
 
 

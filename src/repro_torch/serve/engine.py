@@ -67,12 +67,38 @@ bill as ``kind="spec_draft"`` at the draft config, verifies as
 ``"spec_verify"`` (one pool-config charge per slot); an attached
 scheduler gets ``record_spec`` with the draft config and steers the
 draft depth.  A non-finite draft row skips the tick (paged: rolled
-back); a non-finite verify row, or any exception, rolls back and
-raises, since the reference's retry and NaN quarantine are not ported.
+back).  A failed or non-finite verify takes the reference's paths, a
+retry (``_record_failure``) or the NaN quarantine, with nothing
+committed for the failing slots; on the paged path the slots verified
+before the failing one commit, as the reference commits slot by slot.
+The entries a rolled-back speculative tick wrote in place lie at or past
+each slot's committed length: masked, and rewritten before any read.
 
-Not ported yet (the reference's knobs for them do not exist here):
-fault injection, retry, deadline expiry and NaN quarantine, brownout,
-checkpointing and sharding.
+Resilience (DESIGN.md §10): bounded admission (``submit`` rejects past
+``queue_capacity`` and while draining), TTFT and end-to-end deadlines
+read from the injected clock, decode failures retried with capped
+exponential backoff and deterministic jitter (``max_retries``,
+``retry_base_s``, ``retry_cap_s``), a NaN/Inf guard on the logits
+before a step commits (the offending config steps one notch toward
+exact, through ``scheduler.quarantine`` when one is attached; a slot
+past ``nan_max_strikes`` restores the last snapshot or is evicted),
+``fault_injector`` (``serve/faults.py``; it wraps the engine's clock),
+``brownout`` (``serve/brownout.py``), snapshots of the whole serving
+state through a ``checkpoint.Checkpointer`` in the reference's format
+(``save_snapshot`` / ``restore_snapshot``, every ``snapshot_every``
+steps, and on a graceful drain in ``run(preemption=...)``), and
+``resilience_report``.  Two deviations from the reference: the port
+writes K/V in place, so a rolled-back decode step writes back the
+entries it overwrote (``transformer.decode_writes`` /
+``restore_writes``), where the reference's functional step simply never
+commits; and ``nan_cache`` faults are refused on a paged engine (the
+reference's assert fails there).  Sampling draws use a generator seeded
+from (seed, draw number), the draws counted where the reference splits
+its key, so a snapshot's ``rng`` leaf (uint32[2], as the reference's)
+holds (seed, draws) and a resumed run samples as the uninterrupted one.
+
+Not ported yet (the reference's knobs for it do not exist here):
+sharding (``mapping``, ``param_specs``).
 
 Runs on ``device="cuda"`` unless told otherwise; without a GPU the
 default raises rather than falling back to the CPU.
@@ -80,14 +106,17 @@ default raises rather than falling back to the CPU.
 from __future__ import annotations
 
 import time
-from collections import deque
-from dataclasses import dataclass, field
+from collections import Counter, deque
+from dataclasses import asdict, dataclass, field
 from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.convert import cache_to_reference
 from repro_torch.core.approx_multiplier import N_CONFIGS
+from repro_torch.core.controller import step_down_config
+from repro_torch.core.error_metrics import mred_table
 from repro_torch.core.power_model import (ENERGY_PER_MAC_PJ,
                                           MAC_SAVING_FRAC,
                                           energy_per_token_pj, error_rank)
@@ -96,12 +125,6 @@ from repro_torch.nn import transformer as T
 from .paged_cache import ZERO_BLOCK, PageAllocator, PagedCacheConfig
 from .sampling import sample
 from .speculative import SpecConfig, longest_agreeing_prefix
-
-
-class _SpecAbort(RuntimeError):
-    """Roll back a speculative tick: the draft config produced a
-    non-finite row.  The pool config is innocent, so the tick is skipped,
-    not failed."""
 
 
 def pool_join(stack) -> np.ndarray:
@@ -161,8 +184,30 @@ class Request:
     done: bool = False
     first_token_at: float | None = None
     finished_at: float | None = None
-    cls: str = "default"                # traffic class of energy rows
-    status: str = "queued"              # queued|active|done|rejected
+    ttft_slo_s: float | None = None     # deadline queue -> first token
+    e2e_slo_s: float | None = None      # deadline submit -> finish
+    cls: str = "default"                # traffic class (serve/traffic.py)
+    status: str = "queued"              # queued|active|done|rejected|
+    #                                     expired|failed
+    retries: int = 0                    # decode failures survived
+
+
+def _pack_request(r: Request | None) -> dict | None:
+    """Request -> msgpack-able dict of its fields (snapshot metadata, the
+    reference's fields): arrays and numpy scalars become Python lists and
+    scalars."""
+    if r is None:
+        return None
+    return {k: (np.asarray(v).tolist()
+                if isinstance(v, (np.ndarray, np.generic, list)) else v)
+            for k, v in asdict(r).items()}
+
+
+def _unpack_request(d: dict | None) -> Request | None:
+    if d is None:
+        return None
+    return Request(**{**d, "prompt": np.asarray(d["prompt"], np.int32),
+                      "tokens": list(d["tokens"])})
 
 
 class Engine:
@@ -175,7 +220,11 @@ class Engine:
                  paged: PagedCacheConfig | None = None,
                  prefill_pad: int = 0, scheduler=None,
                  power_cap_pj_per_tick: float | None = None,
-                 spec: SpecConfig | None = None, device="cuda"):
+                 spec: SpecConfig | None = None,
+                 max_retries: int = 2, retry_base_s: float = 0.05,
+                 retry_cap_s: float = 2.0, nan_max_strikes: int = 2,
+                 fault_injector=None, brownout=None, checkpointer=None,
+                 snapshot_every: int = 0, device="cuda"):
         """max_batch: decode-pool slots; max_len: KV-cache length
         (prompt + generated); approx_cfg: engine-wide error config (int
         or per-layer[/per-group] array); seed: seed of the sampling
@@ -196,7 +245,20 @@ class Engine:
         tick (None: no cap); spec: a ``SpecConfig`` for speculative
         decoding (None: off; all-'global' float-KV models, and paged
         needs ``max_k + 1 <= prefill_chunk``); device: where params,
-        cache and every step live."""
+        cache and every step live.
+
+        Resilience knobs, the reference's: max_retries: decode failures
+        a request survives before it is evicted as ``failed``;
+        retry_base_s / retry_cap_s: the backoff after a failed decode,
+        base * 2**(streak - 1) capped, plus up to 10 % jitter drawn from
+        (seed, failure count); nan_max_strikes: consecutive non-finite
+        strikes a slot survives before the engine restores the last
+        snapshot (with a checkpointer that holds one) or evicts it;
+        fault_injector: a ``serve.faults.FaultInjector`` (it wraps
+        ``clock``); brownout: a ``serve.brownout.BrownoutController``
+        consulted first every tick; checkpointer: a
+        ``checkpoint.Checkpointer`` for snapshots; snapshot_every:
+        auto-snapshot every this many decode steps (0: off)."""
         self.device = T.resolve_device(device)
         if (cfg_groups > 1 or cfg_experts > 1) \
                 and cfg.mac_backend != "pallas":
@@ -226,9 +288,17 @@ class Engine:
             self._moe_mac_frac = 0.0
         self.approx_cfg = self._as_layer_vector(
             0 if approx_cfg is None else approx_cfg)
-        self.clock = clock
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.fault_injector = fault_injector
+        self.clock = (clock if fault_injector is None
+                      else fault_injector.wrap_clock(clock))
+        # sampling: draw n uses a generator seeded from (seed, n); the
+        # draws are counted where the reference splits its key
+        self.seed = int(seed)
+        self.n_draws = 0
+        self.gen = torch.Generator(device=self.device)
         self.queue_capacity = int(queue_capacity)
+        if self.queue_capacity <= 0:
+            raise ValueError(f"queue_capacity {queue_capacity} <= 0")
         self.queue: deque[Request] = deque(maxlen=self.queue_capacity)
         self.slots: list[Request | None] = [None] * max_batch
         self.slot_cfg = np.broadcast_to(
@@ -310,6 +380,27 @@ class Engine:
             if paged is None and window >= max_len:
                 raise ValueError(f"speculative window {window} needs "
                                  f"max_len > {window}, got {max_len}")
+        self.max_retries = int(max_retries)
+        self.retry_base_s = float(retry_base_s)
+        self.retry_cap_s = float(retry_cap_s)
+        self.nan_max_strikes = int(nan_max_strikes)
+        self.brownout = brownout
+        self.checkpointer = checkpointer
+        self.snapshot_every = int(snapshot_every)
+        self._jitter_seed = int(seed)   # kept across restores
+        self._draining = False
+        self._backoff_until = 0.0   # clock time decoding resumes
+        self._retry_streak = 0      # consecutive failed decode attempts
+        self._nan_strikes = np.zeros(max_batch, dtype=np.int64)
+        self._last_snapshot: int | None = None
+        self.last_error: str | None = None
+        self.n_expired = 0
+        self.n_failed = 0
+        self.n_retries = 0
+        self.n_nan_events = 0
+        self.n_quarantined = 0
+        self.n_snapshots = 0
+        self.n_restores = 0
         self.scheduler = scheduler
         if scheduler is not None:
             scheduler.attach(self)
@@ -402,16 +493,76 @@ class Engine:
     # -- request management --------------------------------------------
     def submit(self, req: Request) -> bool:
         """Queue `req`; returns False (status ``rejected``) when the
-        queue is at capacity."""
+        queue is at capacity or the engine is draining."""
         if req.submitted_at is None:
             req.submitted_at = self.clock()
-        if len(self.queue) >= self.queue_capacity:
+        if self._draining or len(self.queue) >= self.queue_capacity:
             req.status = "rejected"
             self.n_rejected += 1
             return False
         req.status = "queued"
         self.queue.append(req)
         return True
+
+    def drain(self) -> None:
+        """Stop admitting (``submit`` rejects, admission idles); the
+        slots in flight finish, or are snapshot, in ``run``."""
+        self._draining = True
+
+    def _evict(self, slot: int, status: str) -> None:
+        """End slot `slot`'s request with a terminal status ("expired" or
+        "failed").  Dense: its rows stay in the pool, unreachable until
+        the slot's next admission overwrites them; paged: its blocks go
+        back."""
+        req = self.slots[slot]
+        if req is None:
+            return
+        req.status = status
+        req.finished_at = self.clock()
+        self.completed.append(req)
+        self.slots[slot] = None
+        self._nan_strikes[slot] = 0
+        if self.paged is not None:
+            self._release_slot(slot)
+            self.slot_pos[slot] = 0
+        if status == "expired":
+            self.n_expired += 1
+        elif status == "failed":
+            self.n_failed += 1
+
+    def _expire(self, now: float) -> None:
+        """Deadline sweep at clock time `now`: queued requests past their
+        TTFT SLO expire where they wait; active slots past their e2e SLO
+        are evicted."""
+        late = [r for r in self.queue
+                if r.ttft_slo_s is not None
+                and now - r.submitted_at > r.ttft_slo_s]
+        if late:
+            late_ids = {id(r) for r in late}    # Request.__eq__ compares
+            keep = [r for r in self.queue       # values: filter by identity
+                    if id(r) not in late_ids]
+            self.queue.clear()
+            self.queue.extend(keep)
+            for r in late:
+                r.status = "expired"
+                r.finished_at = now
+                self.n_expired += 1
+                self.completed.append(r)
+        for i, r in enumerate(self.slots):
+            if (r is not None and r.e2e_slo_s is not None
+                    and now - r.submitted_at > r.e2e_slo_s):
+                self._evict(i, "expired")
+
+    def _in_flight(self) -> bool:
+        return bool(self.queue or any(s is not None for s in self.slots))
+
+    def _draw_gen(self) -> torch.Generator:
+        """The generator of the next sampling draw, seeded from (seed,
+        draw number); every call counts one draw."""
+        draw = self.n_draws
+        self.n_draws += 1
+        return self.gen.manual_seed(((self.seed & 0xFFFFFFFF) << 32)
+                                    | (draw & 0xFFFFFFFF))
 
     def _splice_cache(self, slot: int, row_cache) -> None:
         """Copy a one-row prefill cache (every buffer whole, zeros past
@@ -484,6 +635,8 @@ class Engine:
         return pj_per_tick <= self.power_cap_pj_per_tick
 
     def _admit(self) -> None:
+        if self._draining:
+            return
         for slot in range(self.max_batch):
             if self.slots[slot] is None and self.queue:
                 req = self.queue[0]
@@ -493,6 +646,7 @@ class Engine:
                     break       # a head-of-line wait, not a skip (FIFO)
                 self.queue.popleft()
                 req.status = "active"
+                self._nan_strikes[slot] = 0
                 self.slot_pinned[slot] = pinned
                 toks = np.asarray(req.prompt, np.int32).reshape(-1)
                 true_len = toks.shape[0]
@@ -512,7 +666,8 @@ class Engine:
                 self._splice_cache(slot, row_cache)
                 self.slot_pos[slot] = true_len
                 self.slot_cfg[slot] = req_cfg
-                first = sample(logits, self.gen, temperature=req.temperature)
+                first = sample(logits, self._draw_gen(),
+                               temperature=req.temperature)
                 req.tokens.append(int(first[0]))
                 self.n_tokens_emitted += 1
                 req.first_token_at = self.clock()
@@ -528,7 +683,8 @@ class Engine:
               "capacity": self.queue_capacity,
               "utilization": len(self.queue) / self.queue_capacity,
               "active": sum(s is not None for s in self.slots),
-              "rejected": self.n_rejected}
+              "rejected": self.n_rejected,
+              "draining": self._draining}
         if self.paged is not None:
             free = self.allocator.free_blocks()
             bp["kv_free_blocks"] = free
@@ -600,6 +756,7 @@ class Engine:
         self._release_slot(slot)
         self.slots[slot] = None
         self.slot_pos[slot] = 0
+        self._nan_strikes[slot] = 0
         if len(self.queue) >= self.queue_capacity:
             req.status = "rejected"
             req.finished_at = self.clock()
@@ -614,6 +771,8 @@ class Engine:
         (fork its blocks), reserve the first chunk's blocks, and register
         the request for chunked prefill.  Block shortage is a
         head-of-line wait, like the power gate."""
+        if self._draining:
+            return
         p = self.paged
         bs = p.block_size
         for slot in range(self.max_batch):
@@ -652,6 +811,7 @@ class Engine:
                 break                      # wait for blocks, FIFO order
             self.queue.popleft()
             req.status = "active"
+            self._nan_strikes[slot] = 0
             self.slot_pinned[slot] = pinned
             self.slot_cfg[slot] = req_cfg
             blocks = self.allocator.fork(shared)
@@ -733,7 +893,7 @@ class Engine:
                 del self._prefill_progress[slot]
                 self._register_prefix_blocks(slot, toks)
                 if not prog["resumed"]:
-                    first = sample(logits, self.gen,
+                    first = sample(logits, self._draw_gen(),
                                    temperature=req.temperature)
                     req.tokens.append(int(first[0]))
                     self.n_tokens_emitted += 1
@@ -778,18 +938,29 @@ class Engine:
         return rows
 
     # -- main loop ------------------------------------------------------
-    def _next_tokens(self, logits: torch.Tensor, active: list[int]
-                     ) -> np.ndarray:
-        """(B,) next tokens: greedy rows by argmax, rows with a
-        temperature by a draw from `self.gen` (one host sync)."""
+    def _argmax_guard(self, logits: torch.Tensor) -> tuple:
+        """((..., W) greedy tokens, (...) finite flags) of logits
+        (..., W, V) on the host, in one sync: each flag says whether
+        every entry of that row's W x V block is finite."""
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        finite = torch.isfinite(logits).flatten(greedy.dim() - 1)
+        finite = finite.all(dim=-1).to(torch.int32)[..., None]
+        host = torch.cat([greedy, finite], dim=-1).cpu().numpy()
+        return host[..., :-1], host[..., -1].astype(bool)
+
+    def _next_tokens(self, logits: torch.Tensor, greedy: np.ndarray,
+                     active: list[int]) -> np.ndarray:
+        """(B,) next tokens: the greedy argmax, or for rows with a
+        temperature a draw with this tick's generator.  Counts one
+        sampling draw, as the reference splits its key every step."""
+        gen = self._draw_gen()
         temps = np.asarray([r.temperature if r is not None else 0.0
                             for r in self.slots], np.float32)
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         if not np.any(temps[active] > 0.0):
             return greedy
         safe = torch.as_tensor(np.where(temps > 0.0, temps, 1.0),
                                device=self.device)
-        drawn = sample(logits / safe[:, None], self.gen).cpu().numpy()
+        drawn = sample(logits / safe[:, None], gen).cpu().numpy()
         return np.where(temps > 0.0, drawn, greedy)
 
     def _emit(self, active: list[int], nxt: np.ndarray) -> None:
@@ -820,9 +991,25 @@ class Engine:
         req.finished_at = self.clock()
         self.completed.append(req)
         self.slots[i] = None
+        self._nan_strikes[i] = 0
         if self.paged is not None:
             self._release_slot(i)
             self.slot_pos[i] = 0
+
+    def _tick_start(self):
+        """The reference's tick preamble: the injector's tick, the
+        brownout, one clock read, the deadline sweep.  Returns (now,
+        injector)."""
+        inj = self.fault_injector
+        if inj is not None:
+            inj.begin_tick(self)
+        if self.brownout is not None:
+            # before admission, so a level change prices this tick's
+            # power-gated admissions
+            self.brownout.on_tick(self)
+        now = self.clock()
+        self._expire(now)
+        return now, inj
 
     def step(self) -> bool:
         """One tick: admit queued requests into free slots, then one
@@ -830,41 +1017,107 @@ class Engine:
         mid-prefill slot).  Returns whether work remains."""
         if self.paged is not None:
             return self._step_paged()
+        now, inj = self._tick_start()
+        if now < self._backoff_until:
+            # failure backoff: hold decoding and admission
+            return self._in_flight()
         self._admit()
         active = [i for i, r in enumerate(self.slots) if r is not None]
         if not active:
             return False
         if self.spec is not None and self._spec_ok_dense(active):
-            return self._spec_tick_dense(active)
+            return self._spec_tick_dense(active, now, inj)
         token = np.zeros((self.max_batch, 1), dtype=np.int32)
         for i in active:
             token[i, 0] = self.slots[i].tokens[-1]
         # one scalar pool position: the maximum over active slots
         pos = int(self.slot_pos[active].max())
-        pool_cfg = self._pool_cfg()
         cache = dict(self.cache)
         cache["pos"] = torch.tensor(pos, dtype=torch.int32,
                                     device=self.device)
-        token = torch.as_tensor(token, device=self.device)
-        logits, self.cache = T.decode_step(
-            self.params, self.cfg, cache, token,
-            approx_cfg=self._device_cfg(pool_cfg))
-        return self._finish_tick(active, cache, token, logits, pool_cfg)
+        return self._decode_tick(T.decode_step, active, cache, token, now,
+                                 inj)
 
-    def _finish_tick(self, active, cache, token, logits, pool_cfg) -> bool:
-        """After a tick's decode step: charge it, let the scheduler probe
-        the step (`cache` still holds the pre-step operands), emit the
-        tokens, then the scheduler's end-of-tick hook."""
+    def _step_paged(self) -> bool:
+        """One paged tick: the dense tick's preamble, admission, one
+        chunk for every mid-prefill slot, then ONE batched paged decode
+        step for the rest."""
+        now, inj = self._tick_start()
+        if now < self._backoff_until:
+            return self._in_flight()
+        self._admit_paged()
+        self._advance_prefills()
+        active = self._ensure_write_blocks(
+            [i for i, r in enumerate(self.slots)
+             if r is not None and i not in self._prefill_progress])
+        if not active:
+            return self._in_flight()
+        if self.spec is not None and self._spec_ok_paged(active):
+            return self._spec_tick_paged(active, now, inj)
+        token = np.zeros((self.max_batch, 1), dtype=np.int32)
+        active_mask = np.zeros(self.max_batch, dtype=bool)
+        for i in active:
+            token[i, 0] = self.slots[i].tokens[-1]
+            active_mask[i] = True
+        return self._decode_tick(T.paged_decode_step, active,
+                                 self._paged_operands(active_mask), token,
+                                 now, inj)
+
+    def _decode_tick(self, step_fn, active, cache, token, now, inj) -> bool:
+        """One decode step of the pool on the tick's operands `cache`,
+        then the reference's order: a failure enters the retry path, a
+        non-finite active row the NaN quarantine, and either rolls the
+        step's in-place cache writes back (``decode_writes``) so the
+        cache is the pre-tick cache bit for bit.  Otherwise commit,
+        charge, the scheduler's probe, emit, auto-snapshot and the
+        scheduler's end-of-tick hook."""
+        pool_cfg = self._pool_cfg()
+        token = torch.as_tensor(token, device=self.device)
+        saved = T.decode_writes(cache)
+        try:
+            if inj is not None:
+                inj.check_step_fail()
+            logits, new_cache = step_fn(self.params, self.cfg, cache, token,
+                                        approx_cfg=self._device_cfg(pool_cfg))
+            if inj is not None:
+                logits = inj.corrupt_logits(logits, active)
+        except Exception as err:  # noqa: BLE001 — the retry path
+            T.restore_writes(saved)
+            self._record_failure(active, now, err)
+            return True
+        # the guard reads the logits in the argmax's host sync, outside
+        # the try: a device error surfaces here and is never retried
+        greedy, finite = self._argmax_guard(logits[:, None])
+        greedy = greedy[:, 0]
+        bad = [i for i in active if not finite[i]]
+        if bad:
+            T.restore_writes(saved)
+            self._quarantine(bad, pool_cfg)
+            return True
+        self.cache = new_cache
+        self._retry_streak = 0
         self.n_decode_steps += 1
         self._count_energy(len(active), pool_cfg,
                            cls=self._cls_counts(active))
+        feedback = 1 if inj is None else inj.probe_multiplicity()
         if self.scheduler is not None:
+            # `cache` still holds the pre-step operands: the probe re-runs
+            # this step; a duplicated delivery records its outcome twice
             self.scheduler.on_step(self, active, cache, token,
-                                   _HostArray(logits), pool_cfg)
-        self._emit(active, self._next_tokens(logits, active))
+                                   _HostArray(logits), pool_cfg,
+                                   multiplicity=feedback)
+        self._emit(active, self._next_tokens(logits, greedy, active))
+        self._end_tick(self.n_decode_steps)
+        return True
+
+    def _end_tick(self, steps: int) -> None:
+        """Auto-snapshot every ``snapshot_every`` steps, then the
+        scheduler's end-of-tick hook."""
+        if (self.snapshot_every and self.checkpointer is not None
+                and steps % self.snapshot_every == 0):
+            self.save_snapshot()
         if self.scheduler is not None:
             self.scheduler.on_tick(self)
-        return True
 
     def _shadow_decode(self, cache, token, cfg_vec) -> np.ndarray:
         """The scheduler's probe: the tick's decode step again at
@@ -883,32 +1136,6 @@ class Engine:
                          approx_cfg=self._device_cfg(cfg_vec))
         T.restore_writes(saved)
         return logits.float().cpu().numpy()
-
-    def _step_paged(self) -> bool:
-        """One paged tick: admission, one chunk for every mid-prefill
-        slot, then ONE batched paged decode step for the rest."""
-        self._admit_paged()
-        self._advance_prefills()
-        active = self._ensure_write_blocks(
-            [i for i, r in enumerate(self.slots)
-             if r is not None and i not in self._prefill_progress])
-        if not active:
-            return bool(self.queue
-                        or any(s is not None for s in self.slots))
-        if self.spec is not None and self._spec_ok_paged(active):
-            return self._spec_tick_paged(active)
-        token = np.zeros((self.max_batch, 1), dtype=np.int32)
-        active_mask = np.zeros(self.max_batch, dtype=bool)
-        for i in active:
-            token[i, 0] = self.slots[i].tokens[-1]
-            active_mask[i] = True
-        pool_cfg = self._pool_cfg()
-        cache = self._paged_operands(active_mask)
-        token = torch.as_tensor(token, device=self.device)
-        logits, self.cache = T.paged_decode_step(
-            self.params, self.cfg, cache, token,
-            approx_cfg=self._device_cfg(pool_cfg))
-        return self._finish_tick(active, cache, token, logits, pool_cfg)
 
     # -- speculative decoding (DESIGN.md §12) ----------------------------
     def _spec_k(self) -> int:
@@ -975,21 +1202,11 @@ class Engine:
             need += max(0, p.blocks_for(end) - len(self._slot_blocks[i]))
         return self.allocator.can_alloc(need)
 
-    def _draft(self, logits: torch.Tensor, rows: torch.Tensor) -> np.ndarray:
-        """A draft step's (B,) greedy tokens; raises ``_SpecAbort`` if a
-        participant's row is not finite."""
-        if not bool(torch.isfinite(logits[rows]).all()):
-            raise _SpecAbort("non-finite draft logits")
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
-
-    def _verified(self, logits: torch.Tensor) -> np.ndarray:
-        """The argmax of verify rows (..., V) on the host; raises where
-        a row is not finite (the reference quarantines the pool config,
-        which is not ported: ROADMAP Queue 1 item 6)."""
-        if not bool(torch.isfinite(logits).all()):
-            raise RuntimeError("non-finite verify logits at the pool "
-                               "config (NaN quarantine is not ported)")
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+    def _draft(self, logits: torch.Tensor, active: list[int]) -> tuple:
+        """A draft step's (B,) greedy tokens and whether every
+        participant's row is finite, in one host sync."""
+        greedy, finite = self._argmax_guard(logits[:, None])
+        return greedy[:, 0], bool(finite[active].all())
 
     def _emit_verified(self, i: int, toks) -> bool:
         """Append verified tokens to slot i's request until it finishes
@@ -1003,14 +1220,15 @@ class Engine:
                 return True
         return False
 
-    def _spec_tick_dense(self, active: list[int]) -> bool:
+    def _spec_tick_dense(self, active: list[int], now: float, inj) -> bool:
         """k draft steps at the draft config, then ONE ``decode_verify``
         at the pool config over the window at the pool position P.  The
         drafts write entries P..P+k-1 in place; the verify overwrites
         P..P+W-1 before any layer reads them, so the committed cache is
         the pool config's.  The lockstep pool advances the minimum
         acceptance over the participants; each slot emits its own
-        verified tokens."""
+        verified tokens.  A non-finite draft skips the tick; a failed
+        verify retries, a non-finite one quarantines (nothing commits)."""
         spec = self.spec
         k = self._spec_k()
         pos = int(self.slot_pos[active].max())
@@ -1019,63 +1237,81 @@ class Engine:
         tokens = np.zeros((self.max_batch, spec.max_k + 1), np.int32)
         for i in active:
             tokens[i, 0] = self.slots[i].tokens[-1]
-        rows = torch.as_tensor(active, device=self.device)
         cache = dict(self.cache)
         cache["pos"] = torch.tensor(pos, dtype=torch.int32,
                                     device=self.device)
         draft_acfg = self._device_cfg(draft_vec)
-        try:
-            for j in range(1, k + 1):
+        for j in range(1, k + 1):
+            try:
                 logits, cache = T.decode_step(
                     self.params, self.cfg, cache,
                     torch.as_tensor(tokens[:, j - 1:j], device=self.device),
                     approx_cfg=draft_acfg)
-                tokens[:, j] = self._draft(logits, rows)
-                self._count_energy(len(active), draft_vec, "spec_draft",
-                                   cls=self._cls_counts(active))
-                self.n_draft_tokens += len(active)
+            except Exception as err:  # noqa: BLE001 — the retry path
+                self.n_spec_aborts += 1
+                self._record_failure(active, now, err)
+                return True
+            tokens[:, j], ok = self._draft(logits, active)
+            if not ok:
+                # the DRAFT config misbehaved: nothing committed and the
+                # pool config is innocent, so the tick is skipped
+                self.n_spec_aborts += 1
+                return True
+            self._count_energy(len(active), draft_vec, "spec_draft",
+                               cls=self._cls_counts(active))
+            self.n_draft_tokens += len(active)
+        try:
+            if inj is not None:
+                inj.check_step_fail()
             vlogits, new_cache = T.decode_verify(
                 self.params, self.cfg, cache,
                 torch.as_tensor(tokens, device=self.device), pos,
                 approx_cfg=self._device_cfg(pool_cfg))
-            exact = self._verified(vlogits[rows, :k + 1])
-        except _SpecAbort:
-            # nothing committed: the drafts' entries lie past the pool
-            # position, masked and rewritten before any read
+            if inj is not None:
+                vlogits = inj.corrupt_logits(vlogits, active)
+        except Exception as err:  # noqa: BLE001 — the retry path
             self.n_spec_aborts += 1
+            self._record_failure(active, now, err)
             return True
-        except Exception:
+        exact, finite = self._argmax_guard(vlogits[:, :k + 1])
+        bad = [i for i in active if not finite[i]]
+        if bad:
+            # the POOL config corrupted the verify: the quarantine
             self.n_spec_aborts += 1
-            raise
+            self._quarantine(bad, pool_cfg)
+            return True
         self.cache = new_cache
+        self._retry_streak = 0
         self.n_spec_ticks += 1
         self.n_verify_steps += len(active)
         # one pool-config weight pass per slot covers the whole window
         self._count_energy(len(active), pool_cfg, "spec_verify",
                            cls=self._cls_counts(active))
-        accepted = [longest_agreeing_prefix(tokens[i, 1:k + 1], exact[r, :k])
-                    for r, i in enumerate(active)]
+        accepted = [longest_agreeing_prefix(tokens[i, 1:k + 1], exact[i, :k])
+                    for i in active]
         a_pool = min(js + 1 for js in accepted)
         if self.scheduler is not None:
             for js in accepted:
                 self.scheduler.record_spec(js, k, draft_vec)
-        for r, i in enumerate(active):
-            done = self._emit_verified(i, exact[r, :a_pool])
+        for i in active:
+            done = self._emit_verified(i, exact[i, :a_pool])
             self.slot_pos[i] += a_pool
             if done:
                 self._finish(i)
-        if self.scheduler is not None:
-            self.scheduler.on_tick(self)
+        self._end_tick(self.n_decode_steps + self.n_spec_ticks)
         return True
 
-    def _spec_tick_paged(self, active: list[int]) -> bool:
+    def _spec_tick_paged(self, active: list[int], now: float, inj) -> bool:
         """k draft steps at the draft config (entries P..P+k-1 of each
         slot), then per slot ONE ``paged_prefill_chunk`` over its window
         at the pool config, per-slot acceptance, and a rewind of
         seq_lens and of the tick's blocks past the acceptance point.
-        Every window is verified before any slot commits (the reference
-        commits slot by slot; the outcome is the same, as a slot's
-        verify reads only its own blocks)."""
+        The windows are verified in slot order and read in one host
+        sync; the slots then commit in that order up to the first that
+        failed or came out non-finite, which with every later slot rolls
+        back and takes the retry or the quarantine path: the
+        reference's slot-by-slot outcome (a slot's verify reads only its
+        own blocks)."""
         p = self.paged
         k = self._spec_k()
         start = {i: int(self.seq_lens[i]) for i in active}
@@ -1087,60 +1323,67 @@ class Engine:
         tokens = np.zeros((self.max_batch, k + 1), np.int32)
         for i in active:
             tokens[i, 0] = self.slots[i].tokens[-1]
-        rows = torch.as_tensor(active, device=self.device)
         draft_acfg = self._device_cfg(draft_vec)
 
         def rollback(slots):
             for s in slots:
                 self._rewind_slot(s, start[s], pre_blocks[s])
 
-        try:
-            for j in range(1, k + 1):
-                # the gate checked that the window's blocks fit: no
-                # participant is preempted here
-                self._ensure_write_blocks(active)
+        for j in range(1, k + 1):
+            # the gate checked that the window's blocks fit: no
+            # participant is preempted here
+            self._ensure_write_blocks(active)
+            try:
                 logits, self.cache = T.paged_decode_step(
                     self.params, self.cfg, self._paged_operands(active_mask),
                     torch.as_tensor(tokens[:, j - 1:j], device=self.device),
                     approx_cfg=draft_acfg)
-                tokens[:, j] = self._draft(logits, rows)
-                self._count_energy(len(active), draft_vec, "spec_draft",
-                                   cls=self._cls_counts(active))
-                self.n_draft_tokens += len(active)
-                for i in active:
-                    self.seq_lens[i] += 1
-        except _SpecAbort:
-            rollback(active)
-            self.n_spec_aborts += 1
-            return True
-        except Exception:
-            rollback(active)
-            self.n_spec_aborts += 1
-            raise
+            except Exception as err:  # noqa: BLE001 — the retry path
+                rollback(active)
+                self.n_spec_aborts += 1
+                self._record_failure(active, now, err)
+                return True
+            tokens[:, j], ok = self._draft(logits, active)
+            if not ok:
+                rollback(active)
+                self.n_spec_aborts += 1
+                return True
+            self._count_energy(len(active), draft_vec, "spec_draft",
+                               cls=self._cls_counts(active))
+            self.n_draft_tokens += len(active)
+            for i in active:
+                self.seq_lens[i] += 1
         # one more writable page for the window's last entry P + k
         self._ensure_write_blocks(active)
         pool_acfg = self._device_cfg(pool_cfg)
-        try:
-            windows = []
-            for i in active:
+        windows, failure = [], None
+        for i in active:
+            try:
+                if inj is not None:
+                    inj.check_step_fail()
                 buf = np.zeros((1, p.prefill_chunk), np.int32)
                 buf[0, :k + 1] = tokens[i, :k + 1]
                 vlogits, self.cache = T.paged_prefill_chunk(
                     self.params, self.cfg, self._paged_operands(),
                     torch.as_tensor(buf, device=self.device), slot=i,
                     start=start[i], count=k + 1, approx_cfg=pool_acfg)
-                windows.append(vlogits[0, :k + 1])
-            exact = self._verified(torch.stack(windows))
-        except Exception:
-            # nothing committed: every window lies past its slot's
-            # committed length once seq_lens rewinds
-            rollback(active)
-            self.n_spec_aborts += 1
-            raise
-        for r, i in enumerate(active):
+            except Exception as err:  # noqa: BLE001 — the retry path
+                failure = err
+                break
+            windows.append(vlogits[0, :k + 1])
+        exact, finite = (self._argmax_guard(torch.stack(windows))
+                         if windows else (None, []))
+        committed = 0
+        for r, i in enumerate(active[:len(windows)]):
+            if not finite[r]:
+                rollback(active[r:])
+                self.n_spec_aborts += 1
+                self._quarantine([i], pool_cfg)
+                break
             self._count_energy(1, pool_cfg, "spec_verify",
                                cls=self.slots[i].cls)
             self.n_verify_steps += 1
+            committed += 1
             js = longest_agreeing_prefix(tokens[i, 1:k + 1], exact[r, :k])
             if self.scheduler is not None:
                 self.scheduler.record_spec(js, k, draft_vec)
@@ -1150,21 +1393,237 @@ class Engine:
             if done:
                 self._finish(i)
             else:
+                # the rejected drafts' surplus blocks go back; only blocks
+                # this tick allocated are candidates
                 self._trim_slot_blocks(
                     i, max(p.blocks_for(start[i] + js + 1), pre_blocks[i]))
+        else:
+            if failure is not None:
+                pending = active[len(windows):]
+                rollback(pending)
+                self.n_spec_aborts += 1
+                self._record_failure(pending, now, failure)
+        if not committed:
+            return True
+        self._retry_streak = 0
         self.n_spec_ticks += 1
-        if self.scheduler is not None:
-            self.scheduler.on_tick(self)
+        self._end_tick(self.n_decode_steps + self.n_spec_ticks)
         return True
 
-    def run(self, max_ticks: int = 10000) -> list[Request]:
-        """Tick until the queue and slots drain (or `max_ticks`)."""
+    # -- failure handling --------------------------------------------------
+    def _record_failure(self, active: list[int], now: float,
+                        err: Exception) -> None:
+        """A decode attempt failed before anything committed: charge a
+        retry to every request in flight (the pool steps together),
+        evict those past ``max_retries`` as failed, and open a capped
+        exponential backoff window with jitter drawn from (seed, failure
+        count)."""
+        self.n_retries += 1
+        self._retry_streak += 1
+        self.last_error = repr(err)
+        for i in active:
+            req = self.slots[i]
+            if req is None:
+                continue
+            req.retries += 1
+            if req.retries > self.max_retries:
+                self._evict(i, "failed")
+        back = min(self.retry_cap_s,
+                   self.retry_base_s * 2.0 ** (self._retry_streak - 1))
+        jitter = float(np.random.default_rng(
+            (self._jitter_seed, self.n_retries)).uniform(0.0, 0.1 * back))
+        self._backoff_until = now + back + jitter
+
+    def _quarantine(self, bad: list[int], pool_cfg: np.ndarray) -> None:
+        """Non-finite logits (the step is already rolled back): step the
+        likeliest-offending config one notch toward exact (through the
+        scheduler's quarantine when one is attached, else on the engine
+        config and the bad slots' pinned configs) and strike the bad
+        slots.  A slot out of strikes means the corruption outlives
+        config changes (a poisoned cache): restore the last snapshot
+        when there is one, else evict the slot as failed."""
+        self.n_nan_events += 1
+        self.n_quarantined += len(bad)
+        if self.scheduler is not None and np.any(np.asarray(pool_cfg)):
+            self.scheduler.quarantine(pool_cfg)
+        elif np.any(self.approx_cfg):
+            self.set_approx_cfg(self._step_toward_exact(self.approx_cfg))
+        for i in bad:
+            if self.slot_pinned[i] and np.any(self.slot_cfg[i]):
+                self.slot_cfg[i] = self._step_toward_exact(self.slot_cfg[i])
+            self._nan_strikes[i] += 1
+        if any(self._nan_strikes[i] > self.nan_max_strikes for i in bad):
+            if (self.checkpointer is not None
+                    and self._last_snapshot is not None):
+                self.restore_snapshot(self._last_snapshot)
+                return
+            for i in bad:
+                if self._nan_strikes[i] > self.nan_max_strikes:
+                    self._evict(i, "failed")
+
+    @staticmethod
+    def _step_toward_exact(cfg_vec: np.ndarray) -> np.ndarray:
+        """The highest-measured-MRED non-exact cell one probe config
+        down (``controller.step_down_config``)."""
+        vec = np.asarray(cfg_vec).copy()
+        flat = vec.reshape(-1)
+        nonzero = flat > 0
+        if not nonzero.any():
+            return vec
+        worst = int(np.argmax(np.where(nonzero, mred_table()[flat],
+                                       -np.inf)))
+        flat[worst] = step_down_config(int(flat[worst]),
+                                       list(range(1, N_CONFIGS)))
+        return vec
+
+    def run(self, max_ticks: int = 10000, *,
+            preemption=None) -> list[Request]:
+        """Tick until the queue and slots drain (or `max_ticks`).
+
+        preemption: a ``dist.fault_tolerance.PreemptionHandler`` (or
+        anything with a ``preempted`` flag).  Once it trips the engine
+        drains: admission stops (queued requests stay queued) and the
+        slots in flight finish, or, with a checkpointer, are snapshot at
+        once for a successor engine to resume."""
         ticks = 0
-        while ((self.queue or any(s is not None for s in self.slots))
-               and ticks < max_ticks):
+        while ((bool(self.queue) and not self._draining)
+               or any(s is not None for s in self.slots)) \
+                and ticks < max_ticks:
+            if preemption is not None and preemption.preempted:
+                self.drain()
+            if self._draining and self.checkpointer is not None:
+                self.save_snapshot()
+                break
             self.step()
             ticks += 1
         return self.completed
+
+    # -- snapshot / restore ------------------------------------------------
+    def _snapshot_arrays(self) -> dict:
+        """The array half of a snapshot, in the reference's tree: the
+        cache (views of the live tensors, ``convert.cache_to_reference``),
+        config tensors, per-slot state and the sampler's (seed, draws)."""
+        arrs = {"cache": cache_to_reference(self.cache, self.cfg),
+                "approx_cfg": self.approx_cfg,
+                "slot_cfg": self.slot_cfg,
+                "slot_pos": self.slot_pos.astype(np.int32),
+                "slot_pinned": self.slot_pinned,
+                "nan_strikes": self._nan_strikes.astype(np.int32),
+                "rng": np.asarray([self.seed & 0xFFFFFFFF,
+                                   self.n_draws & 0xFFFFFFFF], np.uint32)}
+        if self.paged is not None:
+            arrs["block_tables"] = self.block_tables
+            arrs["seq_lens"] = self.seq_lens
+            arrs["refcounts"] = np.array(self.allocator.refcounts)
+        return arrs
+
+    _SNAP_COUNTERS = ("n_decode_steps", "n_prefill_tokens",
+                      "mac_energy_pj_per_param",
+                      "exact_energy_pj_per_param", "n_tokens_charged",
+                      "serve_mac_energy_pj_per_param",
+                      "n_serve_tokens_charged",
+                      "serve_energy_by_class", "serve_tokens_by_class",
+                      "n_tokens_emitted",
+                      "n_spec_ticks", "n_spec_aborts", "n_draft_tokens",
+                      "n_spec_emitted", "n_verify_steps",
+                      "n_rejected", "n_expired", "n_failed", "n_retries",
+                      "n_nan_events", "n_quarantined")
+    # fault counters never roll back: an in-process restore keeps what
+    # the engine lived through; only the serving accounting rewinds
+    _MONOTONE_COUNTERS = frozenset(
+        {"n_rejected", "n_expired", "n_failed", "n_retries",
+         "n_nan_events", "n_quarantined"})
+
+    def save_snapshot(self, step: int | None = None) -> int:
+        """Persist the whole serving state through the checkpointer, in
+        the reference's format: arrays in the npz tree, requests (slots,
+        queue, completed) and counters in the metadata.  Returns the step
+        id (the snapshot ordinal by default)."""
+        if self.checkpointer is None:
+            raise ValueError("snapshots need Engine(checkpointer=...)")
+        self.n_snapshots += 1
+        step = self.n_snapshots if step is None else int(step)
+        meta = {"slots": [_pack_request(r) for r in self.slots],
+                "queue": [_pack_request(r) for r in self.queue],
+                "completed": [_pack_request(r) for r in self.completed],
+                "counters": {k: (dict(v) if isinstance(v, dict) else v)
+                             for k in self._SNAP_COUNTERS
+                             for v in (getattr(self, k),)}}
+        if self.paged is not None:
+            meta["paged"] = {
+                "prefix_index": [
+                    [list(map(int, key)), int(blk)]
+                    for key, blk in sorted(
+                        self.allocator._prefix_index.items())],
+                "slot_blocks": [[int(b) for b in bl]
+                                for bl in self._slot_blocks],
+                "prefill_progress": {
+                    str(s): {"tokens": [int(t) for t in pr["tokens"]],
+                             "next": int(pr["next"]),
+                             "resumed": bool(pr["resumed"])}
+                    for s, pr in self._prefill_progress.items()},
+                "n_preempted": int(self.n_preempted),
+                "n_shared_blocks": int(self.n_shared_blocks)}
+        self.checkpointer.save(step, self._snapshot_arrays(), meta)
+        self._last_snapshot = step
+        return step
+
+    def restore_snapshot(self, step: int | None = None) -> None:
+        """Load a snapshot (the latest by default), this package's or the
+        reference's: the cache is written in place, with no second copy
+        on the device.  Also the self-healing path of a poisoned cache
+        (``_quarantine``)."""
+        if self.checkpointer is None:
+            raise ValueError("snapshots need Engine(checkpointer=...)")
+        tree, meta = self.checkpointer.restore(self._snapshot_arrays(),
+                                               step)
+        self.approx_cfg = np.array(tree["approx_cfg"], dtype=np.int32)
+        self.slot_cfg = np.array(tree["slot_cfg"], dtype=np.int32)
+        self.slot_pos = np.array(tree["slot_pos"], dtype=np.int64)
+        self.slot_pinned = np.array(tree["slot_pinned"], dtype=bool)
+        self._nan_strikes = np.array(tree["nan_strikes"], dtype=np.int64)
+        self.seed, self.n_draws = (int(x) for x in np.asarray(tree["rng"]))
+        if self.paged is not None:
+            self.block_tables = np.array(tree["block_tables"], np.int32)
+            self.seq_lens = np.array(tree["seq_lens"], np.int32)
+            pg = meta["paged"]
+            self.allocator.load_state_dict(
+                {"refcounts": np.asarray(tree["refcounts"]),
+                 "prefix_index": pg["prefix_index"]})
+            self._slot_blocks = [[int(b) for b in bl]
+                                 for bl in pg["slot_blocks"]]
+            self._prefill_progress = {
+                int(s): {"tokens": np.asarray(pr["tokens"], np.int32),
+                         "next": int(pr["next"]),
+                         "resumed": bool(pr["resumed"])}
+                for s, pr in pg["prefill_progress"].items()}
+            self.n_preempted = max(self.n_preempted,
+                                   int(pg["n_preempted"]))
+            self.n_shared_blocks = int(pg["n_shared_blocks"])
+        self.slots = [_unpack_request(d) for d in meta["slots"]]
+        self.queue.clear()
+        self.queue.extend(_unpack_request(d) for d in meta["queue"])
+        self.completed = [_unpack_request(d) for d in meta["completed"]]
+        for k, v in meta["counters"].items():
+            if k in self._MONOTONE_COUNTERS:
+                v = max(v, getattr(self, k))
+            setattr(self, k, v)
+        self._retry_streak = 0
+        self._backoff_until = 0.0
+        self.n_restores += 1
+
+    def resilience_report(self) -> dict:
+        """Lifetime fault and SLO counters plus the live backpressure
+        signal."""
+        return {"rejected": self.n_rejected, "expired": self.n_expired,
+                "failed": self.n_failed, "retries": self.n_retries,
+                "nan_events": self.n_nan_events,
+                "quarantined": self.n_quarantined,
+                "snapshots": self.n_snapshots,
+                "restores": self.n_restores,
+                "last_error": self.last_error,
+                "statuses": dict(Counter(r.status for r in self.completed)),
+                "backpressure": self.backpressure}
 
     # -- paper-knob reporting --------------------------------------------
     @property

@@ -423,7 +423,7 @@ class PowerBudgetScheduler:
 
     # -- engine hooks ----------------------------------------------------
     def on_step(self, engine, active, cache, token, logits,
-                pool_cfg) -> None:
+                pool_cfg, multiplicity: int = 1) -> None:
         """Decode-step hook: every ``probe_every``-th step, shadow-decode
         the SAME pre-step state at the exact config
         (``engine._shadow_decode``: the served step's function and
@@ -431,7 +431,14 @@ class PowerBudgetScheduler:
         token agreement on one sampled active slot.  ``logits`` are the
         served step's, read through ``np.asarray``.  An all-exact pool
         has nothing to measure (the probe would compare exact against
-        exact), so it costs nothing."""
+        exact), so it costs nothing.
+
+        ``multiplicity`` is the fault-injected delivery count of this
+        step's feedback (``faults.probe_multiplicity``: 0 dropped, 2
+        duplicated): the probe decode runs once and its outcome is
+        recorded that many times."""
+        if multiplicity <= 0:
+            return
         if engine.n_decode_steps % self.probe_every:
             return
         if not np.any(pool_cfg):
@@ -444,7 +451,8 @@ class PowerBudgetScheduler:
         slot = int(self._rng.choice(active))
         got = int(np.argmax(np.asarray(logits)[slot]))
         want = int(np.argmax(probe_logits[slot]))
-        self.record_probe(got == want, pool_cfg)
+        for _ in range(int(multiplicity)):
+            self.record_probe(got == want, pool_cfg)
 
     def record_probe(self, agree: bool, executed_cfg=None, *,
                      ladder: bool = True) -> None:

@@ -842,6 +842,83 @@ def test_cuda_probe_leaves_the_cache_unchanged(cuda_device, case):
         [r.tokens for r in plain.completed]
 
 
+def _fault_engines(dev, case, plan, approx_cfg=0):
+    """(clean, injected) engines of a PROBE_CASES case on the card at
+    `approx_cfg`, each serving the same four requests; `plan` is the
+    injector's events."""
+    from repro_torch.serve.faults import FaultInjector
+    arch, extra, kw = PROBE_CASES[case]
+    cfg = get_config(arch).smoke(mac_backend="pallas")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.quantize_lm_params(T.init_lm(gen, cfg, dev), cfg)
+    out = []
+    for inj in (None, FaultInjector(plan)):
+        clock = iter(range(10**6))
+        eng = Engine(params, cfg, device=dev,
+                     quantize_weights=False, fault_injector=inj,
+                     clock=lambda: next(clock) * 1e-3, retry_base_s=1e-3,
+                     retry_cap_s=4e-3, approx_cfg=approx_cfg, **extra,
+                     **kw)
+        for i, n in enumerate((5, 29, 11, 17)):
+            eng.submit(Request(rid=i, prompt=np.arange(n) * 7 % 128,
+                               max_new_tokens=10))
+        out.append(eng)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx_cfg", [0, 16])
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+def test_cuda_nan_rollback_leaves_the_cache_unchanged(cuda_device, case,
+                                                      approx_cfg):
+    """A decode tick whose logits the injector makes NaN is rolled back:
+    the cache after it equals, bit for bit, the cache before it (int8
+    values and scales, local rings and the block pool included).  The
+    quarantine steps a non-exact config one notch toward exact, so the
+    clean twin, stepped in lockstep up to that tick, takes the same
+    config there; the streams then equal the twin's."""
+    from repro_torch.serve.faults import FaultEvent
+    clean, eng = _fault_engines(cuda_device, case,
+                                [FaultEvent(tick=4, kind="nan_logits")],
+                                approx_cfg)
+    counts = eng.fault_injector.counts
+    while True:                         # fires at the first decode >= 4
+        before = {n: t.clone() for n, t in _cache_leaves(eng.cache)}
+        steps, cfg_before = eng.n_decode_steps, eng.approx_cfg.copy()
+        eng.step()
+        if counts["nan_logits"]:
+            break
+        clean.step()
+    assert eng.n_nan_events == 1 and eng.n_decode_steps == steps
+    after = dict(_cache_leaves(eng.cache))
+    assert after.keys() == before.keys()
+    for n, t in before.items():
+        assert torch.equal(after[n], t), (case, n)
+    want = Engine._step_toward_exact(cfg_before) if approx_cfg else \
+        cfg_before
+    assert np.array_equal(eng.approx_cfg, want), (eng.approx_cfg, want)
+    assert approx_cfg == 0 or not np.array_equal(want, cfg_before)
+    clean.set_approx_cfg(eng.approx_cfg)
+    assert [r.tokens for r in eng.run()] == [r.tokens for r in clean.run()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+def test_cuda_injected_retry_keeps_the_stream(cuda_device, case):
+    """Two injected step failures are retried after their backoff, and
+    every stream equals a clean engine's; the only error absorbed is the
+    injected one."""
+    from repro_torch.serve.faults import FaultEvent
+    clean, eng = _fault_engines(cuda_device, case,
+                                [FaultEvent(tick=2, kind="step_fail"),
+                                 FaultEvent(tick=3, kind="step_fail")])
+    got, want = eng.run(), clean.run()
+    assert eng.n_retries == 2 and clean.n_retries == 0
+    assert eng.last_error.startswith("InjectedFault")
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert all(r.status == "done" for r in got)
+
+
 # (b, s, h, kv, hd, window, softcap, scale): Qwen2.5-3B's training
 # attention and a Gemma-2-27B local layer
 FLASH_GRAD_CASES = [(2, 256, 16, 2, 128, 0, 0.0, None),
@@ -1048,9 +1125,9 @@ def test_cuda_spec_streams_equal_plain_streams(cuda_device, trained_demo,
     tick = getattr(spec, name)
     per_tick = []
 
-    def counted(active):
+    def counted(active, *rest):
         k, before = spec._spec_k(), A.approx_mac_fused_matmul.launches
-        out = tick(active)
+        out = tick(active, *rest)
         calls = k + (len(active) if paged else 1)
         per_tick.append((A.approx_mac_fused_matmul.launches - before,
                          7 * cfg.n_layers * calls))

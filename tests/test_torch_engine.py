@@ -213,12 +213,11 @@ def test_default_device_is_cuda():
             TE.T.init_lm(gen, cfg)
 
 
-@pytest.mark.parametrize("knob", ["brownout", "mapping", "cfg_experts",
-                                  "fault_injector", "checkpointer"])
+@pytest.mark.parametrize("knob", ["mapping", "cfg_experts"])
 def test_unported_engine_knobs_raise(knob):
-    """The reference's knobs for features not ported yet are refused,
-    not ignored; the expert axis, now ported, is refused on a model
-    without experts."""
+    """The reference's knobs for features not ported yet (sharding) are
+    refused, not ignored; the expert axis, now ported, is refused on a
+    model without experts."""
     cfg = tget("qwen2.5-3b").smoke()
     params = TE.T.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
     if knob == "cfg_experts":
@@ -230,6 +229,38 @@ def test_unported_engine_knobs_raise(knob):
         return
     with pytest.raises(TypeError):
         TE.Engine(params, cfg, max_len=16, device="cpu", **{knob: 1})
+
+
+@pytest.mark.parametrize("knob", ["brownout", "fault_injector",
+                                  "checkpointer"])
+def test_resilience_knobs_are_accepted(knob, tmp_path):
+    """Fault injection, brownout and snapshots, now ported, are taken
+    and are off by default."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.serve.brownout import BrownoutController
+    from repro_torch.serve.faults import FaultInjector
+    cfg = tget("qwen2.5-3b").smoke()
+    params = TE.T.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    plain = TE.Engine(params, cfg, max_len=16, device="cpu")
+    assert getattr(plain, knob) is None
+    value = {"brownout": BrownoutController,
+             "fault_injector": lambda: FaultInjector([]),
+             "checkpointer": lambda: Checkpointer(str(tmp_path))}[knob]()
+    clock = _ticking_clock()
+    eng = TE.Engine(params, cfg, max_len=16, device="cpu", clock=clock,
+                    **{knob: value})
+    assert getattr(eng, knob) is value
+    if knob == "fault_injector":
+        # the injector's skew reaches the engine's clock
+        value.skew_s = 100.0
+        assert eng.clock() == 100.0
+    if knob == "checkpointer":
+        assert eng.save_snapshot() == 1 and eng.n_snapshots == 1
+        eng.restore_snapshot(1)
+        assert eng.n_restores == 1
+    else:
+        with pytest.raises(ValueError, match="checkpointer"):
+            eng.save_snapshot()
 
 
 def test_power_loop_knobs_are_accepted():

@@ -50,7 +50,7 @@ from repro.configs.registry import get_config as jget
 from repro.nn import transformer as JT
 from repro.serve import engine as JE
 from repro_torch.configs.registry import get_config as tget
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import cache_to_reference, params_from_numpy
 from repro_torch.launch import serve as launch_serve
 from repro_torch.nn import transformer as TT
 from repro_torch.serve import engine as TE
@@ -181,13 +181,18 @@ def test_forward_matches_reference(models, acfg):
     _hold_on_seeds(run)
 
 
-def _port_cache(cj):
-    """The reference's cache as the port's (b1 at the top, b0 under
-    "local"), copied."""
-    def buffers(ref):
-        return {k: torch.as_tensor(np.array(ref[k])) for k in CACHE_KEYS}
-    return {"pos": torch.as_tensor(np.array(cj["pos"])),
-            **buffers(cj["scan"]["b1"]), "local": buffers(cj["scan"]["b0"])}
+def _port_cache(cj, tcfg):
+    """The reference's cache copied into a port cache through the port's
+    view of it in the reference's layout (``convert.cache_to_reference``:
+    b1 at the top, b0 under "local")."""
+    b, s = cj["scan"]["b1"]["k"].shape[1:3]
+    ct = TT.init_cache(tcfg, b, s, "cpu")
+    view = cache_to_reference(ct, tcfg)
+    view["pos"].copy_(torch.as_tensor(np.array(cj["pos"])))
+    for j, bufs in view["scan"].items():
+        for key, leaf in bufs.items():
+            leaf.copy_(torch.as_tensor(np.array(cj["scan"][j][key])))
+    return ct
 
 
 def test_prefill_and_decode_match_reference(models):
@@ -210,7 +215,7 @@ def test_prefill_and_decode_match_reference(models):
         pairs = [(lt, lj)] + _cache_pairs(ct, cj)
         for _ in range(10):
             tok = np.array(jnp.argmax(lj, -1), np.int32)[:, None]
-            ct = _port_cache(cj)
+            ct = _port_cache(cj, tcfg)
             lj, cj = decode(qj, cj, jnp.asarray(tok), approx_cfg=jac)
             lt, ct = TT.decode_step(qt, tcfg, ct, torch.as_tensor(tok),
                                     approx_cfg=tac)

@@ -41,7 +41,7 @@ from repro.nn import transformer as JT
 from repro.serve import engine as JE
 from repro.serve import paged_cache as JPC
 from repro_torch.configs.registry import get_config as tget
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import cache_to_reference, params_from_numpy
 from repro_torch.kernels.flash_attention import paged_attention as TPA
 from repro_torch.nn import transformer as TT
 from repro_torch.serve import engine as TE
@@ -201,8 +201,12 @@ def _pools(cfg, nb, bs, seed):
     return k, v
 
 
-def _jcache(k, v):
-    return {"scan": {"b0": {"k": jnp.asarray(k), "v": jnp.asarray(v)}}}
+def _jcache(k, v, cfg):
+    """The reference's paged cache over pools k, v: the port's pools in
+    the reference's layout (``convert.cache_to_reference``)."""
+    view = cache_to_reference({"k": torch.as_tensor(k),
+                               "v": torch.as_tensor(v)}, cfg)
+    return jax.tree.map(lambda t: jnp.asarray(t.numpy()), view)
 
 
 def _close(got, ref, tol=TOL):
@@ -225,7 +229,7 @@ def test_paged_decode_step_and_chunk_match_reference(model):
     acfg = np.asarray([8, 16], np.int32)
     step = jax.jit(lambda p, c, t, a: JT.paged_decode_step(
         p, jcfg, c, t, approx_cfg=a), compiler_options=HLO_AS_WRITTEN)
-    jl, jn = step(qj, {**_jcache(k, v), "tables": jnp.asarray(tables),
+    jl, jn = step(qj, {**_jcache(k, v, tcfg), "tables": jnp.asarray(tables),
                        "seq_lens": jnp.asarray(seq),
                        "active": jnp.asarray(active)},
                   jnp.asarray(tok), jnp.asarray(acfg))
@@ -246,7 +250,7 @@ def test_paged_decode_step_and_chunk_match_reference(model):
     toks = np.zeros((1, 16), np.int32)
     toks[0, :5] = [3, 1, 4, 1, 5]
     k, v = _pools(tcfg, nb, bs, 1)
-    jl, jn = chunk(qj, {**_jcache(k, v), "tables": jnp.asarray(tables)},
+    jl, jn = chunk(qj, {**_jcache(k, v, tcfg), "tables": jnp.asarray(tables)},
                    jnp.asarray(toks), jnp.int32(2), jnp.int32(24),
                    jnp.int32(5), jnp.asarray(acfg))
     tl, tn = TT.paged_prefill_chunk(

@@ -26,10 +26,16 @@ the engine's dense and paged speculative ticks).
   not its plain greedy stream.
 * With a scheduler, ``draft_k`` follows the reference's backoff and
   recovery on the same run, and ``_spec_k`` caps at ``max_k``.
+* tests/test_speculative.py's chaos cases: injected step failures abort
+  speculative ticks that then retry, the stream, counters and energy
+  rows equal to the reference's; a duplicated probe delivery runs the
+  probe decode once.
 * The port's own refusals and rollbacks: a draft forced non-finite once
   skips its tick and leaves the stream as it was; a non-finite verify
-  raises and commits nothing; a sampling slot, or a window past the
-  cache end, makes the tick plain; a window wider than the prefill chunk
+  takes the reference's NaN quarantine and commits nothing for the
+  failing slots (paged: the slots verified before them commit), as the
+  reference does under the same forced fault; a sampling slot, or a
+  window past the cache end, makes the tick plain; a window wider than the prefill chunk
   is refused; the launcher prints its speculative line.
 """
 import dataclasses
@@ -491,31 +497,134 @@ def test_non_finite_draft_skips_the_tick_and_keeps_the_stream(
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_non_finite_verify_raises_and_commits_nothing(demo, monkeypatch,
                                                       paged):
-    eng = _port_engine(demo, paged,
-                       spec=TSP.SpecConfig(draft_cfg=8, k=3, max_k=3))
-    for r in _reqs(TE, 0, n=2):
-        eng.submit(r)
-    while eng.n_spec_ticks == 0:
-        eng.step()
+    """A verify forced non-finite takes the reference's NaN quarantine:
+    nothing commits for the failing slots (dense: the whole tick; paged:
+    the second slot, after the first committed, as the reference commits
+    slot by slot), ``n_nan_events`` counts it, and the rest of the run
+    equals the reference's under the same forced fault: streams,
+    counters, strikes and energy rows."""
+    jcfg, tree, _, _ = demo
+    spec = TSP.SpecConfig(draft_cfg=8, k=3, max_k=3)
+    eng = _port_engine(demo, paged, spec=spec)
+    gaps = []
+    jeng = _reference(JE.Engine(
+        tree, jcfg, max_batch=2, max_len=64,
+        spec=JSP.SpecConfig(draft_cfg=8, k=3, max_k=3),
+        paged=JPC.PagedCacheConfig(**PAGED) if paged else None), gaps)
+    for e, mod in ((eng, TE), (jeng, JE)):
+        for r in _reqs(mod, 0, n=2):
+            e.submit(r)
+        while e.n_spec_ticks == 0:
+            e.step()
     # paged: the second slot's window fails after the first verified
+    n = 2 if paged else 1
     _nan_on_call(monkeypatch,
-                 "paged_prefill_chunk" if paged else "decode_verify",
-                 2 if paged else 1)
+                 "paged_prefill_chunk" if paged else "decode_verify", n)
+    name = "_prefill_chunk" if paged else "_verify"
+    calls = itertools.count(1)
+    fn = getattr(jeng, name)
+
+    def nan_verify(*args):
+        logits, cache = fn(*args)
+        if next(calls) == n:
+            logits = jnp.full_like(logits, jnp.nan)
+        return logits, cache
+    setattr(jeng, name, nan_verify)
     before = ([list(r.tokens) for r in eng.slots], eng.slot_pos.copy(),
               eng.n_spec_ticks, eng.n_verify_steps, eng.n_tokens_emitted)
     if paged:
         lens, blocks = eng.seq_lens.copy(), [list(b) for b in
                                              eng._slot_blocks]
-    with pytest.raises(RuntimeError, match="non-finite verify"):
-        eng.step()
-    assert ([list(r.tokens) for r in eng.slots], eng.slot_pos.tolist(),
-            eng.n_spec_ticks, eng.n_verify_steps, eng.n_tokens_emitted) == \
-        (before[0], before[1].tolist(), *before[2:])
-    assert eng.n_spec_aborts == 1
-    if paged:
-        np.testing.assert_array_equal(eng.seq_lens, lens)
-        assert [list(b) for b in eng._slot_blocks] == blocks
+    eng.step()
+    jeng.step()
+    assert eng.n_spec_aborts == 1 and eng.n_nan_events == 1
+    after = ([list(r.tokens) for r in eng.slots], eng.slot_pos.tolist(),
+             eng.n_spec_ticks, eng.n_verify_steps, eng.n_tokens_emitted)
+    if not paged:
+        assert eng.n_quarantined == 2
+        assert after == (before[0], before[1].tolist(), *before[2:])
+    else:
+        # slot 0 committed its window, slot 1 nothing
+        assert eng.n_quarantined == 1
+        assert after[0][1] == before[0][1] and after[0][0] != before[0][0]
+        assert after[2:4] == (before[2] + 1, before[3] + 1)
+        assert eng.seq_lens[1] == lens[1] and eng.seq_lens[0] > lens[0]
+        assert eng._slot_blocks[1] == blocks[1]
         eng.allocator.check_consistency(eng._slot_blocks)
+    assert eng._nan_strikes.tolist() == jeng._nan_strikes.tolist()
+    got, want = _drain(eng, []), _drain(jeng, [])
+    assert got == want
+    assert min(gaps) > LOGIT_TOL, min(gaps)
+    assert [getattr(eng, c) for c in COUNTERS + ("n_nan_events",
+                                                 "n_quarantined")] == \
+        [getattr(jeng, c) for c in COUNTERS + ("n_nan_events",
+                                                "n_quarantined")]
+    assert list(eng.energy_log) == list(jeng.energy_log)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_spec_abort_rolls_back_and_stream_is_unchanged(demo, paged):
+    """tests/test_speculative.py's chaos case on both engines: two
+    injected step failures abort speculative ticks, which retry; the
+    port's stream equals its clean run's and the reference's, with the
+    reference's counters, retries and energy rows."""
+    from repro.serve import faults as JF
+    from repro_torch.serve import faults as TF
+    from test_torch_resilience import FakeClock
+    jcfg, tree, _, _ = demo
+    gaps = []
+    runs = {}
+    for name, mod, F in (("ref", JE, JF), ("port", TE, TF)):
+        def engine(**kw):
+            if name == "ref":
+                return _reference(JE.Engine(
+                    tree, jcfg, max_batch=2, max_len=64,
+                    spec=JSP.SpecConfig(draft_cfg=8, k=3, max_k=3),
+                    paged=JPC.PagedCacheConfig(**PAGED) if paged else None,
+                    **kw), gaps)
+            return _port_engine(demo, paged, spec=TSP.SpecConfig(
+                draft_cfg=8, k=3, max_k=3), **kw)
+        clean = _drain(engine(), _reqs(mod, 0, n=2, new=24))
+        inj = F.FaultInjector([F.FaultEvent(tick=2, kind="step_fail"),
+                               F.FaultEvent(tick=3, kind="step_fail")])
+        eng = engine(fault_injector=inj, clock=FakeClock())
+        got = _drain(eng, _reqs(mod, 0, n=2, new=24))
+        assert got == clean, name
+        assert eng.n_spec_aborts >= 1 and eng.n_retries == 2, name
+        if paged:
+            eng.allocator.check_consistency(eng._slot_blocks)
+            assert eng.allocator.free_blocks() == eng.paged.usable_blocks
+        runs[name] = (got, [getattr(eng, c) for c in COUNTERS],
+                      list(eng.energy_log), inj.report())
+    assert min(gaps) > LOGIT_TOL, min(gaps)
+    assert runs["port"] == runs["ref"]
+
+
+def test_dup_probe_runs_probe_decode_exactly_once(demo, monkeypatch):
+    """A duplicated probe delivery records the probe's outcome twice but
+    runs its decode once: every probed tick is one served decode and one
+    probe decode."""
+    from repro_torch.serve import faults as TF
+    sched = TS.PowerBudgetScheduler(10.0, probe_every=1,
+                                    retune_every=10**9)
+    eng = _port_engine(demo, False, approx_cfg=1, scheduler=sched,
+                       fault_injector=TF.FaultInjector(
+                           [TF.FaultEvent(tick=2, kind="dup_probe")]))
+    eng.submit(TE.Request(rid=0, prompt=np.arange(5) % 64,
+                          max_new_tokens=6))
+    calls = []
+    inner = TT.decode_step
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(TT, "decode_step", counting)
+    while eng.step():
+        pass
+    probed_ticks = sched.n_probes - 1           # one tick recorded twice
+    assert len(calls) == 2 * probed_ticks
+    assert eng.fault_injector.counts["dup_probe"] == 1
 
 
 def test_spec_skips_sampling_slots_and_the_cache_end(demo):
