@@ -11,8 +11,10 @@ Counterpart of ``repro.launch.train``: random init (seed 0), AdamW
 with checkpoints every ``--ckpt-every`` steps in the reference's
 format.  Re-running with the same ``--ckpt-dir`` resumes from the
 latest checkpoint (with more ``--steps``, on the longer schedule).  --smoke selects the reduced config, so the loop
-runs on the CPU with ``--device cpu``.  Checkpoints default to
-``build/torch_experiments/ckpt_train`` under the repository root.
+runs on the CPU with ``--device cpu``.  MoE models (``--arch
+olmoe-1b-7b``) train too, through the capacity-dropped dispatch.
+Checkpoints default to ``build/torch_experiments/ckpt_train`` under the
+repository root.
 
 Not ported: ``--multi-pod`` and sharding over several devices (ROADMAP
 Queue 1 item 11; ``--microbatches`` accumulates on the one device), and

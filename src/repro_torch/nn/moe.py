@@ -44,16 +44,27 @@ read once).  Those rows are exactly zero, and zeros move neither the
 shared abs-max nor any output bit (tests/test_torch_moe.py runs both
 ways and compares).
 
-Not ported: ``seq_chunks > 1``, expert parallelism (``ep``), the
-per-expert ``lax.map`` A/B path (``grouped=False``) and
-``load_balancing_loss`` (training); each raises or is absent.
+``seq_chunks > 1`` runs each group's tokens as that many sequential
+sub-chunks (when they divide the group), so that one sub-chunk's
+dispatch buffer is live at a time; capacity is enforced per sub-chunk
+and ``aux["router_probs_mean"]`` is zeros, as in the reference.
+``grouped=False`` is the reference's per-expert A/B path: the same
+bank and the same shared activation scale, one int approx-MAC launch
+(``ops.approx_mac``) per expert, then one rescale by the combined
+scale; bit-identical to the grouped kernel at every config.
+``load_balancing_loss`` is the reference's Switch-style auxiliary loss
+(the reference's ``lm_loss`` does not add it, and neither does the
+port's).
+
+Not ported: expert parallelism (``ep``, multi-device); it raises.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.quantization import QMAX, QTensor
+from repro_torch.core.quantization import (QMAX, QTensor,
+                                          activation_scale)
 from repro_torch.kernels.approx_mac import ops as _ops
 from .layers import ACT
 
@@ -81,11 +92,18 @@ def quantize_expert_bank(w) -> QTensor:
     return QTensor(q.to(torch.int8), scale.to(torch.float32), axis=1)
 
 
-def _expert_gemm(h, w, approx_cfg, backend, group_rows):
+def _expert_gemm(h, w, approx_cfg, backend, group_rows, grouped=True):
     """(E, M, K) activations @ an (E, K, N) bank -> (E, M, N) in h's
-    dtype: the grouped approx-MAC op for a tensor or nonzero config, a
-    float batched matmul for the static exact config 0 (a Python int)."""
+    dtype: the grouped approx-MAC op (``grouped``) or one int-kernel
+    launch per expert for a tensor or nonzero config, a float batched
+    matmul for the static exact config 0 (a Python int)."""
     if isinstance(approx_cfg, torch.Tensor) or approx_cfg > 0:
+        if torch.is_grad_enabled() and (h.requires_grad or (
+                isinstance(w, torch.Tensor) and w.requires_grad)):
+            raise NotImplementedError(
+                "the integer pipeline under autograd: its gradient "
+                "reaches a weight only through the quantization scales "
+                "(ROADMAP Queue 3); train at config 0")
         cfg = approx_cfg
         if isinstance(cfg, torch.Tensor) and cfg.ndim >= 1:
             if backend != "pallas":
@@ -93,12 +111,37 @@ def _expert_gemm(h, w, approx_cfg, backend, group_rows):
                                  "require backend='pallas'")
             if cfg.ndim == 1:       # (g,) groups shared by every expert
                 cfg = cfg[None].expand(h.shape[0], -1)
-        y = _ops.approx_dense_grouped_pallas(h, quantize_expert_bank(w),
-                                             cfg, group_rows)
+        bank = quantize_expert_bank(w)
+        if grouped:
+            y = _ops.approx_dense_grouped_pallas(h, bank, cfg, group_rows)
+        else:
+            y = _per_expert_gemm(h, bank, cfg)
         return y.to(h.dtype)
     if isinstance(w, QTensor):
         w = w.dequantize()
     return torch.bmm(h, w.to(h.dtype))
+
+
+def _per_expert_gemm(h, bank: QTensor, cfg) -> torch.Tensor:
+    """The reference's ``grouped=False`` path: h quantized once on one
+    shared per-tensor scale (every buffer row, as the reference's
+    ``lax.map`` path multiplies them all), one ``ops.approx_mac`` int
+    launch per expert at its config row, then the int32 products times
+    the combined scale ``h_scale * w_scale`` rounded once: the grouped
+    kernel's epilogue, so the bits are the grouped op's."""
+    e = h.shape[0]
+    h = h.to(torch.float32)
+    h_scale = activation_scale(h)
+    h_q = torch.clamp(torch.round(h / h_scale), -QMAX, QMAX).to(torch.int8)
+    cfg = torch.as_tensor(cfg, dtype=torch.int32, device=h.device)
+    cfg_e = cfg.expand((e,) + tuple(cfg.shape[1:])) if cfg.ndim else \
+        cfg.expand(e)
+    acc = torch.stack([_ops.approx_mac(h_q[i], bank.values[i], cfg_e[i])
+                       for i in range(e)])
+    w_scale = bank.scale.to(torch.float32)
+    scale = h_scale * (w_scale.reshape(e, 1, -1) if w_scale.ndim
+                       else w_scale)
+    return acc.to(torch.float32) * scale
 
 
 def moe_ffn(x: torch.Tensor, params, *, n_experts: int, top_k: int,
@@ -113,26 +156,58 @@ def moe_ffn(x: torch.Tensor, params, *, n_experts: int, top_k: int,
     approx_cfg: Python int, 0-d int tensor (uniform), a (g,)
     per-neuron-group vector shared by every expert, or an (E, g)
     per-expert matrix (vectors and matrices need backend "pallas").
-    aux holds ``top_e`` (G, S_g, k), ``slot`` (G, S_g*k) — each sorted
-    entry's buffer slot, E*C for a dropped one — and ``group_rows``
-    (E,), the rows per expert the grouped op is given."""
-    if seq_chunks > 1 or ep or not grouped:
-        raise NotImplementedError("seq_chunks > 1, ep and grouped=False "
-                                  "are not ported")
+    seq_chunks: sequential sub-chunks of each group (used when they
+    divide its S_g tokens; capacity per sub-chunk).  grouped: one
+    grouped-kernel launch a contraction (True) or one int-kernel launch
+    per expert (False, the reference's A/B path; the same bits).
+    aux holds ``router_probs_mean`` (E,) (zeros under seq_chunks, as in
+    the reference), ``top_e`` (G, S_g, k), ``slot`` (G, S_g*k) — each
+    sorted entry's buffer slot, E*C for a dropped one — and
+    ``group_rows`` (E,), the rows per expert the grouped op is given;
+    under seq_chunks the last three gain a leading sub-chunk axis (each
+    sub-chunk's own dispatch)."""
+    if ep:
+        raise NotImplementedError("ep (expert parallelism) is not ported "
+                                  "(ROADMAP Queue 1 item 11)")
     t, d = x.shape
     if t % n_groups:
         raise ValueError(f"{t} tokens in {n_groups} groups")
-    yg, aux = _moe_groups(x.reshape(n_groups, t // n_groups, d), params,
-                          n_experts=n_experts, top_k=top_k,
-                          capacity_factor=capacity_factor, act=act,
-                          renormalize=renormalize, approx_cfg=approx_cfg,
-                          backend=backend)
+    sg = t // n_groups
+    kw = dict(n_experts=n_experts, top_k=top_k,
+              capacity_factor=capacity_factor, act=act,
+              renormalize=renormalize, approx_cfg=approx_cfg,
+              backend=backend, grouped=grouped)
+    xg = x.reshape(n_groups, sg, d)
+    if seq_chunks > 1 and sg % seq_chunks == 0:
+        sub = sg // seq_chunks
+        ys, auxes = [], []
+        for c in range(seq_chunks):
+            y, a = _moe_groups(xg[:, c * sub:(c + 1) * sub], params, **kw)
+            ys.append(y)
+            auxes.append(a)
+        aux = {key: torch.stack([a[key] for a in auxes])
+               for key in ("top_e", "slot", "group_rows")}
+        aux["router_probs_mean"] = torch.zeros(n_experts,
+                                               dtype=torch.float32,
+                                               device=x.device)
+        return torch.cat(ys, dim=1).reshape(t, d), aux
+    yg, aux = _moe_groups(xg, params, **kw)
     return yg.reshape(t, d), aux
+
+
+def load_balancing_loss(router_probs_mean: torch.Tensor,
+                        top_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: E * dot(mean router probability,
+    fraction of top-k picks per expert)."""
+    one_hot = torch.nn.functional.one_hot(top_e.to(torch.long),
+                                          n_experts).to(torch.float32)
+    frac = one_hot.reshape(-1, n_experts).mean(dim=0)
+    return n_experts * torch.sum(router_probs_mean * frac)
 
 
 def _moe_groups(xg, params, *, n_experts: int, top_k: int,
                 capacity_factor: float, act: str, renormalize: bool,
-                approx_cfg, backend: str):
+                approx_cfg, backend: str, grouped: bool = True):
     """Dispatch, expert FFN and combine over xg: (G, S_g, d)."""
     g, sg, d = xg.shape
     e, k = n_experts, top_k
@@ -173,7 +248,7 @@ def _moe_groups(xg, params, *, n_experts: int, top_k: int,
         + torch.clamp(counts, max=cap), 0).amax(dim=0).to(torch.int32)
 
     def gemm(h, w):
-        return _expert_gemm(h, w, approx_cfg, backend, group_rows)
+        return _expert_gemm(h, w, approx_cfg, backend, group_rows, grouped)
 
     if "w_gate" in params:
         hmid = ACT[act](gemm(he, params["w_gate"])) * gemm(he, params["w_up"])
@@ -207,7 +282,8 @@ def _moe_groups(xg, params, *, n_experts: int, top_k: int,
         starts[:, e - 1:] + cap - 1, max=sg * k - 1))
     extra = out_flat[:, last] * w_last.to(out_flat.dtype)
     yg[:, 0] = yg[:, 0] + torch.where(misroute[:, None], extra, 0)
-    aux = {"top_e": top_e, "slot": slot, "group_rows": group_rows}
+    aux = {"router_probs_mean": probs.mean(dim=(0, 1)), "top_e": top_e,
+           "slot": slot, "group_rows": group_rows}
     return yg, aux
 
 

@@ -1,12 +1,14 @@
 """Decoder LM: the attention-only subset of ``repro.nn.transformer``.
 
 Covers the families ``launch/serve.py`` serves: dense (Qwen2.5-3B,
-Gemma-2-27B) and MoE (OLMoE-1B-7B) — GQA attention with RoPE and
-optional QKV bias, "global" (causal) and "local" (sliding-window)
-layers in a repeating ``pattern``, a tanh softcap on the attention
-scores and on the final logits, RMSNorm before (and with ``post_norm``
-also after) each half-block, a SwiGLU or GeGLU MLP or a top-k MoE FFN
-(``nn/moe.py``), embeddings scaled by sqrt(d) (``embed_scale``), tied
+Gemma-2-27B, Gemma-7B, H2O-Danube3-4B) and MoE (OLMoE-1B-7B) — GQA
+attention with RoPE and optional QKV bias, "global" (causal) and
+"local" (sliding-window) layers in a repeating ``pattern`` (all-local,
+as Danube, included), a tanh softcap on the attention scores and on
+the final logits, RMSNorm before (and with ``post_norm`` also after)
+each half-block, a SwiGLU or GeGLU MLP or a top-k MoE FFN
+(``nn/moe.py``, with the reference's ``moe_seq_chunks`` and
+``moe_grouped``), embeddings scaled by sqrt(d) (``embed_scale``), tied
 or untied, and an int8 KV cache (``kv_quant``).  Every dense GEMM (q,
 k, v, o, and a dense MLP's gate, up, down) goes through
 ``layers.dense`` under the runtime error config; a MoE layer's expert
@@ -15,10 +17,11 @@ the config carries an expert axis ((n_layers, E, g) tensors; the
 layer's dense GEMMs then run the expert-collapsed config).  Prefill
 attention is ``chunked_attention``: the flash-attention kernel on the
 card.  ``lm_loss`` is the training loss (chunked-vocab cross entropy,
-each layer recomputed in the backward under ``remat``; dense models
-only).  ``ModelConfig`` raises on every other pattern or feature of the
-reference (recurrent kinds; encoder-decoder models and vision prefixes
-have no fields here).
+each layer recomputed in the backward under ``remat``), for dense and
+MoE models alike: as in the reference, plain cross entropy, with no
+load-balancing term.  ``ModelConfig`` raises on every other pattern or
+feature of the reference (recurrent kinds, expert parallelism;
+encoder-decoder models and vision prefixes have no fields here).
 
 Layout: params are plain dicts holding the reference's per-layer shapes
 (``wq`` (d, H, hd), ``wo`` (H, hd, d), MLP mats (in, out), MoE
@@ -28,11 +31,13 @@ reference's scan-stacked ``blocks.scan.b{j}``.  The KV cache is
 ``{"pos", "k", "v"}`` with k/v stacked over the GLOBAL layers, in
 layer order, as (n_global, B, max_len, KV, hd); the local layers' ring
 buffers, ``min(window, max_len)`` long, sit under ``cache["local"]``
-stacked the same way.  Under ``kv_quant`` k/v are int8 and each
-buffer has f32 scales ``k_s``/``v_s`` (n, B, S, KV) beside it.  For a
-model of one kind this is the reference's ``cache["scan"]["b0"]``
-layout; for Gemma-2's ("local", "global") it is its ``b1`` at the top
-and its ``b0`` under "local".  The paged cache (``init_paged_cache``,
+stacked the same way (an all-local model keeps empty (0, ...) stacks at
+the top).  Under ``kv_quant`` k/v are int8 and each
+buffer has f32 scales ``k_s``/``v_s`` (n, B, S, KV) beside it.  For an
+all-global model the top is the reference's ``cache["scan"]["b0"]``;
+for an all-local one (Danube) its ``b0`` is the rings under "local";
+for Gemma-2's ("local", "global") its ``b1`` is the top and its ``b0``
+the rings under "local".  The paged cache (``init_paged_cache``,
 all-global float-KV models only) stacks per-layer block pools: k/v
 (n_layers, num_blocks, block_size, KV, hd).
 
@@ -100,7 +105,10 @@ class ModelConfig:
     capacity_factor: float = 1.25
     renormalize: bool = True
     moe_groups: int = 1
-    moe_seq_chunks: int = 1              # only 1 is ported
+    moe_seq_chunks: int = 1              # sequential MoE sub-chunks (prefill)
+    moe_grouped: bool = True             # one grouped kernel over all
+                                         # experts (False: one int-kernel
+                                         # launch per expert, the A/B path)
     # approx-MAC backend of every GEMM.  Both values run the same integer
     # pipeline here — the fused CUDA kernel for CUDA tensors, its plain
     # twin for CPU tensors; "pallas" keeps only its reference role as
@@ -135,8 +143,8 @@ class ModelConfig:
                              f"{self.n_experts}")
         if self.n_experts and not 0 < self.top_k <= self.n_experts:
             raise ValueError(f"top_k {self.top_k} of {self.n_experts}")
-        if self.moe_seq_chunks != 1:
-            raise NotImplementedError("moe_seq_chunks > 1 is not ported")
+        if self.moe_seq_chunks < 1:
+            raise ValueError(f"moe_seq_chunks {self.moe_seq_chunks}")
         if self.mac_backend not in MAC_BACKENDS:
             raise ValueError(f"mac_backend {self.mac_backend!r}")
         if self.remat_policy != "nothing":
@@ -305,7 +313,8 @@ def _mlp_apply(p, x, cfg, approx_cfg):
                        top_k=cfg.top_k, capacity_factor=cf,
                        n_groups=groups, act=cfg.act,
                        renormalize=cfg.renormalize, approx_cfg=approx_cfg,
-                       backend=cfg.mac_backend)
+                       seq_chunks=cfg.moe_seq_chunks if s > 1 else 1,
+                       backend=cfg.mac_backend, grouped=cfg.moe_grouped)
         return y.reshape(b, s, d)
     kw = _dense_kw(cfg)
     act = ACT["gelu" if cfg.mlp == "geglu" else cfg.act]
@@ -423,11 +432,9 @@ def lm_loss(params, cfg: ModelConfig, batch, *, approx_cfg=0):
     """Chunked-vocab cross entropy, mean over the labels that are not -1.
     batch: ``tokens`` and ``labels``, (B, S) int tensors.  The logits of
     one of ``cfg.loss_chunks`` sequence chunks exist at a time (in f32);
-    the output projection is cast to the hidden dtype once for all."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE training needs load_balancing_loss, not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+    the output projection is cast to the hidden dtype once for all.  A
+    MoE model's gradients run through the capacity-dropped dispatch;
+    like the reference, no load-balancing term is added."""
     hidden = forward(params, cfg, batch["tokens"], approx_cfg=approx_cfg)
     labels = batch["labels"]
     s = hidden.shape[1]

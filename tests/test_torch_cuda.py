@@ -745,6 +745,85 @@ def test_cuda_gemma2_prefill_and_decode_equal_plain_path(cuda_device):
         assert torch.equal(a, b)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [0, 8, 31, "per-expert"], ids=str)
+def test_cuda_per_expert_path_equals_grouped(cuda_device, config):
+    """moe_ffn's grouped=False path (one int-kernel launch per expert a
+    contraction, on the shared activation scale) gives the grouped
+    kernel's bits on the card, with a ragged config block (N 320)."""
+    from repro_torch.nn.moe import moe_ffn, quantize_expert_bank
+    e, d, f = 8, 256, 320
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=cuda_device) * scale
+
+    p = {"router": normal(d, e, scale=0.5),
+         "w_gate": quantize_expert_bank(normal(e, d, f, scale=d ** -0.5)),
+         "w_up": quantize_expert_bank(normal(e, d, f, scale=d ** -0.5)),
+         "w_down": quantize_expert_bank(normal(e, f, d, scale=f ** -0.5))}
+    x = normal(96, d)
+    cfg = (torch.randint(0, 32, (e, 3), generator=gen, device=cuda_device,
+                         dtype=torch.int32) if config == "per-expert"
+           else torch.tensor(config, dtype=torch.int32, device=cuda_device))
+    out = {}
+    for grouped in (True, False):
+        before = (A.approx_mac_grouped_matmul.launches,
+                  A.approx_mac_matmul.launches)
+        out[grouped], _ = moe_ffn(x, p, n_experts=e, top_k=2,
+                                  capacity_factor=1.25, n_groups=2,
+                                  approx_cfg=cfg, backend="pallas",
+                                  grouped=grouped)
+        launched = (A.approx_mac_grouped_matmul.launches - before[0],
+                    A.approx_mac_matmul.launches - before[1])
+        assert launched == ((3, 0) if grouped else (0, 3 * e)), launched
+    torch.cuda.synchronize()
+    assert torch.equal(out[True], out[False])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma-7b", "h2o-danube-3-4b"])
+def test_cuda_full_width_layer_equals_plain_path(cuda_device, arch):
+    """One layer of Gemma-7B (hd 256, GeGLU, int8 KV) and of Danube (hd
+    120, a local layer, k and v N 960 at a 2-group config: a ragged last
+    config block) at full width (a 1,024-token vocabulary): a 40-token
+    prefill and a decode step through the fused kernel equal the same
+    calls through its plain version, flash once a prefill."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch), n_layers=1, vocab_size=1024,
+                              mac_backend="pallas")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = T.init_lm(gen, cfg, cuda_device, quantized=True)
+    toks = torch.randint(0, 1024, (1, 40), device=cuda_device,
+                         generator=gen)
+    acfg = torch.tensor([[8, 31]] if cfg.window else [16],
+                        dtype=torch.int32, device=cuda_device)
+
+    def run():
+        logits, cache = T.prefill(params, cfg, toks, max_len=48,
+                                  approx_cfg=acfg)
+        tok = torch.argmax(logits, -1)[:, None]
+        step, cache = T.decode_step(params, cfg, cache, tok, approx_cfg=acfg)
+        buf = cache["local"] if cfg.window else cache
+        return (logits, step) + tuple(buf[k] for k in sorted(buf)
+                                      if k != "pos")
+
+    flash = FA.flash_attention.launches
+    fused = A.approx_mac_fused_matmul.launches
+    kernel = run()
+    assert FA.flash_attention.launches - flash == 1
+    assert A.approx_mac_fused_matmul.launches - fused == 7 * 2
+    ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul_ref
+    try:
+        plain = run()
+    finally:
+        ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(kernel[0]).all())
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
+
+
 def _cache_leaves(cache, prefix=""):
     for key in sorted(cache):
         if isinstance(cache[key], dict):

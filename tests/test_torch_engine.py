@@ -153,11 +153,15 @@ NO_JAX_CHECK = (
     "('jax.', 'repro.')) or m == 'repro']\n"
     "assert not bad, bad\n"
     "print('clean', len(sys.modules))\n")
-# The rehearsal takes ~9 s of wall time alone with one intra-op thread
-# (28 s of CPU with the default 8, which under -n 6 stretched it past
-# 120 s), and 20 s beside five other test workers running the heaviest
-# test files (-n 6, as the tier-1 run); the limit is 4.5 times that.
+# The rehearsal runs as one case per phase group (chip_smoke.py
+# REHEARSAL_GROUPS), each in its own interpreter with one intra-op
+# thread and its own limit: a group takes 4-13 s of phases alone (plus
+# ~3 s of imports), and the whole rehearsal in one process ran past a
+# single 90 s limit beside five other test workers (-n 6, as the tier-1
+# run).  The limit is several times a group's time alone.
 REHEARSAL_LIMIT_S = 90
+REHEARSAL_GROUPS = ("dense", "spec", "resilience", "moe", "gemma2",
+                    "train", "slice12")
 
 
 def _run_clean(code: str, timeout: float) -> subprocess.CompletedProcess:
@@ -183,13 +187,14 @@ def test_port_imports_no_jax():
     assert "clean" in r.stdout
 
 
-def test_chip_smoke_rehearsal_imports_no_jax():
-    """A rehearsal of chip_smoke.py (every serve path at the smoke size
-    on the CPU) runs to its end without pulling in jax or the reference
-    package."""
+@pytest.mark.parametrize("group", REHEARSAL_GROUPS)
+def test_chip_smoke_rehearsal_imports_no_jax(group):
+    """Each group of chip_smoke.py's rehearsal (together every serve and
+    train path at the smoke size on the CPU) runs to its end without
+    pulling in jax or the reference package."""
     r = _run_clean(
         "import runpy, sys\n"
-        "sys.argv = ['chip_smoke.py', '--rehearse']\n"
+        f"sys.argv = ['chip_smoke.py', '--rehearse', {group!r}]\n"
         "try:\n"
         "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
         "except SystemExit as e:\n"
@@ -197,6 +202,17 @@ def test_chip_smoke_rehearsal_imports_no_jax():
         REHEARSAL_LIMIT_S)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "clean" in r.stdout
+    assert f'"groups": ["{group}"]' in r.stdout
+
+
+def test_rehearsal_groups_cover_the_script():
+    """The test's groups are the script's, and an unknown group is
+    refused."""
+    import runpy
+    smoke = runpy.run_path(os.path.join(REPO, "chip_smoke.py"))
+    assert tuple(smoke["REHEARSAL_GROUPS"]) == REHEARSAL_GROUPS
+    with pytest.raises(SystemExit, match="unknown rehearsal groups"):
+        smoke["rehearse"](["nope"])
 
 
 def test_default_device_is_cuda():

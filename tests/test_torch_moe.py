@@ -33,6 +33,7 @@ Tolerances:
   cache would break every seed.
 """
 import dataclasses
+import functools
 import itertools
 
 import jax
@@ -220,6 +221,16 @@ def _ref_moe(x, jp, config, **kw):
     return np.asarray(y), [np.asarray(c) for c in calls]
 
 
+def _ref_y(x, jp, config, **kw):
+    """The reference moe_ffn's output under jit, nothing captured (its
+    seq_chunks path runs under ``lax.map``)."""
+    run = jax.jit(lambda x, c: JM.moe_ffn(x, jp, approx_cfg=c,
+                                          backend="pallas", interpret=True,
+                                          **kw)[0],
+                  compiler_options=HLO_AS_WRITTEN)
+    return np.asarray(run(jnp.asarray(x), jnp.asarray(config, jnp.int32)))
+
+
 def _port_moe(x, tp, config, **kw):
     seen = []
     real = ops.approx_dense_grouped_pallas
@@ -404,15 +415,150 @@ def test_dispatch_equals_oracle_at_full_capacity():
 
 
 def test_unported_moe_options_raise():
+    """Only expert parallelism (multi-device) stays unported."""
     _, tp = _both(_moe_params(np.random.default_rng(0)))
     x = torch.zeros(8, 64)
-    for kw in ({"seq_chunks": 2}, {"ep": True}, {"grouped": False}):
-        with pytest.raises(NotImplementedError):
-            TM.moe_ffn(x, tp, n_experts=4, top_k=2, **kw)
+    with pytest.raises(NotImplementedError, match="ep"):
+        TM.moe_ffn(x, tp, n_experts=4, top_k=2, ep=True)
     with pytest.raises(ValueError, match="pallas"):
         TM.moe_ffn(x, tp, n_experts=4, top_k=2, approx_cfg=_i32([8, 8]))
-    with pytest.raises(NotImplementedError):
-        TT.ModelConfig(family="moe", n_experts=4, top_k=2, moe_seq_chunks=2)
+    with pytest.raises(ValueError, match="moe_seq_chunks"):
+        TT.ModelConfig(family="moe", n_experts=4, top_k=2, moe_seq_chunks=0)
+
+
+# --- seq_chunks, the per-expert path, router statistics ---------------------
+
+def test_seq_chunks_equivalence_at_full_capacity():
+    """The reference's test: sequential sub-chunks equal single-shot
+    dispatch when nothing drops (rtol/atol 2e-4 there; here TOL, as the
+    float path's sums are the same); and both equal the reference's."""
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(64, 64)).astype(np.float32)
+    p = _moe_params(rng)
+    tp = {k: torch.as_tensor(v) for k, v in p.items()}
+    kw = dict(n_experts=4, top_k=2, capacity_factor=4.0, n_groups=2)
+    y1, a1 = TM.moe_ffn(torch.as_tensor(x), tp, seq_chunks=1, **kw)
+    y4, a4 = TM.moe_ffn(torch.as_tensor(x), tp, seq_chunks=4, **kw)
+    np.testing.assert_allclose(y4.numpy(), y1.numpy(), rtol=0, atol=TOL)
+    ref, aux = JM.moe_ffn(jnp.asarray(x), {k: jnp.asarray(v)
+                                           for k, v in p.items()},
+                          seq_chunks=4, **kw)
+    np.testing.assert_allclose(y4.numpy(), np.asarray(ref), rtol=0,
+                               atol=TOL)
+    np.testing.assert_array_equal(a4["router_probs_mean"].numpy(),
+                                  np.asarray(aux["router_probs_mean"]))
+    assert not a4["router_probs_mean"].any() and a1["router_probs_mean"].any()
+    assert a4["slot"].shape == (4, 2, 16) and a4["top_e"].shape == (4, 2, 8, 2)
+
+
+@pytest.mark.parametrize("chunks", [2, 3])
+def test_seq_chunks_drop_per_sub_chunk_like_reference(chunks):
+    """Capacity is enforced per sub-chunk: each sub-chunk's slots are the
+    reference's rule on that sub-chunk's own routing, and the output
+    (drops included) matches the reference's at an approx config.
+    Three chunks do not divide 16 tokens a group: single-shot dispatch,
+    as in the reference."""
+    rng = np.random.default_rng(22)
+    x = rng.normal(size=(32, 64)).astype(np.float32)
+    jp, tp = _both(_moe_params(rng))
+    kw = dict(n_experts=4, top_k=2, capacity_factor=1.0, n_groups=2,
+              seq_chunks=chunks)
+    y_ref = _ref_y(x, jp, 8, **kw)
+    y, aux, _ = _port_moe(x, tp, 8, **kw)
+    np.testing.assert_allclose(y, y_ref, rtol=0, atol=TOL)
+    if chunks == 3:
+        assert aux["slot"].shape == (2, 32)
+        return
+    sub = 16 // chunks
+    cap = int(np.ceil(sub * 2 / 4 * 1.0))
+    xg = x.reshape(2, 16, 64)
+    dropped = 0
+    for c in range(chunks):
+        xc = jnp.asarray(xg[:, c * sub:(c + 1) * sub])
+        _, top_e = jax.lax.top_k(JM.router_probs(xc, jp["router"]), 2)
+        want = _ref_slots(np.asarray(top_e), 4, cap)
+        np.testing.assert_array_equal(aux["slot"][c].numpy(), want)
+        dropped += int((want == 4 * cap).sum())
+    assert dropped > 0
+
+
+PER_EXPERT_CASES = list(range(32)) + ["per-expert"]
+
+
+@functools.cache
+def _per_expert_setup():
+    """The per-expert A/B case's tokens and banks (N 160: a ragged
+    config block), and the reference's grouped=False moe_ffn compiled
+    once for every config."""
+    rng = np.random.default_rng(23)
+    x = rng.normal(size=(32, 64)).astype(np.float32)
+    jp, tp = _both(_moe_params(rng, f=160))
+    kw = dict(n_experts=4, top_k=2, capacity_factor=4.0, n_groups=1)
+    ref = jax.jit(lambda x, c: JM.moe_ffn(x, jp, approx_cfg=c,
+                                          backend="pallas", interpret=True,
+                                          grouped=False, **kw)[0],
+                  compiler_options=HLO_AS_WRITTEN)
+    return x, tp, kw, ref
+
+
+@pytest.mark.parametrize("case", PER_EXPERT_CASES)
+def test_per_expert_path_equals_grouped_and_reference(case):
+    """grouped=False (one int-kernel launch per expert on the shared
+    scale, one rescale) gives the grouped op's bits at every config and
+    at a per-expert matrix, and the reference's grouped=False output."""
+    config = (np.asarray([[0, 31], [8, 8], [11, 9], [2, 2]], np.int32)
+              if case == "per-expert" else case)
+    x, tp, kw, ref = _per_expert_setup()
+    y_grouped, _, _ = _port_moe(x, tp, config, **kw)
+    launches = A.approx_mac_matmul.launches
+    y_each, _ = TM.moe_ffn(torch.as_tensor(x), tp, approx_cfg=_i32(config),
+                           backend="pallas", grouped=False, **kw)
+    assert A.approx_mac_matmul.launches == launches        # CPU: plain
+    np.testing.assert_array_equal(y_each.numpy(), y_grouped)
+    y_ref = np.asarray(ref(jnp.asarray(x), jnp.asarray(config, jnp.int32)))
+    np.testing.assert_allclose(y_each.numpy(), y_ref, rtol=0, atol=TOL)
+
+
+def test_per_expert_path_launches_one_int_gemm_per_expert(monkeypatch):
+    """Each contraction calls ops.approx_mac once per expert, on int8
+    rows quantized with ONE shared scale."""
+    rng = np.random.default_rng(24)
+    x = rng.normal(size=(16, 64)).astype(np.float32)
+    _, tp = _both(_moe_params(rng))
+    calls = []
+    real = ops.approx_mac
+
+    def spy(a, b, config=0, **kw):
+        calls.append((a.dtype, tuple(a.shape), tuple(b.shape)))
+        return real(a, b, config, **kw)
+
+    monkeypatch.setattr(ops, "approx_mac", spy)
+    TM.moe_ffn(torch.as_tensor(x), tp, n_experts=4, top_k=2,
+               capacity_factor=2.0, approx_cfg=_i32(8), grouped=False)
+    assert len(calls) == 3 * 4
+    assert {c[0] for c in calls} == {torch.int8}
+
+
+def test_router_probs_mean_and_load_balancing_loss_match_reference():
+    rng = np.random.default_rng(25)
+    x = rng.normal(size=(24, 64)).astype(np.float32)
+    p = _moe_params(rng)
+    kw = dict(n_experts=4, top_k=2, capacity_factor=1.25, n_groups=2)
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    _, aux_ref = jax.jit(lambda x: JM.moe_ffn(x, jp, **kw))(jnp.asarray(x))
+    _, aux = TM.moe_ffn(torch.as_tensor(x), {k: torch.as_tensor(v)
+                                             for k, v in p.items()}, **kw)
+    np.testing.assert_allclose(aux["router_probs_mean"].numpy(),
+                               np.asarray(aux_ref["router_probs_mean"]),
+                               rtol=1e-6, atol=1e-7)
+    got = TM.load_balancing_loss(aux["router_probs_mean"], aux["top_e"], 4)
+    ref = JM.load_balancing_loss(aux_ref["router_probs_mean"],
+                                 jnp.asarray(aux["top_e"].numpy()), 4)
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
+    # a perfectly balanced router scores 1
+    even = torch.arange(8).reshape(4, 2) % 4
+    assert float(TM.load_balancing_loss(torch.full((4,), 0.25), even,
+                                        4)) == 1.0
 
 
 # --- the OLMoE smoke model ---------------------------------------------------
@@ -584,6 +730,44 @@ def test_uniform_expert_rows_equal_per_layer_vector(models):
     assert torch.equal(vec, ten)
     mixed = TT.forward(qt, tcfg, toks, approx_cfg=_i32(PER_EXPERT))
     assert not torch.equal(mixed, vec)
+
+
+def test_seq_chunks_and_per_expert_path_config_forward(models):
+    """ModelConfig(moe_seq_chunks=2, moe_grouped=False) on both sides:
+    the forward (a (2, 12) batch: 24 tokens in 2 sub-chunks) matches the
+    reference's, and a one-token decode step runs unchunked."""
+    jcfg, _, qj, _, tcfg, _, qt = models
+    jcfg = dataclasses.replace(jcfg, moe_seq_chunks=2, moe_grouped=False)
+    tcfg = dataclasses.replace(tcfg, moe_seq_chunks=2, moe_grouped=False)
+    fwd = _jit(JT.forward, jcfg)
+    chunks = []
+    real = TM.moe_ffn
+
+    def spy(x, p, **kw):
+        chunks.append(kw["seq_chunks"])
+        return real(x, p, **kw)
+
+    def run(seed):
+        toks = _tokens(2, 12, seed=seed)
+        ref = fwd(qj, jnp.asarray(toks), approx_cfg=jnp.asarray(PER_EXPERT))
+        TT.moe_ffn = spy
+        try:
+            got = TT.forward(qt, tcfg, torch.as_tensor(toks),
+                             approx_cfg=_i32(PER_EXPERT))
+        finally:
+            TT.moe_ffn = real
+        return [(got, ref)]
+
+    _hold_on_seeds(run)
+    assert set(chunks) == {2}
+    cache = TT.init_cache(tcfg, 1, 8, "cpu")
+    TT.moe_ffn = spy
+    try:
+        TT.decode_step(qt, tcfg, cache, torch.zeros((1, 1), dtype=torch.long),
+                       approx_cfg=_i32(PER_EXPERT))
+    finally:
+        TT.moe_ffn = real
+    assert chunks[-tcfg.n_layers:] == [1] * tcfg.n_layers
 
 
 # --- the Engine's expert axis ------------------------------------------------

@@ -23,6 +23,9 @@
   with the reference in each mode, not to token invariance across the
   two modes, which the reference itself does not give (ROADMAP Queue 3).
 * Paged equals dense (``prefill_pad``) at equal occupancy, in the port.
+* Paged OLMoE (smoke, 4 experts on the grouped op): ``paged_decode_step``
+  and ``paged_prefill_chunk`` at a per-expert config, and the paged
+  Engine with ``cfg_experts`` 4, held to the reference as above.
 """
 import itertools
 import os
@@ -215,6 +218,30 @@ def _close(got, ref, tol=TOL):
 
 
 def test_paged_decode_step_and_chunk_match_reference(model):
+    _paged_calls_match(model, np.asarray([8, 16], np.int32))
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    """Smoke OLMoE-1B-7B (4 experts, top-2) on the grouped op."""
+    jcfg = jget("olmoe-1b-7b").smoke(mac_backend="pallas",
+                                     mac_interpret=True)
+    tcfg = tget("olmoe-1b-7b").smoke(mac_backend="pallas")
+    params, _ = JT.init_lm(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg,
+                                "cpu")
+    return jcfg, params, tcfg, tparams
+
+
+def test_paged_moe_decode_step_and_chunk_match_reference(moe_model):
+    """The same calls on smoke OLMoE at a per-expert config: the decode
+    step dropless, the chunk under the capacity factor (its pad lanes
+    route too, as in the reference)."""
+    _paged_calls_match(moe_model, np.asarray(
+        [[[0], [31], [8], [11]], [[8], [8], [0], [2]]], np.int32))
+
+
+def _paged_calls_match(model, acfg):
     jcfg, params, tcfg, tparams = model
     qj = JT.quantize_lm_params(params, jcfg)
     qt = TT.quantize_lm_params(tparams, tcfg)
@@ -226,7 +253,6 @@ def test_paged_decode_step_and_chunk_match_reference(model):
     seq = np.asarray([20, 9, 30], np.int32)
     active = np.asarray([True, True, False])
     tok = np.asarray([[5], [77], [100]], np.int32)
-    acfg = np.asarray([8, 16], np.int32)
     step = jax.jit(lambda p, c, t, a: JT.paged_decode_step(
         p, jcfg, c, t, approx_cfg=a), compiler_options=HLO_AS_WRITTEN)
     jl, jn = step(qj, {**_jcache(k, v, tcfg), "tables": jnp.asarray(tables),
@@ -400,6 +426,26 @@ def test_paged_engine_streams_equal_reference(scenario):
     assert (teng.n_preempted > 0) == (name == "starved")
     assert list(teng.energy_log) == list(jeng.energy_log)
     assert teng.n_prefill_tokens == jeng.n_prefill_tokens
+    assert teng.n_decode_steps == jeng.n_decode_steps
+    _drained(teng)
+    np.testing.assert_array_equal(teng.block_tables, jeng.block_tables)
+
+
+def test_paged_moe_engine_streams_equal_reference(moe_model):
+    """The paged Engine with the expert axis (cfg_experts 4): chunked
+    prefill through MoE layers, a live per-layer retune and a per-expert
+    config, the reference's streams, energy rows and tables."""
+    paged_kw = dict(num_blocks=2 + 24, block_size=8, prefill_chunk=16,
+                    share_prefixes=False)
+    ref, got, jeng, teng, gaps = _paired(
+        moe_model, paged_kw, (3, (30, 9, 21)), 5, max_batch=2, max_len=64,
+        approx_cfg=np.asarray([[[16], [0], [31], [8]],
+                               [[8], [16], [16], [2]]], np.int32),
+        cfg_experts=4)
+    assert min(gaps) > LOGIT_TOL, min(gaps)
+    assert teng.approx_cfg.shape == jeng.approx_cfg.shape == (2, 4, 1)
+    assert got == ref
+    assert list(teng.energy_log) == list(jeng.energy_log)
     assert teng.n_decode_steps == jeng.n_decode_steps
     _drained(teng)
     np.testing.assert_array_equal(teng.block_tables, jeng.block_tables)

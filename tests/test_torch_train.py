@@ -64,6 +64,7 @@ from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention_ref
 from repro_torch.launch import train as launch_train
 from repro_torch.nn import layers as TL
+from repro_torch.nn import moe as TM
 from repro_torch.nn import transformer as TT
 from repro_torch.train import optimizer as TO
 from repro_torch.train import schedule as TSch
@@ -343,6 +344,95 @@ def test_train_steps_match_reference(qwen, num_microbatches):
 
 
 # ---------------------------------------------------------------------------
+# MoE training on smoke OLMoE-1B-7B
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def olmoe():
+    """Smoke OLMoE (4 experts, top-2, capacity factor 1.25: 64 tokens a
+    batch, so the dispatch drops entries) in f32, and a SyntheticLM
+    stream over its vocabulary."""
+    jcfg = jget("olmoe-1b-7b").smoke()
+    tcfg = tget("olmoe-1b-7b").smoke()
+    params, _ = JT.init_lm(jax.random.PRNGKey(1), jcfg)
+    tree = jax.tree.map(np.asarray, params)
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=128, seq_len=16,
+                                         global_batch=4, seed=1))
+    return jcfg, tcfg, params, tree, data
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_moe_lm_loss_and_grads_match_reference(olmoe, remat):
+    """Gradients run through the capacity-dropped dispatch and the router
+    (its f32 matmul and top-k weights) as ``jax.grad`` runs them."""
+    jcfg, tcfg, params, tree, data = olmoe
+    tcfg = dataclasses.replace(tcfg, remat=remat)
+    b = _batch(data, 0, masked=True)
+    ref_loss, ref_grads = jax.jit(
+        jax.value_and_grad(lambda p, bb: JT.lm_loss(p, jcfg, bb)),
+        compiler_options=HLO_AS_WRITTEN)(params, jax.tree.map(jnp.asarray, b))
+    tparams = params_from_numpy(tree, tcfg, "cpu")
+    loss, grads = TS.value_and_grad(lambda p, mb: TT.lm_loss(p, tcfg, mb),
+                                    tparams, _tb(b))
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=LOSS_RTOL)
+    _close_trees(grads, ref_grads, tcfg, GRAD_TOL)
+    router = [blk["mlp"]["router"] for blk in grads["blocks"]]
+    assert all(float(g.abs().max()) > 0 for g in router)
+
+
+def test_moe_dispatch_drops_in_the_training_batch(olmoe):
+    """The premise of the gradient test: its batch overflows an expert,
+    so the gradient crosses dropped entries."""
+    _, tcfg, _, tree, data = olmoe
+    tparams = params_from_numpy(tree, tcfg, "cpu")
+    seen = []
+    real = TT.moe_ffn
+
+    def spy(x, p, **kw):
+        y, aux = real(x, p, **kw)
+        sg = x.shape[0] // kw["n_groups"]
+        cap = min(int(np.ceil(sg * kw["top_k"] / kw["n_experts"]
+                              * kw["capacity_factor"])), sg * kw["top_k"])
+        seen.append(int((aux["slot"] == kw["n_experts"] * cap).sum()))
+        return y, aux
+
+    TT.moe_ffn = spy
+    try:
+        TT.lm_loss(tparams, tcfg, _tb(_batch(data, 0)))
+    finally:
+        TT.moe_ffn = real
+    assert len(seen) == tcfg.n_layers and sum(seen) > 0, seen
+
+
+def test_moe_train_steps_match_reference(olmoe):
+    jcfg, tcfg, params, tree, data = olmoe
+    jopt, topt = _adamw(JO), _adamw(TO)
+    jstep = jax.jit(JS.build_train_step(jcfg, jopt, 1),
+                    compiler_options=HLO_AS_WRITTEN)
+    tstep = TS.build_train_step(tcfg, topt, 1)
+    js = JS.init_state(params, jopt)
+    ts = TS.init_state(params_from_numpy(tree, tcfg, "cpu"), topt)
+    for s in range(2):
+        b = _batch(data, s)
+        js, jm = jstep(js, jax.tree.map(jnp.asarray, b))
+        ts, tm = tstep(ts, _tb(b))
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=LOSS_RTOL)
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-5)
+    _close_trees(ts["params"], js["params"], tcfg, PARAM_TOL)
+
+
+def test_launcher_trains_olmoe_smoke(tmp_path):
+    out = launch_train.main(["--arch", "olmoe-1b-7b", "--smoke", "--steps",
+                             "3", "--batch", "2", "--seq", "16", "--device",
+                             "cpu", "--ckpt-dir", str(tmp_path),
+                             "--ckpt-every", "2"])
+    assert out["last"] == 3 and sorted(out["losses"]) == [1, 2, 3]
+    assert all(np.isfinite(v) for v in out["losses"].values())
+
+
+# ---------------------------------------------------------------------------
 # refusals and the autograd guards
 # ---------------------------------------------------------------------------
 
@@ -362,12 +452,19 @@ def test_dense_refuses_the_integer_pipeline_under_grad():
 
 
 def test_lm_loss_refuses_moe_and_config_refuses_dots():
+    """MoE models train now (``lm_loss`` is plain cross entropy, as in
+    the reference); the "dots" remat policy is still refused."""
     cfg = tget("olmoe-1b-7b").smoke()
     params = TT.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
     batch = {"tokens": torch.zeros(1, 4, dtype=torch.long),
              "labels": torch.zeros(1, 4, dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="load_balancing_loss"):
-        TT.lm_loss(params, cfg, batch)
+    assert torch.isfinite(TT.lm_loss(params, cfg, batch))
+    # as dense GEMMs do, the expert GEMMs refuse the integer pipeline
+    # under autograd (ROADMAP Queue 3)
+    leaf = params["blocks"][0]["mlp"]["w_up"].requires_grad_()
+    with pytest.raises(NotImplementedError, match="autograd"):
+        TT.lm_loss(params, cfg, batch, approx_cfg=8)
+    leaf.requires_grad_(False)
     with pytest.raises(NotImplementedError, match="remat_policy"):
         dataclasses.replace(cfg, remat_policy="dots")
 
