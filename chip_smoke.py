@@ -270,7 +270,9 @@ seconds):
              129, 8192}), the decode offset Sq < Skv, a non-causal case,
              hd 120 and 256, the Qwen2.5-3B shape (H 16, KV 2), an f32
              case, the one-warp short-tile path (S 16, 17, hd 120 and
-             256) and Sq > Skv (rows with no visible key exactly 0),
+             256), RecurrentGemma-2B's serve prefills (H 10 on KV 1,
+             hd 256, window 2,048, S 4, 16, 17, 24, 48) and Sq > Skv
+             (rows with no visible key exactly 0),
              within rtol 1.6e-2 / atol 2**-8 max|v| (bf16: p is rounded
              to bf16 on the tensor cores) and 2e-5 (f32); two launches
              must give equal bits.
@@ -294,7 +296,9 @@ seconds):
              torch.cuda.set_sync_debug_mode("error") without a sync, and
              one full-width 24-token prefill through the fused kernel
              equals the same prefill through its plain version bit for
-             bit (logits and the whole int8 cache).
+             bit (logits and the whole int8 cache); each of its flash
+             calls within the flash tolerance of the plain flash version
+             on the same inputs.
 22. gemma2_window — the first two layers (local, global) at full width
              and the static config 0: a 4,352-token prefill (max_len
              4,416) through the flash kernel and through its plain
@@ -326,6 +330,40 @@ seconds):
              danube_serve that check did not cover (their prompts' and
              decode pools' M, Danube's 5,000-token prefill, N 960) bit
              for bit, as after the resilience phases.
+23e. rgemma_serve — gemma2_serve's run on full-width RecurrentGemma-2B
+             (26 layers: 18 RG-LRU recurrent, 8 local with window 2,048,
+             MQA H 10 on KV 1, hd 256; 2 rest layers) with cfg_groups 2:
+             configs 0, 16, then a per-(layer, group) matrix; 164 fused
+             launches a call (6 a recurrent layer, 7 a local one), 8
+             flash a prefill.  rgemma_serve_costs: rollback_cost, the
+             bytes of the recurrent states a decode step rewrites, and
+             the device ms of the cells' per-call weight quantization
+             beside the decode step.  rgemma_contract: four 24-token
+             prompts served as one batch equal a greedy chain of the
+             port's prefill and decode_step on the same batch bit for
+             bit (the reference's Engine cannot serve this depth); each
+             served alone is recorded beside it, not held (the rows of
+             a batch share each GEMM's activation scale), with a
+             witness: each row alone against the batch along the
+             batch's tokens, at the pool's config and at the float
+             config 0: each row alone (the parting step, the logit
+             difference and the top-1/top-2 margin there, recorded),
+             the batch reversed (bit for bit) and, at config 0, two
+             rows beside two other prompts (bit for bit); a failed
+             step, a NaN row and a probe each leave every cache tensor
+             bit for bit.  rgemma_check: gemma2_check on it at a
+             per-layer vector and a (26, 2) matrix (its 8 local layers'
+             flash calls held to the plain flash version).
+             rgemma_window: gemma2_window's check on its first 3 layers
+             at a 4,096-token prompt (the ring wraps past the 2,048
+             window,
+             the scan runs 4,096 positions), the prefill's argmax held.
+23f. xlstm_serve — the same on full-width xLSTM-350M (24 layers: 12
+             mLSTM, 4 heads of 512, 12 sLSTM; no attention; 120 fused
+             launches a call, its sLSTM GEMMs K or N 1,365), with
+             xlstm_serve_costs, xlstm_contract and xlstm_check.
+23g. check_seen — every fused GEMM shape of rgemma_serve and
+             xlstm_serve that check did not cover, bit for bit.
 
 24. check_flash_grad — the flash kernel under autograd
              (``ops.flash_attn``'s Function): dq, dk, dv equal, bit for
@@ -377,9 +415,10 @@ kernels' counts include chaos_serve, spike_serve and interactions), the
 nvidia-smi line again, and,
 as the last line,
 ``{"ok": true, "device": {...}}``.  The kernels line's counts also
-take in the slice-12 phases: fused from gemma7b_serve and danube_serve,
-int from moe_path's per-expert path, paged and grouped from paged_moe
-(grouped also moe_path), flash from gemma7b_serve, danube_serve,
+take in the slice-12 and slice-13 phases: fused from gemma7b_serve,
+danube_serve, rgemma_serve and xlstm_serve, int from moe_path's
+per-expert path, paged and grouped from paged_moe (grouped also
+moe_path), flash from gemma7b_serve, danube_serve, rgemma_serve,
 paged_moe, moe_chunks and moe_train.  Any failure raises and
 exits non-zero; without a CUDA device, or without the repository beside
 this file, the script exits non-zero and prints no result.  The
@@ -390,7 +429,9 @@ held to its own uninjected run, as the briefly trained model's near-ties
 may flip a verify's argmax), moe_serve, moe_prefill, sched_moe, spec_moe (fewer, shorter requests),
 gemma2_serve, gemma2_window, train (remat on), train_resume,
 mlp_train (2 epochs), gemma7b_serve, danube_serve, danube_window,
-paged_moe, moe_path, moe_chunks and moe_train phases at the smoke size
+paged_moe, moe_path, moe_chunks, moe_train, rgemma_serve (8 layers,
+two of them rest layers), rgemma_window and xlstm_serve phases at the
+smoke size
 on the CPU and never prints the ``ok`` line; its phases come in
 REHEARSAL_GROUPS, and ``--rehearse GROUP ...`` runs only those.
 Since the flash kernel carries every prefill attention on
@@ -506,6 +547,16 @@ SPEC_DEPTH = 9
 DANUBE = dict(max_len=5120, prompt=5000, cfg_groups=2)
 MOE_CHUNKS_PER_EXPERT = 4096
 MOE_TRAIN_LAYERS = 4
+# slice 13: the fused approx-MAC launches of one layer a prefill or decode
+# step by kind (attention: q, k, v, o and the MLP's three; recurrent:
+# the block's gate, input and output projections and the MLP's three;
+# mLSTM: up, gate, q, k, v, down; sLSTM: w, gate, up, down); the
+# recurrent serves' neuron groups and rgemma_window's prompt (twice
+# RecurrentGemma's 2,048 window) and depth (one pattern period)
+FUSED_PER_LAYER = {"global": 7, "local": 7, "recurrent": 6, "mlstm": 6,
+                   "slstm": 4}
+RECURRENT = dict(cfg_groups=2, window_prompt=4096, window_layers=3,
+                 contract_prompt=24)
 SCRATCH = ROOT / "build" / "chip_smoke"
 
 
@@ -2295,8 +2346,9 @@ def phase_check_flash(torch, FA, dev) -> float:
     """Flash kernel vs plain version: Gemma-2-27B's prefill shapes (H 32,
     KV 16, hd 128, scale 1/12, softcap 50; queries scaled so scores reach
     the cap), local and global, S up to 8192, a decode offset, a
-    non-causal case, hd 120 and 256, the Qwen2.5-3B shape and an f32
-    case; two launches must give the same bits."""
+    non-causal case, hd 120 and 256, the Qwen2.5-3B shape,
+    RecurrentGemma-2B's serve prefills and an f32 case; two launches
+    must give the same bits."""
     gen = torch.Generator(device=dev).manual_seed(11)
     g = dict(h=32, kv=16, hd=128, scale=1 / 12, cap=50.0, amp=16.0)
     runs = [dict(g, sq=s, skv=s, window=w) for s in (1, 24, 48, 129)
@@ -2316,6 +2368,10 @@ def phase_check_flash(torch, FA, dev) -> float:
              dict(g, sq=40, skv=24, window=0),
              dict(h=8, kv=8, hd=120, sq=50, skv=50),
              dict(h=4, kv=2, hd=256, sq=33, skv=33, window=16)]
+    # RecurrentGemma-2B's serve prefills (MQA: H 10 on KV 1, hd 256,
+    # window 2,048, 4-48 tokens): the one-warp path and both short tiles
+    runs += [dict(h=10, kv=1, hd=256, sq=s, skv=s, window=2048)
+             for s in (4, 16, 17, 24, 48)]
     worst, cases = 0.0, 0
     for r in runs:
         dtype = r.get("dtype", torch.bfloat16)
@@ -2409,12 +2465,16 @@ def _gemma2_prompts(Request, n_req, max_new, vocab):
 
 def phase_gemma2_serve(torch, T, A, FA, Engine, Request, cfg, dev, *,
                        name: str = "gemma2_serve", prompts=None,
-                       engine_kw=None):
+                       engine_kw=None, final_cfg=None):
     """A dense model's main path through the port's Engine: Gemma-2
-    (int8 KV cache, local and global layers), and under `name` Gemma-7B
-    and Danube (`prompts` gives the requests, `engine_kw` the Engine's
-    extra arguments); config 0, then 16 after half the ticks.  On a CPU
-    (the rehearsal) the plain versions run and no kernel launch is
+    (int8 KV cache, local and global layers), and under `name` Gemma-7B,
+    Danube and the recurrent models (`prompts` gives the requests,
+    `engine_kw` the Engine's extra arguments); config 0, then 16 after
+    half the ticks, or with `final_cfg` 16 after a quarter and
+    `final_cfg` (a per-layer or per-group config) after half.  Expects
+    ``fused_per_call(cfg)`` fused launches a prefill or decode step and
+    one flash launch an attention layer a prefill.  On a CPU (the
+    rehearsal) the plain versions run and no kernel launch is
     expected."""
     import numpy as np
     on_card = dev.type == "cuda"
@@ -2460,6 +2520,8 @@ def phase_gemma2_serve(torch, T, A, FA, Engine, Request, cfg, dev, *,
         return run
 
     half = (n_req // 4) * (max_new - 1) // 2
+    retunes = ({half: 16} if final_cfg is None
+               else {half // 2: 16, half: final_cfg})
     T.prefill, T.decode_step = timer("prefill", fns[0]), timer("decode",
                                                                fns[1])
     try:
@@ -2470,8 +2532,8 @@ def phase_gemma2_serve(torch, T, A, FA, Engine, Request, cfg, dev, *,
         while eng.queue or any(s is not None for s in eng.slots):
             eng.step()
             ticks += 1
-            if ticks == half:
-                eng.set_approx_cfg(16)
+            if ticks in retunes:
+                eng.set_approx_cfg(retunes[ticks])
         sync()
         wall = time.perf_counter() - t0
         fused = A.approx_mac_fused_matmul.launches
@@ -2485,13 +2547,14 @@ def phase_gemma2_serve(torch, T, A, FA, Engine, Request, cfg, dev, *,
     assert all(0 <= t < cfg.vocab_size for r in done for t in r.tokens)
     n_prefill, n_decode = len(timed["prefill"]), eng.n_decode_steps
     assert n_prefill == n_req and n_decode == len(timed["decode"])
-    exp_fused = (GEMMS_PER_LAYER * cfg.n_layers * (n_prefill + n_decode)
+    exp_fused = (fused_per_call(cfg) * (n_prefill + n_decode)
                  if on_card else 0)
-    exp_flash = cfg.n_layers * n_prefill if on_card else 0
+    exp_flash = attention_layers(cfg) * n_prefill if on_card else 0
     assert fused == exp_fused, (fused, exp_fused)
     assert flash == exp_flash, (flash, exp_flash)
     assert not any(decode_flash), "the flash kernel launched in decode"
-    assert (np.asarray(eng.energy_report()["approx_cfg"]) == 16).all()
+    assert (np.asarray(eng.energy_report()["approx_cfg"])
+            == np.asarray(16 if final_cfg is None else final_cfg)).all()
     tokens = sum(len(r.tokens) for r in done)
     res = {"phase": name, "arch": cfg.name, "layers": cfg.n_layers,
            "d_model": cfg.d_model, "head_dim": cfg.head_dim,
@@ -2499,7 +2562,7 @@ def phase_gemma2_serve(torch, T, A, FA, Engine, Request, cfg, dev, *,
            "max_len": kw["max_len"], "cfg_groups": kw.get("cfg_groups", 1),
            "requests": n_req,
            "prompt_lens": [len(r.prompt) for r in done], "ticks": ticks,
-           "retuned_at_tick": half, "prefills": n_prefill,
+           "retuned_at_ticks": sorted(retunes), "prefills": n_prefill,
            "decode_steps": n_decode, "fused_launches": fused,
            "expected_fused": exp_fused, "flash_launches": flash,
            "expected_flash": exp_flash, "flash_launches_in_decode": 0,
@@ -2525,9 +2588,13 @@ def phase_gemma2_check(torch, T, A, ops, eng, dev, *,
     default a per-layer vector of 16, 31 and 8).  Gemma-2 keeps local and
     global layers; under `name` Gemma-7B (global layers only) and Danube
     (local rings only; an (L, 2) per-group config meets the ragged last
-    config block of its 960-wide k and v GEMMs).  On a CPU (the
-    rehearsal) no sync is checked and both prefills run the plain
-    version."""
+    config block of its 960-wide k and v GEMMs; RecurrentGemma, MQA at
+    H 10 on KV 1).  Every flash call of the kernel prefills is also held
+    against the plain flash version on its own inputs, within
+    ``flash_tol``.  On a CPU (the rehearsal) no sync is checked, both
+    prefills run the plain version and attention calls no flash."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ops as FAops
     on_card = dev.type == "cuda"
     cfg = eng.cfg
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -2549,10 +2616,20 @@ def phase_gemma2_check(torch, T, A, ops, eng, dev, *,
     if configs is None:
         configs = [[(16, 31, 8)[i % 3] for i in range(cfg.n_layers)]]
     err, leaves = 0.0, 0
+    calls, kernel = [], FAops.flash_attention
+
+    def rec(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
     for c in configs:
         c = torch.tensor(c, dtype=torch.int32, device=dev)
-        logits_k, cache_k = T.prefill(eng.params, cfg, toks, max_len=32,
-                                      approx_cfg=c)
+        FAops.flash_attention = rec
+        try:
+            logits_k, cache_k = T.prefill(eng.params, cfg, toks, max_len=32,
+                                          approx_cfg=c)
+        finally:
+            FAops.flash_attention = kernel
         ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul_ref
         try:
             logits_p, cache_p = T.prefill(eng.params, cfg, toks, max_len=32,
@@ -2573,34 +2650,48 @@ def phase_gemma2_check(torch, T, A, ops, eng, dev, *,
         for key, leaf in got.items():
             assert torch.equal(leaf, want[key]), (name, key)
         leaves = len(got)
+    n_attn = sum(k in T.ATTENTION_KINDS for k in cfg.layer_kinds())
+    assert len(calls) == (len(configs) * n_attn if on_card else 0), \
+        (name, len(calls))
+    flash_err = 0.0
+    for q, k, v, kw, out in calls:
+        ref = FA.flash_attention_ref(q, k, v, **kw)
+        torch.testing.assert_close(out, ref, **flash_tol(torch, q.dtype, v))
+        flash_err = max(flash_err, float((out.float() - ref.float()).abs()
+                                         .max()))
     res = {"phase": name, "arch": cfg.name, "sync_free_decode_step": on_card,
            "prefill_tokens": 24,
            "config_shapes": [list(torch.tensor(c).shape) for c in configs],
            "cache_leaves": leaves,
-           "kernel_equals_plain_logits_and_cache": True, "max_abs_err": err}
+           "kernel_equals_plain_logits_and_cache": True, "max_abs_err": err,
+           "flash_calls_held": len(calls), "flash_max_abs_err": flash_err,
+           "flash_tolerance": FLASH_TOL_NOTE}
     emit(res)
     return res
 
 
 def phase_gemma2_window(torch, T, FA, FAops, params, cfg, dev, *,
                         name: str = "gemma2_window",
-                        s: int | None = None) -> dict:
-    """The first two layers at full width and the static config 0 (for
-    Gemma-2 one local and one global; for Danube, under `name`, two
-    local): an `s`-token prefill, longer than the window, once through
-    the flash kernel and once through its plain version.  Each layer's
-    attention output within the bf16 tolerance (on the plain run's own
-    inputs), each local ring holding positions S - window .. S - 1 at
-    index p % window (int8 under kv_quant, as kv_quantize stores them)
-    and a global buffer positions 0 .. S - 1, and 8 greedy decode steps
-    from each cache (the logits' difference and argmax agreement
-    recorded)."""
+                        s: int | None = None, layers: int = 2,
+                        hold_argmax: bool = False) -> dict:
+    """The first `layers` layers at full width and the static config 0
+    (for Gemma-2 one local and one global; for Danube, under `name`, two
+    local; for RecurrentGemma, at 3 layers, two recurrent and a local):
+    an `s`-token prefill, longer than the window, once through the flash
+    kernel and once through its plain version.  Each attention layer's
+    output within the bf16 tolerance (on the plain run's own inputs),
+    each local ring holding positions S - window .. S - 1 at index
+    p % window (int8 under kv_quant, as kv_quantize stores them) and a
+    global buffer positions 0 .. S - 1, and 8 greedy decode steps from
+    each cache (the logits' difference and argmax agreement recorded;
+    with `hold_argmax` the prefill's argmax must be the plain run's)."""
     on_card = dev.type == "cuda"
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    cfg2 = dataclasses.replace(cfg, n_layers=layers)
     kinds = cfg2.layer_kinds()
+    attn = [k for k in kinds if k in T.ATTENTION_KINDS]
     p2 = {key: params[key] for key in ("embed", "lm_head", "final_norm")
           if key in params}
-    p2["blocks"] = params["blocks"][:2]
+    p2["blocks"] = params["blocks"][:layers]
     s = s or cfg.window + 256
     max_len = s + 64
     gen = torch.Generator(device=dev).manual_seed(14)
@@ -2651,13 +2742,15 @@ def phase_gemma2_window(torch, T, FA, FAops, params, cfg, dev, *,
         attn_err = max(attn_err, float((out.float() - ref.float()).abs()
                                        .max()))
     if on_card:
-        assert len(calls_k) == len(calls_p) == 2
+        assert len(calls_k) == len(calls_p) == len(attn)
         assert [c[3]["window"] for c in calls_k] == [
-            cfg.window if kind == "local" else 0 for kind in kinds]
+            cfg.window if kind == "local" else 0 for kind in attn]
         first = s - cfg.window
         idx = torch.arange(first, s, device=dev) % cfg.window
-        for i, (kind, j) in enumerate(T._cache_slots(cfg2)):
-            k_layer = calls_k[i][1]
+        slots = [sl for sl in T._cache_slots(cfg2)
+                 if sl[0] in T.ATTENTION_KINDS]
+        for (kind, j), call in zip(slots, calls_k):
+            k_layer = call[1]
             if kind == "local":
                 ring = cache_k["local"]
                 assert ring["k"].shape[2] == cfg.window
@@ -2678,6 +2771,9 @@ def phase_gemma2_window(torch, T, FA, FAops, params, cfg, dev, *,
                                       torch.argmax(lp, -1))))
         tok_k = torch.argmax(lk, -1)[:, None]
     assert bool(torch.isfinite(lk).all())
+    if hold_argmax:
+        assert torch.equal(torch.argmax(logits_k, -1),
+                           torch.argmax(logits_p, -1)), name
     res = {"phase": name, "layers": kinds, "head_dim": cfg.head_dim,
            "prefill_tokens": s, "max_len": max_len, "window": cfg.window,
            "ring_holds": [s - cfg.window, s - 1],
@@ -2687,8 +2783,8 @@ def phase_gemma2_window(torch, T, FA, FAops, params, cfg, dev, *,
            "prefill_device_ms": prefill_ms,
            "prefill_flash_ms": flash_ms,
            "prefill_timing": "CUDA events around one kernel-path prefill "
-                             "of the two layers; flash per layer from "
-                             "CUDA graphs on that prefill's inputs",
+                             f"of the {layers} layers; flash per layer "
+                             "from CUDA graphs on that prefill's inputs",
            "prefill_logits_max_abs_err": float((logits_k - logits_p).abs()
                                                .max()),
            "prefill_argmax_equal": bool(torch.equal(
@@ -4197,13 +4293,23 @@ def _danube_prompts(long: int):
 
 
 def danube_configs(cfg) -> list:
-    """danube_check's configs: a per-layer vector and a per-group
-    (L, 2) matrix (danube_serve's cfg_groups) whose groups differ in
-    every layer."""
+    """danube_check's, rgemma_check's and xlstm_check's configs: a
+    per-layer vector and a per-group (L, 2) matrix (the serves'
+    cfg_groups) whose groups differ in every layer."""
     per_layer = [(16, 31, 8)[i % 3] for i in range(cfg.n_layers)]
     per_group = [[(16, 31, 8)[i % 3], (8, 16, 31)[i % 3]]
                  for i in range(cfg.n_layers)]
     return [per_layer, per_group]
+
+
+def fused_per_call(cfg) -> int:
+    """Fused approx-MAC launches of one prefill or decode step of a
+    model without experts."""
+    return sum(FUSED_PER_LAYER[k] for k in cfg.layer_kinds())
+
+
+def attention_layers(cfg) -> int:
+    return sum(k in ("global", "local") for k in cfg.layer_kinds())
 
 
 def cut_depth(params, cfg, n_layers: int):
@@ -4618,6 +4724,258 @@ def _chunked_per_expert(torch, T, A, ops, FA, PA, params, cfg2, cfg, toks,
             "kernel_equals_plain": True, "max_abs_err": err}
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the recurrent families at full width
+# ---------------------------------------------------------------------------
+
+def _state_bytes(T, cache) -> int:
+    """Bytes of the recurrent state stacks a decode step writes anew."""
+    return sum(t.numel() * t.element_size() for kind in T.RECURRENT_KINDS
+               if kind in cache for t in cache[kind].values())
+
+
+def cell_quantize_ms(torch, T, params, cfg, dev) -> dict:
+    """Device ms of the per-call weight quantization a decode step runs
+    for the recurrent cells' GEMMs (their weights stay float, as the
+    reference's): every cell weight that reaches ``dense`` quantized
+    once, timed with CUDA events over 5 repeats."""
+    from repro_torch.core.quantization import quantize_compiled
+    dense_keys = {"recurrent": ("w_in_rec", "w_in_gate", "w_out"),
+                  "mlstm": ("w_up", "w_gate", "w_q", "w_k", "w_v", "w_down"),
+                  "slstm": ("w", "w_up", "w_gate", "w_down")}
+    weights = [blk["rec" if kind == "recurrent" else "cell"][key]
+               for blk, kind in zip(params["blocks"], cfg.layer_kinds())
+               if kind in dense_keys for key in dense_keys[kind]]
+    if dev.type != "cuda":
+        return {"weights": len(weights), "ms": None}
+    for w in weights:
+        quantize_compiled(w, axis=1)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        for w in weights:
+            quantize_compiled(w, axis=1)
+    stop.record()
+    torch.cuda.synchronize()
+    return {"weights": len(weights),
+            "bytes": sum(w.numel() * w.element_size() for w in weights),
+            "ms": start.elapsed_time(stop) / 5}
+
+
+def phase_recurrent_contract(torch, T, Engine, Request, F, params, cfg, dev,
+                             *, name: str, engine_kw: dict, max_new: int = 16
+                             ) -> dict:
+    """The Engine's contract on a recurrent model at full width, where the
+    reference's Engine cannot serve (its splice fails on RecurrentGemma's
+    rest layers).  Four requests of one prompt length, served as one
+    batch, give the streams of a greedy chain of the port's own
+    functions on the same batch, bit for bit: a prefill per row at the
+    request's config, the rows' caches joined on the batch axis (axis 1
+    of every leaf), then batched decode steps at the pool's config.
+    Each request served alone (max_batch 1) is recorded beside it, not
+    held: the GEMMs' activation scale is one per tensor, so the rows of
+    a batch share it and a stream served alone may part by a rounding
+    flip.  The witness, along the batch's tokens, at the pool's config
+    and at the static float config 0: each row alone against the batch
+    (the step where it parts, held equal to the served-alone stream's,
+    with the logit difference and the batch's top-1/top-2 margin there,
+    and the largest difference at each step); the batch reversed, bit
+    for bit; and at config 0, where no GEMM's scale spans the rows, two
+    rows beside two other prompts, bit for bit.  Then a tick with an
+    injected step failure, a tick with a NaN row and a probed tick
+    (``_shadow_decode`` at config 31) each leave every cache tensor, the
+    recurrent states included, bit for bit."""
+    import numpy as np
+    on_card = dev.type == "cuda"
+    rng = np.random.default_rng(3)
+    n = RECURRENT["contract_prompt"]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for _ in range(4)]
+    kw = {"max_batch": 4, "max_len": 128, "device": dev, "approx_cfg": 16,
+          **engine_kw}
+    t0 = time.perf_counter()
+    eng = Engine(params, cfg, **kw)
+    batch = _streams(eng, [Request(rid=i, prompt=p, max_new_tokens=max_new)
+                           for i, p in enumerate(prompts)])
+    acfg = eng._device_cfg(eng.approx_cfg)
+    rows = [T.prefill(eng.params, cfg, torch.as_tensor(p[None], device=dev),
+                      max_len=kw["max_len"], approx_cfg=acfg)
+            for p in prompts]
+
+    def join(caches):
+        if isinstance(caches[0], dict):
+            return {k: join([c[k] for c in caches]) for k in caches[0]}
+        if caches[0].dim() == 0:
+            return caches[0]
+        return torch.cat(caches, 1)
+
+    cache = join([c for _, c in rows])
+    logits = torch.cat([lg for lg, _ in rows])
+    chain = [[] for _ in prompts]
+    for step in range(max_new):
+        tok = torch.argmax(logits, -1)
+        for i, t in enumerate(tok.tolist()):
+            chain[i].append(t)
+        if step < max_new - 1:
+            logits, cache = T.decode_step(eng.params, cfg, cache,
+                                          tok[:, None].to(torch.int32),
+                                          approx_cfg=acfg)
+    assert [batch[i] for i in range(4)] == chain, (batch, chain)
+    alone = []
+    for i, p in enumerate(prompts):
+        solo = Engine(eng.params, cfg, **{**kw, "max_batch": 1},
+                      quantize_weights=False)
+        alone.append(_streams(solo, [Request(rid=i, prompt=p,
+                                             max_new_tokens=max_new)])[i])
+    agree = sum(a == b for i in range(4) for a, b in zip(alone[i], batch[i]))
+
+    def forced(ps, streams, c):
+        """(max_new, len(ps), V) f32 logits of prompts `ps` served as one
+        batch at config `c`, decode step t fed streams[row][t]."""
+        pre = [T.prefill(eng.params, cfg, torch.as_tensor(
+            p[None], device=dev), max_len=kw["max_len"], approx_cfg=c)
+            for p in ps]
+        cache, lg = join([x[1] for x in pre]), torch.cat([x[0] for x in pre])
+        out = [lg.float()]
+        for step in range(max_new - 1):
+            tok = torch.as_tensor([[st[step]] for st in streams],
+                                  dtype=torch.int32, device=dev)
+            lg, cache = T.decode_step(eng.params, cfg, cache, tok,
+                                      approx_cfg=c)
+            out.append(lg.float())
+        return torch.stack(out)
+
+    # the witness, along the batch's tokens at the pool's config and at
+    # the static float config 0: each row alone against the batch
+    # (recorded), the batch reversed (held bit for bit: a row's result
+    # does not depend on its place) and, at config 0, where no GEMM
+    # shares a scale across rows, two rows beside two other prompts
+    # (held bit for bit: nothing of a row reaches another)
+    streams = [batch[i] for i in range(4)]
+    others = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+              for _ in range(2)]
+    witness = {}
+    for label, c in (("pool_config", acfg), ("float_config_0", 0)):
+        both = forced(prompts, streams, c)
+        assert torch.equal(forced(prompts[::-1], streams[::-1], c)
+                           .flip(1), both), (name, label, "reversed")
+        if label == "float_config_0":
+            assert torch.equal(forced(prompts[:2] + others, streams, c)
+                               [:, :2], both[:, :2]), (name, "neighbours")
+        rows, by_step = [], torch.zeros(max_new, device=dev)
+        for i in range(4):
+            one, bi = forced([prompts[i]], [streams[i]], c)[:, 0], both[:, i]
+            diff = (one - bi).abs().amax(-1)
+            by_step = torch.maximum(by_step, diff)
+            parted = [t for t in range(max_new)
+                      if int(one[t].argmax()) != int(bi[t].argmax())]
+            row = {"max_abs_logit_diff": float(diff.max()),
+                   "max_abs_logit": float(bi.abs().max()),
+                   "parting_step": parted[0] if parted else None}
+            if parted:
+                t = parted[0]
+                top2 = bi[t].topk(2).values
+                row.update(
+                    logit_diff_at_parting=float(diff[t]),
+                    top1_top2_margin_at_parting=float(top2[0] - top2[1]),
+                    swapped_pair_gap=float(bi[t, int(bi[t].argmax())]
+                                           - bi[t, int(one[t].argmax())]))
+            rows.append(row)
+        witness[label] = {"rows": rows,
+                          "alone_max_abs_logit_diff_by_step":
+                              by_step.tolist()}
+    for i, row in enumerate(witness["pool_config"]["rows"]):
+        first = next((t for t, (a, b) in enumerate(zip(alone[i], batch[i]))
+                      if a != b), None)
+        assert row["parting_step"] == first, (i, row, first)
+
+    rollbacks = {}
+    for fault in ("step_fail", "nan_logits", "probe"):
+        eng = Engine(params, cfg, **kw)
+        for i, p in enumerate(prompts[:2]):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=max_new))
+        eng.step()
+        eng.step()
+        before = {k: v.clone() for k, v in cache_leaves(eng.cache)}
+        steps = eng.n_decode_steps
+        if fault == "probe":
+            token = torch.as_tensor(np.asarray(
+                [[r.tokens[-1] if r else 0] for r in eng.slots], np.int32),
+                device=dev)
+            pre = dict(eng.cache)
+            pre["pos"] = torch.tensor(int(eng.slot_pos.max()),
+                                      dtype=torch.int32, device=dev)
+            eng._shadow_decode(pre, token, eng._pool_cfg() * 0 + 31)
+        else:
+            eng.fault_injector = F.FaultInjector(
+                [F.FaultEvent(tick=0, kind=fault, slot=1)])
+            eng.fault_injector.tick = -1
+            eng.step()
+            assert eng.n_decode_steps == steps, fault
+        if on_card:
+            torch.cuda.synchronize()
+        after = dict(cache_leaves(eng.cache))
+        rollbacks[fault] = after.keys() == before.keys() and all(
+            torch.equal(v, before[k]) for k, v in after.items())
+        assert rollbacks[fault], fault
+    res = {"phase": name, "arch": cfg.name, "prompt_tokens": n,
+           "requests": 4, "new_tokens": max_new,
+           "batch_equals_chain": True,
+           "alone_token_agreement": agree / (4 * max_new),
+           "alone_streams_equal": sum(alone[i] == batch[i]
+                                      for i in range(4)),
+           "alone_note": "recorded, not held: the rows of a batch share "
+                         "each GEMM's per-tensor activation scale",
+           "alone_witness": witness,
+           "reversed_batch_bit_for_bit": True,
+           "float_rows_beside_other_prompts_bit_for_bit": True,
+           "rollback_bit_for_bit": rollbacks,
+           "state_bytes": _state_bytes(T, eng.cache),
+           "phase_s": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def phase_recurrent_serve(torch, T, A, FA, Engine, Request, F, cfg, dev, *,
+                          name: str, prompts=None,
+                          contract_new: int = 16) -> tuple:
+    """A recurrent model's main path (``phase_gemma2_serve``: config 0,
+    16, then a per-(layer, group) matrix, with ``RECURRENT["cfg_groups"]``
+    neuron groups), then its rollback cost, the per-call quantization of
+    the cells' weights beside the decode step, and the Engine's contract
+    (``phase_recurrent_contract``, `contract_new` tokens a request).
+    Returns (serve result, contract result, engine)."""
+    groups = RECURRENT["cfg_groups"]
+    matrix = [[(16, 31, 8)[i % 3], (8, 16, 31)[i % 3]]
+              for i in range(cfg.n_layers)]
+    res, eng = phase_gemma2_serve(
+        torch, T, A, FA, Engine, Request, cfg, dev, name=name,
+        prompts=prompts, engine_kw=dict(cfg_groups=groups),
+        final_cfg=matrix)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    quant = cell_quantize_ms(torch, T, eng.params, cfg, dev)
+    extra = {"phase": name + "_costs",
+             "rollback_cost": rollback_cost(torch, T, eng, sync,
+                                            res["decode_step_ms_mean"]),
+             "state_bytes_rewritten_a_step": _state_bytes(T, eng.cache),
+             "cell_quantize": quant,
+             "cell_quantize_share_of_decode_step": (
+                 quant["ms"] / res["decode_step_ms_mean"]
+                 if quant["ms"] is not None else None)}
+    emit(extra)
+    res.update(extra)
+    contract = phase_recurrent_contract(
+        torch, T, Engine, Request, F, eng.params, cfg, dev,
+        name=name.replace("_serve", "_contract"),
+        engine_kw=dict(cfg_groups=groups), max_new=contract_new)
+    return res, contract, eng
+
+
 def layer_row(name: str, rows: list, launches: int) -> dict:
     """One work row of a kernel's entry: the sums over a layer's GEMMs."""
     return {"work": name, "launches": launches,
@@ -4640,6 +4998,8 @@ REHEARSAL_GROUPS = {
     "slice12": "gemma7b_serve/check, danube_serve/check/window, "
                "paged_moe (and paged_moe_check), moe_path, moe_chunks, "
                "moe_train",
+    "slice13": "rgemma_serve/contract/check/window, "
+               "xlstm_serve/contract/check, check_seen",
 }
 
 
@@ -4792,6 +5152,29 @@ def rehearse(groups=None) -> int:
                          cpu, tokens=64)
         phase_train(torch, T, A, FA, PA, get_config("olmoe-1b-7b").smoke(
             remat=True, loss_chunks=8), cpu, name="moe_train")
+    if "slice13" in groups:
+        # RecurrentGemma at 8 layers keeps two rest layers, as its 26 do;
+        # rgemma_window's prompt passes the smoke window of 16
+        rg = get_config("recurrentgemma-2b").smoke(n_layers=8,
+                                                   mac_backend="pallas")
+        xl = get_config("xlstm-350m").smoke(mac_backend="pallas")
+        with fused_shapes() as seen:
+            _, _, rg_eng = phase_recurrent_serve(
+                torch, T, A, FA, Engine, Request, F, rg, cpu,
+                name="rgemma_serve", contract_new=8)
+            _, _, xl_eng = phase_recurrent_serve(
+                torch, T, A, FA, Engine, Request, F, xl, cpu,
+                name="xlstm_serve", contract_new=8)
+        phase_gemma2_check(torch, T, A, ops, rg_eng, cpu, name="rgemma_check",
+                           configs=danube_configs(rg))
+        phase_gemma2_check(torch, T, A, ops, xl_eng, cpu, name="xlstm_check",
+                           configs=danube_configs(xl))
+        phase_gemma2_window(torch, T, FA, FAops, rg_eng.params, rg, cpu,
+                            name="rgemma_window", s=40,
+                            layers=RECURRENT["window_layers"],
+                            hold_argmax=True)
+        phase_check_seen(torch, A, quantize, cpu, "rgemma_serve, xlstm_serve",
+                         seen)
     emit({"rehearsal": True, "groups": groups, "ok": False})
     return 0
 
@@ -4986,6 +5369,37 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     worst = max(worst, phase_check_seen(torch, A, quantize, dev,
                                         "gemma7b_serve, danube_serve", seen))
+    # slice 13: RecurrentGemma-2B, then xLSTM-350M, one at a time
+    rgemma = dataclasses.replace(get_config("recurrentgemma-2b"),
+                                 mac_backend="pallas")
+    with fused_shapes() as rec_seen:
+        rg_serve, rg_contract, rg_eng = phase_recurrent_serve(
+            torch, T, A, FA, Engine, Request, F, rgemma, dev,
+            name="rgemma_serve")
+    worst = max(worst, phase_gemma2_check(
+        torch, T, A, ops, rg_eng, dev, name="rgemma_check",
+        configs=danube_configs(rgemma))["max_abs_err"])
+    phase_gemma2_window(torch, T, FA, FAops, rg_eng.params, rgemma, dev,
+                        name="rgemma_window",
+                        s=RECURRENT["window_prompt"],
+                        layers=RECURRENT["window_layers"], hold_argmax=True)
+    del rg_eng
+    torch.cuda.empty_cache()
+    xlstm = dataclasses.replace(get_config("xlstm-350m"),
+                                mac_backend="pallas")
+    with fused_shapes() as xl_seen:
+        xl_serve, xl_contract, xl_eng = phase_recurrent_serve(
+            torch, T, A, FA, Engine, Request, F, xlstm, dev,
+            name="xlstm_serve")
+    rec_seen |= xl_seen
+    worst = max(worst, phase_gemma2_check(
+        torch, T, A, ops, xl_eng, dev, name="xlstm_check",
+        configs=danube_configs(xlstm))["max_abs_err"])
+    del xl_eng
+    torch.cuda.empty_cache()
+    worst = max(worst, phase_check_seen(torch, A, quantize, dev,
+                                        "rgemma_serve, xlstm_serve",
+                                        rec_seen))
     phase_check_flash_grad(torch, FA, FAops, dev)
     train = phase_train(torch, T, A, FA, PA, get_config("qwen2.5-3b"), dev)
     torch.cuda.empty_cache()
@@ -5030,6 +5444,8 @@ def main(argv: list[str]) -> int:
                      + resilience_launches("approx_mac_fused_matmul")
                      + g7_serve["fused_launches"]
                      + dn_serve["fused_launches"]
+                     + rg_serve["fused_launches"]
+                     + xl_serve["fused_launches"]
                      + moe_chunks["per_expert"]["launches"][
                          "approx_mac_fused_matmul"]),
         "max_abs_err": worst,
@@ -5043,7 +5459,8 @@ def main(argv: list[str]) -> int:
                 "launches from the dense serve, sched_serve and the four "
                 "speculative runs (spec_check, spec_serve, spec_sched, "
                 "spec_moe), chaos_serve, spike_serve and interactions, "
-                "gemma7b_serve and danube_serve, moe_chunks' per-expert "
+                "gemma7b_serve and danube_serve, rgemma_serve and "
+                "xlstm_serve, moe_chunks' per-expert "
                 "run (the plain paged run's are in paged_serve, "
                 "the other MoE runs' in moe_serve, sched_moe and "
                 "paged_moe, Gemma-2's in gemma2_serve); "
@@ -5131,6 +5548,7 @@ def main(argv: list[str]) -> int:
                      + resilience_launches("flash_attention")
                      + g7_serve["flash_launches"]
                      + dn_serve["flash_launches"]
+                     + rg_serve["flash_launches"]
                      + paged_moe["launches"]["flash_attention"]
                      + sum(r["launches"]["flash_attention"]
                            for r in moe_chunks["runs"]
@@ -5149,7 +5567,8 @@ def main(argv: list[str]) -> int:
                 "recompute), the speculative runs' prefills and those of "
                 "chaos_serve, spike_serve and interactions, "
                 "gemma7b_serve (hd 256), danube_serve (hd 120, window "
-                "4096), paged_moe, moe_chunks and moe_train; "
+                "4096), rgemma_serve (H 10 on KV 1, hd 256, window "
+                "2048), paged_moe, moe_chunks and moe_train; "
                 "library_ms is scaled_dot_product_attention (GQA, "
                 "causal) without the softcap, which it cannot express",
     }]})

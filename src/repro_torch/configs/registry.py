@@ -8,7 +8,9 @@ from repro_torch.nn.transformer import ModelConfig
 
 _MODULES = {"qwen2.5-3b": "qwen2_5_3b", "olmoe-1b-7b": "olmoe_1b_7b",
             "gemma2-27b": "gemma2_27b", "gemma-7b": "gemma_7b",
-            "h2o-danube-3-4b": "h2o_danube3_4b"}
+            "h2o-danube-3-4b": "h2o_danube3_4b",
+            "recurrentgemma-2b": "recurrentgemma_2b",
+            "xlstm-350m": "xlstm_350m"}
 ARCH_IDS = list(_MODULES)
 
 

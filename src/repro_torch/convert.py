@@ -4,9 +4,11 @@ The reference's ``init_lm`` tree, turned to numpy by the caller (e.g.
 ``jax.tree.map(np.asarray, params)``), arrives here as nested dicts of
 numpy arrays; nothing in this module imports JAX.  The layout it undoes:
 ``blocks.scan.b{j}.*`` is stacked over pattern periods (even with
-``scan_layers=False``), one ``b{j}`` per kind of the pattern (Gemma-2's
-local layers in ``b0``, its global ones in ``b1``), while the port
-keeps ``params["blocks"]`` as a per-layer list.  Per-layer shapes are
+``scan_layers=False``), one ``b{j}`` per position of the pattern
+(Gemma-2's local layers in ``b0``, its global ones in ``b1``), and a
+depth that is not a multiple of the pattern keeps its last layers
+unstacked as ``blocks.rest{r}`` (RecurrentGemma-2B's 26 = 8 x 3 + 2),
+while the port keeps ``params["blocks"]`` as a per-layer list.  Per-layer shapes are
 unchanged (``wq``/``wk``/``wv`` (d, H, hd), ``wo`` (H, hd, d), a MoE
 layer's ``router`` (d, E) and expert banks ``w_gate``/``w_up``
 (E, d, f) and ``w_down`` (E, f, d); a post-norm model's ``post1`` and
@@ -40,45 +42,62 @@ def _to_torch(tree, device):
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Params:
     """Reference float params as numpy -> the port's params on `device`.
     Layer g * P + j of a P-kind pattern is group g of the reference's
-    ``blocks.scan.b{j}``."""
+    ``blocks.scan.b{j}``; the R layers past the last whole group are
+    ``blocks.rest0`` .. ``rest{R-1}``."""
     blocks = tree["blocks"]
     npat = len(cfg.pattern)
-    if set(blocks) != {"scan"} or set(blocks["scan"]) != {
-            f"b{j}" for j in range(npat)}:
-        raise NotImplementedError(
-            f"blocks {sorted(blocks)}: only scan-stacked decoders whose "
-            "depth is a multiple of the pattern are ported")
-    stacked = blocks["scan"]
+    n_groups, rem = divmod(cfg.n_layers, npat)
+    keys = {f"rest{r}" for r in range(rem)} | ({"scan"} if n_groups else set())
+    if set(blocks) != keys or (n_groups and set(blocks["scan"]) != {
+            f"b{j}" for j in range(npat)}):
+        raise ValueError(f"blocks {sorted(blocks)} for a "
+                         f"{cfg.n_layers}-layer pattern of {npat}")
 
     def layer(i, node):
         if isinstance(node, dict):
             return {k: layer(i, v) for k, v in node.items()}
         return node[i]
 
-    n_groups = len(np.asarray(stacked["b0"]["norm1"]["scale"]))
-    if n_groups * npat != cfg.n_layers:
-        raise ValueError(f"{n_groups} stacked groups of {npat} for a "
-                         f"{cfg.n_layers}-layer config")
+    if n_groups:
+        stacked = blocks["scan"]
+        got = len(np.asarray(stacked["b0"]["norm1"]["scale"]))
+        if got != n_groups:
+            raise ValueError(f"{got} stacked groups of {npat} for a "
+                             f"{cfg.n_layers}-layer config")
     out = {k: _to_torch(v, device) for k, v in tree.items()
            if k != "blocks"}
-    out["blocks"] = [_to_torch(layer(i // npat, stacked[f"b{i % npat}"]),
-                               device) for i in range(cfg.n_layers)]
+    out["blocks"] = [
+        _to_torch(layer(i // npat, stacked[f"b{i % npat}"])
+                  if i < n_groups * npat
+                  else blocks[f"rest{i - n_groups * npat}"], device)
+        for i in range(cfg.n_layers)]
     return out
 
 
 def stack_blocks(blocks: list, npat: int, stack) -> dict:
-    """The reference's ``{"scan": {"b{j}": ...}}`` from the port's
-    per-layer list of a P-kind pattern: `stack` turns one key's leaves
-    of layers j, j + P, j + 2P, ... into that key's stacked leaf."""
-    if len(blocks) % npat:
-        raise ValueError(f"{len(blocks)} layers for a pattern of {npat}")
+    """The reference's ``{"scan": {"b{j}": ...}, "rest{r}": ...}`` from
+    the port's per-layer list of a P-kind pattern: `stack` turns one
+    key's leaves of layers j, j + P, j + 2P, ... into that key's stacked
+    leaf (a rest layer's leaf is its one-leaf stack's only row)."""
+    n_groups = len(blocks) // npat
 
     def go(nodes):
         if isinstance(nodes[0], dict):
             return {k: go([n[k] for n in nodes]) for k in nodes[0]}
         return stack(nodes)
 
-    return {"scan": {f"b{j}": go(blocks[j::npat]) for j in range(npat)}}
+    out = {f"rest{r}": _first_rows(go([blk]))
+           for r, blk in enumerate(blocks[n_groups * npat:])}
+    if n_groups:
+        out["scan"] = {f"b{j}": go(blocks[j:n_groups * npat:npat])
+                       for j in range(npat)}
+    return out
+
+
+def _first_rows(node):
+    if isinstance(node, dict):
+        return {k: _first_rows(v) for k, v in node.items()}
+    return node[0]
 
 
 def leaf_to_numpy(leaf) -> np.ndarray:
@@ -93,35 +112,49 @@ def leaf_to_numpy(leaf) -> np.ndarray:
 
 
 def cache_to_reference(cache: dict, cfg: ModelConfig) -> dict:
-    """The port's KV cache in the reference's tree, every leaf a view of
+    """The port's cache in the reference's tree, every leaf a view of
     the live tensor (writing a leaf writes the cache).
 
-    Dense: ``{"pos", "scan": {"b{j}": buffers}}``, ``b{j}`` the buffers
-    of the pattern's j-th kind (one stack per kind: Gemma-2's b0 is the
-    local rings under ``cache["local"]``, its b1 the global buffers at
-    the top; a one-kind model's b0 is the top).  Paged (a ``{"k",
-    "v"}`` pool): ``{"scan": {"b0": {"k", "v"}}}``."""
+    Dense: ``{"pos", "scan": {"b{j}": buffers}, "rest{r}": buffers}``.
+    The port keeps one stack per kind, in layer order (the global
+    buffers at the top, the local rings under ``cache["local"]``, a
+    recurrent kind's states under its name); the reference one stack
+    per pattern position.  So ``b{j}`` is every m-th layer of its kind's
+    stack from the j-th's place, m the kind's count in the pattern (a
+    strided view where m > 1, RecurrentGemma's two recurrent positions),
+    and rest layer r the row after the groups (batch then on axis 0).
+    Paged (a ``{"k", "v"}`` pool): ``{"scan": {"b0": {"k", "v"}}}``."""
     if "pos" not in cache:
         return {"scan": {"b0": {"k": cache["k"], "v": cache["v"]}}}
-    if len(set(cfg.pattern)) != len(cfg.pattern):
-        raise NotImplementedError(
-            f"pattern {cfg.pattern}: a kind that repeats within the "
-            "pattern interleaves the reference's stacks")
+    pattern = cfg.pattern
+    n_groups, rem = divmod(cfg.n_layers, len(pattern))
 
-    def buffers(kind):
-        buf = cache["local"] if kind == "local" else cache
-        return {k: v for k, v in buf.items() if k not in ("pos", "local")}
+    def stack(kind):
+        if kind == "global":
+            return {k: v for k, v in cache.items()
+                    if k in ("k", "v", "k_s", "v_s")}
+        return cache[kind]
 
-    return {"pos": cache["pos"],
-            "scan": {f"b{j}": buffers(kind)
-                     for j, kind in enumerate(cfg.pattern)}}
+    out = {"pos": cache["pos"]}
+    if n_groups:
+        out["scan"] = {}
+        for j, kind in enumerate(pattern):
+            m, t = pattern.count(kind), pattern[:j].count(kind)
+            out["scan"][f"b{j}"] = {k: v[t:m * n_groups:m]
+                                    for k, v in stack(kind).items()}
+    for r in range(rem):
+        kind = pattern[r]
+        row = pattern.count(kind) * n_groups + pattern[:r].count(kind)
+        out[f"rest{r}"] = {k: v[row] for k, v in stack(kind).items()}
+    return out
 
 
 def params_to_numpy(params: Params, cfg: ModelConfig) -> dict:
     """The port's float params (or any tree of their layout: gradients,
     optimizer moments) -> numpy in the reference's layout, the inverse
     of ``params_from_numpy``: layer g * P + j becomes group g of
-    ``blocks.scan.b{j}``."""
+    ``blocks.scan.b{j}``, a layer past the last whole group
+    ``blocks.rest{r}``."""
     def to_numpy(tree):
         if isinstance(tree, dict):
             return {k: to_numpy(v) for k, v in tree.items()}

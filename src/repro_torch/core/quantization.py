@@ -51,39 +51,58 @@ class QTensor:
                        self.axis)
 
 
+def _amax(x: torch.Tensor, axis: int | None) -> torch.Tensor:
+    if axis is None:
+        return x.abs().amax()
+    # as in the reference, a negative `axis` matches no dim here and so
+    # reduces every axis (a per-tensor scale)
+    return x.abs().amax(dim=tuple(i for i in range(x.ndim) if i != axis))
+
+
 def compute_scale(x: torch.Tensor, axis: int | None = None,
                   eps: float = 1e-12) -> torch.Tensor:
-    if axis is None:
-        amax = x.abs().amax()
-    else:
-        # as in the reference, a negative `axis` matches no dim here and
-        # so reduces every axis (a per-tensor scale)
-        reduce = tuple(i for i in range(x.ndim) if i != axis)
-        amax = x.abs().amax(dim=reduce)
-    return torch.clamp(amax, min=eps) / QMAX
+    return torch.clamp(_amax(x, axis), min=eps) / QMAX
+
+
+def compiled_scale(x: torch.Tensor, axis: int | None = None,
+                   eps: float = 1e-12) -> torch.Tensor:
+    """``compute_scale`` as the reference's COMPILED programs compute it:
+    max(|x|, eps) times the f32 reciprocal of 127.  Inside ``jit`` XLA
+    strength-reduces the constant division to that multiply (DESIGN.md
+    §3), which rounds ~6 % of the scales one ulp away from the eager
+    division."""
+    # a Python float operand is rounded to f32 first: one f32 multiply
+    return torch.clamp(_amax(x, axis), min=eps) * (1.0 / QMAX)
 
 
 def activation_scale(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    """Per-tensor dynamic activation scale of the serving GEMMs, as the
-    reference's COMPILED programs compute it: max(|x|, eps) times the
-    f32 reciprocal of 127.  Inside ``jit`` XLA strength-reduces
-    ``compute_scale``'s constant division to that multiply (DESIGN.md
-    §3), and the reference serves through jitted prefill/decode, so this
-    — not the eager division — is the scale its Engine runs at."""
-    # a Python float operand is rounded to f32 first: one f32 multiply
-    return torch.clamp(x.abs().amax(), min=eps) * (1.0 / QMAX)
+    """Per-tensor dynamic activation scale of the serving GEMMs: the
+    reference serves through jitted prefill/decode, so its Engine runs
+    at ``compiled_scale``, not the eager division."""
+    return compiled_scale(x, eps=eps)
+
+
+def _to_int8(x: torch.Tensor, scale: torch.Tensor,
+             axis: int | None) -> QTensor:
+    s = scale
+    if axis is not None:
+        shape = [1] * x.ndim
+        shape[axis] = -1
+        s = scale.reshape(shape)
+    q = torch.clamp(torch.round(x / s), -QMAX, QMAX).to(torch.int8)
+    return QTensor(q, scale.to(torch.float32), axis)
 
 
 def quantize(x: torch.Tensor, axis: int | None = None) -> QTensor:
-    scale = compute_scale(x, axis)
-    if axis is None:
-        q = torch.round(x / scale)
-    else:
-        shape = [1] * x.ndim
-        shape[axis] = -1
-        q = torch.round(x / scale.reshape(shape))
-    q = torch.clamp(q, -QMAX, QMAX).to(torch.int8)
-    return QTensor(q, scale.to(torch.float32), axis)
+    """int8 values and f32 scales at the eager scale (``compute_scale``),
+    as the reference's eager ``quantize_lm_params`` and MoE banks."""
+    return _to_int8(x, compute_scale(x, axis), axis)
+
+
+def quantize_compiled(x: torch.Tensor, axis: int | None = None) -> QTensor:
+    """``quantize`` at ``compiled_scale``: a float weight quantized
+    inside a compiled call of the reference (``layers.dense``)."""
+    return _to_int8(x, compiled_scale(x, axis), axis)
 
 
 def _fake_quant_values(x: torch.Tensor, axis: int | None) -> torch.Tensor:

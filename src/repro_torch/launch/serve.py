@@ -1,7 +1,8 @@
 """Serving launcher: the continuous-batching engine with the power knob.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch {qwen2.5-3b,olmoe-1b-7b,gemma2-27b,gemma-7b,h2o-danube-3-4b} \
+      --arch {qwen2.5-3b,olmoe-1b-7b,gemma2-27b,gemma-7b,h2o-danube-3-4b,
+              recurrentgemma-2b,xlstm-350m} \
       [--smoke] [--requests 8] [--max-batch 4] [--max-len 128] \
       [--max-new 16] [--approx-cfg 0] [--device cuda] \
       [--budget-frac F] [--power-cap-frac F] \
@@ -20,8 +21,9 @@ flash-attention kernel, or their plain PyTorch versions with
 reduced config so the loop runs on the CPU.  --paged serves from a
 block-pool KV cache (chunked prefill, prefix sharing, preemption by
 recompute) whose decode attention runs the paged-attention kernel; as
-in the reference, it refuses models with local layers or an int8 KV
-cache (Gemma-2, Gemma-7B, H2O-Danube3-4B), as --draft-cfg does.
+in the reference, it refuses models with local or recurrent layers or
+an int8 KV cache (Gemma-2, Gemma-7B, H2O-Danube3-4B, RecurrentGemma-2B,
+xLSTM-350M), as --draft-cfg does.
 --budget-frac attaches a ``PowerBudgetScheduler``
 whose budget is that fraction of the model's exact-mode pJ/token, and
 prints its report at the end; --power-cap-frac caps admission at that

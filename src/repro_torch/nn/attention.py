@@ -1,14 +1,17 @@
 """Attention: GQA prefill attention over query chunks (causal mask,
-sliding window, tanh logit softcap), single-token decode attention
-against a cache, and ``ref_attention``, the oracle.
+sliding window, tanh logit softcap, the mLSTM decay), single-token
+decode attention against a cache, and ``ref_attention``, the oracle.
 
-Counterpart of ``repro.nn.attention`` (without the mLSTM decay).  On a
-CUDA device ``chunked_attention`` runs the flash-attention kernel
+Counterpart of ``repro.nn.attention``.  On a CUDA device
+``chunked_attention`` runs the flash-attention kernel
 (``kernels/flash_attention/ops.flash_attn``), the place the reference's
 docstring gives that kernel on the accelerator; on the CPU it runs the
-plain chunked path below.  ``decode_attention`` stays plain PyTorch, as
-the reference's is plain XLA (the paged cache has its own kernel).
-Scores and softmax run in f32; outputs take q's dtype.
+plain chunked path below.  A call with ``decay=`` (the mLSTM parallel
+form, whose normaliser is not a softmax) takes the plain chunked path
+on every device, as the reference's is XLA and never its Pallas kernel.
+``decode_attention`` stays plain PyTorch, as the reference's is plain
+XLA (the paged cache has its own kernel).  Scores and softmax run in
+f32; outputs take q's dtype.
 """
 from __future__ import annotations
 
@@ -68,17 +71,26 @@ def ref_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
                       logit_cap: float = 0.0, scale: float | None = None,
-                      q_chunk: int = 1024) -> torch.Tensor:
+                      q_chunk: int = 1024, decay=None) -> torch.Tensor:
     """Attention with ``ref_attention``'s semantics, memory bounded by
     `q_chunk` query rows at a time.  q: (B, S, H, hd); k, v: (B, Skv,
     KV, hd), with Skv == S when causal (self-attention).  Returns
     (B, S, H, hd) in q's dtype.  CUDA tensors run the flash-attention
-    kernel (or it raises); CPU tensors the plain chunks."""
+    kernel (or it raises); CPU tensors the plain chunks.
+
+    decay: ``{"log_fcum": (B, S, H), "log_i": (B, S, H)}`` f32, the
+    mLSTM parallel form (``_decay_chunk``), plain chunks on every
+    device."""
     b, s, h, hd = q.shape
     skv = k.shape[1]
     if causal and skv != s:
         raise ValueError(f"causal chunked attention needs Skv == S, got "
                          f"{skv} keys for {s} queries")
+    if decay is not None:
+        if not causal or window:
+            raise NotImplementedError("the mLSTM decay is causal and "
+                                      "unwindowed")
+        return _decay_attention(q, k, v, decay, logit_cap, scale, q_chunk)
     if q.device.type == "cuda":
         # imported here: the kernel's module imports this one
         from repro_torch.kernels.flash_attention.ops import flash_attn
@@ -94,6 +106,42 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
         q_idx = c + torch.arange(q_c.shape[1], device=q.device)
         mask = _mask(q_idx, k_idx, causal, window)[None, None]
         outs.append(_softmax_attend(q_c, k_r, v_r, mask, scale, logit_cap))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _decay_attention(q, k, v, decay, logit_cap, scale, q_chunk):
+    """The mLSTM parallel form (xLSTM eq. 24-27) over query chunks, as
+    the reference's ``chunked_attention(decay=...)`` computes it: the
+    decay bias D_ij = log_fcum_i - log_fcum_j + log_i_j (j <= i), its
+    row max m_i floored at -30, C = (q.k scale) * exp(D - m) and the
+    normaliser max(|sum_j C_ij|, exp(-m_i)), all in f32.  Every query
+    row is computed alone, so the reference's zero padding of the last
+    chunk (only the q side of the decay follows it) changes no real
+    row; here the last chunk is simply shorter."""
+    s, h, hd = q.shape[1:]
+    n_rep = h // k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    k_r = _repeat_kv(k, n_rep).to(torch.float32)
+    v_r = _repeat_kv(v, n_rep).to(torch.float32)
+    lf = decay["log_fcum"].to(torch.float32).permute(0, 2, 1)  # (B,H,S)
+    li = decay["log_i"].to(torch.float32).permute(0, 2, 1)
+    k_idx = torch.arange(k.shape[1], device=q.device)
+    outs = []
+    for c in range(0, s, q_chunk):
+        q_c = q[:, c:c + q_chunk]
+        q_idx = c + torch.arange(q_c.shape[1], device=q.device)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q_c.to(torch.float32),
+                              k_r) * scale
+        if logit_cap > 0:
+            scores = softcap(scores, logit_cap)
+        mask = _mask(q_idx, k_idx, True, 0)[None, None]
+        dmat = (lf[:, :, c:c + q_c.shape[1], None] - lf[:, :, None, :]
+                + li[:, :, None, :])
+        dmat = torch.where(mask, dmat, NEG_INF)
+        m = torch.clamp(dmat.amax(-1, keepdim=True), min=-30.0)
+        cmat = scores * torch.exp(dmat - m)
+        den = torch.maximum(cmat.sum(-1, keepdim=True).abs(), torch.exp(-m))
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", cmat / den, v_r))
     return torch.cat(outs, dim=1).to(q.dtype)
 
 

@@ -19,7 +19,8 @@ import math
 
 import torch
 
-from repro_torch.core.quantization import QTensor, fake_quant, quantize
+from repro_torch.core.quantization import (QTensor, fake_quant,
+                                          quantize_compiled)
 
 MAC_BACKENDS = ("xla", "pallas")
 
@@ -39,7 +40,9 @@ def dense(x: torch.Tensor, w, *, approx_cfg=0, backend: str = "xla",
           cfg_bn: int = 128) -> torch.Tensor:
     """y = x @ w under the selected arithmetic mode.
 
-    w: float (K, N) tensor or a pre-quantized QTensor.  approx_cfg: a
+    w: a pre-quantized QTensor, or a float (K, N) tensor, which the
+    integer pipeline quantizes per call at ``compiled_scale``, as the
+    reference's compiled programs quantize it inside the call.  approx_cfg: a
     Python int, a 0-d int tensor (the runtime knob, read on the device),
     or — only with ``backend="pallas"``, the reference's gate for
     per-block configs — a (g,) per-neuron-group vector (see
@@ -68,7 +71,7 @@ def dense(x: torch.Tensor, w, *, approx_cfg=0, backend: str = "xla",
                                                         collapse_expert_cfg)
         if is_tensor and approx_cfg.ndim == 2:
             approx_cfg = collapse_expert_cfg(approx_cfg)
-        w_qt = w if isinstance(w, QTensor) else quantize(w, axis=1)
+        w_qt = w if isinstance(w, QTensor) else quantize_compiled(w, axis=1)
         y = approx_dense_pallas(x, w_qt, config=approx_cfg, bn=cfg_bn)
         return y.to(torch.bfloat16)
     if isinstance(w, QTensor):

@@ -1,43 +1,49 @@
-"""Decoder LM: the attention-only subset of ``repro.nn.transformer``.
+"""Decoder LM: the decoder-only subset of ``repro.nn.transformer``.
 
 Covers the families ``launch/serve.py`` serves: dense (Qwen2.5-3B,
-Gemma-2-27B, Gemma-7B, H2O-Danube3-4B) and MoE (OLMoE-1B-7B) — GQA
-attention with RoPE and optional QKV bias, "global" (causal) and
-"local" (sliding-window) layers in a repeating ``pattern`` (all-local,
-as Danube, included), a tanh softcap on the attention scores and on
-the final logits, RMSNorm before (and with ``post_norm`` also after)
-each half-block, a SwiGLU or GeGLU MLP or a top-k MoE FFN
-(``nn/moe.py``, with the reference's ``moe_seq_chunks`` and
-``moe_grouped``), embeddings scaled by sqrt(d) (``embed_scale``), tied
-or untied, and an int8 KV cache (``kv_quant``).  Every dense GEMM (q,
-k, v, o, and a dense MLP's gate, up, down) goes through
+Gemma-2-27B, Gemma-7B, H2O-Danube3-4B), MoE (OLMoE-1B-7B), hybrid
+(RecurrentGemma-2B) and ssm (xLSTM-350M) — GQA attention with RoPE and
+optional QKV bias, "global" (causal) and "local" (sliding-window)
+layers, and the recurrent kinds "recurrent" (Griffin's RG-LRU block),
+"mlstm" and "slstm" (``nn/recurrent.py``), in a repeating ``pattern``
+(all-local, as Danube, and depths that are not a multiple of it, as
+RecurrentGemma's 26 = 8 x 3 + 2, included), a tanh softcap on the
+attention scores and on the final logits, RMSNorm before (and with
+``post_norm`` also after) each half-block, a SwiGLU or GeGLU MLP, none
+(``mlp="none"``) or a top-k MoE FFN (``nn/moe.py``, with the
+reference's ``moe_seq_chunks`` and ``moe_grouped``), embeddings scaled
+by sqrt(d) (``embed_scale``), tied or untied, and an int8 KV cache
+(``kv_quant``).  Every dense GEMM (q, k, v, o, a dense MLP's gate, up,
+down, and a recurrent cell's projections) goes through
 ``layers.dense`` under the runtime error config; a MoE layer's expert
 GEMMs run the grouped approx-MAC op, each expert at its own config when
 the config carries an expert axis ((n_layers, E, g) tensors; the
 layer's dense GEMMs then run the expert-collapsed config).  Prefill
 attention is ``chunked_attention``: the flash-attention kernel on the
-card.  ``lm_loss`` is the training loss (chunked-vocab cross entropy,
-each layer recomputed in the backward under ``remat``), for dense and
-MoE models alike: as in the reference, plain cross entropy, with no
-load-balancing term.  ``ModelConfig`` raises on every other pattern or
-feature of the reference (recurrent kinds, expert parallelism;
-encoder-decoder models and vision prefixes have no fields here).
+card (mLSTM's decay form its plain chunks).  ``lm_loss`` is the
+training loss (chunked-vocab cross entropy, each layer recomputed in
+the backward under ``remat``), for every family: as in the reference,
+plain cross entropy, with no load-balancing term.  ``ModelConfig``
+raises on every other pattern or feature of the reference (expert
+parallelism; encoder-decoder models and vision prefixes have no fields
+here).
 
 Layout: params are plain dicts holding the reference's per-layer shapes
 (``wq`` (d, H, hd), ``wo`` (H, hd, d), MLP mats (in, out), MoE
-``router`` (d, E) and expert banks (E, in, out)), with
-``params["blocks"]`` a list of per-layer dicts instead of the
-reference's scan-stacked ``blocks.scan.b{j}``.  The KV cache is
+``router`` (d, E) and expert banks (E, in, out), a recurrent layer's
+``rec`` and an xLSTM layer's ``cell``), with ``params["blocks"]`` a list
+of per-layer dicts instead of the reference's scan-stacked
+``blocks.scan.b{j}`` and unstacked ``blocks.rest{r}``.  The KV cache is
 ``{"pos", "k", "v"}`` with k/v stacked over the GLOBAL layers, in
 layer order, as (n_global, B, max_len, KV, hd); the local layers' ring
 buffers, ``min(window, max_len)`` long, sit under ``cache["local"]``
-stacked the same way (an all-local model keeps empty (0, ...) stacks at
-the top).  Under ``kv_quant`` k/v are int8 and each
-buffer has f32 scales ``k_s``/``v_s`` (n, B, S, KV) beside it.  For an
-all-global model the top is the reference's ``cache["scan"]["b0"]``;
-for an all-local one (Danube) its ``b0`` is the rings under "local";
-for Gemma-2's ("local", "global") its ``b1`` is the top and its ``b0``
-the rings under "local".  The paged cache (``init_paged_cache``,
+stacked the same way (a model without global layers keeps empty (0,
+...) stacks at the top), and each recurrent kind's decode state under
+its name (``init_cache``), stacked over that kind's layers with batch
+on axis 1.  Under ``kv_quant`` k/v are int8 and each
+buffer has f32 scales ``k_s``/``v_s`` (n, B, S, KV) beside it.
+``convert.cache_to_reference`` lays this out as the reference's
+``scan.b{j}`` and ``rest{r}``.  The paged cache (``init_paged_cache``,
 all-global float-KV models only) stacks per-layer block pools: k/v
 (n_layers, num_blocks, block_size, KV, hd).
 
@@ -47,7 +53,8 @@ not pass one), and the decode pool runs every row at one scalar
 position.  ``decode_step``, ``decode_verify`` (the speculative verify
 window), ``paged_decode_step`` and ``paged_prefill_chunk`` write the new
 K/V into the cache tensors IN PLACE (the reference is functional) and
-return the same tensors.
+return the same tensors; ``decode_step`` writes the recurrent states
+into new stacks.
 """
 from __future__ import annotations
 
@@ -70,8 +77,14 @@ from .attention import (_repeat_kv, _softmax_attend, chunked_attention,
 from .layers import (ACT, MAC_BACKENDS, apply_rope, dense, dense_init,
                      embed_init, in_dtype, rmsnorm, softcap)
 from .moe import moe_ffn, quantize_expert_bank
+from .recurrent import (CONV_WIDTH, mlstm_block_init, mlstm_parallel,
+                        mlstm_step, recurrent_block, recurrent_block_init,
+                        slstm_block_init, slstm_scan)
 
 Params = dict[str, Any]
+ATTENTION_KINDS = ("global", "local")
+RECURRENT_KINDS = ("recurrent", "mlstm", "slstm")
+LAYER_KINDS = ATTENTION_KINDS + RECURRENT_KINDS
 
 
 @dataclass(frozen=True)
@@ -89,7 +102,7 @@ class ModelConfig:
     window: int = 0                      # sliding window of "local" layers
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
-    mlp: str = "swiglu"                  # swiglu | geglu
+    mlp: str = "swiglu"                  # swiglu | geglu | none
     act: str = "silu"
     qkv_bias: bool = False
     rope_theta: float = 10000.0
@@ -123,20 +136,26 @@ class ModelConfig:
     # training: recompute each layer in the backward (activation
     # checkpointing; only the "nothing saved" policy is ported) and the
     # vocab cross entropy in loss_chunks sequence chunks
+    # recurrent kinds: the RG-LRU width of "recurrent" layers and the
+    # up-projection factor of "mlstm" cells
+    lru_width: int = 0
+    mlstm_proj_factor: float = 2.0
     remat: bool = True
     remat_policy: str = "nothing"        # nothing | dots
     loss_chunks: int = 8
 
     def __post_init__(self):
-        if any(k not in ("global", "local") for k in self.pattern):
+        if any(k not in LAYER_KINDS for k in self.pattern):
             raise NotImplementedError(
-                f"pattern {self.pattern}: only attention layers ('global', "
-                "'local') are ported")
+                f"pattern {self.pattern}: the ported layer kinds are "
+                f"{LAYER_KINDS}")
         if "local" in self.pattern and self.window <= 0:
             raise ValueError("'local' layers need window > 0")
-        if self.mlp not in ("swiglu", "geglu") or self.act not in ACT:
+        if "recurrent" in self.pattern and self.lru_width <= 0:
+            raise ValueError("'recurrent' layers need lru_width > 0")
+        if self.mlp not in ("swiglu", "geglu", "none") or self.act not in ACT:
             raise NotImplementedError(f"mlp {self.mlp!r}/{self.act!r}")
-        if self.family not in ("dense", "moe"):
+        if self.family not in ("dense", "moe", "hybrid", "ssm"):
             raise NotImplementedError(f"family {self.family!r}")
         if (self.family == "moe") != (self.n_experts > 0):
             raise ValueError(f"family {self.family!r} with n_experts "
@@ -158,14 +177,15 @@ class ModelConfig:
 
     def smoke(self, **over) -> "ModelConfig":
         """Reduced same-family config for CPU tests (the reference's
-        ``smoke`` values)."""
+        ``smoke`` values: a model without an MLP keeps d_ff 0)."""
         base = dict(
             n_layers=max(2 * len(self.pattern), 2), d_model=64, n_heads=2,
             n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads > 1 else 1,
-            head_dim=32, d_ff=128, vocab_size=128, q_chunk=8,
-            window=min(self.window, 16) if self.window else 0,
+            head_dim=32, d_ff=128 if self.d_ff else 0, vocab_size=128,
+            q_chunk=8, window=min(self.window, 16) if self.window else 0,
             n_experts=min(self.n_experts, 4) if self.n_experts else 0,
             top_k=min(self.top_k, 2) if self.top_k else 0, moe_groups=1,
+            lru_width=64 if self.lru_width else 0,
             remat=False, loss_chunks=2, compute_dtype=torch.float32)
         base.update(over)
         return dataclasses.replace(self, **base)
@@ -207,28 +227,45 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda", *,
                                           device=device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, d, cfg.vocab_size, device=device)
+    def mlp_init():
+        if cfg.n_experts:
+            # w_gate and w_up are independent draws (the reference draws
+            # both from one key, so its two banks are equal)
+            e = cfg.n_experts
+            return {"router": normal(d, e) * std,
+                    "w_gate": normal(e, d, f) * std,
+                    "w_up": normal(e, d, f) * std,
+                    "w_down": normal(e, f, d) * (1.0 / math.sqrt(f))}
+        if cfg.mlp == "none" or f == 0:
+            return {}
+        return {"w_up": dense_init(gen, d, f, device=device),
+                "w_down": dense_init(gen, f, d, device=device,
+                                     scale=1.0 / math.sqrt(f)),
+                "w_gate": dense_init(gen, d, f, device=device)}
+
     blocks = []
-    for _ in range(cfg.n_layers):
+    for kind in cfg.layer_kinds():
+        if kind in RECURRENT_KINDS:
+            block = {"norm1": {"scale": zeros(d)}}
+            if kind == "recurrent":
+                block.update(rec=recurrent_block_init(gen, d, cfg.lru_width,
+                                                      device=device),
+                             norm2={"scale": zeros(d)}, mlp=mlp_init())
+            elif kind == "mlstm":
+                block["cell"] = mlstm_block_init(gen, d, h,
+                                                 cfg.mlstm_proj_factor,
+                                                 device=device)
+            else:
+                block["cell"] = slstm_block_init(gen, d, h, device=device)
+            blocks.append(_quantize_block(block) if quantized else block)
+            continue
         attn = {"wq": normal(d, h, hd) * std, "wk": normal(d, kv, hd) * std,
                 "wv": normal(d, kv, hd) * std,
                 "wo": normal(h, hd, d) * std / math.sqrt(cfg.n_layers)}
         if cfg.qkv_bias:
             attn.update(bq=zeros(h, hd), bk=zeros(kv, hd), bv=zeros(kv, hd))
-        if cfg.n_experts:
-            # w_gate and w_up are independent draws (the reference draws
-            # both from one key, so its two banks are equal)
-            e = cfg.n_experts
-            mlp = {"router": normal(d, e) * std,
-                   "w_gate": normal(e, d, f) * std,
-                   "w_up": normal(e, d, f) * std,
-                   "w_down": normal(e, f, d) * (1.0 / math.sqrt(f))}
-        else:
-            mlp = {"w_up": dense_init(gen, d, f, device=device),
-                   "w_down": dense_init(gen, f, d, device=device,
-                                        scale=1.0 / math.sqrt(f)),
-                   "w_gate": dense_init(gen, d, f, device=device)}
         block = {"norm1": {"scale": zeros(d)}, "attn": attn,
-                 "norm2": {"scale": zeros(d)}, "mlp": mlp}
+                 "norm2": {"scale": zeros(d)}, "mlp": mlp_init()}
         if cfg.post_norm:
             block.update(post1={"scale": zeros(d)}, post2={"scale": zeros(d)})
         blocks.append(_quantize_block(block) if quantized else block)
@@ -241,14 +278,20 @@ def _quantize_block(p: Params) -> Params:
     """One layer's GEMM weights as per-output-channel QTensors (QTensors
     pass through): attention projections in their 2D GEMM layout, dense
     MLP mats in place, expert mats as (E, in, out) banks with (E, out)
-    scales; the router stays float."""
-    a = dict(p["attn"])
-    for key in ("wq", "wk", "wv", "wo"):
-        w = a[key]
-        if not isinstance(w, QTensor):
-            w2 = (w.reshape(-1, w.shape[-1]) if key == "wo"
-                  else w.reshape(w.shape[0], -1))
-            a[key] = quantize(w2, axis=1)
+    scales; the router and the recurrent cells ("rec", "cell") stay
+    float, as in the reference."""
+    p = dict(p)
+    if "attn" in p:
+        a = dict(p["attn"])
+        for key in ("wq", "wk", "wv", "wo"):
+            w = a[key]
+            if not isinstance(w, QTensor):
+                w2 = (w.reshape(-1, w.shape[-1]) if key == "wo"
+                      else w.reshape(w.shape[0], -1))
+                a[key] = quantize(w2, axis=1)
+        p["attn"] = a
+    if "mlp" not in p:
+        return p
     mlp = {}
     for k, w in p["mlp"].items():
         if k == "router" or isinstance(w, QTensor):
@@ -257,7 +300,7 @@ def _quantize_block(p: Params) -> Params:
             mlp[k] = quantize_expert_bank(w)
         else:
             mlp[k] = quantize(w, axis=1)
-    return {**p, "attn": a, "mlp": mlp}
+    return {**p, "mlp": mlp}
 
 
 def quantize_lm_params(params: Params, cfg: ModelConfig) -> Params:
@@ -265,7 +308,8 @@ def quantize_lm_params(params: Params, cfg: ModelConfig) -> Params:
     ONCE (serving mode).  Attention projections are stored in their 2D
     GEMM layout ((d, H*hd) / (H*hd, d)) and MoE expert mats as stacked
     (E, in, out) banks with (E, out) scales, exactly as the reference
-    does; the router, embed/lm_head, norms and biases stay float, and
+    does; the router, the recurrent cells (quantized per call, as the
+    reference's), embed/lm_head, norms and biases stay float, and
     weights already quantized pass through."""
     return {**params, "blocks": [_quantize_block(p)
                                  for p in params["blocks"]]}
@@ -304,6 +348,11 @@ def _attn_out(y, wo, approx_cfg, cfg):
 
 
 def _mlp_apply(p, x, cfg, approx_cfg):
+    """The layer's MLP on the normed `x`.  A layer without one (``mlp=
+    "none"``) returns `x` itself, as the reference does, so its residual
+    adds the normed input."""
+    if not p:
+        return x
     if cfg.n_experts:
         b, s, d = x.shape
         # decode (one position) is dropless; groups must divide the tokens
@@ -405,7 +454,44 @@ def logits_for(params, cfg, hidden, w: torch.Tensor | None = None):
     return logits
 
 
+def _recurrent_layer(p, x, cfg, kind, approx_cfg, *, state=None,
+                     with_state: bool = False):
+    """One "recurrent", "mlstm" or "slstm" layer (pre-norm, residual;
+    a recurrent layer then its MLP half).  With `state` (a one-token x)
+    it steps the layer's decode state; ``with_state`` (full sequence)
+    also returns the state after x.  Returns (x, state or None)."""
+    kw = _dense_kw(cfg)
+    h = rmsnorm(x, p["norm1"]["scale"])
+    decode = state is not None
+    new = None
+    if kind == "recurrent":
+        y, new = recurrent_block(p["rec"], h, approx_cfg=approx_cfg,
+                                 state=state, decode=decode, dense_kw=kw)
+        x = x + y
+        x = x + _mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]["scale"]), cfg,
+                           approx_cfg)
+    elif kind == "mlstm":
+        if decode:
+            y, new = mlstm_step(p["cell"], h, state, cfg.n_heads,
+                                approx_cfg=approx_cfg, dense_kw=kw)
+        else:
+            y = mlstm_parallel(p["cell"], h, cfg.n_heads,
+                               approx_cfg=approx_cfg, q_chunk=cfg.q_chunk,
+                               dense_kw=kw, with_state=with_state)
+            if with_state:
+                y, new = y
+        x = x + y
+    else:
+        # one decode step is the scan over one position (slstm_step)
+        y, new = slstm_scan(p["cell"], h, cfg.n_heads, approx_cfg=approx_cfg,
+                            state=state, dense_kw=kw)
+        x = x + y
+    return x, (new if decode or with_state else None)
+
+
 def _layer(p, x, cfg, kind, positions, approx_cfg):
+    if kind in RECURRENT_KINDS:
+        return _recurrent_layer(p, x, cfg, kind, approx_cfg)[0]
     return _attention_block(p, x, cfg, kind, positions=positions,
                             approx_cfg=approx_cfg)[0]
 
@@ -458,7 +544,8 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     """Zero KV cache for `batch_size` rows (layout in the module
     docstring): the global layers' max_len buffers at the top, the local
     layers' rings of min(window, max_len) under "local"; int8 values
-    with f32 scales under ``kv_quant``."""
+    with f32 scales under ``kv_quant``; each recurrent kind's state
+    stack under its name (``_state_shapes``)."""
     device = resolve_device(device)
     kinds = cfg.layer_kinds()
     kv_dtype = torch.int8 if cfg.kv_quant else cfg.compute_dtype
@@ -479,7 +566,30 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     if "local" in kinds:
         cache["local"] = buffers(kinds.count("local"),
                                  min(cfg.window, max_len))
+    for kind in RECURRENT_KINDS:
+        if kind in kinds:
+            cache[kind] = {
+                name: torch.full((kinds.count(kind), batch_size, *shape),
+                                 fill, dtype=torch.float32, device=device)
+                for name, (shape, fill) in _state_shapes(cfg, kind).items()}
     return cache
+
+
+def _state_shapes(cfg: ModelConfig, kind: str) -> dict:
+    """{leaf: (per-row shape, initial value)} of a recurrent kind's
+    decode state, the reference's: "recurrent" h (W,) and conv (3, W);
+    "mlstm" C (H, hd, hd), n (H, hd) and m (H,) from -30; "slstm" h, c,
+    n and m (d,), m from -30.  All f32."""
+    if kind == "recurrent":
+        w = cfg.lru_width
+        return {"h": ((w,), 0.0), "conv": ((CONV_WIDTH - 1, w), 0.0)}
+    if kind == "mlstm":
+        h = cfg.n_heads
+        hd = int(cfg.d_model * cfg.mlstm_proj_factor) // h
+        return {"C": ((h, hd, hd), 0.0), "n": ((h, hd), 0.0),
+                "m": ((h,), -30.0)}
+    return {name: ((cfg.d_model,), -30.0 if name == "m" else 0.0)
+            for name in "hcnm"}
 
 
 def _cache_slots(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -561,6 +671,8 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     kinds = cfg.layer_kinds()
     if true_len is not None:
+        if any(k in RECURRENT_KINDS for k in kinds):
+            raise ValueError("true_len= needs an attention-only pattern")
         if cfg.kv_quant:
             raise ValueError("true_len= is incompatible with kv_quant")
         if "local" in kinds and s > min(cfg.window, max_len):
@@ -575,6 +687,12 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
             (torch.arange(s, device=dev) < true_len)[None, :, None, None])
     for p, (kind, j), ac in zip(params["blocks"], _cache_slots(cfg),
                                 _layer_cfgs(approx_cfg, cfg.n_layers, dev)):
+        if kind in RECURRENT_KINDS:
+            # the parallel form, then the state after the prompt
+            x, state = _recurrent_layer(p, x, cfg, kind, ac, with_state=True)
+            for name, leaf in state.items():
+                cache[kind][name][j].copy_(leaf)
+            continue
         x, k, v = _attention_block(p, x, cfg, kind, positions=positions,
                                    approx_cfg=ac)
         if keep is not None:
@@ -595,19 +713,32 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
     """token (B, 1) -> (logits (B, V), cache): every row decodes at the
     scalar position cache["pos"], writes its K/V at pos % s_buf and
     attends to min(pos + 1, s_buf) cache entries (a local ring, as long
-    as the window, needs no window mask).  Updates the cache buffers in
-    place; the returned cache shares them."""
+    as the window, needs no window mask).  Updates the K/V buffers in
+    place; the returned cache shares them.  A recurrent layer rewrites
+    its whole state, so its kind's state stack is written into a new
+    tensor and the input cache's stacks are left as they were: a step
+    that is not committed needs no rollback of them."""
     pos = cache["pos"]
     dev = token.device
     x = embed_tokens(params, cfg, token)
     positions = pos.to(torch.long).reshape(1, 1)
     at, length = {}, {}
-    for kind in set(cfg.pattern):
+    for kind in set(cfg.pattern) & set(ATTENTION_KINDS):
         s_buf = _buffers(cache, kind)["k"].shape[2]
         at[kind] = (pos.to(torch.long) % s_buf).reshape(1)
         length[kind] = torch.clamp(pos + 1, max=s_buf)
+    states = {kind: {name: torch.empty_like(leaf)
+                     for name, leaf in cache[kind].items()}
+              for kind in RECURRENT_KINDS if kind in cache}
     for p, (kind, j), ac in zip(params["blocks"], _cache_slots(cfg),
                                 _layer_cfgs(approx_cfg, cfg.n_layers, dev)):
+        if kind in RECURRENT_KINDS:
+            x, new = _recurrent_layer(
+                p, x, cfg, kind, ac,
+                state={name: leaf[j] for name, leaf in cache[kind].items()})
+            for name, leaf in new.items():
+                states[kind][name][j].copy_(leaf)
+            continue
         buf = _buffers(cache, kind)
         q, k, v = _qkv(p, x, cfg, positions, ac)
         _kv_write(buf, j, k, v, at[kind], cfg)
@@ -618,7 +749,7 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
         x = _block_tail(p, x, attn, cfg, ac)
     x = rmsnorm(x, params["final_norm"]["scale"])
     logits = logits_for(params, cfg, x[:, 0])
-    return logits, {**cache, "pos": pos + 1}
+    return logits, {**cache, **states, "pos": pos + 1}
 
 
 # ---------------------------------------------------------------------------
@@ -783,7 +914,8 @@ def paged_decode_step(params, cfg: ModelConfig, cache: Params, token, *,
 def decode_writes(cache: Params) -> list:
     """Snapshot of the cache entries one decode step on `cache` writes:
     ``decode_step`` writes every layer's K/V (int8 values and scales
-    under kv_quant) at each buffer's ``pos % s_buf``,
+    under kv_quant) at each buffer's ``pos % s_buf`` (its recurrent
+    states go into new stacks, leaving `cache`'s as they were),
     ``paged_decode_step`` (a cache with "tables") each row's slot from
     ``_paged_decode_slots``.  Returns (tensor, dim, index, values) entries
     for ``restore_writes``; reads no device value on the host."""

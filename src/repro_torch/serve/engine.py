@@ -91,8 +91,14 @@ steps, and on a graceful drain in ``run(preemption=...)``), and
 writes K/V in place, so a rolled-back decode step writes back the
 entries it overwrote (``transformer.decode_writes`` /
 ``restore_writes``), where the reference's functional step simply never
-commits; and ``nan_cache`` faults are refused on a paged engine (the
-reference's assert fails there).  Sampling draws use a generator seeded
+commits (a recurrent layer's state goes into a new stack, so there is
+nothing of it to write back); and ``nan_cache`` faults are refused on a
+paged engine (the reference's assert fails there).  Recurrent models
+(RecurrentGemma-2B, xLSTM-350M) serve from the dense pool only, with
+no ``prefill_pad``, as in the reference; the port's per-kind state
+stacks also splice a depth that is not a multiple of the pattern,
+whose unstacked ``rest{r}`` layers fail the reference's splice assert
+(ROADMAP Queue 3).  Sampling draws use a generator seeded
 from (seed, draw number), the draws counted where the reference splits
 its key, so a snapshot's ``rng`` leaf (uint32[2], as the reference's)
 holds (seed, draws) and a resumed run samples as the uninterrupted one.
@@ -309,9 +315,12 @@ class Engine:
         self.slot_pos = np.zeros(max_batch, dtype=np.int64)
         self.paged = paged
         self.prefill_pad = int(prefill_pad)
-        if self.prefill_pad > 0 and paged is None and cfg.kv_quant:
+        if self.prefill_pad > 0 and paged is None and (
+                cfg.kv_quant or any(k in T.RECURRENT_KINDS
+                                    for k in cfg.layer_kinds())):
             # the reference's gate: padded prefill zeroes the pads' K/V,
-            # which int8 would stamp with nonzero scales
+            # which int8 would stamp with nonzero scales, and a recurrent
+            # state would scan the pads
             raise ValueError("prefill_pad needs an attention-only float-KV "
                              "model")
         if paged is not None:
@@ -566,8 +575,9 @@ class Engine:
 
     def _splice_cache(self, slot: int, row_cache) -> None:
         """Copy a one-row prefill cache (every buffer whole, zeros past
-        the prompt; the local rings and int8 scales included) into pool
-        slot `slot`: batch is axis 1 of every leaf but "pos"."""
+        the prompt; the local rings, int8 scales and recurrent states
+        included) into pool slot `slot`: batch is axis 1 of every leaf
+        but "pos"."""
         def splice(pool, row):
             for key, leaf in pool.items():
                 if isinstance(leaf, dict):

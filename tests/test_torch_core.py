@@ -5,8 +5,9 @@ Every comparison here is bit-exact.  Float comparisons run the
 reference EAGERLY: under ``jit`` XLA rewrites the constant ``/127`` of
 ``compute_scale`` as a reciprocal multiply (DESIGN.md §3).  The port's
 ``compute_scale`` is the eager division; ``activation_scale``, the
-scale of its serving GEMMs, is the compiled form and is held against
-the jitted reference."""
+scale of its serving GEMMs, and ``quantize_compiled``, ``dense``'s
+per-call quantization of a float weight, are the compiled forms and
+are held against the jitted reference."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -96,6 +97,28 @@ def test_activation_scale_is_the_compiled_compute_scale():
         got = TQ.activation_scale(torch.as_tensor(x)).numpy()
         np.testing.assert_array_equal(got, np.asarray(jitted(x)))
         differs += got != TQ.compute_scale(torch.as_tensor(x)).numpy()
+    assert differs > 0
+
+
+@pytest.mark.parametrize("shape,axis", [((64, 96), 1), ((85, 64), 1),
+                                        ((4, 64), None)])
+def test_quantize_compiled_is_the_jitted_quantize(shape, axis):
+    """``dense``'s per-call quantization of a float weight equals the
+    reference's ``quantize`` under ``jit``, values and scales, bit for
+    bit, where the eager division rounds some scales another way."""
+    jitted = jax.jit(JQ.quantize, static_argnums=1)
+    differs = 0
+    for i in range(50):
+        x = (RNG.normal(size=shape) * RNG.uniform(0.1, 10)).astype(
+            np.float32)
+        ref = jitted(jnp.asarray(x), axis)
+        got = TQ.quantize_compiled(torch.as_tensor(x), axis)
+        np.testing.assert_array_equal(got.values.numpy(),
+                                      np.asarray(ref.values))
+        np.testing.assert_array_equal(got.scale.numpy(),
+                                      np.asarray(ref.scale))
+        differs += int((got.scale != TQ.quantize(
+            torch.as_tensor(x), axis).scale).any())
     assert differs > 0
 
 

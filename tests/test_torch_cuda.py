@@ -104,6 +104,10 @@ FLASH_CASES = [
     (1, 17, 17, 32, 16, 128, True, 4096, 50.0),
     (1, 48, 48, 32, 16, 128, True, 0, 50.0),
     (2, 200, 72, 32, 16, 128, True, 0, 0.0),
+    # RecurrentGemma-2B's local layers: MQA (H 10 on KV 1), hd 256,
+    # window 2,048, at a serve prompt and past the window
+    (1, 48, 48, 10, 1, 256, True, 2048, 0.0),
+    (1, 2200, 2200, 10, 1, 256, True, 2048, 0.0),
 ]
 
 
@@ -225,7 +229,12 @@ FUSED_EDGES = [(m, k, n, 128) for m in (4, 48)
     (4, 4608, 256, 128), (4, 2048, 256, 128), (100, 2048, 64, 128),
     (100, 2048, 256, 128), (130, 130, 160, 128), (10000, 64, 32, 128),
     (48, 2048, 512, 32), (100, 2048, 256, 32), (24, 1024, 384, 96),
-    (4352, 4608, 2048, 128)]
+    (4352, 4608, 2048, 128)] + [
+    # xLSTM-350M's sLSTM MLP (K and N 1,365: the padded N and the
+    # unaligned K) and RecurrentGemma-2B's k / v GEMMs (N 256), at decode
+    # (M 4) and at a 48-token prefill
+    (m, k, n, 128) for m in (4, 48)
+    for k, n in ((1365, 1024), (1024, 1365), (2560, 256))]
 # (M, K, N) of the int kernel at the same paths (int8 rows through the
 # ring, read directly, and kept whole at M <= 16)
 INT_EDGES = [(100, 2048, 256), (100, 2048, 64), (64, 2048, 2048),
@@ -820,6 +829,53 @@ def test_cuda_full_width_layer_equals_plain_path(cuda_device, arch):
         ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul
     torch.cuda.synchronize()
     assert bool(torch.isfinite(kernel[0]).all())
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-350m"])
+def test_cuda_full_width_recurrent_layers_equal_plain_path(cuda_device,
+                                                           arch):
+    """One pattern period of RecurrentGemma-2B (two recurrent layers and
+    a local one) and of xLSTM-350M (an mLSTM and an sLSTM layer) at full
+    width (a 1,024-token vocabulary): a 40-token prefill and a decode
+    step through the fused kernel equal the same calls through its
+    plain version, every state included; flash once a local layer's
+    prefill, the decay attention never."""
+    import dataclasses
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=len(cfg.pattern),
+                              vocab_size=1024)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = T.init_lm(gen, cfg, cuda_device, quantized=True)
+    toks = torch.randint(0, 1024, (1, 40), device=cuda_device,
+                         generator=gen)
+    acfg = torch.tensor([16, 8, 31][:cfg.n_layers], dtype=torch.int32,
+                        device=cuda_device)
+
+    def run():
+        logits, cache = T.prefill(params, cfg, toks, max_len=48,
+                                  approx_cfg=acfg)
+        tok = torch.argmax(logits, -1)[:, None]
+        step, cache = T.decode_step(params, cfg, cache, tok, approx_cfg=acfg)
+        return (logits, step) + tuple(t for _, t in _cache_leaves(cache))
+
+    per_layer = {"recurrent": 6, "local": 7, "mlstm": 6, "slstm": 4}
+    flash = FA.flash_attention.launches
+    fused = A.approx_mac_fused_matmul.launches
+    kernel = run()
+    assert FA.flash_attention.launches - flash == cfg.pattern.count("local")
+    assert A.approx_mac_fused_matmul.launches - fused == 2 * sum(
+        per_layer[k] for k in cfg.pattern)
+    ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul_ref
+    try:
+        plain = run()
+    finally:
+        ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(kernel[0]).all())
+    assert len(kernel) == len(plain)
     for a, b in zip(kernel, plain):
         assert torch.equal(a, b)
 
