@@ -557,6 +557,16 @@ FUSED_PER_LAYER = {"global": 7, "local": 7, "recurrent": 6, "mlstm": 6,
                    "slstm": 4}
 RECURRENT = dict(cfg_groups=2, window_prompt=4096, window_layers=3,
                  contract_prompt=24)
+# slice 14: Whisper's requests (stub frames of a 30 s window after the
+# conv frontend: 1,500 x d; prompts of 4-24 tokens, 32 greedy tokens)
+# and its serving-contract check's depth and steps; InternVL2-76B's
+# depth on one card (full depth needs ~70 GB of int8 weights beside a
+# 4.2 GB f32 head) and its vision prefix; DBRX-132B's depth (its 40
+# layers need four cards)
+WHISPER = dict(requests=4, max_new=32, frames=1500, check_layers=4,
+               check_steps=8)
+INTERNVL = dict(layers=8, requests=4, max_new=16, prefix=1024)
+DBRX_LAYERS = 4
 SCRATCH = ROOT / "build" / "chip_smoke"
 
 
@@ -805,21 +815,31 @@ class fused_shapes:
         self.ops.approx_mac_fused_matmul = self.orig
 
 
-def phase_check_seen(torch, A, quantize, dev, name: str, seen: set) -> float:
+def phase_check_seen(torch, A, quantize, dev, name: str, seen: set,
+                     max_macs: float | None = None) -> float:
     """Every fused GEMM shape that `name`'s phases ran and phase_check did
     not cover, held bit for bit to the plain version as phase_check
-    holds its own; these launches compare and are not counted."""
+    holds its own; these launches compare and are not counted.  A shape
+    of more than `max_macs` multiply-adds (InternVL2's 1,048-row
+    prefill GEMMs, whose plain version would hold a float64 copy of the
+    activations per config block) is checked at its M and K with N cut
+    to 1,024: the kernel's plan depends on M and K, N sets the grid."""
     covered = {(m, k, n) for m, k, n, *_ in check_runs()}
     extra = sorted(seen - covered)
+    cut = sorted(s for s in extra
+                 if max_macs is not None and s[0] * s[1] * s[2] > max_macs)
+    runs = sorted({(m, k, min(n, 1024) if (m, k, n) in cut else n)
+                   for m, k, n in extra})
     launches = A.approx_mac_fused_matmul.launches
     worst, cases, _ = check_fused(
         torch, A, quantize, dev,
-        [(m, k, n, 128, (0, 8, 20, 31)) for m, k, n in extra], seed=5)
+        [(m, k, n, 128, (0, 8, 20, 31)) for m, k, n in runs], seed=5)
     A.approx_mac_fused_matmul.launches = launches
     emit({"phase": "check_seen", "of": name, "shapes": len(seen),
           "covered_by_check": len(seen) - len(extra),
-          "checked_here": [list(s) for s in extra], "cases": cases,
-          "bit_identical": True, "max_abs_err": worst})
+          "checked_here": [list(s) for s in runs],
+          "checked_with_n_cut_to_1024": [list(s) for s in cut],
+          "cases": cases, "bit_identical": True, "max_abs_err": worst})
     return worst
 
 
@@ -1968,10 +1988,16 @@ def _moe_prompts(Request, n_req, max_new, vocab):
             for rid, n in enumerate(lens)]
 
 
-def phase_moe_serve(torch, T, A, Engine, Request, cfg, dev):
+def phase_moe_serve(torch, T, A, Engine, Request, cfg, dev, *,
+                    name: str = "moe_serve", prompts=None,
+                    first_cfg=None):
     """The MoE main path through the port's Engine with per-expert
-    configs; on a CPU (the rehearsal) the plain versions run and no
-    kernel launch is expected."""
+    configs: config 0, then (with `first_cfg`) that config after a
+    quarter of the ticks, a random per-expert tensor after half and an
+    allocation 4 ticks later; `prompts` gives the requests (by default
+    ``_moe_prompts``), `name` the phase (DBRX's dbrx_serve).  On a CPU
+    (the rehearsal) the plain versions run and no kernel launch is
+    expected."""
     import numpy as np
     on_card = dev.type == "cuda"
 
@@ -1983,6 +2009,8 @@ def phase_moe_serve(torch, T, A, Engine, Request, cfg, dev):
               device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     params = T.init_lm(gen, cfg, dev, quantized=True)
     warm = Engine(params, cfg, **kw)
     sync()
@@ -1992,7 +2020,8 @@ def phase_moe_serve(torch, T, A, Engine, Request, cfg, dev):
     del warm
     eng = Engine(params, cfg, **kw)
     n_req, max_new = 8, 16
-    for r in _moe_prompts(Request, n_req, max_new, cfg.vocab_size):
+    for r in (prompts or _moe_prompts)(Request, n_req, max_new,
+                                       cfg.vocab_size):
         eng.submit(r)
 
     timed = {"prefill": [], "decode": []}
@@ -2031,6 +2060,8 @@ def phase_moe_serve(torch, T, A, Engine, Request, cfg, dev):
     T.prefill, T.decode_step, T.moe_ffn = (timer("prefill", fns[0]),
                                            timer("decode", fns[1]),
                                            count_drops)
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    flash0 = FA.flash_attention.launches
     try:
         A.approx_mac_grouped_matmul.launches = 0
         A.approx_mac_fused_matmul.launches = 0
@@ -2039,6 +2070,8 @@ def phase_moe_serve(torch, T, A, Engine, Request, cfg, dev):
         while eng.queue or any(s is not None for s in eng.slots):
             eng.step()
             ticks += 1
+            if first_cfg is not None and ticks == half // 2:
+                eng.set_approx_cfg(first_cfg)
             if ticks == half:
                 eng.set_approx_cfg(per_expert)
             if ticks == half + 4:
@@ -2047,6 +2080,7 @@ def phase_moe_serve(torch, T, A, Engine, Request, cfg, dev):
         wall = time.perf_counter() - t0
         grouped = A.approx_mac_grouped_matmul.launches
         fused = A.approx_mac_fused_matmul.launches
+        flash = FA.flash_attention.launches - flash0
     finally:
         T.prefill, T.decode_step, T.moe_ffn = fns
     done = eng.completed
@@ -2061,6 +2095,8 @@ def phase_moe_serve(torch, T, A, Engine, Request, cfg, dev):
     exp_fused = 4 * cfg.n_layers * calls if on_card else 0
     assert grouped == exp_grouped, (grouped, exp_grouped)
     assert fused == exp_fused, (fused, exp_fused)
+    exp_flash = cfg.n_layers * n_prefill if on_card else 0
+    assert flash == exp_flash, (flash, exp_flash)
     want = per_expert.copy()
     for (layer, expert), c in alloc.items():
         want[layer, expert] = c
@@ -2072,17 +2108,21 @@ def phase_moe_serve(torch, T, A, Engine, Request, cfg, dev):
         assert dropped > 0, dropped
     tokens = sum(len(r.tokens) for r in done)
     rep = eng.energy_report()
-    res = {"phase": "moe_serve", "arch": cfg.name, "layers": cfg.n_layers,
+    res = {"phase": name, "arch": cfg.name, "layers": cfg.n_layers,
            "d_model": cfg.d_model, "experts": cfg.n_experts,
            "top_k": cfg.top_k, "requests": n_req,
            "prompt_lens": [len(r.prompt) for r in done], "ticks": ticks,
+           "first_cfg": first_cfg,
+           "first_cfg_at_tick": half // 2 if first_cfg is not None else None,
            "retuned_at_tick": half, "allocation_at_tick": half + 4,
            "prefills": n_prefill, "decode_steps": n_decode,
            "grouped_launches": grouped, "expected_grouped": exp_grouped,
            "fused_launches": fused, "expected_fused": exp_fused,
-           "moe_calls": groups["calls"],
+           "flash_launches": flash, "moe_calls": groups["calls"],
            "moe_calls_with_groups": groups["grouped_calls"],
            "dropped_entries": dropped, "init_and_quantize_s": init_s,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                              if on_card else None),
            "prefill_ms_mean": sum(timed["prefill"]) / n_prefill,
            "decode_step_ms_mean": sum(timed["decode"]) / n_decode,
            "decode_step_ms_min": min(timed["decode"]),
@@ -2094,10 +2134,12 @@ def phase_moe_serve(torch, T, A, Engine, Request, cfg, dev):
     return res, eng
 
 
-def phase_moe_check(torch, T, A, ops, eng, dev) -> dict:
+def phase_moe_check(torch, T, A, ops, eng, dev, *,
+                    name: str = "moe_check") -> dict:
     """No host sync inside a MoE decode step; a full-width prefill with
     capacity drops through both kernels equals the same prefill through
-    their plain versions, bit for bit."""
+    their plain versions, bit for bit (under `name`, DBRX's at E 16,
+    top-4)."""
     import numpy as np
     cfg = eng.cfg
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -2136,7 +2178,8 @@ def phase_moe_check(torch, T, A, ops, eng, dev) -> dict:
     sg = 48 // cfg.moe_groups
     cap = min(int(np.ceil(sg * cfg.top_k / cfg.n_experts
                           * cfg.capacity_factor)), sg * cfg.top_k)
-    res = {"phase": "moe_check", "sync_free_decode_step": True,
+    res = {"phase": name, "arch": cfg.name, "experts": cfg.n_experts,
+           "top_k": cfg.top_k, "sync_free_decode_step": True,
            "prefill_tokens": 48, "dispatch_groups": cfg.moe_groups,
            "capacity": cap, "kernels_equal_plain_logits": True,
            "max_abs_err": err}
@@ -2256,8 +2299,10 @@ def phase_moe_prefill(torch, T, A, ops, params, cfg, dev,
     return res
 
 
-def phase_profile_moe(torch, T, eng, dev, step_ms: float) -> None:
-    """Device time of three MoE decode steps by kernel."""
+def phase_profile_moe(torch, T, eng, dev, step_ms: float, *,
+                      name: str = "profile_moe") -> dict:
+    """Device time of three MoE decode steps by kernel (under `name`,
+    DBRX's)."""
     from torch.profiler import ProfilerActivity, profile
     cfg, steps = eng.cfg, 3
     gen = torch.Generator(device=dev).manual_seed(10)
@@ -2280,17 +2325,21 @@ def phase_profile_moe(torch, T, eng, dev, step_ms: float) -> None:
     fused_ms = sum(t for k, (t, _) in by_kernel.items()
                    if "approx_mac_kernel" in k and not is_grouped_kernel(k))
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
-    emit({"phase": "profile_moe", "decode_steps": steps,
-          "device_ms_per_step": device_ms if device_ms else None,
-          "grouped_ms_per_step": grouped_ms if device_ms else None,
-          "grouped_share_of_device": (grouped_ms / device_ms
-                                      if device_ms else None),
-          "fused_ms_per_step": fused_ms if device_ms else None,
-          "kernels_per_step": sum(c for _, c in by_kernel.values()),
-          "decode_step_ms": step_ms,
-          "device_busy_share": device_ms / step_ms if device_ms else None,
-          "top": [{"kernel": k[:80], "ms_per_step": t, "count_per_step": c}
-                  for k, (t, c) in top]})
+    res = {"phase": name, "arch": cfg.name, "decode_steps": steps,
+           "device_ms_per_step": device_ms if device_ms else None,
+           "grouped_ms_per_step": grouped_ms if device_ms else None,
+           "grouped_ms_per_layer": (grouped_ms / cfg.n_layers
+                                    if device_ms else None),
+           "grouped_share_of_device": (grouped_ms / device_ms
+                                       if device_ms else None),
+           "fused_ms_per_step": fused_ms if device_ms else None,
+           "kernels_per_step": sum(c for _, c in by_kernel.values()),
+           "decode_step_ms": step_ms,
+           "device_busy_share": device_ms / step_ms if device_ms else None,
+           "top": [{"kernel": k[:80], "ms_per_step": t, "count_per_step": c}
+                   for k, (t, c) in top]}
+    emit(res)
+    return res
 
 
 def flash_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
@@ -2347,8 +2396,10 @@ def phase_check_flash(torch, FA, dev) -> float:
     KV 16, hd 128, scale 1/12, softcap 50; queries scaled so scores reach
     the cap), local and global, S up to 8192, a decode offset, a
     non-causal case, hd 120 and 256, the Qwen2.5-3B shape,
-    RecurrentGemma-2B's serve prefills and an f32 case; two launches
-    must give the same bits."""
+    RecurrentGemma-2B's serve prefills, Whisper's encoder and
+    cross-attention (hd 64, non-causal, Sq <= Skv 1,500), InternVL2's and
+    DBRX's prefills and an f32 case; two launches must give the same
+    bits."""
     gen = torch.Generator(device=dev).manual_seed(11)
     g = dict(h=32, kv=16, hd=128, scale=1 / 12, cap=50.0, amp=16.0)
     runs = [dict(g, sq=s, skv=s, window=w) for s in (1, 24, 48, 129)
@@ -2372,6 +2423,15 @@ def phase_check_flash(torch, FA, dev) -> float:
     # window 2,048, 4-48 tokens): the one-warp path and both short tiles
     runs += [dict(h=10, kv=1, hd=256, sq=s, skv=s, window=2048)
              for s in (4, 16, 17, 24, 48)]
+    # slice 14: Whisper's encoder (non-causal, 1,500 frames, MHA H 20 at
+    # hd 64) and its cross-attention prefill (4-24 queries over the
+    # frames), InternVL2's prefix + text prefill (H 64 on KV 8) and
+    # DBRX's serve prefill (H 48 on KV 8)
+    w = dict(h=20, kv=20, hd=64, causal=False)
+    runs += [dict(w, sq=1500, skv=1500)] + [dict(w, sq=s, skv=1500)
+                                           for s in (4, 17, 24)]
+    runs += [dict(h=64, kv=8, hd=128, sq=s, skv=s) for s in (1028, 1048)]
+    runs += [dict(h=48, kv=8, hd=128, sq=s, skv=s) for s in (4, 48)]
     worst, cases = 0.0, 0
     for r in runs:
         dtype = r.get("dtype", torch.bfloat16)
@@ -4976,6 +5036,478 @@ def phase_recurrent_serve(torch, T, A, FA, Engine, Request, F, cfg, dev, *,
     return res, contract, eng
 
 
+def encdec_fused(cfg, prefill: bool) -> int:
+    """Fused approx-MAC launches of one encoder-decoder prefill or decode
+    step: each decoder layer's q, k, v, o, its cross-attention's q and o,
+    the MLP's up and down, and at prefill the cross K/V projections of
+    the encoder output.  The encoder runs at the float config 0 (the
+    reference passes it no config): no fused launch."""
+    return cfg.n_layers * (10 if prefill else 8)
+
+
+def _whisper_requests(torch, cfg, dev, n_req: int, frames: int):
+    """(prompt (1, S), frames (1, frames, d)) of each request: prompts of
+    4-24 tokens (the first 24) and stub frame embeddings, drawn from
+    seed 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.integers(4, 25, n_req)
+    lens[0] = 24
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return [(torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                             device=dev)[None],
+             torch.randn(1, frames, cfg.d_model, device=dev, generator=gen))
+            for n in lens]
+
+
+def whisper_configs(torch, cfg, dev) -> dict:
+    """whisper_serve's configs: 0 and 16 (device scalars) and a
+    per-layer vector of 16, 31 and 8."""
+    return {"cfg0": torch.tensor(0, dtype=torch.int32, device=dev),
+            "cfg16": torch.tensor(16, dtype=torch.int32, device=dev),
+            "per_layer": torch.tensor(
+                [(16, 31, 8)[i % 3] for i in range(cfg.n_layers)],
+                dtype=torch.int32, device=dev)}
+
+
+def phase_whisper_serve(torch, T, A, FA, cfg, dev, *, n_req: int,
+                        max_new: int, frames: int) -> tuple:
+    """Whisper's main path (the Engine refuses an encoder-decoder model,
+    as the reference's fails on one): each request through
+    ``transformer.prefill(enc_embeds=...)`` (the encoder once, the cross
+    K/V projected once into the cache) and ``max_new - 1`` greedy
+    ``decode_step``s, at each of ``whisper_configs``.  Asserted per
+    prefill: 3 flash launches a layer (the encoder's non-causal S x S,
+    the decoder's causal self-attention, its non-causal cross-attention
+    over the frames) and ``encdec_fused(cfg, True)`` fused; per decode
+    step none and ``encdec_fused(cfg, False)``.  On a CPU (the
+    rehearsal) the plain versions run and no launch is expected.
+    Returns (result, params)."""
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev,
+                       quantized=True)
+    sync()
+    init_s = time.perf_counter() - t0
+    reqs = _whisper_requests(torch, cfg, dev, n_req, frames)
+    configs = whisper_configs(torch, cfg, dev)
+    # warm-up (not timed): one prefill and two steps
+    prompt, enc = reqs[0]
+    logits, cache = T.prefill(params, cfg, prompt, enc_embeds=enc,
+                              max_len=prompt.shape[1] + 2,
+                              approx_cfg=configs["cfg0"])
+    for _ in range(2):
+        logits, cache = T.decode_step(params, cfg, cache,
+                                      logits.argmax(-1)[:, None],
+                                      approx_cfg=configs["cfg0"])
+    sync()
+    encode, enc_ms = T.encode, []
+
+    def timed_encode(*args, **kw):
+        sync()
+        t = time.perf_counter()
+        out = encode(*args, **kw)
+        sync()
+        enc_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    runs, streams = {}, {}
+    exp_fused = (encdec_fused(cfg, True), encdec_fused(cfg, False))
+    T.encode = timed_encode
+    try:
+        for name, c in configs.items():
+            pre, dec, tokens, wall = [], [], 0, 0.0
+            enc_ms.clear()
+            for rid, (prompt, enc) in enumerate(reqs):
+                fused0 = A.approx_mac_fused_matmul.launches
+                flash0 = FA.flash_attention.launches
+                sync()
+                t = time.perf_counter()
+                logits, cache = T.prefill(params, cfg, prompt,
+                                          enc_embeds=enc,
+                                          max_len=prompt.shape[1] + max_new,
+                                          approx_cfg=c)
+                sync()
+                pre.append((time.perf_counter() - t) * 1e3)
+                fused = A.approx_mac_fused_matmul.launches - fused0
+                flash = FA.flash_attention.launches - flash0
+                assert fused == (exp_fused[0] if on_card else 0), fused
+                assert flash == (3 * cfg.n_layers if on_card else 0), flash
+                out = [logits.argmax(-1)]
+                for _ in range(max_new - 1):
+                    fused0 = A.approx_mac_fused_matmul.launches
+                    flash0 = FA.flash_attention.launches
+                    sync()
+                    t = time.perf_counter()
+                    logits, cache = T.decode_step(params, cfg, cache,
+                                                  out[-1][:, None],
+                                                  approx_cfg=c)
+                    sync()
+                    dec.append((time.perf_counter() - t) * 1e3)
+                    assert FA.flash_attention.launches == flash0
+                    assert (A.approx_mac_fused_matmul.launches - fused0
+                            == (exp_fused[1] if on_card else 0))
+                    out.append(logits.argmax(-1))
+                assert bool(torch.isfinite(logits.float()).all())
+                toks = torch.cat(out).tolist()
+                assert all(0 <= x < cfg.vocab_size for x in toks)
+                assert int(cache["pos"]) == prompt.shape[1] + max_new - 1
+                streams[(name, rid)] = toks
+                tokens += len(toks)
+                wall += (pre[-1] + sum(dec[-(max_new - 1):])) / 1e3
+            runs[name] = {
+                "encoder_ms_mean": sum(enc_ms) / len(enc_ms),
+                "encoder_ms_min": min(enc_ms),
+                "prefill_ms_mean": sum(pre) / len(pre),
+                "prefill_ms_min": min(pre),
+                "decode_step_ms_mean": sum(dec) / len(dec),
+                "decode_step_ms_min": min(dec),
+                "tokens": tokens, "tokens_per_s": tokens / wall}
+    finally:
+        T.encode = encode
+    n_prefill = n_req * len(configs)
+    n_decode = n_prefill * (max_new - 1)
+    res = {"phase": "whisper_serve", "arch": cfg.name,
+           "layers": cfg.n_layers, "encoder_layers": cfg.n_enc_layers,
+           "d_model": cfg.d_model, "heads": cfg.n_heads,
+           "head_dim": cfg.head_dim, "kv_quant": cfg.kv_quant,
+           "frames": frames, "requests": n_req,
+           "prompt_lens": [p.shape[1] for p, _ in reqs],
+           "greedy_tokens_a_request": max_new, "configs": list(configs),
+           "prefills": n_prefill, "decode_steps": n_decode,
+           "fused_launches": (exp_fused[0] * n_prefill
+                              + exp_fused[1] * n_decode) if on_card else 0,
+           "fused_a_prefill": exp_fused[0], "fused_a_decode_step":
+           exp_fused[1], "flash_launches": (3 * cfg.n_layers * n_prefill
+                                            if on_card else 0),
+           "flash_a_prefill": 3 * cfg.n_layers, "flash_in_decode": 0,
+           "streams_differ_across_configs": len({tuple(streams[(n, 0)])
+                                                 for n in configs}) > 1,
+           "init_and_quantize_s": init_s,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                              if on_card else None),
+           "runs": runs}
+    emit(res)
+    return res, params
+
+
+def phase_whisper_check(torch, T, A, ops, FA, FAops, params, cfg, dev, *,
+                        layers: int, steps: int, frames: int) -> dict:
+    """Whisper against the plain versions on whisper_serve's shapes: one
+    full-depth prefill (24 tokens, `frames` frames, a per-layer config)
+    through the fused kernel equals the same prefill through its plain
+    version bit for bit, logits and every cache leaf (the cross K/V
+    included); each of its flash calls (the encoder's non-causal
+    frames x frames at hd 64, the decoder's causal self-attention and
+    its non-causal 24 x frames cross-attention) is held to the plain
+    flash version within ``flash_tol``.  Then the reference's serving
+    contract at `layers` decoder and encoder layers, float KV, in f32
+    at the float config 0: prefill plus `steps` greedy decode steps give
+    the teacher-forced ``forward``'s argmax at every step."""
+    on_card = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(14)
+    toks = torch.randint(0, cfg.vocab_size, (1, 24), device=dev,
+                         generator=gen)
+    enc = torch.randn(1, frames, cfg.d_model, device=dev, generator=gen)
+    c = whisper_configs(torch, cfg, dev)["per_layer"]
+    calls, kernel = [], FAops.flash_attention
+
+    def rec(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+    FAops.flash_attention = rec
+    try:
+        logits_k, cache_k = T.prefill(params, cfg, toks, enc_embeds=enc,
+                                      max_len=32, approx_cfg=c)
+    finally:
+        FAops.flash_attention = kernel
+    ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul_ref
+    try:
+        logits_p, cache_p = T.prefill(params, cfg, toks, enc_embeds=enc,
+                                      max_len=32, approx_cfg=c)
+    finally:
+        ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul
+    if on_card:
+        torch.cuda.synchronize()
+    err = float((logits_k.float() - logits_p.float()).abs().max())
+    assert torch.equal(logits_k, logits_p), err
+    got, want = dict(cache_leaves(cache_k)), dict(cache_leaves(cache_p))
+    assert got.keys() == want.keys() and {"xk", "xv"} <= got.keys()
+    for key, leaf in got.items():
+        assert torch.equal(leaf, want[key]), key
+    assert len(calls) == (3 * cfg.n_layers if on_card else 0), len(calls)
+    flash_err, shapes = 0.0, set()
+    for q, k, v, kw, out in calls:
+        ref = FA.flash_attention_ref(q, k, v, **kw)
+        torch.testing.assert_close(out, ref, **flash_tol(torch, q.dtype, v))
+        flash_err = max(flash_err, float((out.float() - ref.float()).abs()
+                                         .max()))
+        shapes.add((q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                    q.shape[3], kw["causal"]))
+    del calls, cache_k, cache_p
+
+    # the contract, on the first `layers` layers of each stack, in f32
+    small = dataclasses.replace(cfg, n_layers=layers, n_enc_layers=layers,
+                                kv_quant=False, compute_dtype=torch.float32)
+    sp = {**params, "blocks": params["blocks"][:layers],
+          "encoder": params["encoder"][:layers]}
+    seq = toks[:, :12]
+    logits, cache = T.prefill(sp, small, seq, enc_embeds=enc,
+                              max_len=12 + steps)
+    agree, margins = [], []
+    for _ in range(steps):
+        nxt = logits.argmax(-1)[:, None]
+        seq = torch.cat([seq, nxt], dim=1)
+        logits, cache = T.decode_step(sp, small, cache, nxt)
+        ref = T.logits_for(sp, small, T.forward(sp, small, seq,
+                                                 enc_embeds=enc)[:, -1])
+        agree.append(bool(torch.equal(logits.argmax(-1), ref.argmax(-1))))
+        margins.append(float((logits - ref).abs().max()))
+    assert all(agree), (agree, margins)
+    res = {"phase": "whisper_check", "arch": cfg.name,
+           "prefill_tokens": 24, "frames": frames,
+           "kernel_equals_plain_logits_and_cache": True,
+           "cache_leaves": len(got), "max_abs_err": err,
+           "flash_calls_held": 3 * cfg.n_layers if on_card else 0,
+           "flash_shapes": sorted(list(x) for x in shapes),
+           "flash_max_abs_err": flash_err, "flash_tolerance": FLASH_TOL_NOTE,
+           "contract_layers": layers, "contract_steps": steps,
+           "contract_dtype": "float32", "contract_argmax_equal": agree,
+           "contract_max_logit_diff": max(margins)}
+    emit(res)
+    return res
+
+
+def _internvl_requests(torch, cfg, dev, n_req: int, prefix: int):
+    """(prompt (1, S), patch embeddings (1, prefix, d)) of each request:
+    text of 4-24 tokens (the first 24), stub patches, from seed 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.integers(4, 25, n_req)
+    lens[0] = 24
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return [(torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                             device=dev)[None],
+             torch.randn(1, prefix, cfg.d_model, device=dev, generator=gen))
+            for n in lens]
+
+
+def phase_internvl_serve(torch, T, A, FA, Engine, Request, cfg, dev, *,
+                         n_req: int, max_new: int, prefix: int) -> tuple:
+    """InternVL2 at full width and ``cfg.n_layers`` layers: each request's
+    `prefix` stub patch embeddings and text through
+    ``transformer.prefill(vision_embeds=...)`` and ``max_new - 1``
+    greedy decode steps at config 16 (a device scalar), its flash calls
+    held to the plain flash version; then the same prompts text-only
+    through the Engine (config 0, then 16), as the reference's Engine
+    serves a VLM.  Asserted: one flash launch a layer a prefill, none in
+    decode, 7 fused launches a layer a call.  Returns (result,
+    params)."""
+    from repro_torch.kernels.flash_attention import ops as FAops
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev,
+                       quantized=True)
+    sync()
+    init_s = time.perf_counter() - t0
+    reqs = _internvl_requests(torch, cfg, dev, n_req, prefix)
+    c = torch.tensor(16, dtype=torch.int32, device=dev)
+    prompt, vis = reqs[-1]           # warm-up, not timed
+    logits, cache = T.prefill(params, cfg, prompt, vision_embeds=vis,
+                              max_len=prompt.shape[1] + prefix + 2,
+                              approx_cfg=c)
+    T.decode_step(params, cfg, cache, logits.argmax(-1)[:, None],
+                  approx_cfg=c)
+    sync()
+    per_call = fused_per_call(cfg) if on_card else 0
+    pre, dec, tokens, wall = [], [], 0, 0.0
+    calls, kernel = [], FAops.flash_attention
+
+    def rec(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+    flash_err = 0.0
+    for prompt, vis in reqs:
+        fused0 = A.approx_mac_fused_matmul.launches
+        sync()
+        t = time.perf_counter()
+        FAops.flash_attention = rec
+        try:
+            logits, cache = T.prefill(params, cfg, prompt, vision_embeds=vis,
+                                      max_len=prompt.shape[1] + prefix
+                                      + max_new, approx_cfg=c)
+        finally:
+            FAops.flash_attention = kernel
+        sync()
+        pre.append((time.perf_counter() - t) * 1e3)
+        assert A.approx_mac_fused_matmul.launches - fused0 == per_call
+        assert len(calls) == (cfg.n_layers if on_card else 0), len(calls)
+        for q, k, v, kw, out in calls:
+            ref = FA.flash_attention_ref(q, k, v, **kw)
+            torch.testing.assert_close(out, ref,
+                                       **flash_tol(torch, q.dtype, v))
+            flash_err = max(flash_err, float((out.float() - ref.float())
+                                             .abs().max()))
+        calls.clear()
+        assert int(cache["pos"]) == prefix + prompt.shape[1]
+        out = [logits.argmax(-1)]
+        for _ in range(max_new - 1):
+            fused0 = A.approx_mac_fused_matmul.launches
+            flash0 = FA.flash_attention.launches
+            sync()
+            t = time.perf_counter()
+            logits, cache = T.decode_step(params, cfg, cache,
+                                          out[-1][:, None], approx_cfg=c)
+            sync()
+            dec.append((time.perf_counter() - t) * 1e3)
+            assert FA.flash_attention.launches == flash0
+            assert A.approx_mac_fused_matmul.launches - fused0 == per_call
+            out.append(logits.argmax(-1))
+        assert bool(torch.isfinite(logits.float()).all())
+        tokens += max_new
+        wall += (pre[-1] + sum(dec[-(max_new - 1):])) / 1e3
+        del cache
+    # the same prompts text-only through the Engine
+    eng = Engine(params, cfg, max_batch=4, max_len=64, device=dev)
+    for rid, (prompt, _) in enumerate(reqs):
+        eng.submit(Request(rid=rid, prompt=prompt[0].cpu().numpy(),
+                           max_new_tokens=max_new))
+    fused0 = A.approx_mac_fused_matmul.launches
+    flash0 = FA.flash_attention.launches
+    sync()
+    t0 = time.perf_counter()
+    ticks = 0
+    while eng.queue or any(s is not None for s in eng.slots):
+        eng.step()
+        ticks += 1
+        if ticks == max_new // 2:
+            eng.set_approx_cfg(16)
+    sync()
+    eng_wall = time.perf_counter() - t0
+    done = eng.completed
+    assert len(done) == n_req and all(
+        len(r.tokens) == max_new and r.status == "done" for r in done)
+    eng_calls = n_req + eng.n_decode_steps
+    assert A.approx_mac_fused_matmul.launches - fused0 == \
+        per_call * eng_calls
+    assert FA.flash_attention.launches - flash0 == \
+        (cfg.n_layers * n_req if on_card else 0)
+    res = {"phase": "internvl_serve", "arch": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "d_ff": cfg.d_ff, "kv_quant": cfg.kv_quant,
+           "vision_prefix": prefix, "requests": n_req,
+           "prompt_lens": [p.shape[1] for p, _ in reqs],
+           "prefill_lens": [prefix + p.shape[1] for p, _ in reqs],
+           "approx_cfg": 16, "prefills": n_req,
+           "decode_steps": n_req * (max_new - 1),
+           "fused_launches": per_call * n_req * max_new,
+           "flash_launches": (cfg.n_layers * n_req if on_card else 0),
+           "flash_in_decode": 0, "flash_max_abs_err": flash_err,
+           "flash_tolerance": FLASH_TOL_NOTE,
+           "prefill_ms_mean": sum(pre) / len(pre), "prefill_ms_min": min(pre),
+           "decode_step_ms_mean": sum(dec) / len(dec),
+           "decode_step_ms_min": min(dec), "tokens_per_s": tokens / wall,
+           "engine_text_only": {
+               "ticks": ticks, "decode_steps": eng.n_decode_steps,
+               "fused_launches": per_call * eng_calls,
+               "flash_launches": cfg.n_layers * n_req if on_card else 0,
+               "wall_s": eng_wall,
+               "tokens_per_s": n_req * max_new / eng_wall},
+           "init_and_quantize_s": init_s,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                              if on_card else None)}
+    emit(res)
+    del eng
+    return res, params
+
+
+
+def slice14(torch, T, A, ops, FA, FAops, Engine, Request, quantize,
+            get_config, dev, *, whisper_over=None,
+            dbrx_layers=DBRX_LAYERS) -> dict:
+    """Slice 14's phases, one model at a time: whisper_serve and
+    whisper_check (Whisper-large-v3 at full depth), internvl_serve
+    (InternVL2-76B at INTERNVL["layers"] of 80), dbrx_serve, dbrx_check
+    and profile_dbrx (DBRX-132B at DBRX_LAYERS of 40, per-expert
+    configs), then check_seen over the three serves' fused shapes.  On a
+    CPU (the rehearsal) the three run their smoke configs, Whisper's
+    request sizes overridden by `whisper_over` and DBRX's depth by
+    `dbrx_layers`."""
+    w = {**WHISPER, **(whisper_over or {})}
+    whisper = get_config("whisper-large-v3")
+    on_card = dev.type == "cuda"
+    if not on_card:
+        whisper = whisper.smoke()
+    with fused_shapes() as seen:
+        wh_serve, params = phase_whisper_serve(
+            torch, T, A, FA, whisper, dev, n_req=w["requests"],
+            max_new=w["max_new"], frames=w["frames"])
+    wh_check = phase_whisper_check(
+        torch, T, A, ops, FA, FAops, params, whisper, dev,
+        layers=min(w["check_layers"], whisper.n_layers),
+        steps=w["check_steps"], frames=w["frames"])
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    internvl = get_config("internvl2-76b")
+    internvl = (dataclasses.replace(internvl, n_layers=INTERNVL["layers"])
+                if on_card else internvl.smoke())
+    with fused_shapes() as iv_seen:
+        iv_serve, params = phase_internvl_serve(
+            torch, T, A, FA, Engine, Request, internvl, dev,
+            n_req=INTERNVL["requests"], max_new=INTERNVL["max_new"],
+            prefix=internvl.vision_prefix_len if not on_card
+            else INTERNVL["prefix"])
+    seen |= iv_seen
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    dbrx = get_config("dbrx-132b")
+    dbrx = dataclasses.replace(dbrx if on_card else dbrx.smoke(),
+                               n_layers=dbrx_layers, mac_backend="pallas")
+    with fused_shapes() as db_seen:
+        db_serve, eng = phase_moe_serve(
+            torch, T, A, Engine, Request, dbrx, dev, name="dbrx_serve",
+            prompts=_gemma2_prompts, first_cfg=16)
+    seen |= db_seen
+    db_check = (phase_moe_check(torch, T, A, ops, eng, dev,
+                                name="dbrx_check")
+                if on_card else {"max_abs_err": 0.0})
+    profile = (phase_profile_moe(torch, T, eng, dev,
+                                 db_serve["decode_step_ms_mean"],
+                                 name="profile_dbrx")
+               if on_card else None)
+    del eng
+    if on_card:
+        torch.cuda.empty_cache()
+    worst = max(wh_check["max_abs_err"], db_check["max_abs_err"],
+                phase_check_seen(torch, A, quantize, dev,
+                                 "whisper_serve, internvl_serve, "
+                                 "dbrx_serve", seen, max_macs=1e10))
+    return {"whisper_serve": wh_serve, "whisper_check": wh_check,
+            "internvl_serve": iv_serve, "dbrx_serve": db_serve,
+            "dbrx_check": db_check, "profile_dbrx": profile,
+            "worst": worst}
+
+
+
 def layer_row(name: str, rows: list, launches: int) -> dict:
     """One work row of a kernel's entry: the sums over a layer's GEMMs."""
     return {"work": name, "launches": launches,
@@ -5000,6 +5532,8 @@ REHEARSAL_GROUPS = {
                "moe_train",
     "slice13": "rgemma_serve/contract/check/window, "
                "xlstm_serve/contract/check, check_seen",
+    "slice14": "whisper_serve/check, internvl_serve, dbrx_serve, "
+               "check_seen",
 }
 
 
@@ -5175,6 +5709,12 @@ def rehearse(groups=None) -> int:
                             hold_argmax=True)
         phase_check_seen(torch, A, quantize, cpu, "rgemma_serve, xlstm_serve",
                          seen)
+    if "slice14" in groups:
+        # the smoke configs: Whisper's frames inside its 128 positions,
+        # InternVL2's prefix of 4, DBRX at its 2 smoke layers
+        slice14(torch, T, A, ops, FA, FAops, Engine, Request, quantize,
+                get_config, cpu, whisper_over=dict(frames=16, max_new=6),
+                dbrx_layers=2)
     emit({"rehearsal": True, "groups": groups, "ok": False})
     return 0
 
@@ -5400,6 +5940,9 @@ def main(argv: list[str]) -> int:
     worst = max(worst, phase_check_seen(torch, A, quantize, dev,
                                         "rgemma_serve, xlstm_serve",
                                         rec_seen))
+    s14 = slice14(torch, T, A, ops, FA, FAops, Engine, Request, quantize,
+                  get_config, dev)
+    worst = max(worst, s14["worst"])
     phase_check_flash_grad(torch, FA, FAops, dev)
     train = phase_train(torch, T, A, FA, PA, get_config("qwen2.5-3b"), dev)
     torch.cuda.empty_cache()
@@ -5446,6 +5989,10 @@ def main(argv: list[str]) -> int:
                      + dn_serve["fused_launches"]
                      + rg_serve["fused_launches"]
                      + xl_serve["fused_launches"]
+                     + s14["whisper_serve"]["fused_launches"]
+                     + s14["internvl_serve"]["fused_launches"]
+                     + s14["internvl_serve"]["engine_text_only"][
+                         "fused_launches"]
                      + moe_chunks["per_expert"]["launches"][
                          "approx_mac_fused_matmul"]),
         "max_abs_err": worst,
@@ -5460,10 +6007,11 @@ def main(argv: list[str]) -> int:
                 "speculative runs (spec_check, spec_serve, spec_sched, "
                 "spec_moe), chaos_serve, spike_serve and interactions, "
                 "gemma7b_serve and danube_serve, rgemma_serve and "
-                "xlstm_serve, moe_chunks' per-expert "
+                "xlstm_serve, whisper_serve and internvl_serve (with "
+                "its text-only Engine run), moe_chunks' per-expert "
                 "run (the plain paged run's are in paged_serve, "
-                "the other MoE runs' in moe_serve, sched_moe and "
-                "paged_moe, Gemma-2's in gemma2_serve); "
+                "the other MoE runs' in moe_serve, sched_moe, "
+                "paged_moe and dbrx_serve, Gemma-2's in gemma2_serve); "
                 "library_ms is torch._int_mm at config 0 "
                 "with M padded to 32, each GEMM in its faster weight "
                 "layout (timing's library_layout)",
@@ -5524,15 +6072,17 @@ def main(argv: list[str]) -> int:
                      + spec_launches("approx_mac_grouped_matmul")
                      + paged_moe["launches"]["approx_mac_grouped_matmul"]
                      + moe_path["grouped_launches"]
+                     + s14["dbrx_serve"]["grouped_launches"]
                      + moe_chunks["per_expert"]["launches"][
                          "approx_mac_grouped_matmul"]),
-        "max_abs_err": grouped_err,
+        "max_abs_err": max(grouped_err, s14["dbrx_check"]["max_abs_err"]),
         **{key: moe_rows[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
         "work": "the 3 expert GEMMs (gate, up, down) of one OLMoE-1B-7B "
                 "layer at decode: 4 tokens, top-8 of 64 experts from a "
                 "real routing, M 32; launches from the moe_serve, "
-                "sched_moe, spec_moe, paged_moe and moe_path runs and "
+                "sched_moe, spec_moe, paged_moe, moe_path and "
+                "dbrx_serve (E 16, top-4, K 6,144, N 10,752) runs and "
                 "moe_chunks' per-expert run; "
                 "library_ms is a torch._int_mm loop over the touched "
                 "experts at config 0, each GEMM in its faster weight "
@@ -5553,7 +6103,13 @@ def main(argv: list[str]) -> int:
                      + sum(r["launches"]["flash_attention"]
                            for r in moe_chunks["runs"]
                            + [moe_chunks["per_expert"]])
-                     + moe_train["flash_launches"]),
+                     + moe_train["flash_launches"]
+                     + moe["flash_launches"]
+                     + s14["whisper_serve"]["flash_launches"]
+                     + s14["internvl_serve"]["flash_launches"]
+                     + s14["internvl_serve"]["engine_text_only"][
+                         "flash_launches"]
+                     + s14["dbrx_serve"]["flash_launches"]),
         "max_abs_err": flash_err,
         "ms": serve_flash["ms"],
         "plain_ms": serve_flash["plain_ms"],
@@ -5568,7 +6124,11 @@ def main(argv: list[str]) -> int:
                 "chaos_serve, spike_serve and interactions, "
                 "gemma7b_serve (hd 256), danube_serve (hd 120, window "
                 "4096), rgemma_serve (H 10 on KV 1, hd 256, window "
-                "2048), paged_moe, moe_chunks and moe_train; "
+                "2048), paged_moe, moe_chunks, moe_train, moe_serve, "
+                "whisper_serve (hd 64: the encoder non-causal at 1,500 "
+                "frames, the cross-attention non-causal at 4-24 x "
+                "1,500), internvl_serve (1,028-1,048 tokens, H 64 on KV "
+                "8) and dbrx_serve; "
                 "library_ms is scaled_dot_product_attention (GQA, "
                 "causal) without the softcap, which it cannot express",
     }]})

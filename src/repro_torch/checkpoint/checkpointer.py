@@ -16,7 +16,8 @@ The leaves are written in JAX's flatten order (dict keys sorted, lists
 in order, ``AdamWState`` as (step, mu, nu)), and an LM param tree — a
 dict whose "blocks" is the port's per-layer list, as are its gradients
 and optimizer moments — in the reference's stacked ``blocks.scan.b{j}``
-layout (``convert.stack_blocks``; this needs the model's config).  The
+layout, an encoder-decoder's encoder layers as ``encoder.scan.b0``
+(``convert.stack_blocks``; this needs the model's config).  The
 structure string is the one JAX prints for the same tree.  So a
 checkpoint of a train state written by either package restores in the
 other.  ``meta.msgpack`` is written and read by the small msgpack subset
@@ -34,8 +35,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.convert import (leaf_to_numpy, params_from_numpy,
-                                 stack_blocks)
+from repro_torch.convert import (LAYER_LISTS, layer_lists, leaf_to_numpy,
+                                 params_from_numpy, stack_blocks)
 from repro_torch.nn.transformer import ModelConfig
 from repro_torch.train.optimizer import (AdamWState, tree_leaves, tree_map,
                                          tree_unflatten)
@@ -190,10 +191,12 @@ def _ref_layout(tree, cfg: ModelConfig | None, leaf, stack):
             if cfg is None:
                 raise ValueError("an LM param tree needs the model's "
                                  "config: Checkpointer(..., cfg=cfg)")
-            out = {k: go(v) for k, v in node.items() if k != "blocks"}
-            out["blocks"] = stack_blocks(
-                node["blocks"], len(cfg.pattern),
-                lambda leaves: stack([leaf(x) for x in leaves]))
+            out = {k: go(v) for k, v in node.items()
+                   if k not in LAYER_LISTS}
+            for key, _, npat in layer_lists(node, cfg):
+                out[key] = stack_blocks(
+                    node[key], npat,
+                    lambda leaves: stack([leaf(x) for x in leaves]))
             return out
         if isinstance(node, dict):
             return {k: go(v) for k, v in node.items()}

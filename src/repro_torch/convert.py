@@ -12,8 +12,12 @@ while the port keeps ``params["blocks"]`` as a per-layer list.  Per-layer shapes
 unchanged (``wq``/``wk``/``wv`` (d, H, hd), ``wo`` (H, hd, d), a MoE
 layer's ``router`` (d, E) and expert banks ``w_gate``/``w_up``
 (E, d, f) and ``w_down`` (E, f, d); a post-norm model's ``post1`` and
-``post2`` ride along); the port's ``Engine`` quantizes the float weights once, like the
-reference's.
+``post2``, an "ln" norm's ``bias`` and an encoder-decoder's ``norm_x``
+and ``xattn`` ride along); the port's ``Engine`` quantizes the float
+weights once, like the reference's.  An encoder-decoder's
+``encoder.scan.b0`` (stacked over its layers) becomes the port's
+per-layer list ``encoder``; ``enc_norm``, ``enc_pos`` and ``dec_pos``
+cross as they are.
 
 ``params_to_numpy`` goes the other way (the checkpointer writes the
 port's params, gradients and optimizer moments in the reference's
@@ -33,6 +37,19 @@ from repro_torch.nn.mlp_paper import QuantizedMLP
 from repro_torch.nn.transformer import ModelConfig, Params
 
 
+# the port's per-layer lists: the decoder's blocks, an encoder's layers
+LAYER_LISTS = ("blocks", "encoder")
+
+
+def layer_lists(params: dict, cfg: ModelConfig) -> list[tuple[str, int, int]]:
+    """(key, layers, pattern length) of each per-layer list in `params`:
+    the blocks cycle the config's pattern, an encoder's layers are all
+    global (a pattern of 1)."""
+    return [(key, cfg.n_layers, len(cfg.pattern)) if key == "blocks"
+            else (key, cfg.n_enc_layers, 1)
+            for key in LAYER_LISTS if key in params]
+
+
 def _to_torch(tree, device):
     if isinstance(tree, dict):
         return {k: _to_torch(v, device) for k, v in tree.items()}
@@ -43,15 +60,25 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Params:
     """Reference float params as numpy -> the port's params on `device`.
     Layer g * P + j of a P-kind pattern is group g of the reference's
     ``blocks.scan.b{j}``; the R layers past the last whole group are
-    ``blocks.rest0`` .. ``rest{R-1}``."""
-    blocks = tree["blocks"]
-    npat = len(cfg.pattern)
-    n_groups, rem = divmod(cfg.n_layers, npat)
+    ``blocks.rest0`` .. ``rest{R-1}``.  An encoder's layer i is row i of
+    ``encoder.scan.b0``."""
+    out = {k: _to_torch(v, device) for k, v in tree.items()
+           if k not in LAYER_LISTS}
+    for key, n, npat in layer_lists(tree, cfg):
+        out[key] = _layers_from_numpy(tree[key], n, npat, device)
+    return out
+
+
+def _layers_from_numpy(blocks: dict, n_layers: int, npat: int,
+                       device) -> list:
+    """The reference's ``{"scan": {"b{j}": ...}, "rest{r}": ...}`` of
+    `n_layers` layers of a `npat`-kind pattern -> a per-layer list."""
+    n_groups, rem = divmod(n_layers, npat)
     keys = {f"rest{r}" for r in range(rem)} | ({"scan"} if n_groups else set())
     if set(blocks) != keys or (n_groups and set(blocks["scan"]) != {
             f"b{j}" for j in range(npat)}):
         raise ValueError(f"blocks {sorted(blocks)} for a "
-                         f"{cfg.n_layers}-layer pattern of {npat}")
+                         f"{n_layers}-layer pattern of {npat}")
 
     def layer(i, node):
         if isinstance(node, dict):
@@ -63,15 +90,11 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Params:
         got = len(np.asarray(stacked["b0"]["norm1"]["scale"]))
         if got != n_groups:
             raise ValueError(f"{got} stacked groups of {npat} for a "
-                             f"{cfg.n_layers}-layer config")
-    out = {k: _to_torch(v, device) for k, v in tree.items()
-           if k != "blocks"}
-    out["blocks"] = [
-        _to_torch(layer(i // npat, stacked[f"b{i % npat}"])
-                  if i < n_groups * npat
-                  else blocks[f"rest{i - n_groups * npat}"], device)
-        for i in range(cfg.n_layers)]
-    return out
+                             f"{n_layers}-layer config")
+    return [_to_torch(layer(i // npat, stacked[f"b{i % npat}"])
+                      if i < n_groups * npat
+                      else blocks[f"rest{i - n_groups * npat}"], device)
+            for i in range(n_layers)]
 
 
 def stack_blocks(blocks: list, npat: int, stack) -> dict:
@@ -123,6 +146,7 @@ def cache_to_reference(cache: dict, cfg: ModelConfig) -> dict:
     stack from the j-th's place, m the kind's count in the pattern (a
     strided view where m > 1, RecurrentGemma's two recurrent positions),
     and rest layer r the row after the groups (batch then on axis 0).
+    An encoder-decoder's ``xk``/``xv`` ride with the k/v of their layer.
     Paged (a ``{"k", "v"}`` pool): ``{"scan": {"b0": {"k", "v"}}}``."""
     if "pos" not in cache:
         return {"scan": {"b0": {"k": cache["k"], "v": cache["v"]}}}
@@ -132,7 +156,7 @@ def cache_to_reference(cache: dict, cfg: ModelConfig) -> dict:
     def stack(kind):
         if kind == "global":
             return {k: v for k, v in cache.items()
-                    if k in ("k", "v", "k_s", "v_s")}
+                    if k in ("k", "v", "k_s", "v_s", "xk", "xv")}
         return cache[kind]
 
     out = {"pos": cache["pos"]}
@@ -154,17 +178,21 @@ def params_to_numpy(params: Params, cfg: ModelConfig) -> dict:
     optimizer moments) -> numpy in the reference's layout, the inverse
     of ``params_from_numpy``: layer g * P + j becomes group g of
     ``blocks.scan.b{j}``, a layer past the last whole group
-    ``blocks.rest{r}``."""
+    ``blocks.rest{r}``, and an encoder's layers ``encoder.scan.b0``."""
     def to_numpy(tree):
         if isinstance(tree, dict):
             return {k: to_numpy(v) for k, v in tree.items()}
         return leaf_to_numpy(tree)
 
-    out = {k: to_numpy(v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = stack_blocks(
-        params["blocks"], len(cfg.pattern),
-        lambda leaves: np.stack([leaf_to_numpy(leaf) for leaf in leaves]))
+    def stack(leaves):
+        return np.stack([leaf_to_numpy(leaf) for leaf in leaves])
+
+    out = {k: to_numpy(v) for k, v in params.items()
+           if k not in LAYER_LISTS}
+    for key, _, npat in layer_lists(params, cfg):
+        out[key] = stack_blocks(params[key], npat, stack)
     return out
+
 
 
 def mlp_params_from_numpy(tree: dict, device="cuda") -> dict:

@@ -1,8 +1,9 @@
 """Serving launcher: the continuous-batching engine with the power knob.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch {qwen2.5-3b,olmoe-1b-7b,gemma2-27b,gemma-7b,h2o-danube-3-4b,
-              recurrentgemma-2b,xlstm-350m} \
+      --arch {gemma2-27b,qwen2.5-3b,h2o-danube-3-4b,gemma-7b,olmoe-1b-7b,
+              dbrx-132b,internvl2-76b,whisper-large-v3,xlstm-350m,
+              recurrentgemma-2b} \
       [--smoke] [--requests 8] [--max-batch 4] [--max-len 128] \
       [--max-new 16] [--approx-cfg 0] [--device cuda] \
       [--budget-frac F] [--power-cap-frac F] \
@@ -23,7 +24,11 @@ block-pool KV cache (chunked prefill, prefix sharing, preemption by
 recompute) whose decode attention runs the paged-attention kernel; as
 in the reference, it refuses models with local or recurrent layers or
 an int8 KV cache (Gemma-2, Gemma-7B, H2O-Danube3-4B, RecurrentGemma-2B,
-xLSTM-350M), as --draft-cfg does.
+xLSTM-350M, and the int8-KV DBRX-132B and InternVL2-76B), as
+--draft-cfg does.  InternVL2-76B serves text-only (the Engine passes no
+vision prefix, as the reference's does); whisper-large-v3 is refused,
+as the Engine refuses an encoder-decoder model (the reference's crashes
+at its first prefill).
 --budget-frac attaches a ``PowerBudgetScheduler``
 whose budget is that fraction of the model's exact-mode pJ/token, and
 prints its report at the end; --power-cap-frac caps admission at that
@@ -65,7 +70,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.power_model import energy_per_token_pj
 from repro_torch.nn import transformer as T
 from repro_torch.serve.brownout import BrownoutController
-from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.engine import Engine, Request, refuse_encoder_decoder
 from repro_torch.serve.faults import FaultEvent, FaultInjector
 from repro_torch.serve.paged_cache import N_RESERVED, PagedCacheConfig
 from repro_torch.serve.scheduler import PowerBudgetScheduler
@@ -142,6 +147,7 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    refuse_encoder_decoder(cfg)
     device = T.resolve_device(args.device)
     paged = None
     if args.paged:

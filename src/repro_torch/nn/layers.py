@@ -1,5 +1,5 @@
 """Building-block layers: dense with the error-config knob, RMSNorm,
-RoPE, activations, the logit softcap, initializers.  Plain functions over tensors (counterpart of
+LayerNorm, RoPE, activations, the logit softcap, initializers.  Plain functions over tensors (counterpart of
 ``repro.nn.layers``).
 
 ``dense`` runs the integer pipeline — dynamic per-tensor int8
@@ -95,6 +95,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * (offset + scale.to(torch.float32))).to(dt)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 (the variance as the mean of the centred
+    squares, as ``jnp.var`` computes it), cast back to x's dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    centred = x - torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(centred), dim=-1, keepdim=True)
+    y = centred * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:

@@ -1,51 +1,66 @@
-"""Decoder LM: the decoder-only subset of ``repro.nn.transformer``.
+"""LM assembly: the port of ``repro.nn.transformer``.
 
-Covers the families ``launch/serve.py`` serves: dense (Qwen2.5-3B,
-Gemma-2-27B, Gemma-7B, H2O-Danube3-4B), MoE (OLMoE-1B-7B), hybrid
+Covers all ten registry families: dense (Qwen2.5-3B, Gemma-2-27B,
+Gemma-7B, H2O-Danube3-4B), MoE (OLMoE-1B-7B, DBRX-132B), vlm
+(InternVL2-76B: ``vision_prefix_len`` stub patch embeddings prepended
+to the text), audio (Whisper-large-v3: an encoder-decoder), hybrid
 (RecurrentGemma-2B) and ssm (xLSTM-350M) — GQA attention with RoPE and
 optional QKV bias, "global" (causal) and "local" (sliding-window)
 layers, and the recurrent kinds "recurrent" (Griffin's RG-LRU block),
 "mlstm" and "slstm" (``nn/recurrent.py``), in a repeating ``pattern``
 (all-local, as Danube, and depths that are not a multiple of it, as
 RecurrentGemma's 26 = 8 x 3 + 2, included), a tanh softcap on the
-attention scores and on the final logits, RMSNorm before (and with
-``post_norm`` also after) each half-block, a SwiGLU or GeGLU MLP, none
-(``mlp="none"``) or a top-k MoE FFN (``nn/moe.py``, with the
+attention scores and on the final logits, RMSNorm (``norm="rms"``) or
+LayerNorm with learned positions instead of RoPE (``norm="ln"``,
+Whisper) before (and with ``post_norm`` also after) each half-block, a
+SwiGLU or GeGLU MLP, a plain one (``mlp="gelu"``: act(x @ up) @ down),
+none (``mlp="none"``) or a top-k MoE FFN (``nn/moe.py``, with the
 reference's ``moe_seq_chunks`` and ``moe_grouped``), embeddings scaled
 by sqrt(d) (``embed_scale``), tied or untied, and an int8 KV cache
-(``kv_quant``).  Every dense GEMM (q, k, v, o, a dense MLP's gate, up,
-down, and a recurrent cell's projections) goes through
-``layers.dense`` under the runtime error config; a MoE layer's expert
-GEMMs run the grouped approx-MAC op, each expert at its own config when
-the config carries an expert axis ((n_layers, E, g) tensors; the
-layer's dense GEMMs then run the expert-collapsed config).  Prefill
-attention is ``chunked_attention``: the flash-attention kernel on the
-card (mLSTM's decay form its plain chunks).  ``lm_loss`` is the
-training loss (chunked-vocab cross entropy, each layer recomputed in
-the backward under ``remat``), for every family: as in the reference,
-plain cross entropy, with no load-balancing term.  ``ModelConfig``
-raises on every other pattern or feature of the reference (expert
-parallelism; encoder-decoder models and vision prefixes have no fields
-here).
+(``kv_quant``).  An encoder-decoder model (``encoder_decoder``) runs
+``encode`` over stub frame embeddings (``enc_embeds`` (B, S_enc, d):
+learned ``enc_pos``, ``n_enc_layers`` non-causal layers, always at
+config 0 as in the reference, ``enc_norm``), and each decoder attention
+layer cross-attends to its output (``norm_x``, ``xattn``) after its
+self-attention.  Every dense GEMM (q, k, v, o, the cross-attention's,
+a dense MLP's gate, up, down, and a recurrent cell's projections) goes
+through ``layers.dense`` under the runtime error config; a MoE layer's
+expert GEMMs run the grouped approx-MAC op, each expert at its own
+config when the config carries an expert axis ((n_layers, E, g)
+tensors; the layer's dense GEMMs then run the expert-collapsed config).
+Prefill attention (self, the encoder's and the cross-attention's) is
+``chunked_attention``: the flash-attention kernel on the card (mLSTM's
+decay form its plain chunks).  ``lm_loss`` is the training loss
+(chunked-vocab cross entropy, each layer recomputed in the backward
+under ``remat``; labels of a vision prefix are -1), for every family:
+as in the reference, plain cross entropy, with no load-balancing term.
+``ModelConfig`` raises on every other pattern or feature of the
+reference (expert parallelism).
 
 Layout: params are plain dicts holding the reference's per-layer shapes
 (``wq`` (d, H, hd), ``wo`` (H, hd, d), MLP mats (in, out), MoE
 ``router`` (d, E) and expert banks (E, in, out), a recurrent layer's
-``rec`` and an xLSTM layer's ``cell``), with ``params["blocks"]`` a list
-of per-layer dicts instead of the reference's scan-stacked
-``blocks.scan.b{j}`` and unstacked ``blocks.rest{r}``.  The KV cache is
-``{"pos", "k", "v"}`` with k/v stacked over the GLOBAL layers, in
-layer order, as (n_global, B, max_len, KV, hd); the local layers' ring
-buffers, ``min(window, max_len)`` long, sit under ``cache["local"]``
-stacked the same way (a model without global layers keeps empty (0,
-...) stacks at the top), and each recurrent kind's decode state under
-its name (``init_cache``), stacked over that kind's layers with batch
-on axis 1.  Under ``kv_quant`` k/v are int8 and each
-buffer has f32 scales ``k_s``/``v_s`` (n, B, S, KV) beside it.
+``rec`` and an xLSTM layer's ``cell``, an "ln" norm's ``scale`` and
+``bias``), with ``params["blocks"]`` a list of per-layer dicts instead
+of the reference's scan-stacked ``blocks.scan.b{j}`` and unstacked
+``blocks.rest{r}``, and an encoder-decoder's ``params["encoder"]`` a
+list of its layers (the reference's ``encoder.scan.b0``) beside
+``enc_norm``, ``enc_pos`` and ``dec_pos`` (max_positions, d).  The KV
+cache is ``{"pos", "k", "v"}`` with k/v stacked over the GLOBAL layers,
+in layer order, as (n_global, B, max_len, KV, hd); the local layers'
+ring buffers, ``min(window, max_len)`` long, sit under
+``cache["local"]`` stacked the same way (a model without global layers
+keeps empty (0, ...) stacks at the top), and each recurrent kind's
+decode state under its name (``init_cache``), stacked over that kind's
+layers with batch on axis 1.  Under ``kv_quant`` k/v are int8 and each
+buffer has f32 scales ``k_s``/``v_s`` (n, B, S, KV) beside it.  An
+encoder-decoder's buffers also hold each layer's cross-attention K/V of
+the encoder output, ``xk``/``xv`` (n, B, enc_len, KV, hd), in the
+compute dtype even under ``kv_quant`` (``prefill`` projects them once).
 ``convert.cache_to_reference`` lays this out as the reference's
 ``scan.b{j}`` and ``rest{r}``.  The paged cache (``init_paged_cache``,
-all-global float-KV models only) stacks per-layer block pools: k/v
-(n_layers, num_blocks, block_size, KV, hd).
+all-global float-KV decoder-only models) stacks per-layer block pools:
+k/v (n_layers, num_blocks, block_size, KV, hd).
 
 The reference's numerics are copied, not fixed: ``dense`` returns bf16
 whatever the model's compute dtype (the reference's ``_dense_kw`` does
@@ -75,7 +90,7 @@ from repro_torch.serve.paged_cache import TRASH_BLOCK
 from .attention import (_repeat_kv, _softmax_attend, chunked_attention,
                         decode_attention)
 from .layers import (ACT, MAC_BACKENDS, apply_rope, dense, dense_init,
-                     embed_init, in_dtype, rmsnorm, softcap)
+                     embed_init, in_dtype, layernorm, rmsnorm, softcap)
 from .moe import moe_ffn, quantize_expert_bank
 from .recurrent import (CONV_WIDTH, mlstm_block_init, mlstm_parallel,
                         mlstm_step, recurrent_block, recurrent_block_init,
@@ -102,11 +117,13 @@ class ModelConfig:
     window: int = 0                      # sliding window of "local" layers
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
-    mlp: str = "swiglu"                  # swiglu | geglu | none
+    mlp: str = "swiglu"                  # swiglu | geglu | gelu | none
     act: str = "silu"
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     query_scale: float | None = None     # None -> head_dim**-0.5
+    norm: str = "rms"                    # rms | ln (LayerNorm; learned
+                                         # positions instead of RoPE)
     post_norm: bool = False              # gemma2's extra post-norms
     embed_scale: bool = False            # gemma multiplies embed by sqrt(d)
     tie_embeddings: bool = False
@@ -122,6 +139,14 @@ class ModelConfig:
     moe_grouped: bool = True             # one grouped kernel over all
                                          # experts (False: one int-kernel
                                          # launch per expert, the A/B path)
+    # encoder-decoder (family "audio", Whisper): n_enc_layers encoder
+    # layers over stub frame embeddings (B, S_enc, d_model)
+    encoder_decoder: bool = False
+    n_enc_layers: int = 0
+    enc_frame_dim: int = 0               # stub frontend embedding dim
+    max_positions: int = 8192            # learned position tables ("ln")
+    # VLM (family "vlm"): stub patch embeddings prepended to the text
+    vision_prefix_len: int = 0
     # approx-MAC backend of every GEMM.  Both values run the same integer
     # pipeline here — the fused CUDA kernel for CUDA tensors, its plain
     # twin for CPU tensors; "pallas" keeps only its reference role as
@@ -153,10 +178,14 @@ class ModelConfig:
             raise ValueError("'local' layers need window > 0")
         if "recurrent" in self.pattern and self.lru_width <= 0:
             raise ValueError("'recurrent' layers need lru_width > 0")
-        if self.mlp not in ("swiglu", "geglu", "none") or self.act not in ACT:
+        if self.mlp not in ("swiglu", "geglu", "gelu", "none") \
+                or self.act not in ACT:
             raise NotImplementedError(f"mlp {self.mlp!r}/{self.act!r}")
-        if self.family not in ("dense", "moe", "hybrid", "ssm"):
+        if self.family not in ("dense", "moe", "vlm", "audio", "hybrid",
+                               "ssm"):
             raise NotImplementedError(f"family {self.family!r}")
+        if self.norm not in ("rms", "ln"):
+            raise NotImplementedError(f"norm {self.norm!r}")
         if (self.family == "moe") != (self.n_experts > 0):
             raise ValueError(f"family {self.family!r} with n_experts "
                              f"{self.n_experts}")
@@ -186,6 +215,9 @@ class ModelConfig:
             n_experts=min(self.n_experts, 4) if self.n_experts else 0,
             top_k=min(self.top_k, 2) if self.top_k else 0, moe_groups=1,
             lru_width=64 if self.lru_width else 0,
+            n_enc_layers=2 if self.encoder_decoder else 0,
+            vision_prefix_len=4 if self.vision_prefix_len else 0,
+            max_positions=128,
             remat=False, loss_chunks=2, compute_dtype=torch.float32)
         base.update(over)
         return dataclasses.replace(self, **base)
@@ -238,19 +270,44 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda", *,
                     "w_down": normal(e, f, d) * (1.0 / math.sqrt(f))}
         if cfg.mlp == "none" or f == 0:
             return {}
-        return {"w_up": dense_init(gen, d, f, device=device),
-                "w_down": dense_init(gen, f, d, device=device,
-                                     scale=1.0 / math.sqrt(f)),
-                "w_gate": dense_init(gen, d, f, device=device)}
+        mlp = {"w_up": dense_init(gen, d, f, device=device),
+               "w_down": dense_init(gen, f, d, device=device,
+                                    scale=1.0 / math.sqrt(f))}
+        if cfg.mlp in ("swiglu", "geglu"):
+            mlp["w_gate"] = dense_init(gen, d, f, device=device)
+        return mlp
+
+    def norm():
+        if cfg.norm == "rms":
+            return {"scale": zeros(d)}
+        return {"scale": torch.ones(d, device=device), "bias": zeros(d)}
+
+    def attn_init():
+        attn = {"wq": normal(d, h, hd) * std, "wk": normal(d, kv, hd) * std,
+                "wv": normal(d, kv, hd) * std,
+                "wo": normal(h, hd, d) * std / math.sqrt(cfg.n_layers)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(h, hd), bk=zeros(kv, hd), bv=zeros(kv, hd))
+        return attn
+
+    def attention_block(cross: bool) -> Params:
+        # an encoder-decoder's decoder layers cross-attend (norm_x, xattn)
+        block = {"norm1": norm(), "attn": attn_init()}
+        if cross:
+            block.update(norm_x=norm(), xattn=attn_init())
+        block.update(norm2=norm(), mlp=mlp_init())
+        if cfg.post_norm:
+            block.update(post1=norm(), post2=norm())
+        return _quantize_block(block) if quantized else block
 
     blocks = []
     for kind in cfg.layer_kinds():
         if kind in RECURRENT_KINDS:
-            block = {"norm1": {"scale": zeros(d)}}
+            block = {"norm1": norm()}
             if kind == "recurrent":
                 block.update(rec=recurrent_block_init(gen, d, cfg.lru_width,
                                                       device=device),
-                             norm2={"scale": zeros(d)}, mlp=mlp_init())
+                             norm2=norm(), mlp=mlp_init())
             elif kind == "mlstm":
                 block["cell"] = mlstm_block_init(gen, d, h,
                                                  cfg.mlstm_proj_factor,
@@ -259,37 +316,39 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda", *,
                 block["cell"] = slstm_block_init(gen, d, h, device=device)
             blocks.append(_quantize_block(block) if quantized else block)
             continue
-        attn = {"wq": normal(d, h, hd) * std, "wk": normal(d, kv, hd) * std,
-                "wv": normal(d, kv, hd) * std,
-                "wo": normal(h, hd, d) * std / math.sqrt(cfg.n_layers)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(h, hd), bk=zeros(kv, hd), bv=zeros(kv, hd))
-        block = {"norm1": {"scale": zeros(d)}, "attn": attn,
-                 "norm2": {"scale": zeros(d)}, "mlp": mlp_init()}
-        if cfg.post_norm:
-            block.update(post1={"scale": zeros(d)}, post2={"scale": zeros(d)})
-        blocks.append(_quantize_block(block) if quantized else block)
+        blocks.append(attention_block(cfg.encoder_decoder))
     params["blocks"] = blocks
-    params["final_norm"] = {"scale": zeros(d)}
+    params["final_norm"] = norm()
+    if cfg.encoder_decoder:
+        # the encoder's layers: global, non-causal, no cross-attention;
+        # their wo scaled by the decoder's depth, as the reference's
+        params["encoder"] = [attention_block(False)
+                             for _ in range(cfg.n_enc_layers)]
+        params["enc_norm"] = norm()
+        params["enc_pos"] = normal(cfg.max_positions, d) * 0.02
+    if cfg.norm == "ln":
+        params["dec_pos"] = normal(cfg.max_positions, d) * 0.02
     return params
 
 
 def _quantize_block(p: Params) -> Params:
     """One layer's GEMM weights as per-output-channel QTensors (QTensors
-    pass through): attention projections in their 2D GEMM layout, dense
-    MLP mats in place, expert mats as (E, in, out) banks with (E, out)
-    scales; the router and the recurrent cells ("rec", "cell") stay
-    float, as in the reference."""
+    pass through): attention and cross-attention projections in their
+    2D GEMM layout, dense MLP mats in place, expert mats as (E, in, out)
+    banks with (E, out) scales; the router and the recurrent cells
+    ("rec", "cell") stay float, as in the reference."""
     p = dict(p)
-    if "attn" in p:
-        a = dict(p["attn"])
+    for name in ("attn", "xattn"):
+        if name not in p:
+            continue
+        a = dict(p[name])
         for key in ("wq", "wk", "wv", "wo"):
             w = a[key]
             if not isinstance(w, QTensor):
                 w2 = (w.reshape(-1, w.shape[-1]) if key == "wo"
                       else w.reshape(w.shape[0], -1))
                 a[key] = quantize(w2, axis=1)
-        p["attn"] = a
+        p[name] = a
     if "mlp" not in p:
         return p
     mlp = {}
@@ -310,9 +369,13 @@ def quantize_lm_params(params: Params, cfg: ModelConfig) -> Params:
     (E, in, out) banks with (E, out) scales, exactly as the reference
     does; the router, the recurrent cells (quantized per call, as the
     reference's), embed/lm_head, norms and biases stay float, and
-    weights already quantized pass through."""
-    return {**params, "blocks": [_quantize_block(p)
-                                 for p in params["blocks"]]}
+    weights already quantized pass through.  An encoder-decoder's
+    encoder layers are quantized the same way."""
+    out = {**params, "blocks": [_quantize_block(p)
+                                for p in params["blocks"]]}
+    if "encoder" in params:
+        out["encoder"] = [_quantize_block(p) for p in params["encoder"]]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -366,49 +429,92 @@ def _mlp_apply(p, x, cfg, approx_cfg):
                        backend=cfg.mac_backend, grouped=cfg.moe_grouped)
         return y.reshape(b, s, d)
     kw = _dense_kw(cfg)
+    if "w_gate" not in p:                      # mlp="gelu"
+        h = ACT[cfg.act](dense(x, p["w_up"], approx_cfg=approx_cfg, **kw))
+        return dense(h, p["w_down"], approx_cfg=approx_cfg, **kw)
     act = ACT["gelu" if cfg.mlp == "geglu" else cfg.act]
     h = act(dense(x, p["w_gate"], approx_cfg=approx_cfg, **kw)) \
         * dense(x, p["w_up"], approx_cfg=approx_cfg, **kw)
     return dense(h, p["w_down"], approx_cfg=approx_cfg, **kw)
 
 
+def _apply_norm(p, x, cfg):
+    """The model's norm: RMSNorm ({"scale"}) or LayerNorm ({"scale",
+    "bias"})."""
+    if cfg.norm == "rms":
+        return rmsnorm(x, p["scale"])
+    return layernorm(x, p["scale"], p["bias"])
+
+
+def _learned_positions(params, cfg, x, positions):
+    """x plus the decoder's learned position rows ("ln" models; RoPE
+    models return x): `positions` indexes ``dec_pos`` in a shape that
+    broadcasts against x."""
+    if cfg.norm != "ln":
+        return x
+    return x + params["dec_pos"][positions.to(torch.long)].to(x.dtype)
+
+
 def _qkv(p, x, cfg, positions, approx_cfg):
-    """Pre-norm q/k/v projections with bias and RoPE."""
+    """Pre-norm q/k/v projections with bias, and RoPE on "rms" models."""
     a = p["attn"]
-    h = rmsnorm(x, p["norm1"]["scale"])
+    h = _apply_norm(p["norm1"], x, cfg)
     q = _proj(h, a["wq"], approx_cfg, a.get("bq"), cfg, cfg.n_heads)
     k = _proj(h, a["wk"], approx_cfg, a.get("bk"), cfg, cfg.n_kv_heads)
     v = _proj(h, a["wv"], approx_cfg, a.get("bv"), cfg, cfg.n_kv_heads)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.norm == "rms":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _block_tail(p, x, attn, cfg, approx_cfg):
-    """Attention output projection (+ post-norm) + residual, then the
-    MLP half (+ post-norm)."""
+def _cross_kv(p, enc_out, cfg, approx_cfg):
+    """A decoder layer's cross-attention K/V (B, S_enc, KV, hd) of the
+    encoder output (no bias, as in the reference)."""
+    a = p["xattn"]
+    return (_proj(enc_out, a["wk"], approx_cfg, None, cfg, cfg.n_kv_heads),
+            _proj(enc_out, a["wv"], approx_cfg, None, cfg, cfg.n_kv_heads))
+
+
+def _block_tail(p, x, attn, cfg, approx_cfg, xkv=None, decode=False):
+    """Attention output projection (+ post-norm) + residual; with the
+    encoder's K/V `xkv`, the pre-norm cross-attention + residual (over
+    every encoder position, no softcap, the default scale: the flash
+    kernel non-causal for a full sequence, ``decode_attention`` for one
+    token); then the MLP half (+ post-norm)."""
     y = _attn_out(attn, p["attn"]["wo"], approx_cfg, cfg)
     if cfg.post_norm:
-        y = rmsnorm(y, p["post1"]["scale"])
+        y = _apply_norm(p["post1"], y, cfg)
     x = x + y
-    y = _mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]["scale"]), cfg,
+    if xkv is not None:
+        a = p["xattn"]
+        q = _proj(_apply_norm(p["norm_x"], x, cfg), a["wq"], approx_cfg,
+                  None, cfg, cfg.n_heads)
+        xk, xv = xkv
+        attn = (decode_attention(q, xk, xv, xk.shape[1]) if decode else
+                chunked_attention(q, xk, xv, causal=False,
+                                  q_chunk=cfg.q_chunk))
+        x = x + _attn_out(attn, a["wo"], approx_cfg, cfg)
+    y = _mlp_apply(p["mlp"], _apply_norm(p["norm2"], x, cfg), cfg,
                    approx_cfg)
     if cfg.post_norm:
-        y = rmsnorm(y, p["post2"]["scale"])
+        y = _apply_norm(p["post2"], y, cfg)
     return x + y
 
 
-def _attention_block(p, x, cfg, kind, *, positions, approx_cfg):
+def _attention_block(p, x, cfg, kind, *, positions, approx_cfg,
+                     causal=True, xkv=None):
     """One full-sequence layer; returns (x, k, v) so prefill can cache
     the layer's K/V without projecting them a second time (the
     reference recomputes them — same numbers).  Only "local" layers
-    pass the window."""
+    pass the window; the encoder's layers run non-causal; `xkv` is an
+    encoder-decoder's cross-attention K/V (``_cross_kv``)."""
     q, k, v = _qkv(p, x, cfg, positions, approx_cfg)
-    attn = chunked_attention(q, k, v, causal=True,
+    attn = chunked_attention(q, k, v, causal=causal,
                              window=cfg.window if kind == "local" else 0,
                              logit_cap=cfg.attn_softcap,
                              scale=cfg.query_scale, q_chunk=cfg.q_chunk)
-    return _block_tail(p, x, attn, cfg, approx_cfg), k, v
+    return _block_tail(p, x, attn, cfg, approx_cfg, xkv), k, v
 
 
 def _layer_cfgs(approx_cfg, n_layers: int, device) -> list:
@@ -461,14 +567,14 @@ def _recurrent_layer(p, x, cfg, kind, approx_cfg, *, state=None,
     it steps the layer's decode state; ``with_state`` (full sequence)
     also returns the state after x.  Returns (x, state or None)."""
     kw = _dense_kw(cfg)
-    h = rmsnorm(x, p["norm1"]["scale"])
+    h = _apply_norm(p["norm1"], x, cfg)
     decode = state is not None
     new = None
     if kind == "recurrent":
         y, new = recurrent_block(p["rec"], h, approx_cfg=approx_cfg,
                                  state=state, decode=decode, dense_kw=kw)
         x = x + y
-        x = x + _mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]["scale"]), cfg,
+        x = x + _mlp_apply(p["mlp"], _apply_norm(p["norm2"], x, cfg), cfg,
                            approx_cfg)
     elif kind == "mlstm":
         if decode:
@@ -489,40 +595,96 @@ def _recurrent_layer(p, x, cfg, kind, approx_cfg, *, state=None,
     return x, (new if decode or with_state else None)
 
 
-def _layer(p, x, cfg, kind, positions, approx_cfg):
+def _layer(p, x, cfg, kind, positions, approx_cfg, causal=True,
+           enc_out=None):
     if kind in RECURRENT_KINDS:
         return _recurrent_layer(p, x, cfg, kind, approx_cfg)[0]
+    xkv = (_cross_kv(p, enc_out, cfg, approx_cfg)
+           if enc_out is not None and "xattn" in p else None)
     return _attention_block(p, x, cfg, kind, positions=positions,
-                            approx_cfg=approx_cfg)[0]
+                            approx_cfg=approx_cfg, causal=causal,
+                            xkv=xkv)[0]
 
 
-def forward(params, cfg: ModelConfig, tokens, *, approx_cfg=0):
-    """tokens (B, S) -> final-norm hidden states (B, S, d).  Under
-    autograd with ``cfg.remat`` each layer is recomputed in the backward
-    (``torch.utils.checkpoint``, the reference's ``nothing_saveable``
-    policy)."""
-    x = embed_tokens(params, cfg, tokens)
+def _run_layers(layers, x, cfg, kinds, cfgs, **kw):
+    """x through `layers`; under autograd with ``cfg.remat`` each layer
+    is recomputed in the backward (``torch.utils.checkpoint``, the
+    reference's ``nothing_saveable`` policy)."""
     positions = torch.arange(x.shape[1], device=x.device)[None]
     remat = cfg.remat and torch.is_grad_enabled()
-    for p, kind, ac in zip(params["blocks"], cfg.layer_kinds(),
-                           _layer_cfgs(approx_cfg, cfg.n_layers, x.device)):
+    for p, kind, ac in zip(layers, kinds, cfgs):
         layer = functools.partial(_layer, cfg=cfg, kind=kind,
-                                  positions=positions, approx_cfg=ac)
+                                  positions=positions, approx_cfg=ac, **kw)
         x = (torch.utils.checkpoint.checkpoint(
                 layer, p, x, use_reentrant=False, preserve_rng_state=False)
              if remat else layer(p, x))
-    return rmsnorm(x, params["final_norm"]["scale"])
+    return x
+
+
+def _decoder_inputs(params, cfg, tokens, vision_embeds):
+    """The decoder's input rows: the token embeddings, after a VLM's
+    vision prefix (B, vision_prefix_len, d) when one is given, plus the
+    learned positions of an "ln" model."""
+    x = embed_tokens(params, cfg, tokens)
+    if cfg.vision_prefix_len and vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+    return _learned_positions(params, cfg, x,
+                              torch.arange(x.shape[1], device=x.device))
+
+
+def encode(params, cfg: ModelConfig, enc_embeds):
+    """The encoder of an encoder-decoder model over stub frame
+    embeddings (B, S_enc, d) -> (B, S_enc, d): the learned ``enc_pos``,
+    then its non-causal global layers, then ``enc_norm``.  As in the
+    reference, the encoder gets no error config: it always runs at the
+    exact config 0, whatever the decoder runs."""
+    x = enc_embeds.to(cfg.compute_dtype)
+    x = x + params["enc_pos"][:x.shape[1]].to(x.dtype)
+    n = len(params["encoder"])
+    x = _run_layers(params["encoder"], x, cfg, ["global"] * n, [0] * n,
+                    causal=False)
+    return _apply_norm(params["enc_norm"], x, cfg)
+
+
+def _encoder_output(params, cfg, enc_embeds):
+    return (encode(params, cfg, enc_embeds)
+            if cfg.encoder_decoder and enc_embeds is not None else None)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
+            enc_embeds=None, approx_cfg=0):
+    """tokens (B, S) -> final-norm hidden states (B, S_total, d):
+    S_total = S + vision_prefix_len when ``vision_embeds`` (B,
+    vision_prefix_len, d) are given to a VLM, which are prepended; an
+    encoder-decoder's decoder cross-attends to ``encode(enc_embeds)``
+    (and to nothing without them, as in the reference).  Under autograd
+    with ``cfg.remat`` each layer is recomputed in the backward."""
+    x = _decoder_inputs(params, cfg, tokens, vision_embeds)
+    enc_out = _encoder_output(params, cfg, enc_embeds)
+    x = _run_layers(params["blocks"], x, cfg, cfg.layer_kinds(),
+                    _layer_cfgs(approx_cfg, cfg.n_layers, x.device),
+                    enc_out=enc_out)
+    return _apply_norm(params["final_norm"], x, cfg)
 
 
 def lm_loss(params, cfg: ModelConfig, batch, *, approx_cfg=0):
     """Chunked-vocab cross entropy, mean over the labels that are not -1.
-    batch: ``tokens`` and ``labels``, (B, S) int tensors.  The logits of
-    one of ``cfg.loss_chunks`` sequence chunks exist at a time (in f32);
-    the output projection is cast to the hidden dtype once for all.  A
-    MoE model's gradients run through the capacity-dropped dispatch;
-    like the reference, no load-balancing term is added."""
-    hidden = forward(params, cfg, batch["tokens"], approx_cfg=approx_cfg)
+    batch: ``tokens`` and ``labels``, (B, S) int tensors, and a VLM's
+    ``vision_embeds`` or an encoder-decoder's ``enc_embeds`` (the
+    vision prefix's positions get label -1).  The logits of one of
+    ``cfg.loss_chunks`` sequence chunks exist at a time (in f32); the
+    output projection is cast to the hidden dtype once for all.  A MoE
+    model's gradients run through the capacity-dropped dispatch; like
+    the reference, no load-balancing term is added."""
+    vision = batch.get("vision_embeds")
+    hidden = forward(params, cfg, batch["tokens"], vision_embeds=vision,
+                     enc_embeds=batch.get("enc_embeds"),
+                     approx_cfg=approx_cfg)
     labels = batch["labels"]
+    if cfg.vision_prefix_len and vision is not None:
+        pad = torch.full((labels.shape[0], cfg.vision_prefix_len), -1,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
     s = hidden.shape[1]
     n_chunks = cfg.loss_chunks if s % cfg.loss_chunks == 0 else 1
     w = head_weight(params, cfg, hidden.dtype)
@@ -540,12 +702,14 @@ def lm_loss(params, cfg: ModelConfig, batch, *, approx_cfg=0):
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               device="cuda") -> Params:
+               device="cuda", enc_len: int = 0) -> Params:
     """Zero KV cache for `batch_size` rows (layout in the module
     docstring): the global layers' max_len buffers at the top, the local
     layers' rings of min(window, max_len) under "local"; int8 values
-    with f32 scales under ``kv_quant``; each recurrent kind's state
-    stack under its name (``_state_shapes``)."""
+    with f32 scales under ``kv_quant``; an encoder-decoder's cross K/V
+    ``xk``/``xv`` of `enc_len` positions in the compute dtype beside
+    them; each recurrent kind's state stack under its name
+    (``_state_shapes``)."""
     device = resolve_device(device)
     kinds = cfg.layer_kinds()
     kv_dtype = torch.int8 if cfg.kv_quant else cfg.compute_dtype
@@ -559,6 +723,12 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                                                dtype=torch.float32,
                                                device=device)
                         for kv in ("k", "v")})
+        if cfg.encoder_decoder:
+            buf.update({x: torch.zeros((n, batch_size, enc_len,
+                                        cfg.n_kv_heads, cfg.head_dim),
+                                       dtype=cfg.compute_dtype,
+                                       device=device)
+                        for x in ("xk", "xv")})
         return buf
 
     cache = {"pos": torch.zeros((), dtype=torch.int32, device=device),
@@ -645,10 +815,15 @@ def _kv_read(buf: Params, j: int, cfg) -> tuple[torch.Tensor, torch.Tensor]:
                   ).to(cfg.compute_dtype) for n in ("k", "v"))
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
-            approx_cfg=0, true_len: int | None = None):
+def prefill(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
+            enc_embeds=None, max_len: int | None = None, approx_cfg=0,
+            true_len: int | None = None):
     """Prompt prefill: (last-position logits (B, V), cache of length
-    max_len holding the prompt's K/V and pos = S).
+    max_len holding the prompt's K/V and pos = S).  A VLM's
+    ``vision_embeds`` are prepended (S counts them); an encoder-decoder
+    needs ``enc_embeds`` (B, S_enc, d): the encoder runs once, and each
+    decoder layer's cross K/V of its output are projected once, into
+    the cache's ``xk``/``xv``, and used by the layer's cross-attention.
 
     Each layer's buffer keeps the last positions it has room for: a
     local layer's ring of s_buf = min(window, max_len) entries holds
@@ -664,8 +839,15 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
     under ``kv_quant`` (int8 would stamp nonzero scales on the pads);
     it is also refused where a local ring is shorter than the padded
     prompt, where the reference keeps the last s_buf PADDED positions
-    and zeroes them by ring slot, not by position (ROADMAP Queue 3)."""
-    b, s = tokens.shape
+    and zeroes them by ring slot, not by position (ROADMAP Queue 3).
+    As in the reference, it is refused for VLM and encoder-decoder
+    models too."""
+    if cfg.encoder_decoder and enc_embeds is None:
+        # the reference fails here on enc_out None (AttributeError)
+        raise ValueError("an encoder-decoder prefill needs enc_embeds")
+    b = tokens.shape[0]
+    x = _decoder_inputs(params, cfg, tokens, vision_embeds)
+    s = x.shape[1]
     max_len = max_len or s
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
@@ -673,15 +855,17 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
     if true_len is not None:
         if any(k in RECURRENT_KINDS for k in kinds):
             raise ValueError("true_len= needs an attention-only pattern")
-        if cfg.kv_quant:
-            raise ValueError("true_len= is incompatible with kv_quant")
+        if cfg.kv_quant or cfg.vision_prefix_len or cfg.encoder_decoder:
+            raise ValueError("true_len= is incompatible with kv_quant / "
+                             "vision prefixes / encoder-decoder")
         if "local" in kinds and s > min(cfg.window, max_len):
             raise NotImplementedError(
                 f"true_len= with a padded prompt of {s} tokens longer "
                 f"than the local ring ({min(cfg.window, max_len)})")
     dev = tokens.device
-    cache = init_cache(cfg, b, max_len, dev)
-    x = embed_tokens(params, cfg, tokens)
+    enc_out = _encoder_output(params, cfg, enc_embeds)
+    cache = init_cache(cfg, b, max_len, dev,
+                       enc_len=0 if enc_out is None else enc_out.shape[1])
     positions = torch.arange(s, device=dev)[None]
     keep = (None if true_len is None else
             (torch.arange(s, device=dev) < true_len)[None, :, None, None])
@@ -693,18 +877,23 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
             for name, leaf in state.items():
                 cache[kind][name][j].copy_(leaf)
             continue
+        buf = _buffers(cache, kind)
+        xkv = None
+        if enc_out is not None:
+            xkv = _cross_kv(p, enc_out, cfg, ac)
+            buf["xk"][j].copy_(xkv[0])
+            buf["xv"][j].copy_(xkv[1])
         x, k, v = _attention_block(p, x, cfg, kind, positions=positions,
-                                   approx_cfg=ac)
+                                   approx_cfg=ac, xkv=xkv)
         if keep is not None:
             k, v = k * keep.to(k.dtype), v * keep.to(v.dtype)
-        buf = _buffers(cache, kind)
         s_buf = buf["k"].shape[2]
         first = max(s - s_buf, 0)
         idx = torch.arange(first, s, device=dev) % s_buf
         _kv_write(buf, j, k[:, first:], v[:, first:], idx, cfg)
     last = s if true_len is None else int(true_len)
     cache["pos"] = torch.tensor(last, dtype=torch.int32, device=dev)
-    x = rmsnorm(x, params["final_norm"]["scale"])
+    x = _apply_norm(params["final_norm"], x, cfg)
     return logits_for(params, cfg, x[:, last - 1]), cache
 
 
@@ -717,11 +906,14 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
     place; the returned cache shares them.  A recurrent layer rewrites
     its whole state, so its kind's state stack is written into a new
     tensor and the input cache's stacks are left as they were: a step
-    that is not committed needs no rollback of them."""
+    that is not committed needs no rollback of them.  An "ln" model
+    adds its learned position row at pos; an encoder-decoder's layers
+    cross-attend over every entry of their ``xk``/``xv``."""
     pos = cache["pos"]
     dev = token.device
-    x = embed_tokens(params, cfg, token)
     positions = pos.to(torch.long).reshape(1, 1)
+    x = _learned_positions(params, cfg, embed_tokens(params, cfg, token),
+                           positions)
     at, length = {}, {}
     for kind in set(cfg.pattern) & set(ATTENTION_KINDS):
         s_buf = _buffers(cache, kind)["k"].shape[2]
@@ -746,8 +938,9 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
         attn = decode_attention(q, kc, vc, length[kind],
                                 logit_cap=cfg.attn_softcap,
                                 scale=cfg.query_scale)
-        x = _block_tail(p, x, attn, cfg, ac)
-    x = rmsnorm(x, params["final_norm"]["scale"])
+        xkv = (buf["xk"][j], buf["xv"][j]) if "xattn" in p else None
+        x = _block_tail(p, x, attn, cfg, ac, xkv, decode=True)
+    x = _apply_norm(params["final_norm"], x, cfg)
     logits = logits_for(params, cfg, x[:, 0])
     return logits, {**cache, **states, "pos": pos + 1}
 
@@ -758,12 +951,15 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
 
 def verify_gate(cfg: ModelConfig) -> None:
     """Speculative draft/verify covers the paged cache's family:
-    all-'global' attention and float KV."""
+    all-'global' attention, float KV, decoder-only, no vision prefix."""
     if any(k != "global" for k in cfg.layer_kinds()):
         raise ValueError("speculative verify needs an all-'global' pattern")
     if cfg.kv_quant:
         raise ValueError("speculative verify is float-KV only (no "
                          "kv_quant)")
+    if cfg.encoder_decoder or cfg.vision_prefix_len:
+        raise ValueError("speculative verify does not cover "
+                         "encoder-decoder or vision-prefix models")
 
 
 def _verify_block(p, x, buf, j, cfg, positions, n_write, approx_cfg):
@@ -808,12 +1004,13 @@ def decode_verify(params, cfg: ModelConfig, cache: Params, tokens, pos: int,
     pos = int(pos)
     positions = pos + torch.arange(w, device=dev)
     n_write = max(0, min(w, cache["k"].shape[2] - pos))
-    x = embed_tokens(params, cfg, tokens)
+    x = _learned_positions(params, cfg, embed_tokens(params, cfg, tokens),
+                           positions)
     for p, (kind, j), ac in zip(params["blocks"], _cache_slots(cfg),
                                 _layer_cfgs(approx_cfg, cfg.n_layers, dev)):
         x = _verify_block(p, x, _buffers(cache, kind), j, cfg, positions,
                           n_write, ac)
-    x = rmsnorm(x, params["final_norm"]["scale"])
+    x = _apply_norm(params["final_norm"], x, cfg)
     return logits_for(params, cfg, x), {
         **cache, "pos": torch.tensor(pos + w, dtype=torch.int32, device=dev)}
 
@@ -830,12 +1027,14 @@ def decode_verify(params, cfg: ModelConfig, cache: Params, tokens, pos: int,
 
 def _paged_gate(cfg: ModelConfig) -> None:
     """The reference's gate: the paged cache is for all-'global'
-    float-KV models (encoder-decoder and vision-prefix models are not
-    ported)."""
+    float-KV decoder-only models without a vision prefix."""
     if any(k != "global" for k in cfg.layer_kinds()):
         raise ValueError("paged cache needs an all-'global' pattern")
     if cfg.kv_quant:
         raise ValueError("paged cache is float-KV only (no kv_quant)")
+    if cfg.encoder_decoder or cfg.vision_prefix_len:
+        raise ValueError("paged cache does not cover encoder-decoder or "
+                         "vision-prefix models")
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -900,13 +1099,14 @@ def paged_decode_step(params, cfg: ModelConfig, cache: Params, token, *,
     (serve/paged_cache.py)."""
     tables, seq_lens, active = (cache["tables"], cache["seq_lens"],
                                 cache["active"])
-    x = embed_tokens(params, cfg, token)
+    x = _learned_positions(params, cfg, embed_tokens(params, cfg, token),
+                           seq_lens[:, None])
     for i, (p, ac) in enumerate(zip(params["blocks"],
                                     _layer_cfgs(approx_cfg, cfg.n_layers,
                                                 x.device))):
         x = _paged_attn_block(p, x, cache, i, cfg, tables, seq_lens, active,
                               ac)
-    x = rmsnorm(x, params["final_norm"]["scale"])
+    x = _apply_norm(params["final_norm"], x, cfg)
     return (logits_for(params, cfg, x[:, 0]),
             {"k": cache["k"], "v": cache["v"]})
 
@@ -976,7 +1176,8 @@ def paged_prefill_chunk(params, cfg: ModelConfig, cache: Params, tokens, *,
     key_pos = torch.arange(row.shape[0] * bs, device=dev)
     valid = (key_pos[None, :] <= tok_pos[:, None])[None, None]   # (1,1,C,L)
     gather = row.to(torch.long)
-    x = embed_tokens(params, cfg, tokens)
+    x = _learned_positions(params, cfg, embed_tokens(params, cfg, tokens),
+                           tok_pos)
     for i, (p, ac) in enumerate(zip(params["blocks"],
                                     _layer_cfgs(approx_cfg, cfg.n_layers,
                                                 dev))):
@@ -990,5 +1191,5 @@ def paged_prefill_chunk(params, cfg: ModelConfig, cache: Params, tokens, *,
                                _repeat_kv(vc, n_rep), valid, scale
                                ).to(q.dtype)
         x = _block_tail(p, x, attn, cfg, ac)
-    x = rmsnorm(x, params["final_norm"]["scale"])
+    x = _apply_norm(params["final_norm"], x, cfg)
     return logits_for(params, cfg, x), {"k": cache["k"], "v": cache["v"]}

@@ -216,6 +216,19 @@ def _unpack_request(d: dict | None) -> Request | None:
                       "tokens": list(d["tokens"])})
 
 
+def refuse_encoder_decoder(cfg: T.ModelConfig) -> None:
+    """The Engine serves decoder-only models: it has no ``enc_embeds``
+    to pass.  The reference's Engine takes an encoder-decoder config and
+    crashes at its first prefill, which projects the cross K/V of
+    enc_out None (AttributeError: 'NoneType' object has no attribute
+    'astype'); this refuses it up front."""
+    if cfg.encoder_decoder:
+        raise ValueError(
+            f"{cfg.name}: the Engine serves decoder-only models; serve an "
+            "encoder-decoder model through transformer.prefill("
+            "enc_embeds=...) and decode_step")
+
+
 class Engine:
     def __init__(self, params, cfg: T.ModelConfig, *, max_batch: int = 4,
                  max_len: int = 512, approx_cfg=0, seed: int = 0,
@@ -266,6 +279,7 @@ class Engine:
         ``checkpoint.Checkpointer`` for snapshots; snapshot_every:
         auto-snapshot every this many decode steps (0: off)."""
         self.device = T.resolve_device(device)
+        refuse_encoder_decoder(cfg)
         if (cfg_groups > 1 or cfg_experts > 1) \
                 and cfg.mac_backend != "pallas":
             raise ValueError("per-group and per-expert configs require "

@@ -42,6 +42,12 @@ SHAPES = [(4, 256, 256), (24, 200, 300), (1, 130, 129), (5, 64, 384)]
 MAIN_PATH = [(m, k, n) for m in (4, 24)
              for (k, n) in ((2048, 2048), (2048, 256), (2048, 11008),
                             (11008, 2048))]
+# slice 14's GEMMs: Whisper-large-v3's cross K/V of its 1,500 frames
+# (1,280 -> 1,280) and its decode MLP (1,280 -> 5,120 -> 1,280),
+# InternVL2-76B's MLP at decode (8,192 -> 28,672 -> 8,192) and DBRX-132B's
+# q at a 48-token prefill (6,144 -> 6,144)
+SLICE14_GEMMS = [(1500, 1280, 1280), (1, 1280, 5120), (1, 5120, 1280),
+                 (4, 8192, 28672), (4, 28672, 8192), (48, 6144, 6144)]
 # (M, K, N) of the int kernel: the paper MLP's GEMMs, then ragged shapes
 INT_SHAPES = [(16, 62, 30), (1, 30, 10), (24, 200, 300), (5, 64, 384)]
 # (E, M, K, N) of the grouped kernel: OLMoE-1B-7B's expert GEMMs (gate/up
@@ -53,9 +59,14 @@ INT_SHAPES = [(16, 62, 30), (1, 30, 10), (24, 200, 300), (5, 64, 384)]
 # prefill's buffer (16 groups x capacity 20, 128 x 128 tiles) with 16
 # experts
 DECODE_BUFFER = (64, 32, 2048, 1024)
+# and DBRX-132B's 16 experts, top-4, at a quarter of its widths (K 1,536,
+# N 2,688: gate/up, and down): its decode buffer (4 tokens x 4 of 16
+# experts, 16 rows an expert) and an Engine prefill's (16 groups of 3
+# tokens: one row an expert a group), and 64 rows an expert
 GROUPED_SHAPES = [(8, m, k, n) for m in (1, 4, 16, 32, 128)
                   for k, n in ((2048, 1024), (1024, 2048))] + [
-    (5, 7, 203, 300), DECODE_BUFFER, (16, 320, 2048, 1024)]
+    (5, 7, 203, 300), DECODE_BUFFER, (16, 320, 2048, 1024),
+    (16, 16, 1536, 2688), (16, 16, 2688, 1536), (16, 64, 1536, 2688)]
 # bf16: the kernel rounds its f32 result once, the plain version after
 # other f32 sums, so the two can sit one bf16 ulp apart (2**-8 relative);
 # f32: the sums' order differs, ~1e-7 relative
@@ -108,6 +119,16 @@ FLASH_CASES = [
     # window 2,048, at a serve prompt and past the window
     (1, 48, 48, 10, 1, 256, True, 2048, 0.0),
     (1, 2200, 2200, 10, 1, 256, True, 2048, 0.0),
+    # Whisper-large-v3: MHA (H 20 = KV 20) at hd 64, the encoder
+    # non-causal over its 1,500 frames and the decoder's cross-attention
+    # prefill, Sq 4-24 non-causal over them; InternVL2-76B's prefix + text
+    # prefill (H 64 on KV 8) and DBRX-132B's serve prefill (H 48 on KV 8)
+    (1, 1500, 1500, 20, 20, 64, False, 0, 0.0),
+    (1, 24, 1500, 20, 20, 64, False, 0, 0.0),
+    (2, 4, 1500, 20, 20, 64, False, 0, 0.0),
+    (1, 17, 17, 20, 20, 64, True, 0, 0.0),
+    (1, 1048, 1048, 64, 8, 128, True, 0, 0.0),
+    (1, 48, 48, 48, 8, 128, True, 0, 0.0),
 ]
 
 
@@ -193,7 +214,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES + MAIN_PATH,
+@pytest.mark.parametrize("shape", SHAPES + MAIN_PATH + SLICE14_GEMMS,
                          ids=lambda s: "x".join(map(str, s)))
 def test_cuda_kernel_equals_plain_version(cuda_device, shape):
     """Bit for bit, through the float-facing op (padding, group
@@ -822,6 +843,51 @@ def test_cuda_full_width_layer_equals_plain_path(cuda_device, arch):
     kernel = run()
     assert FA.flash_attention.launches - flash == 1
     assert A.approx_mac_fused_matmul.launches - fused == 7 * 2
+    ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul_ref
+    try:
+        plain = run()
+    finally:
+        ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(kernel[0]).all())
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_full_width_encoder_decoder_equals_plain_path(cuda_device):
+    """One encoder and one decoder layer of Whisper-large-v3 at full
+    width (a 1,024-token vocabulary): a 12-token prefill over 1,500 stub
+    frames and a decode step through the fused kernel equal the same
+    calls through its plain version, the cross K/V in the cache too;
+    three flash launches a prefill (encoder, self, cross), none in
+    decode."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("whisper-large-v3"), n_layers=1,
+                              n_enc_layers=1, vocab_size=1024)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = T.init_lm(gen, cfg, cuda_device, quantized=True)
+    toks = torch.randint(0, 1024, (1, 12), device=cuda_device,
+                         generator=gen)
+    enc = torch.randn(1, 1500, cfg.d_model, device=cuda_device,
+                      generator=gen)
+    acfg = torch.tensor([16], dtype=torch.int32, device=cuda_device)
+
+    def run():
+        logits, cache = T.prefill(params, cfg, toks, enc_embeds=enc,
+                                  max_len=16, approx_cfg=acfg)
+        flash = FA.flash_attention.launches
+        tok = torch.argmax(logits, -1)[:, None]
+        step, cache = T.decode_step(params, cfg, cache, tok, approx_cfg=acfg)
+        assert FA.flash_attention.launches == flash
+        return (logits, step) + tuple(cache[k] for k in sorted(cache)
+                                      if k != "pos")
+
+    flash = FA.flash_attention.launches
+    fused = A.approx_mac_fused_matmul.launches
+    kernel = run()
+    assert FA.flash_attention.launches - flash == 3
+    assert A.approx_mac_fused_matmul.launches - fused == 10 + 8
     ops.approx_mac_fused_matmul = A.approx_mac_fused_matmul_ref
     try:
         plain = run()

@@ -161,7 +161,7 @@ NO_JAX_CHECK = (
 # run).  The limit is several times a group's time alone.
 REHEARSAL_LIMIT_S = 90
 REHEARSAL_GROUPS = ("dense", "spec", "resilience", "moe", "gemma2",
-                    "train", "slice12", "slice13")
+                    "train", "slice12", "slice13", "slice14")
 
 
 def _run_clean(code: str, timeout: float) -> subprocess.CompletedProcess:

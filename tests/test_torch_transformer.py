@@ -151,16 +151,21 @@ def test_prefill_and_decode_match_reference(models, mac_backend, acfg):
 
 
 def test_only_the_ported_family_is_accepted():
-    """What is still unported is refused: encoder-decoder models
-    (Whisper; the port's config has no such field) and an unknown MAC
-    backend.  The recurrent kinds are ported (tests/
-    test_torch_recurrent_models.py)."""
-    with pytest.raises(NotImplementedError):
-        tget("whisper-large-v3")
+    """What is still unported is refused: expert parallelism (the
+    port's config has no ``moe_ep`` field), an unknown layer kind, norm
+    or family, and an unknown MAC backend.  The recurrent kinds, the
+    encoder-decoder and the vision prefix are ported (tests/
+    test_torch_recurrent_models.py, test_torch_encdec.py,
+    test_torch_vision_prefix.py)."""
+    assert tget("whisper-large-v3").encoder_decoder
     with pytest.raises(TypeError):
-        TT.ModelConfig(encoder_decoder=True)
+        TT.ModelConfig(moe_ep=True)
     with pytest.raises(NotImplementedError):
         TT.ModelConfig(pattern=("local", "cross"), window=16)
+    with pytest.raises(NotImplementedError):
+        TT.ModelConfig(norm="group")
+    with pytest.raises(NotImplementedError):
+        TT.ModelConfig(family="diffusion")
     with pytest.raises(ValueError):
         TT.ModelConfig(mac_backend="triton")
     assert TT.ModelConfig(pattern=("local", "recurrent"), window=16,
