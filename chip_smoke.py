@@ -36,7 +36,13 @@ seconds):
              and at CHECK_EDGES: ragged K and M, config blocks of 32 and
              96 under wider tiles, every tiling and K-split path of
              ``approx_mac.gemm_plan`` (listed as ``plan_paths``) and
-             Gemma-2's k GEMM at M 4,352.
+             Gemma-2's k GEMM at M 4,352.  Then, as check_int and
+             check_grouped do for their kernels, CHECK_REPEATS (20)
+             repeats at config 31 of the shapes where the approx-MAC
+             kernels once parted from their plain versions (M 4, K
+             2,048, N 11,008 first), on fresh operands; a mismatch in
+             any of the three prints the card's serial, UUID, clocks,
+             temperature and ECC counts before it fails the run.
 4. timing  — device times of the kernel at the Qwen2.5-3B decode shapes
              (M = 4) and Gemma-2-27B's GEMMs at M 4 and 48, from CUDA
              graphs of many launches timed with CUDA events, beside the
@@ -101,7 +107,8 @@ seconds):
              through the fused approx-MAC kernel against the same calls
              through its plain version, bit for bit.
 12. profile_paged — torch.profiler over three paged decode steps.
-12b. sched_serve — the power loop on the dense serve run's params: the
+12b. sched_serve — the power loop on the dense serve run's params cut
+             to their first SPEC_DEPTH (9) layers (since PR 25): the
              Engine with PowerBudgetScheduler(0.85 x exact pJ/token,
              probe_every 4, retune_every 8, seed 0), 16 requests of 4-24
              tokens, 32 new tokens each.  After a warm-up engine no
@@ -150,8 +157,37 @@ seconds):
              [1, max_k] after every tick and followed by the engine's
              ``_spec_k``; its backoff and recovery events and pJ per
              emitted token over the budget.
+12e2. power_sweep — examples/serve_power_sweep.py's sections through
+             the port example's own functions on the serve phase's
+             full-width Qwen2.5-3B: the dense sweep (configs 0, 1, 8, 16,
+             31, six prompts, 12 tokens) at full depth, mixed per-request
+             configs and a per-layer allocation, the fused backend at
+             cfg_groups 2, the PowerBudgetScheduler at 0.85 x exact, the
+             chaos run (NaN logits, a failed step, a brownout ladder),
+             the (k, draft) sweep and per-class budgets at 9 layers;
+             section 4 (per-expert configs, a single-expert retune) on
+             OLMoE-1B-7B after spec_moe.  One line a section: tokens,
+             agreement, saving, wall ms a tick, device ms a decode tick
+             (CUDA events), launches; asserted: nothing built or loaded
+             after a section's first tick, 7 fused launches a layer per
+             decode step at every config of the sweep (the grouped
+             kernel's 3 a layer before and after the retune), flash
+             once a layer a prefill, and every kernel call held against
+             its plain version on its own operands (``held_calls``).
+12e3. spec_trained — Qwen2.5-3B cut to 9 layers at full width, trained
+             here 120 AdamW steps (B 8 x S 128, SyntheticLM at its vocab,
+             4 templates), saved by the Checkpointer in the reference's
+             format, restored through launch/serve.py's --ckpt path
+             (``restore_params``, every leaf equal) and served through
+             spec_serve's arms on held-out prompts beside plain twins;
+             asserted: the (3, 8) dense arm emits more than one token a
+             verify, every kernel call held against its plain version;
+             reported: training s and losses, acceptance, tokens per
+             verify, ms and pJ per emitted token beside the twin, and the
+             agreement with the twin's streams.
 12f. chaos_serve — benchmarks/resilience.py's chaos matrix on the serve
-             phase's full-width Qwen2.5-3B params (dense, max_batch 2,
+             phase's full-width Qwen2.5-3B params at spec_serve's 9
+             layers (dense, max_batch 2,
              max_len 64, its first 3 prompts, 10 new tokens, SLOs of 60 s
              on a FakeClock): an uninjected baseline, then NaN and Inf
              logits, two step failures, clock skew, a stall, nan_cache
@@ -164,7 +200,7 @@ seconds):
              scenario, snapshot bytes, save_snapshot and restore_snapshot
              ms.
 12g. spike_serve — benchmarks/resilience.py's overload spike on the same
-             params: max_batch 4, queue_capacity 6, admission capped at
+             9-layer params: max_batch 4, queue_capacity 6, admission capped at
              2.5 x the exact pJ per token, class chat (prompt 6, 6 new
              tokens) at 0.15 arrivals a tick (seed 11), x4 on ticks 10-70,
              110 ticks and a drain, with BrownoutController(ladder (0, 31),
@@ -232,7 +268,8 @@ seconds):
              (layer, expert) keys), 8 requests, 16 new tokens, probe and
              retune every 4 ticks; grouped 3 and fused 4 launches per
              layer per prefill, decode step and probe.
-17d. spec_moe — spec_serve on moe_serve's params and requests at
+17d. spec_moe — spec_serve on moe_serve's params cut to their first
+             SPEC_MOE_LAYERS (8) of 16 layers, and its requests, at
              SpecConfig(draft 8, k 3, max_k 7), dense only: the fused
              kernel 4 and the grouped kernel 3 times per layer per draft
              step and verify; the same reports, and the expert entries
@@ -338,7 +375,8 @@ seconds):
              flash a prefill.  rgemma_serve_costs: rollback_cost, the
              bytes of the recurrent states a decode step rewrites, and
              the device ms of the cells' per-call weight quantization
-             beside the decode step.  rgemma_contract: four 24-token
+             beside the decode step.  rgemma_contract (on the first
+             RECURRENT["contract_layers"] (8) layers): four 24-token
              prompts served as one batch equal a greedy chain of the
              port's prefill and decode_step on the same batch bit for
              bit (the reference's Engine cannot serve this depth); each
@@ -539,6 +577,7 @@ RESILIENCE_PHASES = "chaos_serve, spike_serve and interactions"
 # the first 9 of Qwen2.5-3B's 36 layers (full width), which keeps the
 # script's time (their six full-depth runs took ~230 s on a slow host)
 SPEC_DEPTH = 9
+SPEC_MOE_LAYERS = 8                # spec_moe's depth of OLMoE's 16 layers
 # slice 12: Danube's serve (max_len above its 4,096 window, one prompt
 # past it, two neuron groups a layer); the tokens of moe_chunks'
 # per-expert run (the grouped kernel on the chunked path); OLMoE's
@@ -556,18 +595,32 @@ MOE_TRAIN_LAYERS = 4
 FUSED_PER_LAYER = {"global": 7, "local": 7, "recurrent": 6, "mlstm": 6,
                    "slstm": 4}
 RECURRENT = dict(cfg_groups=2, window_prompt=4096, window_layers=3,
-                 contract_prompt=24)
+                 contract_prompt=24, contract_layers=8)
 # slice 14: Whisper's requests (stub frames of a 30 s window after the
-# conv frontend: 1,500 x d; prompts of 4-24 tokens, 32 greedy tokens)
+# conv frontend: 1,500 x d; prompts of 4-24 tokens, 16 greedy tokens
+# since PR 25, 32 before: the script's time limit)
 # and its serving-contract check's depth and steps; InternVL2-76B's
 # depth on one card (full depth needs ~70 GB of int8 weights beside a
 # 4.2 GB f32 head) and its vision prefix; DBRX-132B's depth (its 40
 # layers need four cards)
-WHISPER = dict(requests=4, max_new=32, frames=1500, check_layers=4,
+WHISPER = dict(requests=4, max_new=16, frames=1500, check_layers=4,
                check_steps=8)
 INTERNVL = dict(layers=8, requests=4, max_new=16, prefix=1024)
 DBRX_LAYERS = 4
 SCRATCH = ROOT / "build" / "chip_smoke"
+# slice 15: examples/serve_power_sweep.py's sections at full width (the
+# dense sweep at full depth, the other Qwen2.5-3B sections at SWEEP_DEPTH
+# layers; section 4 on OLMoE-1B-7B at full depth) and speculation on a
+# Qwen2.5-3B of SPEC_TRAINED["layers"] layers trained here
+SWEEP_DEPTH = 9
+SPEC_TRAINED = dict(layers=9, steps=120, batch=8, seq=128, templates=4,
+                    peak_lr=5e-4, warmup=10, requests=8, prompt=24,
+                    max_new=16)
+HELD_PER_KERNEL = 24
+# the rehearsal's spec_trained: the smoke Qwen2.5-3B at its two layers,
+# trained briefly on the CPU
+REHEARSE_SPEC_TRAINED = dict(layers=2, steps=60, batch=8, seq=48,
+                             peak_lr=4e-3, requests=4, max_new=8)
 
 
 def _demangle(names: list[str]) -> list[str]:
@@ -643,6 +696,39 @@ def nvidia_smi() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+CARD_QUERY = ("name,serial,uuid,clocks.sm,clocks.mem,temperature.gpu,"
+              "ecc.errors.corrected.volatile.total,"
+              "ecc.errors.uncorrected.volatile.total")
+
+
+def card_identity() -> str:
+    """The card's name, serial, UUID, SM and memory clocks, temperature
+    and volatile ECC counts, as nvidia-smi reports them (its error text
+    where a field is refused)."""
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={CARD_QUERY}",
+                        "--format=csv"], capture_output=True, text=True,
+                       timeout=60)
+    return (r.stdout or r.stderr).strip()
+
+
+class card_on_failure:
+    """A check phase that fails prints the card's identity, clocks,
+    temperature and ECC counts before its error ends the run; nothing is
+    caught or retried."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, exc, tb) -> bool:
+        if typ is not None:
+            print(f"chip_smoke: {self.name} failed on this card:\n"
+                  f"{card_identity()}", file=sys.stderr, flush=True)
+        return False
 
 
 def bound(m: int, k: int, n: int) -> tuple[float, str]:
@@ -725,6 +811,17 @@ CHECK_EDGES = ((5, 100, 256, 128), (37, 203, 384, 128), (64, 2048, 2048, 128),
                (4352, 4608, 2048, 128))
 
 
+# the approx-MAC kernels parted from their plain versions in one call
+# (PR 24's call 2: the fused kernel at M 4, K 2,048, N 11,008, config
+# 31, and old shapes of all three); each check repeats its comparisons
+# there CHECK_REPEATS times a call at config 31 (and a random vector),
+# on fresh operands each time
+CHECK_REPEATS = 20
+REPEAT_FUSED = ((4, 2048, 11008), (4, 11008, 2048), (4, 2048, 2048),
+                (4, 2048, 256))
+REPEAT_INT = ((24, 2048, 11008), (10000, 62, 30), (4, 256, 256))
+REPEAT_GROUPED = ((64, 32, 2048, 1024),)
+
 # the M of every fused GEMM of the serve paths: decode pools of 2 and 4
 # (chaos_serve, spike_serve), 6-token prefills (spike_serve), the
 # speculative windows (8, 16, 24) and the M 32 of the prefills and windows
@@ -747,11 +844,13 @@ def check_runs() -> list:
     return runs
 
 
-def check_fused(torch, A, quantize, dev, runs, seed: int) -> tuple:
+def check_fused(torch, A, quantize, dev, runs, seed: int,
+                vector: bool = True) -> tuple:
     """The fused kernel against its plain version, bit for bit, at each
     (M, K, N, cfg_bn, uniform configs) of `runs`: every uniform config
-    and one random per-block vector.  Returns (worst |diff|, cases,
-    tilings covered).  On a CPU the wrapper is the plain version."""
+    and (with `vector`) one random per-block vector.  Returns (worst
+    |diff|, cases, tilings covered).  On a CPU the wrapper is the plain
+    version."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     worst, cases, paths = 0.0, 0, set()
     for m, k, n, cfg_bn, uniform in runs:
@@ -764,7 +863,7 @@ def check_fused(torch, A, quantize, dev, runs, seed: int) -> tuple:
         vec = torch.randint(0, 32, (nb,), device=dev, generator=gen,
                             dtype=torch.int32)
         paths.add(plan_path(A, m, k, n))
-        for cfg in (*uniform, vec):
+        for cfg in (*uniform, vec) if vector else uniform:
             rows = A.config_operand(cfg, nb, dev)
             out = A.approx_mac_fused_matmul(x, w.values, srow, xs, rows,
                                             cfg_bn)
@@ -791,8 +890,14 @@ def phase_check(torch, A, quantize, dev) -> float:
     and of the demo LM, then at CHECK_EDGES."""
     worst, cases, paths = check_fused(torch, A, quantize, dev, check_runs(),
                                       seed=1)
+    _, repeated, _ = check_fused(
+        torch, A, quantize, dev,
+        [(m, k, n, 128, (31,)) for m, k, n in REPEAT_FUSED] * CHECK_REPEATS,
+        seed=101, vector=False)
     emit({"phase": "check", "cases": cases, "bit_identical": True,
-          "max_abs_err": worst, "plan_paths": sorted(paths)})
+          "max_abs_err": worst, "plan_paths": sorted(paths),
+          "repeats": CHECK_REPEATS, "repeated_cases": repeated,
+          "repeated_shapes": [list(s) for s in REPEAT_FUSED]})
     return worst
 
 
@@ -1144,14 +1249,10 @@ def phase_check_int(torch, A, ops, dev) -> float:
                (4, 4608, 256), (37, 203, 384), (777, 100, 96),
                (4352, 2048, 2048)]
     cases, paths = 0, set()
-    for m, k, n in shapes:
-        paths.add(plan_path(A, m, k, n))
+
+    def compare(m, k, n, configs) -> int:
         a, b = _int_case(torch, m, k, n, gen, dev)
-        nb = -(-n // 128)
-        vec = torch.randint(0, 32, (nb,), device=dev, generator=gen,
-                            dtype=torch.int32)
-        groups = torch.tensor([3, 31, 8], dtype=torch.int32, device=dev)
-        for cfg in (0, 8, 31, vec, groups):
+        for cfg in configs:
             out = ops.approx_mac(a, b, cfg)
             ops.approx_mac_matmul = A.approx_mac_matmul_ref
             try:
@@ -1159,13 +1260,24 @@ def phase_check_int(torch, A, ops, dev) -> float:
             finally:
                 ops.approx_mac_matmul = A.approx_mac_matmul
             torch.cuda.synchronize()
-            cases += 1
             if not torch.equal(out, ref):
                 err = int((out - ref).abs().max())
                 raise AssertionError(f"int kernel != plain version at "
                                      f"M={m} K={k} N={n}: max |diff| {err}")
+        return len(configs)
+
+    groups = torch.tensor([3, 31, 8], dtype=torch.int32, device=dev)
+    for m, k, n in shapes:
+        paths.add(plan_path(A, m, k, n))
+        vec = torch.randint(0, 32, (-(-n // 128),), device=dev,
+                            generator=gen, dtype=torch.int32)
+        cases += compare(m, k, n, (0, 8, 31, vec, groups))
+    repeated = sum(compare(m, k, n, (31,)) for _ in range(CHECK_REPEATS)
+                   for m, k, n in REPEAT_INT)
     emit({"phase": "check_int", "cases": cases, "bit_identical": True,
-          "max_abs_err": 0, "plan_paths": sorted(paths)})
+          "max_abs_err": 0, "plan_paths": sorted(paths),
+          "repeats": CHECK_REPEATS, "repeated_cases": repeated,
+          "repeated_shapes": [list(s) for s in REPEAT_INT]})
     return 0.0
 
 
@@ -1723,7 +1835,11 @@ def phase_check_grouped(torch, A, ops, bank_of, dev) -> float:
               for m in (1, 4, 16, 32, 128, 320)]
     shapes.append((6, 7, 203, 300))
     cases, paths = 0, set()
-    for e, m, k, n in shapes:
+    runs = [(shape, True) for shape in shapes]
+    runs += [(shape, False) for _ in range(CHECK_REPEATS)
+             for shape in REPEAT_GROUPED]
+    repeated = 0
+    for (e, m, k, n), full in runs:
         bank = bank_of(torch.randn(e, k, n, device=dev, generator=gen)
                        * 0.02)
         x = torch.randn(e, m, k, device=dev, generator=gen)
@@ -1732,8 +1848,10 @@ def phase_check_grouped(torch, A, ops, bank_of, dev) -> float:
         mat = torch.randint(0, 32, (e, 5), device=dev, generator=gen,
                             dtype=torch.int32)
         paths.add(grouped_plan_path(A, e, m, k, n))
-        for rows in _grouped_rows(torch, e, m, gen, dev):
-            for cfg in (0, 8, 31, vec, mat):
+        # a repeat: config 31 on every expert's full rows
+        all_rows = _grouped_rows(torch, e, m, gen, dev)
+        for rows in all_rows if full else all_rows[:1]:
+            for cfg in (0, 8, 31, vec, mat) if full else (31,):
                 c = (cfg if isinstance(cfg, torch.Tensor) else
                      torch.tensor(cfg, dtype=torch.int32, device=dev))
                 out = ops.approx_dense_grouped_pallas(x, bank, c, rows)
@@ -1745,7 +1863,10 @@ def phase_check_grouped(torch, A, ops, bank_of, dev) -> float:
                     ops.approx_mac_grouped_matmul = \
                         A.approx_mac_grouped_matmul
                 torch.cuda.synchronize()
-                cases += 1
+                if full:
+                    cases += 1
+                else:
+                    repeated += 1
                 if not torch.equal(out, ref):
                     err = float((out - ref).abs().max())
                     raise AssertionError(
@@ -1783,7 +1904,9 @@ def phase_check_grouped(torch, A, ops, bank_of, dev) -> float:
         torch.cuda.empty_cache()
     emit({"phase": "check_grouped", "cases": cases, "raw_cases": raw,
           "bit_identical": True, "max_abs_err": 0.0,
-          "plan_paths": sorted(paths)})
+          "plan_paths": sorted(paths), "repeats": CHECK_REPEATS,
+          "repeated_cases": repeated,
+          "repeated_shapes": [list(s) for s in REPEAT_GROUPED]})
     return 0.0
 
 
@@ -4192,7 +4315,7 @@ def _agreement(spec: dict, plain: dict) -> float:
 def phase_spec_serve(torch, T, libs, E, Engine, Request, SpecConfig,
                      PagedCacheConfig, params, cfg, dev, *, name: str,
                      prompts, per_call: dict, modes=("dense", "paged"),
-                     sweep=SPEC_SWEEP, **engine_kw) -> dict:
+                     sweep=SPEC_SWEEP, extra=None, **engine_kw) -> dict:
     """Speculative serving of a full-width model (the serve phase's
     quantized params): SpecConfig(SPEC), then set_spec through `sweep`
     (k, draft config), in each mode, each beside a plain twin engine on
@@ -4210,7 +4333,7 @@ def phase_spec_serve(torch, T, libs, E, Engine, Request, SpecConfig,
                                  block_size=16, prefill_chunk=16)
     res = {"phase": name, "arch": cfg.name, "layers": cfg.n_layers,
            "d_model": cfg.d_model, "requests": len(prompts()),
-           "spec": dict(SPEC), "runs": []}
+           "spec": dict(SPEC), **(extra or {}), "runs": []}
 
     def engine(mode, spec):
         return Engine(params, cfg, max_batch=4, max_len=max_len, device=dev,
@@ -5029,8 +5152,12 @@ def phase_recurrent_serve(torch, T, A, FA, Engine, Request, F, cfg, dev, *,
                  if quant["ms"] is not None else None)}
     emit(extra)
     res.update(extra)
+    # the contract at RECURRENT["contract_layers"] layers (host-bound:
+    # the script's time limit); RecurrentGemma's 8 keep two rest layers
     contract = phase_recurrent_contract(
-        torch, T, Engine, Request, F, eng.params, cfg, dev,
+        torch, T, Engine, Request, F,
+        *cut_depth(eng.params, cfg,
+                   min(RECURRENT["contract_layers"], cfg.n_layers)), dev,
         name=name.replace("_serve", "_contract"),
         engine_kw=dict(cfg_groups=groups), max_new=contract_new)
     return res, contract, eng
@@ -5508,6 +5635,349 @@ def slice14(torch, T, A, ops, FA, FAops, Engine, Request, quantize,
 
 
 
+# ---------------------------------------------------------------------------
+# slice 15: the live power sweep, speculation on a trained model
+# ---------------------------------------------------------------------------
+
+class held_calls:
+    """Records the kernel calls of a block, to hold each kernel against
+    its plain version on the block's own operands: the fused and grouped
+    approx-MAC wrappers and flash through their ops entries, the paged
+    kernel through the transformer's name for it.  Keeps the first call
+    of every operand shape and every `stride`-th call, at most `limit` a
+    kernel, operands of fewer than 4 M elements cloned (a cache or pool
+    is written later) and larger ones (weights) by reference.  ``check``
+    runs the plain versions: approx-MAC bit for bit, flash within
+    ``flash_tol``, paged within check_paged's tolerance.  The wrappers'
+    launch counts are left as the block made them."""
+
+    BY_REFERENCE = 1 << 22
+
+    def __init__(self, torch, T, limit: int = HELD_PER_KERNEL,
+                 stride: int = 53):
+        self.torch, self.T, self.limit, self.stride = torch, T, limit, stride
+        self.kinds = ("fused", "grouped", "flash", "paged")
+        self.calls = {k: [] for k in self.kinds}
+        self.count = dict.fromkeys(self.kinds, 0)
+        self.shapes = {k: set() for k in self.kinds}
+
+    def __enter__(self) -> "held_calls":
+        from repro_torch.kernels.approx_mac import ops
+        from repro_torch.kernels.flash_attention import ops as FAops
+        self.sites = {"fused": (ops, "approx_mac_fused_matmul"),
+                      "grouped": (ops, "approx_mac_grouped_matmul"),
+                      "flash": (FAops, "flash_attention"),
+                      "paged": (self.T, "paged_decode_attention")}
+        self.orig = {k: getattr(m, a) for k, (m, a) in self.sites.items()}
+        for kind, (mod, attr) in self.sites.items():
+            setattr(mod, attr, self._wrap(kind, self.orig[kind]))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for kind, (mod, attr) in self.sites.items():
+            setattr(mod, attr, self.orig[kind])
+
+    def _keep(self, a):
+        if isinstance(a, self.torch.Tensor) and a.numel() < self.BY_REFERENCE:
+            return a.clone()
+        return a
+
+    def _wrap(self, kind, fn):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            n = self.count[kind]
+            self.count[kind] += 1
+            shape = tuple(tuple(a.shape) for a in args
+                          if isinstance(a, self.torch.Tensor))
+            if len(self.calls[kind]) < self.limit and (
+                    shape not in self.shapes[kind] or n % self.stride == 0):
+                self.shapes[kind].add(shape)
+                self.calls[kind].append(
+                    ([self._keep(a) for a in args],
+                     {k: self._keep(v) for k, v in kw.items()}, out.clone()))
+            return out
+        return run
+
+    def check(self, A, FA, PA) -> dict:
+        torch = self.torch
+        plain = {"fused": A.approx_mac_fused_matmul_ref,
+                 "grouped": A.approx_mac_grouped_matmul_ref,
+                 "flash": FA.flash_attention_ref,
+                 "paged": PA.paged_attention_reference}
+        out = {}
+        for kind, calls in self.calls.items():
+            worst = 0.0
+            for args, kw, got in calls:
+                want = plain[kind](*args, **kw)
+                err = (float((got.float() - want.float()).abs().max())
+                       if got.numel() else 0.0)
+                worst = max(worst, err)
+                where = (kind, [tuple(a.shape) for a in args
+                                if isinstance(a, torch.Tensor)], err)
+                if kind in ("fused", "grouped"):
+                    assert torch.equal(got, want), where
+                elif kind == "flash":
+                    torch.testing.assert_close(
+                        got, want, **flash_tol(torch, args[0].dtype, args[2]))
+                else:
+                    torch.testing.assert_close(
+                        got, want, rtol=1.6e-2 if args[0].dtype
+                        == torch.bfloat16 else 1.3e-6, atol=1e-5)
+            out[kind] = {"calls": self.count[kind], "held": len(calls),
+                         "max_abs_err": worst}
+        return out
+
+
+def sweep_section(torch, T, libs, number: int, run, dev) -> tuple:
+    """One section of examples/serve_power_sweep.py: `run()` -> (its
+    result, its engine).  Launches counted from 0; wall ms a tick on the
+    host clock around the section; device ms a decode tick from CUDA
+    events around every decode step and verify (the stream's time from
+    each call's first kernel to its last, host gaps inside a call
+    included) over the section's ticks, prefills apart; every kernel
+    call held against its plain version (``held_calls``)."""
+    A, PA, FA = libs
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    spans = {"prefill": [], "decode": []}
+    kinds = {"prefill": "prefill", "decode_step": "decode",
+             "decode_verify": "decode"}
+    fns = {n: getattr(T, n) for n in kinds}
+
+    def timed(kind, fn):
+        def call(*args, **kw):
+            if not on_card:
+                return fn(*args, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            stop.record()
+            spans[kind].append((start, stop))
+            return out
+        return call
+
+    for name, kind in kinds.items():
+        setattr(T, name, timed(kind, fns[name]))
+    _zero_launches(A, FA, PA)
+    try:
+        with held_calls(torch, T) as held:
+            sync()
+            t0 = time.perf_counter()
+            res, eng = run()
+            sync()
+            wall = time.perf_counter() - t0
+    finally:
+        for name, fn in fns.items():
+            setattr(T, name, fn)
+    launches = _launch_counts(A, FA, PA)
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    ticks = res["ticks"]
+    line = {"phase": "power_sweep", **{k: v for k, v in res.items()
+                                       if "stream" not in k},
+            "arch": eng.cfg.name, "layers": eng.cfg.n_layers,
+            "d_model": eng.cfg.d_model, "wall_s": wall,
+            "wall_ms_per_tick": wall * 1e3 / ticks,
+            "device_ms_per_decode_tick": (ms["decode"] / ticks if on_card
+                                          else None),
+            "decode_calls": len(spans["decode"]),
+            "prefill_device_ms": ms["prefill"] if on_card else None,
+            "prefills": len(spans["prefill"]), "launches": launches,
+            "held": held.check(A, FA, PA), "bit_identical": True}
+    if number == 1:
+        line["configs"] = [{k: v for k, v in r.items() if k != "stream"}
+                           for r in res["configs"]]
+    if on_card:
+        assert launches["approx_mac_fused_matmul"] > 0, line
+        assert launches["flash_attention"] == line["prefills"] * sum(
+            k in T.ATTENTION_KINDS for k in eng.cfg.layer_kinds()), line
+    emit(line)
+    return line, eng
+
+
+def phase_power_sweep(torch, T, libs, Engine, params, cfg, dev, *,
+                      depth: int = SWEEP_DEPTH) -> list:
+    """examples/serve_power_sweep.py's sections 1-3 and 5-8, through its
+    own functions, on a full-width dense model (quantized params, this
+    run's strict Engine): the dense sweep at the model's full depth (five
+    configs x six prompts x 12 tokens), the others at `depth` layers.
+    Each section asserts that nothing is built or loaded after its first
+    tick; here also the fused kernel's 7 launches a layer per decode
+    step at every config of the sweep, and flash once a layer a
+    prefill."""
+    from repro_torch.examples import serve_power_sweep as SW
+    on_card = dev.type == "cuda"
+    prompts = SW.demo_prompts(min(512, cfg.vocab_size))
+    kw = dict(engine=Engine, quantize_weights=False)
+    line, eng = sweep_section(
+        torch, T, libs, 1,
+        lambda: SW.dense_sweep(params, cfg, dev, prompts, **kw), dev)
+    if on_card:
+        assert line["fused_per_decode_step"] == GEMMS_PER_LAYER \
+            * cfg.n_layers, line
+    lines = [line]
+    del eng
+    cut, cut_cfg = cut_depth(params, cfg, min(depth, cfg.n_layers))
+    for number, run in (
+            (2, lambda: SW.mixed_configs(cut, cut_cfg, dev, prompts, **kw)),
+            (3, lambda: SW.fused_groups(cut, cut_cfg, dev, prompts, **kw)),
+            (5, lambda: SW.budget_scheduler(cut, cut_cfg, dev, prompts,
+                                            **kw)),
+            (6, lambda: SW.chaos_run(cut, cut_cfg, dev, prompts, **kw)),
+            (7, lambda: SW.spec_sweep(cut, cut_cfg, dev, prompts, **kw)),
+            (8, lambda: SW.class_budgets(cut, cut_cfg, dev, **kw))):
+        line, eng = sweep_section(torch, T, libs, number, run, dev)
+        lines.append(line)
+        del eng
+    if on_card:
+        torch.cuda.empty_cache()
+    return lines
+
+
+def phase_power_sweep_moe(torch, T, libs, Engine, params, cfg, dev) -> dict:
+    """Section 4 of examples/serve_power_sweep.py on a full-width MoE
+    model (OLMoE-1B-7B, cfg_experts = its experts): per-expert configs,
+    then a single-expert retune; the grouped kernel's 3 launches a layer
+    per decode step before and after the retune."""
+    from repro_torch.examples import serve_power_sweep as SW
+    line, eng = sweep_section(
+        torch, T, libs, 4,
+        lambda: SW.grouped_moe(params, cfg, dev,
+                               SW.demo_prompts(min(512, cfg.vocab_size)),
+                               engine=Engine, quantize_weights=False), dev)
+    if dev.type == "cuda":
+        assert line["grouped_per_decode_step"] == [3 * cfg.n_layers], line
+        assert line["launches"]["approx_mac_grouped_matmul"] > 0, line
+    del eng
+    return line
+
+
+def train_spec_model(torch, T, A, FA, PA, cfg, dev, *, steps: int,
+                     batch: int, seq: int, templates: int, peak_lr: float,
+                     warmup: int) -> tuple:
+    """`cfg` trained by the port's train step and AdamW (warmup-cosine,
+    weight decay 0.01, clip 1.0) on SyntheticLM at the model's vocab
+    (`templates` templates of 16 tokens, seed 0), f32 params from
+    init_lm (seed 0).  Returns (params, data, {seconds, losses, ...})."""
+    from repro_torch.data.synthetic_lm import SyntheticLM, SyntheticLMConfig
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.step import build_train_step, init_state
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    data = SyntheticLM(SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+        n_templates=templates, seed=0))
+    opt = adamw(warmup_cosine(peak_lr, warmup, steps), weight_decay=0.01,
+                grad_clip_norm=1.0)
+    state = init_state(T.init_lm(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, dev), opt)
+    step = build_train_step(cfg, opt)
+    _zero_launches(A, FA, PA)
+    losses = []
+    sync()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        state, m = step(state, {k: torch.as_tensor(v, device=dev)
+                                for k, v in data.batch(i).items()})
+        if i % 25 == 0 or i == steps - 1:
+            losses.append([i, float(m["loss"])])
+    sync()
+    seconds = time.perf_counter() - t0
+    flash = FA.flash_attention.launches
+    assert all(math.isfinite(x) for _, x in losses), losses
+    assert flash == (steps * attention_layers(cfg) * (2 if cfg.remat else 1)
+                     if on_card else 0), flash
+    return state["params"], data, {
+        "train_steps": steps, "train_batch": batch, "train_seq": seq,
+        "train_s": seconds, "train_step_ms": seconds * 1e3 / steps,
+        "first_loss": losses[0][1], "last_loss": losses[-1][1],
+        "losses": losses, "train_flash_launches": flash}
+
+
+def _trained_prompts(Request, data, n: int, plen: int, max_new: int):
+    """`n` held-out prompts of `plen` tokens: the rows of a SyntheticLM
+    batch no training step drew (step 10,000, `data`'s templates)."""
+    from repro_torch.data.synthetic_lm import SyntheticLM
+    held = SyntheticLM(dataclasses.replace(data.cfg, global_batch=n))
+    rows = held.batch(10_000)["tokens"][:, :plen]
+    return [Request(rid=i, prompt=row.copy(), max_new_tokens=max_new)
+            for i, row in enumerate(rows)]
+
+
+def phase_spec_trained(torch, T, libs, E, Engine, Request, SpecConfig,
+                       PagedCacheConfig, restore_params, Checkpointer, cfg,
+                       dev, *, layers: int, steps: int, batch: int, seq: int,
+                       templates: int, peak_lr: float, warmup: int,
+                       requests: int, prompt: int, max_new: int) -> dict:
+    """Speculation on trained weights: `cfg` cut to `layers` layers at
+    full width (no remat), trained here (``train_spec_model``), saved by
+    the port's Checkpointer in the reference's format and served through
+    launch/serve.py's ``--ckpt`` restore (``restore_params``; every
+    restored leaf equal to the trained one), then spec_serve's arms on
+    held-out prompts: (k, draft) (3, 8), (5, 20), (2, 31), dense and
+    paged, each beside a plain twin (``phase_spec_serve``).  Asserted:
+    the (3, 8) dense arm emits more than one token per verify pass (the
+    reference's bar); recorded: pJ per emitted token against the plain
+    exact twin and each arm's agreement with the twin's stream.  Every
+    kernel call of the serving runs is held against its plain version."""
+    from repro_torch.train.optimizer import tree_leaves
+    A, PA, FA = libs
+    on_card = dev.type == "cuda"
+    cfg = dataclasses.replace(cfg, n_layers=layers, remat=False)
+    params, data, trained = train_spec_model(
+        torch, T, A, FA, PA, cfg, dev, steps=steps, batch=batch, seq=seq,
+        templates=templates, peak_lr=peak_lr, warmup=warmup)
+    ck_dir = SCRATCH / "spec_trained_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    Checkpointer(str(ck_dir), cfg=cfg).save(steps, {"params": params})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, step = restore_params(str(ck_dir), cfg, dev)
+    restore_s = time.perf_counter() - t0
+    assert step == steps, step
+    pairs = list(zip(tree_leaves(params), tree_leaves(restored)))
+    assert all(torch.equal(a, b) for a, b in pairs), "restore != trained"
+    del params, pairs
+    ck_bytes = _dir_bytes(ck_dir)
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    served = T.quantize_lm_params(restored, cfg)
+    del restored
+    if on_card:
+        torch.cuda.empty_cache()
+    extra = {**trained, "checkpoint_bytes": ck_bytes, "save_s": save_s,
+             "restore_s": restore_s, "restored_leaves_equal": True}
+    with held_calls(torch, T) as held:
+        res = phase_spec_serve(
+            torch, T, libs, E, Engine, Request, SpecConfig,
+            PagedCacheConfig, served, cfg, dev, name="spec_trained",
+            prompts=lambda: _trained_prompts(Request, data, requests,
+                                             prompt, max_new),
+            per_call={"approx_mac_fused_matmul": GEMMS_PER_LAYER},
+            extra=extra)
+    first = next(r for r in res["runs"]
+                 if r["mode"] == "dense" and (r["k"], r["draft_cfg"])
+                 == SPEC_SWEEP[0])
+    check = {"phase": "spec_trained_check", "held": held.check(A, FA, PA),
+             "bit_identical": True,
+             "tokens_per_verify_3_8_dense": first["tokens_per_verify"],
+             "pj_below_plain": {f"{r['mode']} {r['k']},{r['draft_cfg']}":
+                                r["pj_per_token"] < r["plain_pj_per_token"]
+                                for r in res["runs"]},
+             "agreement_with_plain": {
+                 f"{r['mode']} {r['k']},{r['draft_cfg']}":
+                 r["agreement_with_plain"] for r in res["runs"]}}
+    emit(check)
+    assert first["tokens_per_verify"] > 1.0, first
+    res["check"] = check
+    del served
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
+
 def layer_row(name: str, rows: list, launches: int) -> dict:
     """One work row of a kernel's entry: the sums over a layer's GEMMs."""
     return {"work": name, "launches": launches,
@@ -5534,6 +6004,7 @@ REHEARSAL_GROUPS = {
                "xlstm_serve/contract/check, check_seen",
     "slice14": "whisper_serve/check, internvl_serve, dbrx_serve, "
                "check_seen",
+    "slice15": "power_sweep (sections 1-8), spec_trained",
 }
 
 
@@ -5568,6 +6039,7 @@ def rehearse(groups=None) -> int:
     from repro_torch.serve import scheduler as SchedMod
     from repro_torch.serve import traffic as TR
     from repro_torch.core.quantization import quantize
+    from repro_torch.launch.serve import restore_params
     Engine = strict_engine(Engine, F)
     cpu = torch.device("cpu")
     libs = (A, PA, FA)
@@ -5715,6 +6187,16 @@ def rehearse(groups=None) -> int:
         slice14(torch, T, A, ops, FA, FAops, Engine, Request, quantize,
                 get_config, cpu, whisper_over=dict(frames=16, max_new=6),
                 dbrx_layers=2)
+    if "slice15" in groups:
+        _, eng = qwen()
+        phase_power_sweep(torch, T, libs, Engine, eng.params, cfg, cpu)
+        _, moe_eng = olmoe()
+        phase_power_sweep_moe(torch, T, libs, Engine, moe_eng.params,
+                              moe_cfg, cpu)
+        phase_spec_trained(
+            torch, T, libs, E, Engine, Request, SpecConfig,
+            PagedCacheConfig, restore_params, Checkpointer, cfg, cpu,
+            **{**SPEC_TRAINED, **REHEARSE_SPEC_TRAINED})
     emit({"rehearsal": True, "groups": groups, "ok": False})
     return 0
 
@@ -5766,6 +6248,7 @@ def main(argv: list[str]) -> int:
     from repro_torch.serve import faults as F
     from repro_torch.serve import scheduler as SchedMod
     from repro_torch.serve import traffic as TR
+    from repro_torch.launch.serve import restore_params
 
     Engine = strict_engine(Engine, F)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5790,11 +6273,14 @@ def main(argv: list[str]) -> int:
           "ptxas": [r for _, log in built for r in ptxas_resources(log)],
           "sass_hmma": {lib.stem: sass_hmma(lib) for lib, _ in built}})
 
-    worst = phase_check(torch, A, quantize, dev)
-    int_err = phase_check_int(torch, A, ops, dev)
+    with card_on_failure("check"):
+        worst = phase_check(torch, A, quantize, dev)
+    with card_on_failure("check_int"):
+        int_err = phase_check_int(torch, A, ops, dev)
     paged_err = phase_check_paged(torch, PA, dev)
-    grouped_err = phase_check_grouped(torch, A, ops, quantize_expert_bank,
-                                      dev)
+    with card_on_failure("check_grouped"):
+        grouped_err = phase_check_grouped(torch, A, ops,
+                                          quantize_expert_bank, dev)
     flash_err = phase_check_flash(torch, FA, dev)
     timing = phase_timing(torch, A, quantize, dev)
     timing_int = phase_timing_int(torch, A, dev)
@@ -5814,13 +6300,15 @@ def main(argv: list[str]) -> int:
     phase_paged_check(torch, T, PA, A, ops, params, cfg, snaps, chunk_snap)
     phase_profile_paged(torch, T, params, cfg, snaps[0],
                         paged["decode_step_ms_mean"])
+    # the power loop at spec_serve's depth (host-bound: the script's
+    # time limit); its "serve_*" fields stay the full-depth serve's
+    spec_params, spec_cfg = cut_depth(params, cfg, SPEC_DEPTH)
     sched_serve = phase_sched(torch, T, A, (A, PA, FA), Engine, Request,
-                              PowerBudgetScheduler, params, cfg, dev,
-                              **SCHED_SERVE, baseline=serve)
+                              PowerBudgetScheduler, spec_params, spec_cfg,
+                              dev, **SCHED_SERVE, baseline=serve)
     libs = (A, PA, FA)
     spec_check, demo = phase_spec_check(torch, T, libs, Engine, Request,
                                         SpecConfig, PagedCacheConfig, dev)
-    spec_params, spec_cfg = cut_depth(params, cfg, SPEC_DEPTH)
     spec_serve = phase_spec_serve(
         torch, T, libs, E, Engine, Request, SpecConfig, PagedCacheConfig,
         spec_params, spec_cfg, dev, name="spec_serve",
@@ -5829,18 +6317,24 @@ def main(argv: list[str]) -> int:
     spec_sched = phase_spec_sched(torch, T, libs, E, Engine, Request,
                                   SpecConfig, PowerBudgetScheduler,
                                   spec_params, spec_cfg, dev)
-    del spec_params
+    # slice 15: the live power sweep, speculation on trained weights
+    sweep = phase_power_sweep(torch, T, libs, Engine, params, cfg, dev)
+    spec_trained = phase_spec_trained(
+        torch, T, libs, E, Engine, Request, SpecConfig, PagedCacheConfig,
+        restore_params, Checkpointer, cfg, dev, **SPEC_TRAINED)
+    # the resilience phases at spec_serve's depth (host-bound: the
+    # script's time limit)
     with fused_shapes() as seen:
         chaos = phase_chaos_serve(torch, libs, Engine, Request, F,
-                                  Checkpointer, params, cfg, dev)
-        spike = phase_spike_serve(torch, libs, Engine, F, B, TR, params,
-                                  cfg, dev)
+                                  Checkpointer, spec_params, spec_cfg, dev)
+        spike = phase_spike_serve(torch, libs, Engine, F, B, TR,
+                                  spec_params, spec_cfg, dev)
         # the demo LM's weights quantized once, as an Engine would
         demo = (demo[0], T.quantize_lm_params(demo[1], demo[0]))
         interactions = phase_interactions(torch, libs, Engine, Request, F,
                                           SchedMod, SpecConfig,
                                           PagedCacheConfig, demo, dev)
-    del demo
+    del demo, spec_params
     worst = max(worst, phase_check_seen(torch, A, quantize, dev,
                                         RESILIENCE_PHASES, seen))
     # free Qwen2.5-3B before OLMoE-1B-7B
@@ -5860,11 +6354,14 @@ def main(argv: list[str]) -> int:
                             cfg_experts=moe_cfg.n_experts)
     spec_moe = phase_spec_serve(
         torch, T, libs, E, Engine, Request, SpecConfig, PagedCacheConfig,
-        moe_eng.params, moe_cfg, dev, name="spec_moe",
+        *cut_depth(moe_eng.params, moe_cfg, SPEC_MOE_LAYERS), dev,
+        name="spec_moe",
         prompts=lambda: _moe_prompts(Request, 8, 16, moe_cfg.vocab_size),
         per_call=SCHED_MOE["per_call"], modes=("dense",),
         sweep=((SPEC["k"], SPEC["draft_cfg"]),),
         cfg_experts=moe_cfg.n_experts)
+    sweep_moe = phase_power_sweep_moe(torch, T, libs, Engine,
+                                      moe_eng.params, moe_cfg, dev)
     olmoe = (moe_eng.params, moe_cfg)
     paged_moe = phase_paged_moe(torch, T, A, ops, FA, PA, Engine, Request,
                                 PagedCacheConfig, *olmoe, dev)
@@ -5968,8 +6465,13 @@ def main(argv: list[str]) -> int:
                      moe_prefill["grouped_launches"]))]
     serve_attn = timing_paged[0]
     serve_flash = timing_flash[0]
-    spec_phases = (spec_check, spec_serve, spec_sched, spec_moe)
+    spec_phases = (spec_check, spec_serve, spec_sched, spec_moe,
+                   spec_trained)
     resilience_phases = (chaos, spike, interactions)
+    sweep_lines = sweep + [sweep_moe]
+
+    def sweep_launches(fn):
+        return sum(line["launches"][fn] for line in sweep_lines)
 
     def spec_launches(fn):
         return sum(p["launches"][fn] for p in spec_phases)
@@ -5994,7 +6496,8 @@ def main(argv: list[str]) -> int:
                      + s14["internvl_serve"]["engine_text_only"][
                          "fused_launches"]
                      + moe_chunks["per_expert"]["launches"][
-                         "approx_mac_fused_matmul"]),
+                         "approx_mac_fused_matmul"]
+                     + sweep_launches("approx_mac_fused_matmul")),
         "max_abs_err": worst,
         "ms": sum(r["ms"] for r in layer),
         "plain_ms": sum(r["plain_ms"] for r in layer),
@@ -6005,7 +6508,8 @@ def main(argv: list[str]) -> int:
         "work": "the 7 GEMMs of one Qwen2.5-3B layer at decode, M = 4; "
                 "launches from the dense serve, sched_serve and the four "
                 "speculative runs (spec_check, spec_serve, spec_sched, "
-                "spec_moe), chaos_serve, spike_serve and interactions, "
+                "spec_moe, spec_trained), chaos_serve, spike_serve and "
+                "interactions, power_sweep's eight sections, "
                 "gemma7b_serve and danube_serve, rgemma_serve and "
                 "xlstm_serve, whisper_serve and internvl_serve (with "
                 "its text-only Engine run), moe_chunks' per-expert "
@@ -6059,7 +6563,7 @@ def main(argv: list[str]) -> int:
         "work": "one layer's paged decode attention at B 8, length 256 "
                 "(H 16, KV 2, hd 128, bs 16, bf16); launches from the "
                 "paged serve run, the paged speculative drafts of "
-                "spec_check and spec_serve, the paged arms of "
+                "spec_check, spec_serve and spec_trained, the paged arms of "
                 "interactions and paged_moe; library_ms is the "
                 "gather k_pool[tables] plus scaled_dot_product_attention",
     }, {
@@ -6071,6 +6575,7 @@ def main(argv: list[str]) -> int:
                      + sched_moe["launches"]["approx_mac_grouped_matmul"]
                      + spec_launches("approx_mac_grouped_matmul")
                      + paged_moe["launches"]["approx_mac_grouped_matmul"]
+                     + sweep_launches("approx_mac_grouped_matmul")
                      + moe_path["grouped_launches"]
                      + s14["dbrx_serve"]["grouped_launches"]
                      + moe_chunks["per_expert"]["launches"][
@@ -6081,7 +6586,8 @@ def main(argv: list[str]) -> int:
         "work": "the 3 expert GEMMs (gate, up, down) of one OLMoE-1B-7B "
                 "layer at decode: 4 tokens, top-8 of 64 experts from a "
                 "real routing, M 32; launches from the moe_serve, "
-                "sched_moe, spec_moe, paged_moe, moe_path and "
+                "sched_moe, spec_moe, paged_moe, power_sweep's section "
+                "4, moe_path and "
                 "dbrx_serve (E 16, top-4, K 6,144, N 10,752) runs and "
                 "moe_chunks' per-expert run; "
                 "library_ms is a torch._int_mm loop over the touched "
@@ -6105,6 +6611,8 @@ def main(argv: list[str]) -> int:
                            + [moe_chunks["per_expert"]])
                      + moe_train["flash_launches"]
                      + moe["flash_launches"]
+                     + sweep_launches("flash_attention")
+                     + spec_trained["train_flash_launches"]
                      + s14["whisper_serve"]["flash_launches"]
                      + s14["internvl_serve"]["flash_launches"]
                      + s14["internvl_serve"]["engine_text_only"][
@@ -6122,6 +6630,8 @@ def main(argv: list[str]) -> int:
                 "run, the train run's timed steps (forward and remat "
                 "recompute), the speculative runs' prefills and those of "
                 "chaos_serve, spike_serve and interactions, "
+                "power_sweep's sections and spec_trained's training "
+                "steps (forward only, no remat), "
                 "gemma7b_serve (hd 256), danube_serve (hd 120, window "
                 "4096), rgemma_serve (H 10 on KV 1, hd 256, window "
                 "2048), paged_moe, moe_chunks, moe_train, moe_serve, "

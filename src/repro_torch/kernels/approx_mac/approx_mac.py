@@ -208,19 +208,27 @@ def grouped_config_operand(config, n_experts: int, n_blocks: int,
 def _blocked_int_matmul(a_q, w_q, cfg_rows, cfg_bn: int) -> torch.Tensor:
     """Plain int32 product of int8 a_q (M, K) and w_q (K, N), both
     operands truncated with the config row of each output column's
-    block; exact accumulation (float64, see core.approx_matmul)."""
+    block; exact accumulation (float64, see core.approx_matmul).  Each
+    block's truncation is tabulated once over the 256 int8 values
+    (``truncate_operand_lsb`` on every value) and gathered, which is the
+    same map as applying it elementwise."""
     m = a_q.shape[0]
     n = w_q.shape[1]
     n_blocks = cfg_rows.shape[0]
     rows = cfg_rows.to(torch.int32)
+    values = torch.arange(-128, 128, device=a_q.device).to(torch.int8)[None]
+    lut_a = truncate_operand_lsb(values, rows[:, 0:1], rows[:, 2:3],
+                                 rows[:, 3:4])           # (nb, 256)
+    lut_w = truncate_operand_lsb(values, rows[:, 1:2], rows[:, 2:3],
+                                 rows[:, 3:4])
     # activations: one truncated copy per config block -> (nb, M, K)
-    p = rows[:, None, None, :]
-    a = truncate_operand_lsb(a_q[None], p[..., 0], p[..., 2], p[..., 3])
-    # weights: per-column parameters of the column's block
+    a = lut_a[:, a_q.to(torch.int64) + 128]
+    # weights: each column through its block's table -> (nb, K, bn)
     wpad = torch.nn.functional.pad(w_q, (0, n_blocks * cfg_bn - n))
-    col = rows.repeat_interleave(cfg_bn, dim=0)          # (nb*bn, 4)
-    b = truncate_operand_lsb(wpad, col[:, 1], col[:, 2], col[:, 3])
-    b = b.reshape(-1, n_blocks, cfg_bn).permute(1, 0, 2)  # (nb, K, bn)
+    wpad = wpad.reshape(-1, n_blocks, cfg_bn).permute(1, 0, 2)
+    offset = torch.arange(0, 256 * n_blocks, 256, device=w_q.device)
+    b = lut_w.reshape(-1).take(wpad.to(torch.int64)
+                               + (offset + 128)[:, None, None])
     return exact_int_matmul(a, b).permute(1, 0, 2).reshape(m, -1)[:, :n]
 
 

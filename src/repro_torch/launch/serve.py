@@ -79,6 +79,16 @@ from repro_torch.serve.traffic import (TrafficClass, TrafficGenerator,
                                        class_budget_shares, slo_report)
 
 
+def restore_params(ckpt: str, cfg, device) -> tuple:
+    """(float params, step) of the latest checkpoint under `ckpt`, in
+    the reference's format, restored in place into a fresh ``init_lm``
+    tree on `device` (no second copy of the params on the device)."""
+    ck = Checkpointer(ckpt, cfg=cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state, _ = ck.restore({"params": T.init_lm(gen, cfg, device)})
+    return state["params"], ck.latest_step()
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -170,10 +180,8 @@ def main(argv=None) -> dict:
               f"k={args.draft_k} (verify at the service config)")
     gen = torch.Generator(device=device).manual_seed(0)
     if args.ckpt:
-        ck = Checkpointer(args.ckpt, cfg=cfg)
-        state, _ = ck.restore({"params": T.init_lm(gen, cfg, device)})
-        params = state["params"]
-        print(f"restored checkpoint step {ck.latest_step()}")
+        params, step = restore_params(args.ckpt, cfg, device)
+        print(f"restored checkpoint step {step}")
     else:
         # quantized as drawn: a full-width MoE model's f32 expert banks
         # (25.8 GB for OLMoE-1B-7B) then exist one layer at a time

@@ -15,6 +15,7 @@ the same combined scale, so no tolerance is needed.
 The CUDA kernel against its plain version, on the same cases, is in
 tests/test_torch_cuda.py (no JAX there, so it also runs on the card).
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

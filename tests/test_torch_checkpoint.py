@@ -20,6 +20,7 @@ the JAX reference.
 - ``SyntheticLM`` batches equal the reference's bit for bit (steps 0-3,
   one shard and two); ``Prefetcher`` yields them in step order.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import os
 
 import jax

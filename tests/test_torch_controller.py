@@ -16,6 +16,7 @@ here must be EQUAL (``==``), not close:
   loss and accuracy computed by one numpy function from each package's
   logits.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import jax
 import numpy as np
 import pytest

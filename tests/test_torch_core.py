@@ -8,6 +8,7 @@ reference EAGERLY: under ``jit`` XLA rewrites the constant ``/127`` of
 scale of its serving GEMMs, and ``quantize_compiled``, ``dense``'s
 per-call quantization of a float weight, are the compiled forms and
 are held against the jitted reference."""
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ streams bit for bit.  The prefill (S 12 > one expert's capacity of
 ceil(12 * 2 / 4 * 1.25) = 8 when routing is skewed) runs the
 capacity-dropped dispatch, decode the dropless one, as the reference.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import dataclasses
 
 import jax

@@ -32,6 +32,7 @@ the Engine tests serve all eight sets and need equal streams on all but
 (``test_engine_token_streams_equal``), the same ticks and an equal
 energy log throughout.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import dataclasses
 import itertools
 import tempfile

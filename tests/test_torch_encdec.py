@@ -26,6 +26,7 @@ Whisper's encoder and forward part on none.  The encoder always runs
 at config 0 (the reference passes it none), so its output is held
 within ``TOL`` whatever the decoder's config.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import dataclasses
 
 import jax

@@ -14,6 +14,7 @@ the port's differ by at most ``LOGIT_TOL`` (tests/test_torch_transformer.py
 states why), so the test first asserts that every top-1/top-2 logit gap
 of the reference run exceeds it — a near-tie shows up as a broken
 premise, not as a flaky stream mismatch."""
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import dataclasses
 import itertools
 import os
@@ -161,7 +162,7 @@ NO_JAX_CHECK = (
 # run).  The limit is several times a group's time alone.
 REHEARSAL_LIMIT_S = 90
 REHEARSAL_GROUPS = ("dense", "spec", "resilience", "moe", "gemma2",
-                    "train", "slice12", "slice13", "slice14")
+                    "train", "slice12", "slice13", "slice14", "slice15")
 
 
 def _run_clean(code: str, timeout: float) -> subprocess.CompletedProcess:

@@ -22,6 +22,7 @@ boundary.  The kernel itself runs only on the card
 (tests/test_torch_cuda.py); its bf16 instance rounds p to bf16 before
 p.v, and ``test_bf16_p_stays_within_the_kernel_tolerance`` shows on
 data, here, that this rounding stays within ``FLASH_TOL[bf16]``."""
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -37,6 +37,7 @@ package and needs equal streams on all but ``ENGINE_FLIPS``, the same
 number of ticks on every set (the schedule depends only on lengths) and
 an equal energy log throughout; a failure names, per parted set, the
 first tick at which the caches or tokens differ."""
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import dataclasses
 import itertools
 

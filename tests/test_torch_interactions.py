@@ -14,6 +14,7 @@ port: every live-arm stream equals the uninjected exact run of its
 layout, the energy log partitions the totals (per class too), and the
 chaos was absorbed.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import numpy as np
 import pytest
 

@@ -19,6 +19,7 @@ Every comparison here is exact (``assert_array_equal`` or ``==``):
 
 Integer sums are exact in any order, so no tolerance is needed.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

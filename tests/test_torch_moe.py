@@ -32,6 +32,7 @@ Tolerances:
   on all but ``FLIP_SEEDS`` of them: a wrong routing, slot, config or
   cache would break every seed.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import dataclasses
 import functools
 import itertools

@@ -27,6 +27,7 @@
   and ``paged_prefill_chunk`` at a per-expert config, and the paged
   Engine with ``cfg_experts`` 4, held to the reference as above.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import itertools
 import os
 import subprocess

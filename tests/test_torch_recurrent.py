@@ -29,6 +29,7 @@ compute them; with the eager division a few scales a GEMM sit one ulp
 away).  Gradients at config 0 within ``GRAD_TOL`` of each array's
 largest magnitude.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -29,6 +29,7 @@ their size after 20 positions (measured); a rounding flip moves an
 array by 8e-4 of its size or more.  ``lm_loss`` and its gradients:
 tests/test_torch_recurrent_state.py.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import dataclasses
 import functools
 

@@ -24,6 +24,7 @@ writes the wrong axis).
 
 Rollbacks, snapshots and checkpoints: tests/test_torch_recurrent_state.py.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import itertools
 
 import jax

@@ -13,6 +13,7 @@ and tests/test_torch_recurrent_serving.py).
   every leaf equal, and ``{"params"}`` checkpoints with rest layers
   both ways.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import functools
 import tempfile
 

@@ -28,6 +28,7 @@ paged and int8 (``kv_quant``, smoke Gemma-2); ``nan_cache`` writes into
 the int8 cache what the reference's writes, and is refused on a paged
 engine.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import itertools
 import tempfile
 import types

@@ -32,6 +32,7 @@ engine's hooks for it — against the reference's.
    dense Qwen2.5-3B, paged Qwen2.5-3B and Gemma-2 smoke (local rings,
    int8 KV).
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import itertools
 
 import jax

@@ -38,6 +38,7 @@ the engine's dense and paged speculative ticks).
   window past the cache end, makes the tick plain; a window wider than the prefill chunk
   is refused; the launcher prints its speculative line.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import dataclasses
 import itertools
 
@@ -320,6 +321,27 @@ def test_energy_rows_and_counters_equal_reference(swept):
     if teng.paged is not None:
         teng.allocator.check_consistency(teng._slot_blocks)
         assert teng.allocator.free_blocks() == teng.paged.usable_blocks
+
+
+def test_spec_throughput_and_energy_beat_exact_baseline(demo):
+    """tests/test_speculative.py's bars on the port's Engine and the
+    trained demo LM: the speculative streams equal the plain engine's,
+    more than one token is emitted per verify pass, and the serve energy
+    per emitted token is below the plain exact baseline's (drafts bill
+    at the cheap draft config, one exact verify covers up to k + 1
+    tokens)."""
+    _, _, tcfg, tparams = demo
+    kw = dict(max_batch=4, max_len=64, device="cpu")
+    base = TE.Engine(tparams, tcfg, **kw)
+    ref = _drain(base, _reqs(TE, 0, new=16))
+    spec = TE.Engine(tparams, tcfg, spec=TSP.SpecConfig(draft_cfg=8, k=3,
+                                                        max_k=3), **kw)
+    assert _drain(spec, _reqs(TE, 0, new=16)) == ref
+    assert spec.n_verify_steps > 0
+    assert spec.n_spec_emitted / spec.n_verify_steps > 1.0
+    pj_base = base.serve_mac_energy_pj_per_param / base.n_tokens_emitted
+    pj_spec = spec.serve_mac_energy_pj_per_param / spec.n_tokens_emitted
+    assert pj_spec < pj_base
 
 
 # --- OLMoE: parity, and the reference's MoE verify fault ----------------------

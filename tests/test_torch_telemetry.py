@@ -7,6 +7,7 @@ on the same inputs the two give equal numbers: window statistics, spike
 scores and firing, streaks, ``ewma`` and the re-split, compared with
 ``==``.  The port's modules are numpy copies, so no tolerance is needed.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import numpy as np
 import pytest
 from hypothesis import given, settings

@@ -11,6 +11,7 @@ brownout's unit cases feed both controllers the same pressure (queue
 utilization, the paged pool's, fault deltas) through a stand-in engine
 and compare levels, configs written, budget scales, history and report.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import numpy as np
 import pytest
 

@@ -30,6 +30,7 @@ Tolerances:
 - The MLP's float params after one epoch from the reference's init and
   batch order: rtol 1e-5 (atol 1e-7).
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import dataclasses
 import shutil
 

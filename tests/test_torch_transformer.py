@@ -21,6 +21,7 @@ difference CAN move one int8 activation across a rounding boundary or
 flip one bf16 GEMM output, which would show as an error of ~1e-3 or
 more; ``TOL`` sits well below that, so such a flip fails the test
 rather than hiding inside it."""
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import dataclasses
 
 import jax

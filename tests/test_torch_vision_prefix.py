@@ -14,6 +14,7 @@ as the reference's does (neither passes a vision prefix): its ticks and
 energy log equal the reference Engine's, its streams on all but
 ``ENGINE_FLIPS`` request sets.
 """
+import _port_cpu  # noqa: F401  (one intra-op thread)
 import dataclasses
 import itertools
 
