@@ -441,6 +441,27 @@ seconds):
              LUT, the worst-config drop, hw_sim power at configs 0 and
              31, training seconds; "kernel" logits equal "operand" logits
              bit for bit at every config on the trained weights.
+28. check_grouped_int / timing_grouped_int (slice 16, after
+             check_grouped and timing_flash) — the grouped kernel's
+             int32-out instance against its plain twin bit for bit at
+             OLMoE's w_down for M 32 and M 320 (26 of 64 experts
+             present; configs 0, 8, 31, a per-expert matrix; absent rows
+             zero), then its time at decode beside the twin, a
+             torch._int_mm loop and its byte bound.
+29. shard_serve (slice 16, last) — sharded serving on models of its
+             own (Qwen2.5-3B at SWEEP_DEPTH layers, OLMoE at 4, from
+             fixed seeds): (a) an NCCL group of one in this process,
+             mesh (1, 1), Engine(mapping) against Engine(None) with a
+             PowerBudgetScheduler (tokens, probes, agreements,
+             assignment and retunes equal; each decode step's
+             collectives asserted; both decode-step ms; nothing built
+             after the first tick) and OLMoE at a mixed (L, E, 2) config
+             with a single-expert retune (tokens equal; the int32-out
+             instance runs every w_down); (b) two spawned ranks sharing
+             the card over gloo, mesh (1, 2): the same runs against
+             (a)'s unsharded tokens, and kv="seq" prefill and decode
+             logits within 1e-5 of the unsharded.  (b)'s times are not
+             a multi-card time.
 
 Then a ``{"kernels": [...]}`` line (the fused kernel's entry with a
 ``rows`` list: one Qwen2.5-3B layer at M 4 and one Gemma-2-27B layer at M 4
@@ -457,7 +478,10 @@ take in the slice-12 and slice-13 phases: fused from gemma7b_serve,
 danube_serve, rgemma_serve and xlstm_serve, int from moe_path's
 per-expert path, paged and grouped from paged_moe (grouped also
 moe_path), flash from gemma7b_serve, danube_serve, rgemma_serve,
-paged_moe, moe_chunks and moe_train.  Any failure raises and
+paged_moe, moe_chunks and moe_train; fused, int, grouped and flash
+also shard_serve's (both of its parts), and the grouped kernel's
+int32-out instance has an entry of its own, its launches all
+shard_serve's.  Any failure raises and
 exits non-zero; without a CUDA device, or without the repository beside
 this file, the script exits non-zero and prints no result.  The
 rehearsal walks the serve, mlp, paged_serve, sched_serve, spec_check (60
@@ -468,8 +492,8 @@ may flip a verify's argmax), moe_serve, moe_prefill, sched_moe, spec_moe (fewer,
 gemma2_serve, gemma2_window, train (remat on), train_resume,
 mlp_train (2 epochs), gemma7b_serve, danube_serve, danube_window,
 paged_moe, moe_path, moe_chunks, moe_train, rgemma_serve (8 layers,
-two of them rest layers), rgemma_window and xlstm_serve phases at the
-smoke size
+two of them rest layers), rgemma_window, xlstm_serve and shard_serve
+(gloo for both parts) phases at the smoke size
 on the CPU and never prints the ``ok`` line; its phases come in
 REHEARSAL_GROUPS, and ``--rehearse GROUP ...`` runs only those.
 Since the flash kernel carries every prefill attention on
@@ -483,6 +507,7 @@ import itertools
 import json
 import math
 import pathlib
+import queue
 import re
 import shutil
 import subprocess
@@ -5641,9 +5666,10 @@ def slice14(torch, T, A, ops, FA, FAops, Engine, Request, quantize,
 
 class held_calls:
     """Records the kernel calls of a block, to hold each kernel against
-    its plain version on the block's own operands: the fused and grouped
-    approx-MAC wrappers and flash through their ops entries, the paged
-    kernel through the transformer's name for it.  Keeps the first call
+    its plain version on the block's own operands: the fused, int,
+    grouped and grouped int32-out approx-MAC wrappers and flash through
+    their ops entries, the paged kernel through the transformer's name
+    for it.  Keeps the first call
     of every operand shape and every `stride`-th call, at most `limit` a
     kernel, operands of fewer than 4 M elements cloned (a cache or pool
     is written later) and larger ones (weights) by reference.  ``check``
@@ -5656,7 +5682,8 @@ class held_calls:
     def __init__(self, torch, T, limit: int = HELD_PER_KERNEL,
                  stride: int = 53):
         self.torch, self.T, self.limit, self.stride = torch, T, limit, stride
-        self.kinds = ("fused", "grouped", "flash", "paged")
+        self.kinds = ("fused", "int", "grouped", "grouped_int", "flash",
+                      "paged")
         self.calls = {k: [] for k in self.kinds}
         self.count = dict.fromkeys(self.kinds, 0)
         self.shapes = {k: set() for k in self.kinds}
@@ -5665,7 +5692,9 @@ class held_calls:
         from repro_torch.kernels.approx_mac import ops
         from repro_torch.kernels.flash_attention import ops as FAops
         self.sites = {"fused": (ops, "approx_mac_fused_matmul"),
+                      "int": (ops, "approx_mac_matmul"),
                       "grouped": (ops, "approx_mac_grouped_matmul"),
+                      "grouped_int": (ops, "approx_mac_grouped_matmul_int"),
                       "flash": (FAops, "flash_attention"),
                       "paged": (self.T, "paged_decode_attention")}
         self.orig = {k: getattr(m, a) for k, (m, a) in self.sites.items()}
@@ -5701,7 +5730,9 @@ class held_calls:
     def check(self, A, FA, PA) -> dict:
         torch = self.torch
         plain = {"fused": A.approx_mac_fused_matmul_ref,
+                 "int": A.approx_mac_matmul_ref,
                  "grouped": A.approx_mac_grouped_matmul_ref,
+                 "grouped_int": A.approx_mac_grouped_matmul_int_ref,
                  "flash": FA.flash_attention_ref,
                  "paged": PA.paged_attention_reference}
         out = {}
@@ -5714,7 +5745,7 @@ class held_calls:
                 worst = max(worst, err)
                 where = (kind, [tuple(a.shape) for a in args
                                 if isinstance(a, torch.Tensor)], err)
-                if kind in ("fused", "grouped"):
+                if kind in ("fused", "int", "grouped", "grouped_int"):
                     assert torch.equal(got, want), where
                 elif kind == "flash":
                     torch.testing.assert_close(
@@ -5978,6 +6009,540 @@ def phase_spec_trained(torch, T, libs, E, Engine, Request, SpecConfig,
 
 
 
+# ---------------------------------------------------------------------------
+# slice 16: sharded serving
+# ---------------------------------------------------------------------------
+SHARD = dict(layers=SWEEP_DEPTH, n_req=8, max_new=16, probe_every=2,
+             retune_every=6, moe_layers=4, moe_req=3, moe_new=8,
+             qwen_seed=16, moe_seed=17)
+GROUPED_INT_CASES = ((64, 32, 1024, 2048, 26), (64, 320, 1024, 2048, 26))
+SEQ_TOL = 1e-5
+# kv="seq": a prompt past the first of the (1, 2) mesh's two shards
+SEQ_PROMPT, SEQ_MAX_LEN = 40, 64
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shard_models(torch, T, cfg, moe_cfg, dev, layers: int,
+                 moe_layers: int) -> tuple:
+    """Qwen2.5-3B at `layers` layers and OLMoE-1B-7B at `moe_layers`,
+    full width, quantized as they are drawn from fixed seeds: every rank
+    of the two-rank run draws the same ones."""
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    moe_cfg = dataclasses.replace(moe_cfg, n_layers=moe_layers)
+    qwen = T.init_lm(torch.Generator(device=dev).manual_seed(
+        SHARD["qwen_seed"]), cfg, dev, quantized=True)
+    olmoe = T.init_lm(torch.Generator(device=dev).manual_seed(
+        SHARD["moe_seed"]), moe_cfg, dev, quantized=True)
+    return (qwen, cfg), (olmoe, moe_cfg)
+
+
+def _shard_mixed(moe_cfg):
+    """The (L, E, g) config of the MoE runs: a seeded mix of all 32."""
+    import numpy as np
+    return np.random.default_rng(5).integers(
+        0, 32, (moe_cfg.n_layers, moe_cfg.n_experts, 2)).astype(np.int32)
+
+
+def shard_dense_run(torch, T, libs, Engine, Request, Scheduler, params, cfg,
+                    dev, mapping, n_req: int, max_new: int) -> dict:
+    """One Engine (sharded by `mapping`, or not) with a PowerBudgetScheduler
+    over the same requests: its tokens, the scheduler's trajectory, the
+    decode steps' times and each step's collectives (served and probed
+    steps alike), and whether anything was built after the first tick."""
+    import numpy as np
+    from repro_torch.core.power_model import energy_per_token_pj
+    on_card = dev.type == "cuda"
+    sched = Scheduler(0.0, probe_every=SHARD["probe_every"],
+                      retune_every=SHARD["retune_every"], hysteresis=10**6,
+                      seed=0)
+    eng = Engine(params, cfg, max_batch=4, max_len=128, scheduler=sched,
+                 device=dev, mapping=mapping,
+                 param_specs=T.lm_specs(cfg) if mapping else None)
+    sched.set_budget(0.9 * energy_per_token_pj(
+        np.zeros(cfg.n_layers, np.int32), eng.macs_per_token))
+    for r in _sched_prompts(Request, n_req, max_new, cfg.vocab_size):
+        eng.submit(r)
+    steps, per_step, fn = [], [], T.decode_step
+
+    def timed(*args, **kw):
+        before = dict(mapping.collectives) if mapping else {}
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        if on_card:
+            torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t) * 1e3)
+        if mapping:
+            per_step.append({f"{k[0]} {'/'.join(k[1])}": v - before.get(k, 0)
+                             for k, v in mapping.collectives.items()
+                             if v - before.get(k, 0)})
+        return out
+
+    T.decode_step = timed
+    try:
+        eng.step()
+        built = built_state(libs)
+        eng.run()
+    finally:
+        T.decode_step = fn
+    rebuilt = built_state(libs) != built
+    rep = sched.report()
+    done = sorted(eng.completed, key=lambda r: r.rid)
+    assert len(done) == n_req and all(r.status == "done" for r in done)
+    return {"tokens": [t for r in done for t in r.tokens],
+            "probes": sched.n_probes, "agree": sched.n_agree,
+            "assignment": np.asarray(rep["assignment"]).tolist(),
+            "retunes": rep["retunes"],
+            "modeled_over_budget": rep["modeled_pj_per_token"]
+            / rep["budget_pj_per_token"],
+            "decode_steps": len(steps), "step_ms": steps,
+            "collectives_per_step": per_step, "rebuilt": rebuilt}
+
+
+def shard_moe_run(torch, T, Engine, Request, params, cfg, dev,
+                  mapping) -> list:
+    """OLMoE with the expert axis at a mixed (L, E, 2) config, then a
+    single-expert retune: the tokens."""
+    import numpy as np
+    eng = Engine(params, cfg, max_batch=2, max_len=64,
+                 cfg_experts=cfg.n_experts, cfg_groups=2, device=dev,
+                 mapping=mapping,
+                 param_specs=T.lm_specs(cfg) if mapping else None)
+    eng.set_approx_cfg(_shard_mixed(cfg))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, 6).astype(np.int32)
+               for _ in range(SHARD["moe_req"])]
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p,
+                           max_new_tokens=SHARD["moe_new"]))
+    eng.run()
+    eng.apply_allocation({(0, 1): 31, (1, 3): 2})
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=10 + i, prompt=p,
+                           max_new_tokens=SHARD["moe_new"]))
+    done = sorted(eng.run(), key=lambda r: r.rid)
+    return [t for r in done for t in r.tokens]
+
+
+def shard_seq_logits(torch, T, params, cfg, dev, mapping) -> dict:
+    """kv="seq": one prefill of SEQ_PROMPT tokens and one decode step
+    into a cache of SEQ_MAX_LEN positions, sharded by `mapping`, against
+    the same unsharded: the largest |difference| of each, and the
+    positions this rank's shard holds after the step (each shard must
+    hold some, or the cross-shard merge combines nothing live); and
+    ``sp_decode_attention`` in f32 against ``decode_attention`` on the
+    same cache."""
+    import numpy as np
+    from repro_torch.dist.sharding import activate
+    cfg = dataclasses.replace(cfg, kv_onehot_write=True)
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, SEQ_PROMPT)), device=dev)
+    nxt = torch.tensor([[7]], device=dev)
+    acfg = torch.tensor(8, dtype=torch.int32, device=dev)
+
+    def run(p):
+        logits, cache = T.prefill(p, cfg, toks, max_len=SEQ_MAX_LEN,
+                                  approx_cfg=acfg)
+        l2, cache = T.decode_step(p, cfg, cache, nxt, approx_cfg=acfg)
+        return logits.float(), l2.float(), cache
+    ref = run(params)
+    local = mapping.shard_tree(params,
+                               T.quantize_lm_specs(T.lm_specs(cfg), cfg))
+    with activate(mapping):
+        got = run(local)
+    k = got[2]["k"][0]                      # layer 0: (B, S_loc, KV, hd)
+    # the merge itself in f32 (the model's bf16 attention output rounds
+    # a last-ulp difference of it away): Qwen's heads, B 4
+    from repro_torch.dist.seq_parallel import sp_decode_attention
+    from repro_torch.nn.attention import decode_attention
+    gen = torch.Generator(device=dev).manual_seed(2)
+    qa, ka, va = (torch.randn(4, n, heads, cfg.head_dim, device=dev,
+                              generator=gen)
+                  for n, heads in ((1, cfg.n_heads),
+                                   (SEQ_MAX_LEN, cfg.n_kv_heads),
+                                   (SEQ_MAX_LEN, cfg.n_kv_heads)))
+    whole = decode_attention(qa, ka, va, SEQ_PROMPT + 1)
+    n = SEQ_MAX_LEN // mapping.tp
+    lo = mapping.mesh.coords["model"] * n
+    part = sp_decode_attention(qa, ka[:, lo:lo + n], va[:, lo:lo + n],
+                               SEQ_PROMPT + 1, mapping)
+    return {"prefill": float((got[0] - ref[0]).abs().max()),
+            "decode": float((got[1] - ref[1]).abs().max()),
+            "attention_f32": float((part - whole).abs().max()),
+            "positions_held": int((k.float().abs().sum((0, 2, 3)) > 0)
+                                  .sum())}
+
+
+def check_head_split(torch, get_config, dev) -> dict:
+    """decode_attention on a tensor-parallel rank's 1/tp of the heads
+    against that slice of the unsharded call, bit for bit, for every tp
+    that divides gcd(KV, 8): OLMoE-1B-7B (16 KV heads: 2-head chunks at
+    every tp) and Qwen2.5-3B (2 KV heads), B 4, a 128-position cache
+    with 97 valid, bf16."""
+    import math
+    from repro_torch.nn.attention import decode_attention
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cases = {}
+    for arch in ("olmoe-1b-7b", "qwen2.5-3b"):
+        cfg = get_config(arch)
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q, k, v = (torch.randn(4, n, heads, hd, device=dev, generator=gen)
+                   .to(cfg.compute_dtype)
+                   for n, heads in ((1, h), (128, kv), (128, kv)))
+        whole = decode_attention(q, k, v, 97)
+        tps = [tp for tp in (2, 4, 8) if math.gcd(kv, 8) % tp == 0]
+        for tp in tps:
+            nk, nq = kv // tp, h // tp
+            for r in range(tp):
+                part = decode_attention(
+                    q[:, :, r * nq:(r + 1) * nq],
+                    k[:, :, r * nk:(r + 1) * nk],
+                    v[:, :, r * nk:(r + 1) * nk], 97, kv_heads=kv)
+                assert torch.equal(part, whole[:, :, r * nq:(r + 1) * nq]), \
+                    (arch, tp, r)
+        cases[arch] = tps
+    return {"bit_identical": True, "tp": cases}
+
+
+SHARD_KERNELS = ("approx_mac_fused_matmul", "approx_mac_matmul",
+                 "approx_mac_grouped_matmul", "approx_mac_grouped_matmul_int")
+
+
+def _zero_shard_launches(A, FA) -> None:
+    for fn in SHARD_KERNELS:
+        getattr(A, fn).launches = 0
+    FA.flash_attention.launches = 0
+
+
+def _shard_launches(A, FA) -> dict:
+    return {**{fn: getattr(A, fn).launches for fn in SHARD_KERNELS},
+            "flash_attention": FA.flash_attention.launches}
+
+
+def shard_rank(rank, port, rehearse, out):
+    """One of the two ranks of shard_serve (b), in a process of its own on
+    the one card (or the CPU when rehearsed), over gloo: Qwen2.5-3B at
+    (1, 2) kv="hd" with the scheduler, OLMoE at (1, 2), Qwen at kv="seq";
+    puts its results on `out`."""
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(1 if rehearse else 4)
+        from repro_torch.configs.registry import get_config
+        from repro_torch.dist.sharding import serve_mapping
+        from repro_torch.kernels.approx_mac import approx_mac as A
+        from repro_torch.kernels.flash_attention import flash_attention as FA
+        from repro_torch.kernels.flash_attention import paged_attention as PA
+        from repro_torch.launch.mesh import make_serve_mesh
+        from repro_torch.nn import transformer as T
+        from repro_torch.serve import faults as F
+        from repro_torch.serve.engine import Engine, Request
+        from repro_torch.serve.scheduler import PowerBudgetScheduler
+        Engine = strict_engine(Engine, F)
+        dev = torch.device("cpu" if rehearse else "cuda")
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank)
+        try:
+            cfg, moe_cfg = shard_configs(get_config, rehearse)
+            (qwen, cfg), (olmoe, moe_cfg) = shard_models(
+                torch, T, cfg, moe_cfg, dev, *shard_depths(rehearse))
+            n_req, max_new = shard_load(rehearse)
+            _zero_shard_launches(A, FA)
+            mp_hd = serve_mapping(make_serve_mesh(dp=1, tp=2), kv="hd")
+            with held_calls(torch, T) as held:
+                dense = shard_dense_run(torch, T, (A, PA, FA), Engine,
+                                        Request, PowerBudgetScheduler, qwen,
+                                        cfg, dev, mp_hd, n_req, max_new)
+                moe = shard_moe_run(torch, T, Engine, Request, olmoe,
+                                    moe_cfg, dev, serve_mapping(
+                                        make_serve_mesh(dp=1, tp=2)))
+                launches = _shard_launches(A, FA)
+                seq = shard_seq_logits(torch, T, qwen, cfg, dev,
+                                       serve_mapping(make_serve_mesh(
+                                           dp=1, tp=2), kv="seq"))
+            checked = held.check(A, FA, PA)
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, True, {"dense": dense, "moe": moe, "seq": seq,
+                              "launches": launches, "held": checked}))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        out.put((rank, False, traceback.format_exc()))
+
+
+def shard_configs(get_config, rehearse: bool) -> tuple:
+    cfg, moe = get_config("qwen2.5-3b"), get_config("olmoe-1b-7b")
+    if rehearse:
+        cfg, moe = cfg.smoke(), moe.smoke()
+    return cfg, dataclasses.replace(moe, mac_backend="pallas")
+
+
+def shard_depths(rehearse: bool) -> tuple:
+    return (2, 2) if rehearse else (SHARD["layers"], SHARD["moe_layers"])
+
+
+def shard_load(rehearse: bool) -> tuple:
+    return (8, 8) if rehearse else (SHARD["n_req"], SHARD["max_new"])
+
+
+def expected_collectives(cfg) -> dict:
+    """Each decode step's collectives on a (1, tp) mesh with the KV heads
+    on "model": per layer the activation MAX of the five column-parallel
+    GEMMs (q, k, v, gate, up: over "data") and of the two row-parallel
+    ones (o, down: over every rank) and their int32 SUMs, then the
+    vocab-parallel embedding's SUM and the logits' gather."""
+    n = cfg.n_layers
+    return {"all_reduce_max data": 5 * n, "all_reduce_max data/model": 2 * n,
+            "all_reduce_sum model": 2 * n + 1, "all_gather model": 1}
+
+
+def phase_shard_serve(torch, T, A, libs, Engine, Request, Scheduler,
+                      get_config, dev) -> dict:
+    """Sharded serving.  (a) An NCCL group of one rank in this process
+    (gloo on the CPU rehearsal), mesh (1, 1), kv="hd": Qwen2.5-3B at
+    SWEEP_DEPTH layers with a PowerBudgetScheduler, Engine(mapping)
+    against Engine(None) on the same requests (tokens, the scheduler's
+    assignment, retunes, probes and agreements equal; each decode step's
+    collectives counted and asserted, the row-parallel int32 path and
+    the scale reductions included; both engines' decode-step ms; nothing
+    built after the first tick), then OLMoE-1B-7B at 4 layers with a
+    mixed (L, E, g) config and a single-expert retune (tokens equal; the
+    grouped kernel's int32-out instance runs w_down).  (b) Two ranks in
+    processes of their own sharing the one card over gloo, mesh (1, 2):
+    the same Qwen run (2 KV heads over TP 2: bit-identity expected) and
+    OLMoE run against (a)'s unsharded tokens, and kv="seq" prefill and
+    decode logits within SEQ_TOL of the unsharded, on a prompt that
+    reaches both sequence shards.  In both parts every kernel call is
+    held against its plain version on its own operands (``held_calls``;
+    the ranks hold their own), the int kernel and the int32-out
+    instance at the row-parallel shapes included; and decode attention
+    on a rank's share of the heads is held bit for bit to that slice of
+    the unsharded call (``check_head_split``).  (b)'s times are two
+    processes on one card, not a multi-card time."""
+    import multiprocessing as mp
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import serve_mapping
+    from repro_torch.launch.mesh import make_serve_mesh
+    rehearse = dev.type != "cuda"
+    t_phase = time.perf_counter()
+    cfg, moe_cfg = shard_configs(get_config, rehearse)
+    (qwen, cfg), (olmoe, moe_cfg) = shard_models(
+        torch, T, cfg, moe_cfg, dev, *shard_depths(rehearse))
+    n_req, max_new = shard_load(rehearse)
+    dist.init_process_group("gloo" if rehearse else "nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mapping = serve_mapping(make_serve_mesh(dp=1, tp=1), kv="hd")
+        with held_calls(torch, T) as held:
+            plain = shard_dense_run(torch, T, libs, Engine, Request,
+                                    Scheduler, qwen, cfg, dev, None, n_req,
+                                    max_new)
+            _zero_shard_launches(A, libs[-1])
+            sharded = shard_dense_run(torch, T, libs, Engine, Request,
+                                      Scheduler, qwen, cfg, dev, mapping,
+                                      n_req, max_new)
+            moe_plain = shard_moe_run(torch, T, Engine, Request, olmoe,
+                                      moe_cfg, dev, None)
+            moe_sharded = shard_moe_run(torch, T, Engine, Request, olmoe,
+                                        moe_cfg, dev,
+                                        serve_mapping(make_serve_mesh(dp=1,
+                                                                      tp=1)))
+            launches = _shard_launches(A, libs[-1])
+        held_a = held.check(A, libs[-1], libs[1])
+    finally:
+        dist.destroy_process_group()
+    keys = ("tokens", "probes", "agree", "assignment", "retunes")
+    for key in keys:
+        assert sharded[key] == plain[key], (key, sharded[key], plain[key])
+    assert plain["probes"] > 0 and plain["retunes"] >= 2
+    assert not plain["rebuilt"] and not sharded["rebuilt"]
+    want = expected_collectives(cfg)
+    assert all(s == want for s in sharded["collectives_per_step"]), \
+        (sharded["collectives_per_step"][:2], want)
+    assert moe_sharded == moe_plain
+    if not rehearse:
+        assert launches["approx_mac_matmul"] > 0, launches
+        assert launches["approx_mac_grouped_matmul_int"] > 0, launches
+    for kind in ("fused", "int", "grouped", "grouped_int"):
+        assert held_a[kind]["held"] > 0, ("a", kind, held_a)
+    head_split = check_head_split(torch, get_config, dev)
+    part_a = time.perf_counter() - t_phase
+
+    # (b): two ranks, one card, gloo
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=shard_rank, args=(r, port, rehearse, out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    deadline = time.monotonic() + 600
+    try:
+        while len(ranks) < len(procs):
+            try:
+                r, ok, value = out.get(timeout=5)
+            except queue.Empty:
+                # a rank that died before it could report ends the wait
+                dead = [i for i, p in enumerate(procs)
+                        if i not in ranks and p.exitcode not in (None, 0)]
+                if dead and not out.empty():
+                    continue
+                assert not dead and time.monotonic() < deadline, \
+                    f"shard_serve ranks {dead or 'all'}: no result"
+                continue
+            assert ok, f"shard_serve rank {r}:\n{value}"
+            ranks[r] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for r, got in ranks.items():
+        for key in keys:
+            assert got["dense"][key] == plain[key], (r, key)
+        assert got["moe"] == moe_plain, r
+        assert all(s == want for s in got["dense"]["collectives_per_step"])
+        assert got["seq"]["prefill"] <= SEQ_TOL, (r, got["seq"])
+        assert got["seq"]["decode"] <= SEQ_TOL, (r, got["seq"])
+        assert got["seq"]["positions_held"] > 0, (r, got["seq"])
+        assert got["seq"]["attention_f32"] <= SEQ_TOL, (r, got["seq"])
+        for kind in ("fused", "int", "grouped", "grouped_int"):
+            assert got["held"][kind]["held"] > 0, ("b", r, kind)
+    rank_launches = {fn: sum(g["launches"][fn] for g in ranks.values())
+                     for fn in launches}
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+    res = {"phase": "shard_serve", "arch": cfg.name, "layers": cfg.n_layers,
+           "moe_arch": moe_cfg.name, "moe_layers": moe_cfg.n_layers,
+           "requests": n_req, "max_new_tokens": max_new,
+           "tokens_bit_identical": True, "scheduler_equal": True,
+           "probes": plain["probes"], "retunes": plain["retunes"],
+           "modeled_over_budget": plain["modeled_over_budget"],
+           "decode_steps": plain["decode_steps"],
+           "collectives_per_decode_step": want,
+           "a_unsharded_decode_step_ms_mean": mean(plain["step_ms"]),
+           "a_sharded_1x1_decode_step_ms_mean": mean(sharded["step_ms"]),
+           "a_unsharded_decode_step_ms_min": min(plain["step_ms"]),
+           "a_sharded_1x1_decode_step_ms_min": min(sharded["step_ms"]),
+           "b_1x2_gloo_one_card_decode_step_ms_mean":
+               mean(ranks[0]["dense"]["step_ms"]),
+           "b_note": "two processes sharing one card over gloo: not a "
+                     "multi-card time",
+           "b_seq_max_abs_diff": {r: g["seq"] for r, g in ranks.items()},
+           "b_seq_prompt_of_max_len": [SEQ_PROMPT, SEQ_MAX_LEN],
+           "held_a": held_a, "held_b": {r: g["held"]
+                                        for r, g in ranks.items()},
+           "decode_attention_head_split": head_split,
+           "libraries_built_after_first_tick": 0,
+           "launches_a": launches, "launches_b": rank_launches,
+           "a_s": part_a, "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
+def phase_check_grouped_int(torch, A, dev) -> float:
+    """The grouped kernel's int32-out instance against its plain twin,
+    bit for bit, at OLMoE-1B-7B's row-parallel w_down (1,024 -> 2,048)
+    for a decode pool's buffer (M 32) and a 2,048-token prefill's (M 320),
+    26 of 64 experts holding rows: configs 0, 8, 31 and a per-expert
+    matrix; every absent row zero."""
+    gen = torch.Generator(device=dev).manual_seed(26)
+    cases = 0
+    for e, m, k, n, present in GROUPED_INT_CASES:
+        x = torch.randn(e, m, k, device=dev, generator=gen)
+        bank = torch.randint(-127, 128, (e, k, n), dtype=torch.int8,
+                             device=dev, generator=gen)
+        rows = torch.zeros(e, dtype=torch.int32, device=dev)
+        pick = torch.randperm(e, device=dev, generator=gen)[:present]
+        rows[pick] = torch.randint(1, m + 1, (present,), dtype=torch.int32,
+                                   device=dev, generator=gen)
+        xs = (x.abs().amax() * (1.0 / 127)).reshape(1)
+        nb = -(-n // 128)
+        mat = torch.randint(0, 32, (e, nb), device=dev, generator=gen)
+        for cfg in (0, 8, 31, mat):
+            c = A.grouped_config_operand(cfg, e, nb, dev)
+            got = A.approx_mac_grouped_matmul_int(x, bank, xs, rows, c)
+            ref = A.approx_mac_grouped_matmul_int_ref(x, bank, xs, rows, c)
+            torch.cuda.synchronize()
+            absent = torch.arange(m, device=dev)[None, :] >= rows[:, None]
+            assert not got[absent].any(), (e, m, "absent rows")
+            assert torch.equal(got, ref), (e, m, k, n, "config",
+                                           cfg if isinstance(cfg, int)
+                                           else "matrix")
+            cases += 1
+        del x, bank
+    emit({"phase": "check_grouped_int", "cases": cases,
+          "bit_identical": True, "max_abs_err": 0.0})
+    return 0.0
+
+
+def grouped_int_bound(rows, m, k, n) -> tuple[float, str]:
+    """Least time (ms) of one int32-out grouped GEMM on this routing: the
+    touched experts' bank bytes, the present rows' f32 activations, the
+    config rows and group_rows, the whole (E, M, N) int32 output written
+    once; or the int8 operations of the present rows at peak."""
+    e = len(rows)
+    present = sum(rows)
+    touched = sum(1 for r in rows if r > 0)
+    moved = (touched * k * n + present * k * 4 + 4 + e * (-(-n // 128)) * 16
+             + e * 4 + e * m * n * 4)
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = 2 * present * k * n / INT8_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_timing_grouped_int(torch, A, bank_of, dev) -> dict:
+    """The int32-out instance, its plain twin and a torch._int_mm loop
+    over the touched experts at OLMoE-1B-7B's decode w_down (4 tokens,
+    top-8 of 64: M 32; K 1,024, N 2,048), config 16, banks rotated past
+    the L2."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    e, top_k, (k, n) = 64, 8, MOE_GEMMS[2]
+    counts, m = decode_routing(torch, e, top_k, 4, 2048, gen, dev)
+    rows_host = counts.tolist()
+    touched = [i for i, r in enumerate(rows_host) if r > 0]
+    copies = 3
+    banks = [bank_of(torch.randn(e, k, n, device=dev, generator=gen) * 0.02)
+             for _ in range(copies)]
+    x = torch.randn(e, m, k, device=dev, generator=gen)
+    present = (torch.arange(m, device=dev)[None, :] < counts[:, None])
+    x = torch.where(present[..., None], x, 0.0)
+    xs = x.abs().amax().clamp(min=1e-12) * (1.0 / 127)
+    cfg = A.grouped_config_operand(16, e, -(-n // 128), dev)
+    x_q = torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
+
+    def call(fn):
+        return lambda i: fn(x, banks[i % copies].values, xs, counts, cfg)
+    t_kernel = graph_ms(torch, call(A.approx_mac_grouped_matmul_int),
+                        3 * copies)
+    t_plain = graph_ms(torch, call(A.approx_mac_grouped_matmul_int_ref),
+                       copies, replays=3)
+    lib = int_mm_loop_layouts(torch, x_q, [b.values for b in banks], touched)
+    b_ms, b_by = grouped_int_bound(rows_host, m, k, n)
+    row = {"phase": "timing_grouped_int", "e": e, "m": m, "k": k, "n": n,
+           "touched_experts": len(touched), "present_rows": sum(rows_host),
+           "ms": t_kernel, "plain_ms": t_plain, **lib, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_share": b_ms / t_kernel,
+           "plan": grouped_plan_path(A, e, m, k, n)}
+    emit(row)
+    del banks, x, x_q
+    torch.cuda.empty_cache()
+    return row
+
+
 def layer_row(name: str, rows: list, launches: int) -> dict:
     """One work row of a kernel's entry: the sums over a layer's GEMMs."""
     return {"work": name, "launches": launches,
@@ -6005,6 +6570,7 @@ REHEARSAL_GROUPS = {
     "slice14": "whisper_serve/check, internvl_serve, dbrx_serve, "
                "check_seen",
     "slice15": "power_sweep (sections 1-8), spec_trained",
+    "slice16": "shard_serve ((a) one rank, (b) two spawned ranks)",
 }
 
 
@@ -6197,6 +6763,9 @@ def rehearse(groups=None) -> int:
             torch, T, libs, E, Engine, Request, SpecConfig,
             PagedCacheConfig, restore_params, Checkpointer, cfg, cpu,
             **{**SPEC_TRAINED, **REHEARSE_SPEC_TRAINED})
+    if "slice16" in groups:
+        phase_shard_serve(torch, T, A, libs, Engine, Request,
+                          PowerBudgetScheduler, get_config, cpu)
     emit({"rehearsal": True, "groups": groups, "ok": False})
     return 0
 
@@ -6281,6 +6850,8 @@ def main(argv: list[str]) -> int:
     with card_on_failure("check_grouped"):
         grouped_err = phase_check_grouped(torch, A, ops,
                                           quantize_expert_bank, dev)
+    with card_on_failure("check_grouped_int"):
+        grouped_int_err = phase_check_grouped_int(torch, A, dev)
     flash_err = phase_check_flash(torch, FA, dev)
     timing = phase_timing(torch, A, quantize, dev)
     timing_int = phase_timing_int(torch, A, dev)
@@ -6288,6 +6859,8 @@ def main(argv: list[str]) -> int:
     timing_grouped = phase_timing_grouped(torch, A, quantize_expert_bank,
                                           quantize, dev, parent)
     timing_flash = phase_timing_flash(torch, FA, dev)
+    timing_grouped_int = phase_timing_grouped_int(torch, A,
+                                                  quantize_expert_bank, dev)
     cfg = get_config("qwen2.5-3b")
     serve, eng = phase_serve(torch, T, A, Engine, Request, cfg, dev)
     phase_profile(torch, T, eng, dev, serve["decode_step_ms_mean"])
@@ -6450,6 +7023,12 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     phase_train_resume(torch, dev)
     mlp_train = phase_mlp_train(torch, A, dev)
+    # slice 16: sharded serving, on models of its own
+    shard = phase_shard_serve(torch, T, A, libs, Engine, Request,
+                              PowerBudgetScheduler, get_config, dev)
+
+    def shard_launches(fn):
+        return shard["launches_a"][fn] + shard["launches_b"][fn]
 
     layer = [timing[(4, *s)] for s in LAYER_GEMMS]
     gemma_rows = {m: [timing[(m, *s)] for s in GEMMA_GEMMS] for m in (4, 48)}
@@ -6497,7 +7076,8 @@ def main(argv: list[str]) -> int:
                          "fused_launches"]
                      + moe_chunks["per_expert"]["launches"][
                          "approx_mac_fused_matmul"]
-                     + sweep_launches("approx_mac_fused_matmul")),
+                     + sweep_launches("approx_mac_fused_matmul")
+                     + shard_launches("approx_mac_fused_matmul")),
         "max_abs_err": worst,
         "ms": sum(r["ms"] for r in layer),
         "plain_ms": sum(r["plain_ms"] for r in layer),
@@ -6510,6 +7090,7 @@ def main(argv: list[str]) -> int:
                 "speculative runs (spec_check, spec_serve, spec_sched, "
                 "spec_moe, spec_trained), chaos_serve, spike_serve and "
                 "interactions, power_sweep's eight sections, "
+                "shard_serve's column-parallel GEMMs, "
                 "gemma7b_serve and danube_serve, rgemma_serve and "
                 "xlstm_serve, whisper_serve and internvl_serve (with "
                 "its text-only Engine run), moe_chunks' per-expert "
@@ -6530,7 +7111,8 @@ def main(argv: list[str]) -> int:
         "source": KERNEL_SOURCE,
         "replaces": INT_TPU_KERNEL,
         "launches": (mlp["kernel_launches"] + mlp_train["kernel_launches"]
-                     + moe_path["int_launches"]),
+                     + moe_path["int_launches"]
+                     + shard_launches("approx_mac_matmul")),
         "max_abs_err": int_err,
         "ms": sum(r["ms"] for r in timing_int),
         "plain_ms": sum(r["plain_ms"] for r in timing_int),
@@ -6540,8 +7122,10 @@ def main(argv: list[str]) -> int:
         "library_ms": sum(r["library_ms"] for r in timing_int),
         "work": "the paper MLP's two GEMMs (62x30, 30x10) at batch "
                 "10,000; launches from the mlp (untrained) and mlp_train "
-                "(trained, the 32-config sweep) runs and moe_path's "
-                "per-expert (grouped=False) path; library_ms is "
+                "(trained, the 32-config sweep) runs, moe_path's "
+                "per-expert (grouped=False) path and shard_serve's "
+                "row-parallel dense GEMMs (o, down: int32 partial sums "
+                "before the all-reduce); library_ms is "
                 "torch._int_mm at config 0 on operands padded to its "
                 "shape rules, in the faster weight layout",
     }, {
@@ -6579,7 +7163,8 @@ def main(argv: list[str]) -> int:
                      + moe_path["grouped_launches"]
                      + s14["dbrx_serve"]["grouped_launches"]
                      + moe_chunks["per_expert"]["launches"][
-                         "approx_mac_grouped_matmul"]),
+                         "approx_mac_grouped_matmul"]
+                     + shard_launches("approx_mac_grouped_matmul")),
         "max_abs_err": max(grouped_err, s14["dbrx_check"]["max_abs_err"]),
         **{key: moe_rows[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
@@ -6588,12 +7173,29 @@ def main(argv: list[str]) -> int:
                 "real routing, M 32; launches from the moe_serve, "
                 "sched_moe, spec_moe, paged_moe, power_sweep's section "
                 "4, moe_path and "
-                "dbrx_serve (E 16, top-4, K 6,144, N 10,752) runs and "
-                "moe_chunks' per-expert run; "
+                "dbrx_serve (E 16, top-4, K 6,144, N 10,752) runs, "
+                "moe_chunks' per-expert run and shard_serve's "
+                "column-parallel banks (w_gate, w_up); "
                 "library_ms is a torch._int_mm loop over the touched "
                 "experts at config 0, each GEMM in its faster weight "
                 "layout (timing_grouped's library_layout)",
         "rows": moe_rows,
+    }, {
+        "name": "approx_mac_grouped_matmul_int",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": GROUPED_TPU_KERNEL,
+        "launches": shard_launches("approx_mac_grouped_matmul_int"),
+        "max_abs_err": grouped_int_err,
+        **{key: timing_grouped_int[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "work": "the grouped kernel's int32-out instance (no epilogue) at "
+                "OLMoE-1B-7B's decode w_down, 4 tokens, top-8 of 64 "
+                "experts, M 32, K 1,024, N 2,048; launches from "
+                "shard_serve's row-parallel expert banks (OLMoE at (1, 1) "
+                "and both ranks at (1, 2)); library_ms is a torch._int_mm "
+                "loop over the touched experts at config 0, in the faster "
+                "weight layout",
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -6617,7 +7219,8 @@ def main(argv: list[str]) -> int:
                      + s14["internvl_serve"]["flash_launches"]
                      + s14["internvl_serve"]["engine_text_only"][
                          "flash_launches"]
-                     + s14["dbrx_serve"]["flash_launches"]),
+                     + s14["dbrx_serve"]["flash_launches"]
+                     + shard_launches("flash_attention")),
         "max_abs_err": flash_err,
         "ms": serve_flash["ms"],
         "plain_ms": serve_flash["plain_ms"],

@@ -26,5 +26,10 @@ approx-MAC CUDA kernel; and training (``train/``, ``checkpoint/``,
 ``dist/fault_tolerance.py``, ``launch/train.py``, ``examples/``): AdamW
 with an in-place update, ``lm_loss`` with remat, the train step, the
 reference's checkpoint format and the fault-tolerant loop, with the
-flash kernel differentiable through its plain twin's gradient.
+flash kernel differentiable through its plain twin's gradient; and
+sharded serving over ``torch.distributed`` (``dist/sharding.py``,
+``dist/seq_parallel.py``, ``launch/mesh.py``, ``Engine(mapping=)``,
+``launch/serve.py --mesh``), whose row-parallel GEMMs sum int32
+partial products before the epilogue (the grouped kernel's int32-out
+instance for expert banks).
 """

@@ -6,8 +6,8 @@ a bounded queue, so host-side batch synthesis overlaps the device step;
 its ``place`` hook moves each batch to the device as it is taken
 (e.g. ``to_device``: pinned host memory and a non-blocking copy on a
 CUDA device).  Placing onto several devices (the reference's
-``sharded_placer``) waits for multi-device support (ROADMAP Queue 1
-item 11).
+``sharded_placer``) waits for sharded training (ROADMAP Queue 1
+item 11(b)).
 """
 from __future__ import annotations
 

@@ -1,0 +1,357 @@
+"""Logical-axis sharding over ``torch.distributed`` (the port of
+``repro.dist.sharding``).
+
+Model code names the axes of its arrays with *logical* names ("batch",
+"fsdp", "tp", "tp?", "vocab", "expert", "kv_seq", "kv_hd", None); a
+``Mapping`` binds them to the axes of a ``launch.mesh.Mesh`` ("data",
+"model") and is made current with ``activate``.  The resolution rules
+are the reference's, table, divisibility drop and all:
+
+  "batch"   -> the mapping's batch axes (default ("data",))
+  "fsdp"    -> ("data",) when Mapping.fsdp else replicated
+  "tp", "tp?", "vocab", "expert" -> ("model",)
+  "kv_seq"  -> Mapping.kv_seq_axis;  "kv_hd" -> Mapping.kv_hd_axis
+  None      -> replicated
+
+A mapped axis that does not divide the dim is dropped (replicated), and
+a mesh axis is never used twice in one spec.  ``spec`` returns a plain
+tuple per dim (None, an axis name, or a tuple of names): the
+counterpart of a ``PartitionSpec``.
+
+The reference runs one program and lets GSPMD place the arrays.  Here
+every rank runs the same host loop on its own slices (SPMD): ``shard``
+and ``shard_tree`` cut a whole tensor or tree down to the calling
+rank's slice by its spec, and the model code calls the collectives
+below at the few places where the single-program result needs them:
+``all_reduce`` (MAX of activation abs-maxima, SUM of int32 partial
+products and of masked embedding rows) and ``all_gather`` (vocab
+columns and batch rows of the logits, head columns where the heads do
+not divide the model axis).  Each call is counted in
+``Mapping.collectives`` by kind and axes.  With no mapping current,
+``current_mapping()`` is None and the model code calls none of them:
+single-device code pays nothing.
+"""
+from __future__ import annotations
+
+import contextlib
+from collections import Counter
+from dataclasses import dataclass
+from typing import Any, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.quantization import QTensor
+
+_ACTIVE: list["Mapping"] = []
+QTENSOR_FIELDS = ("values", "scale")
+
+
+@dataclass
+class ShardedQTensor(QTensor):
+    """A QTensor cut to the calling rank's slice, with the resolved spec
+    of its ``values``: the GEMMs read from it which of their dims lie on
+    "model" (``gemm_split``), whatever the axis's size."""
+    spec: tuple = ()
+
+
+@dataclass(frozen=True)
+class GemmSplit:
+    """How one approx-MAC GEMM is split under a mapping.
+
+    col: the output columns lie on "model"; this rank holds logical
+    columns [n_offset, n_offset + local N) of ``n_logical``.  row: the
+    contraction dim lies on "model": the int32 partial products are
+    summed over it before the one epilogue multiply.  scale_axes: the
+    mesh axes whose ranks hold other parts of the GEMM's input, over
+    which the activation abs-max is reduced (MAX) before the scale
+    formula: "data" for a column-parallel or unsplit GEMM (the batch),
+    every axis for a row-parallel one."""
+    mapping: "Mapping"
+    n_logical: int
+    n_offset: int = 0
+    row: bool = False
+
+    @property
+    def scale_axes(self) -> tuple[str, ...]:
+        m = self.mapping
+        return m.all_axes if self.row else tuple(
+            a for a in m.all_axes if a != "model")
+
+
+class Mapping:
+    """Binds logical axis names to the axes of a mesh."""
+
+    def __init__(self, mesh, *, fsdp: bool = False,
+                 batch_axes: Sequence[str] = ("data",),
+                 kv_seq_axis: Sequence[str] | None = None,
+                 kv_hd_axis: Sequence[str] | None = None):
+        self.mesh = mesh
+        self.fsdp = fsdp
+        self.batch_axes = tuple(a for a in batch_axes
+                                if a in mesh.axis_names)
+        self.kv_seq_axis = tuple(kv_seq_axis) if kv_seq_axis else None
+        self.kv_hd_axis = tuple(kv_hd_axis) if kv_hd_axis else None
+        self.collectives: Counter = Counter()
+
+    # -- logical -> mesh axis resolution --------------------------------
+    def _axis_size(self, axes: tuple[str, ...]) -> int:
+        return self.mesh.axis_size(axes)
+
+    def _resolve_one(self, name, dim: int, used: set[str]):
+        if name is None:
+            return None
+        table = {
+            "batch": self.batch_axes,
+            "fsdp": ("data",) if self.fsdp else None,
+            "tp": ("model",),
+            "tp?": ("model",),
+            "vocab": ("model",),
+            "expert": ("model",),
+            "kv_seq": self.kv_seq_axis,
+            "kv_hd": self.kv_hd_axis,
+        }
+        axes = table.get(name)
+        if not axes:
+            return None
+        axes = tuple(a for a in axes if a in self.mesh.axis_names
+                     and a not in used)
+        if not axes or dim % self._axis_size(axes) != 0:
+            return None
+        used.update(axes)
+        return axes if len(axes) > 1 else axes[0]
+
+    def spec(self, logical: Sequence, shape: Sequence[int]) -> tuple:
+        """The mesh axes of each dim of one array (None: replicated),
+        from its logical axes and shape; a rank mismatch replicates."""
+        if len(logical) != len(shape):
+            return ()
+        used: set[str] = set()
+        return tuple(self._resolve_one(n, d, used)
+                     for n, d in zip(logical, shape))
+
+    def shardings(self, spec_tree, shape_tree):
+        """The resolved spec of every leaf of `shape_tree` (tensors,
+        QTensors, or anything with a ``shape``), in its structure, by
+        walking `spec_tree` along the leaf's path (``_walk``); a leaf
+        whose walk ends on no spec tuple is replicated (())."""
+        return _map_with_path(
+            lambda path, leaf: self._leaf_spec(spec_tree, path, leaf),
+            shape_tree)
+
+    def _leaf_spec(self, spec_tree, path, leaf) -> tuple:
+        spec = _walk(spec_tree, path)
+        if isinstance(spec, tuple) and _is_leaf_spec(spec):
+            return self.spec(spec, tuple(leaf.shape))
+        return ()
+
+    # -- the calling rank's slices --------------------------------------
+    def local_range(self, axes, dim: int) -> tuple[int, int]:
+        """[lo, hi) of a dim of size `dim` that the calling rank holds
+        when the dim is sharded over `axes` (None: the whole dim)."""
+        if axes is None:
+            return 0, dim
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        n = self.mesh.axis_size(axes)
+        size = dim // n
+        lo = self.mesh.axis_index(axes) * size
+        return lo, lo + size
+
+    def shard(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """The calling rank's slice of a whole tensor by a resolved spec
+        (a contiguous copy when anything is cut)."""
+        out = x
+        for dim, axes in enumerate(spec):
+            if axes is not None:
+                lo, hi = self.local_range(axes, x.shape[dim])
+                out = out.narrow(dim, lo, hi - lo)
+        return out.clone(memory_format=torch.contiguous_format) \
+            if out is not x else x
+
+    def shard_tree(self, tree, spec_tree):
+        """Every leaf of `tree` cut to the calling rank's slice by the
+        spec its path resolves to in `spec_tree`; a QTensor becomes a
+        ``ShardedQTensor`` that carries its values' resolved spec."""
+        def leaf(path, x):
+            return self.shard(x, self._leaf_spec(spec_tree, path, x))
+
+        def qtensor(path, q):
+            vspec = self._leaf_spec(spec_tree, path + ("values",), q.values)
+            return ShardedQTensor(leaf(path + ("values",), q.values),
+                                  leaf(path + ("scale",), q.scale), q.axis,
+                                  vspec)
+        return _map_with_path(leaf, tree, qtensor)
+
+    # -- collectives ----------------------------------------------------
+    def group_of(self, axes: Sequence[str]):
+        return self.mesh.group(tuple(axes))
+
+    def all_reduce(self, x: torch.Tensor, op: str,
+                   axes: Sequence[str]) -> torch.Tensor:
+        """x reduced ("sum" or "max") over the ranks of `axes`, in place
+        on a copy; returns it.  Counted even over a group of one."""
+        axes = tuple(axes)
+        self.collectives[(f"all_reduce_{op}", axes)] += 1
+        out = x.clone()
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        dist.all_reduce(out, op=red, group=self.group_of(axes))
+        return out
+
+    def all_gather(self, x: torch.Tensor, dim: int,
+                   axes: Sequence[str]) -> torch.Tensor:
+        """The ranks' x of `axes` concatenated along `dim`, in rank
+        order (a byte copy: bf16, which gloo does not take, travels as
+        its bytes)."""
+        axes = tuple(axes)
+        self.collectives[("all_gather", axes)] += 1
+        n = self.mesh.axis_size(axes)
+        dim = dim % x.ndim
+        src = x.contiguous()
+        if src.dtype == torch.bfloat16:
+            src = src.view(torch.uint8)
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=self.group_of(axes))
+        out = torch.cat(parts, dim=dim)
+        return out.view(x.dtype) if out.dtype != x.dtype else out
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.shape.get("model", 1)
+
+    @property
+    def all_axes(self) -> tuple[str, ...]:
+        return self.mesh.axis_names
+
+
+def _is_leaf_spec(t) -> bool:
+    return all(e is None or isinstance(e, str) for e in t)
+
+
+def _walk(spec_tree, path):
+    """The spec node at `path`: entries with no matching key or index
+    in the spec tree are skipped (one param-spec tree serves params and
+    their optimizer moments), and a leaf spec reached early broadcasts
+    downward."""
+    node = spec_tree
+    for entry in path:
+        if isinstance(node, tuple) and _is_leaf_spec(node):
+            break
+        if isinstance(node, dict) and entry in node:
+            node = node[entry]
+        elif (isinstance(node, list) and isinstance(entry, int)
+              and entry < len(node)):
+            node = node[entry]
+    return node
+
+
+def _map_with_path(fn, tree, qfn=None, path=()):
+    """fn(path, leaf) over the tensors of a tree of dicts, lists,
+    tuples and QTensors (a QTensor's fields are path entries "values"
+    and "scale"; ``qfn(path, qtensor)``, when given, maps a QTensor
+    whole); anything else passes through."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, qfn, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, qfn, path + (i,))
+                          for i, v in enumerate(tree))
+    if isinstance(tree, QTensor):
+        if qfn is not None:
+            return qfn(path, tree)
+        return {f: fn(path + (f,), getattr(tree, f))
+                for f in QTENSOR_FIELDS}
+    if isinstance(tree, torch.Tensor) or hasattr(tree, "shape"):
+        return fn(path, tree)
+    return tree
+
+
+def gemm_split(w) -> GemmSplit | None:
+    """The split of a GEMM against weight `w` ((K, N) or an (E, K, N)
+    bank) under the current mapping; None with no mapping current.  A
+    weight that is not a ``ShardedQTensor`` (placed replicated) splits
+    nothing, but its input's abs-max is still reduced over "data"."""
+    m = current_mapping()
+    if m is None:
+        return None
+    n = w.values.shape[-1] if isinstance(w, QTensor) else w.shape[-1]
+    spec = getattr(w, "spec", ())
+    if len(spec) < 2:
+        return GemmSplit(m, n)
+    if "fsdp" in str(spec) or any(isinstance(a, tuple) for a in spec):
+        raise ValueError(f"GEMM weight spec {spec}: only the 'model' axis "
+                         "is sharded in serving")
+    col, row = spec[-1] == "model", spec[-2] == "model"
+    if col and row:
+        raise ValueError(f"GEMM weight spec {spec} splits both dims")
+    if not col:
+        return GemmSplit(m, n, 0, row)
+    return GemmSplit(m, n * m.tp, m.mesh.coords["model"] * n, row)
+
+
+def serve_mapping(mesh, *, kv: str = "hd",
+                  batch_axes: Sequence[str] = ("data",),
+                  fsdp: bool = False) -> Mapping:
+    """The sharded serving engine's mapping, the reference's preset:
+    "tp"/"tp?"/"vocab"/"expert" on "model", and the decode cache laid
+    out by `kv`:
+
+      * "hd": the KV-head dim takes "model" when the TP size divides
+        the KV-head count (attention stays whole per head: the sharded
+        engine is bit-identical to one device); otherwise the head_dim
+        does ("kv_hd", the fallback);
+      * "seq": the cache's sequence dim takes "model" (sequence
+        parallelism; the decode softmax reduces across shards:
+        allclose, not bit-identical).  Pair it with
+        ``ModelConfig.kv_onehot_write``.
+
+    ``fsdp`` stays off for serving (whole weight shards resident)."""
+    if kv == "hd":
+        return Mapping(mesh, fsdp=fsdp, batch_axes=batch_axes,
+                       kv_hd_axis=("model",))
+    if kv == "seq":
+        return Mapping(mesh, fsdp=fsdp, batch_axes=batch_axes,
+                       kv_seq_axis=("model",))
+    raise ValueError(f"kv must be 'hd' or 'seq', got {kv!r}")
+
+
+def train_state_specs(param_specs) -> dict:
+    """Spec tree of a train state: params and their (param-shaped)
+    optimizer moments share the param specs; the step replicates."""
+    return {"params": param_specs, "opt": param_specs, "step": ()}
+
+
+# ---------------------------------------------------------------------------
+# the current mapping
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def activate(mapping: Mapping | None):
+    """Make `mapping` current for the model code called inside (None:
+    no mapping, the single-device path)."""
+    _ACTIVE.append(mapping)
+    try:
+        yield mapping
+    finally:
+        _ACTIVE.pop()
+
+
+def current_mapping() -> Mapping | None:
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def lsc(x: torch.Tensor, *logical) -> torch.Tensor:
+    """The logical sharding constraint: a whole tensor cut to the
+    calling rank's slice by its logical axes; the identity with no
+    mapping current."""
+    m = current_mapping()
+    if m is None:
+        return x
+    return m.shard(x, m.spec(logical, tuple(x.shape)))
+
+
+def lsc_tree(tree: Any, spec_tree) -> Any:
+    """Tree-wide ``lsc`` from a spec tree (params, a cache)."""
+    m = current_mapping()
+    if m is None:
+        return tree
+    return m.shard_tree(tree, spec_tree)

@@ -32,10 +32,13 @@ trivially; they bind on the card.
   PYTHONPATH=src python -m repro_torch.examples.serve_power_sweep \
       [--device cuda|cpu]
 
-``--mesh DPxTP`` (the reference's sharded engine) raises: sharding is
-not ported (ROADMAP Queue 1 item 11).  Each section is a function of
-(params, cfg, device, ...), so a full-width model can be driven through
-the same code.
+``--mesh DPxTP [--kv hd|seq]`` runs section 1 on the sharded engine
+(``Engine(mapping=...)``, ``launch.serve.join_mesh``: under torchrun, or
+one process at 1x1) beside the unsharded one and asserts equal streams
+at every config (``kv="hd"``; ``"seq"`` reassociates the decode
+softmax, so its streams are reported, not asserted); only rank 0
+prints.  Each section is a function of (params, cfg, device, ...), so
+a full-width model can be driven through the same code.
 """
 from __future__ import annotations
 
@@ -502,17 +505,51 @@ def _print(res: dict) -> None:
                   f"{c['share']:.2f} -> {c['mean_share']:.3f} (mean)")
 
 
+def sharded_sweep(mesh: str, kv: str, device) -> dict:
+    """``--mesh``: section 1 unsharded, then on the sharded engine over
+    the same params (placed by ``T.lm_specs``), the streams equal at
+    every config under ``kv="hd"``."""
+    import torch.distributed as dist
+    from repro_torch.launch.serve import join_mesh
+    cfg = demo_config()
+    if kv == "seq":
+        cfg = dataclasses.replace(cfg, kv_onehot_write=True)
+    mapping, device, created = join_mesh(mesh, kv, device)
+    try:
+        params = T.init_lm(torch.Generator(device).manual_seed(0), cfg,
+                           device)
+        prompts = demo_prompts()
+        plain, _ = dense_sweep(params, cfg, device, prompts)
+        sharded, _ = dense_sweep(params, cfg, device, prompts,
+                                 mapping=mapping,
+                                 param_specs=T.lm_specs(cfg))
+    finally:
+        if created:
+            dist.destroy_process_group()
+    streams = [(a["stream"], b["stream"]) for a, b in
+               zip(plain["configs"], sharded["configs"])]
+    if kv == "hd":
+        assert all(a == b for a, b in streams), "sharded streams part"
+    if mapping.mesh.rank == 0:
+        print(f"mesh {mapping.mesh.shape}, kv={kv}:")
+        _print(sharded)
+        print(f"streams equal to the unsharded engine's at "
+              f"{sum(a == b for a, b in streams)} of {len(streams)} "
+              f"configs")
+    return {1: plain, "sharded": sharded}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", default=None, metavar="DPxTP",
-                    help="the sharded engine (not ported)")
+                    help="section 1 on the sharded engine, e.g. 1x2 under "
+                         "torchrun or 1x1 in one process")
+    ap.add_argument("--kv", choices=("hd", "seq"), default="hd")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the sharded engine is not ported "
-            "(ROADMAP Queue 1 item 11)")
     device = T.resolve_device(args.device)
+    if args.mesh:
+        return sharded_sweep(args.mesh, args.kv, device)
     cfg, cfg_m = demo_config(), demo_moe_config()
     params = T.init_lm(torch.Generator(device).manual_seed(0), cfg, device)
     params_m = T.init_lm(torch.Generator(device).manual_seed(1), cfg_m,

@@ -15,7 +15,11 @@ and multiply-accumulate int8 in int32:
   bank: E GEMMs in one launch, each expert (and each of its config
   blocks) at its own config, one shared activation scale, and rows past
   each expert's ``group_rows`` count absent (the MoE expert GEMMs,
-  ``ops.approx_dense_grouped_pallas``).
+  ``ops.approx_dense_grouped_pallas``);
+* ``approx_mac_grouped_matmul_int`` is the same grouped GEMM with the
+  epilogue left out: the int32 accumulators per expert (a row-parallel
+  expert bank under a sharding mapping sums them over the ranks before
+  the one epilogue multiply).
 
 For CUDA tensors each launches its hand-written kernel in
 ``csrc/approx_mac.cu`` (built with nvcc at first use into
@@ -78,6 +82,9 @@ def _lib() -> ctypes.CDLL:
     fn.restype = i32
     fn = lib.approx_mac_grouped_matmul
     fn.argtypes = ([ptr] * 6 + [i32] * 3 + [ptr] * 2 + [i32] * 8 + [ptr])
+    fn.restype = i32
+    fn = lib.approx_mac_grouped_matmul_int
+    fn.argtypes = ([ptr] * 5 + [i32] * 3 + [ptr] * 2 + [i32] * 8 + [ptr])
     fn.restype = i32
     return lib
 
@@ -268,6 +275,22 @@ def approx_mac_grouped_matmul_ref(x, w_q, scale_rows, x_scale, group_rows,
     return torch.where(present, torch.stack(outs), 0.0)
 
 
+def approx_mac_grouped_matmul_int_ref(x, w_q, x_scale, group_rows,
+                                      cfg_rows, cfg_bn: int = 128
+                                      ) -> torch.Tensor:
+    """Plain PyTorch version of the grouped kernel's int32-out instance
+    (same arguments as ``approx_mac_grouped_matmul_int``): expert by
+    expert the blocked int product of x quantized at the shared x_scale,
+    no epilogue, rows past group_rows[e] absent (zeros)."""
+    e, m, _ = x.shape
+    x_q = torch.clamp(torch.round(x / x_scale), -QMAX, QMAX).to(torch.int8)
+    outs = [_blocked_int_matmul(x_q[i], w_q[i], cfg_rows[i], cfg_bn)
+            for i in range(e)]
+    present = (torch.arange(m, device=x.device)[None, :]
+               < group_rows.reshape(e, 1))[..., None]
+    return torch.where(present, torch.stack(outs), 0)
+
+
 def _check_operands(a, w_q, cfg_rows, cfg_bn: int) -> None:
     """The launch contract both kernels share (shapes, devices, rows)."""
     k, n = w_q.shape
@@ -379,6 +402,31 @@ def approx_mac_matmul(a, w_q, cfg_rows, cfg_bn: int = 128) -> torch.Tensor:
 approx_mac_matmul.launches = 0
 
 
+def _check_grouped(x, w_q, scale_rows, x_scale, group_rows, cfg_rows,
+                   cfg_bn: int) -> None:
+    """The launch contract both grouped instances share (scale_rows
+    None for the int32-out one)."""
+    if x.dtype != torch.float32 or w_q.dtype != torch.int8:
+        raise TypeError(f"need f32 x and int8 w, got {x.dtype}, "
+                        f"{w_q.dtype}")
+    e, m, k = x.shape
+    n = w_q.shape[2]
+    n_blocks = -(-n // cfg_bn)
+    if w_q.shape[:2] != (e, k) or group_rows.shape != (e,) \
+            or (scale_rows is not None and scale_rows.shape != (e, n)) \
+            or cfg_rows.shape != (e, n_blocks, 4) or cfg_bn % KERNEL_BN:
+        raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w_q.shape)},"
+                         f" group_rows {tuple(group_rows.shape)}, cfg_rows "
+                         f"{tuple(cfg_rows.shape)} (cfg_bn {cfg_bn})")
+    for t in (w_q, scale_rows, x_scale, group_rows, cfg_rows):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"tensor on {t.device}, expected {x.device}")
+    if cfg_rows.dtype != torch.int32 or cfg_rows.stride(2) != 1 \
+            or group_rows.dtype != torch.int32:
+        raise ValueError("cfg_rows and group_rows must be int32, cfg_rows "
+                         "with unit last stride")
+
+
 def approx_mac_grouped_matmul(x, w_q, scale_rows, x_scale, group_rows,
                               cfg_rows, cfg_bn: int = 128) -> torch.Tensor:
     """x: (E, M, K) f32 per-expert activation slices; w_q: (E, K, N) int8
@@ -396,27 +444,10 @@ def approx_mac_grouped_matmul(x, w_q, scale_rows, x_scale, group_rows,
                                              group_rows, cfg_rows, cfg_bn)
     if x.device.type != "cuda":
         raise ValueError(f"no approx-MAC kernel for device {x.device}")
-    if x.dtype != torch.float32 or w_q.dtype != torch.int8:
-        raise TypeError(f"need f32 x and int8 w, got {x.dtype}, "
-                        f"{w_q.dtype}")
     _build.refuse_grad("approx_mac_grouped_matmul", x, scale_rows, x_scale)
+    _check_grouped(x, w_q, scale_rows, x_scale, group_rows, cfg_rows, cfg_bn)
     e, m, k = x.shape
     n = w_q.shape[2]
-    n_blocks = -(-n // cfg_bn)
-    if w_q.shape[:2] != (e, k) or scale_rows.shape != (e, n) \
-            or group_rows.shape != (e,) \
-            or cfg_rows.shape != (e, n_blocks, 4) or cfg_bn % KERNEL_BN:
-        raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w_q.shape)},"
-                         f" scale_rows {tuple(scale_rows.shape)}, group_rows"
-                         f" {tuple(group_rows.shape)}, cfg_rows "
-                         f"{tuple(cfg_rows.shape)} (cfg_bn {cfg_bn})")
-    for t in (w_q, scale_rows, x_scale, group_rows, cfg_rows):
-        if t.device != x.device:
-            raise ValueError(f"tensor on {t.device}, expected {x.device}")
-    if cfg_rows.dtype != torch.int32 or cfg_rows.stride(2) != 1 \
-            or group_rows.dtype != torch.int32:
-        raise ValueError("cfg_rows and group_rows must be int32, cfg_rows "
-                         "with unit last stride")
     w, pad = _padded_weight(w_q)
     srow = scale_rows.float().contiguous()
     if pad:
@@ -442,3 +473,47 @@ def approx_mac_grouped_matmul(x, w_q, scale_rows, x_scale, group_rows,
 
 
 approx_mac_grouped_matmul.launches = 0
+
+
+def approx_mac_grouped_matmul_int(x, w_q, x_scale, group_rows, cfg_rows,
+                                  cfg_bn: int = 128) -> torch.Tensor:
+    """The grouped GEMM without its epilogue: x (E, M, K) f32 quantized
+    at the shared x_scale ((1,) or 0-d f32), w_q (E, K, N) int8,
+    group_rows (E,) int32, cfg_rows (E, ceil(N / cfg_bn), 4) int32 as
+    for ``approx_mac_grouped_matmul``.  Returns (E, M, N) int32, the
+    truncated operands' exact products summed, zeros in absent rows.
+    CUDA tensors launch the grouped kernel's int32-out instance (counted
+    in ``.launches``; at M > ``SLICE_ROWS`` a quantize kernel runs
+    first, in the same count) or raise; CPU tensors take the plain
+    version."""
+    if x.device.type == "cpu":
+        return approx_mac_grouped_matmul_int_ref(x, w_q, x_scale,
+                                                 group_rows, cfg_rows, cfg_bn)
+    if x.device.type != "cuda":
+        raise ValueError(f"no approx-MAC kernel for device {x.device}")
+    _build.refuse_grad("approx_mac_grouped_matmul_int", x, x_scale)
+    _check_grouped(x, w_q, None, x_scale, group_rows, cfg_rows, cfg_bn)
+    e, m, k = x.shape
+    n = w_q.shape[2]
+    w, pad = _padded_weight(w_q)
+    x = x.contiguous()
+    rows = group_rows.contiguous()
+    xs = x_scale.reshape(1).float().contiguous()
+    out = torch.empty((e, m, n + pad), dtype=torch.int32, device=x.device)
+    mt, nt, wn, kslice, _ = grouped_plan(e, m, k, n + pad)
+    xq = (torch.empty((e, m, k), dtype=torch.int8, device=x.device)
+          if m > SLICE_ROWS else None)
+    err = _lib().approx_mac_grouped_matmul_int(
+        x.data_ptr(), w.data_ptr(), xs.data_ptr(), rows.data_ptr(),
+        cfg_rows.data_ptr(), cfg_rows.stride(0), cfg_rows.stride(1), cfg_bn,
+        out.data_ptr(), xq.data_ptr() if xq is not None else None, e, m, k,
+        n + pad, mt, nt, wn, kslice,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"approx_mac_grouped_matmul_int launch failed: "
+                           f"CUDA error {err}")
+    approx_mac_grouped_matmul_int.launches += 1
+    return out[..., :n] if pad else out
+
+
+approx_mac_grouped_matmul_int.launches = 0

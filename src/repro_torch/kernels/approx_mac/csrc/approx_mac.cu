@@ -14,7 +14,10 @@
 //     activations, (K, N) int8 bank slice, (N,) combined scales and
 //     (n_blocks, 4) config rows, one shared x_scale; rows at index >=
 //     group_rows[e] are absent: their outputs are zero whatever x holds
-//     there.
+//     there;
+//   approx_mac_grouped_matmul_int, TOut = int32: the grouped GEMMs with
+//     the epilogue left out (the int32 sums, zeros in absent rows), for
+//     an expert bank whose contraction dim is split across ranks.
 //
 // ta/tb truncate operand LSBs with the (depth_a, depth_b, gate, rtn) row of
 // the output column's config block: cfg[(n / cfg_bn) * cfg_stride + 0..3]
@@ -365,16 +368,18 @@ approx_mac_kernel_grouped_quantize(const float* __restrict__ x,
 // zeros in rows [r0, r1) x columns [n0, n0 + ncols) of an f32 output of
 // row stride N (ncols even): the share `part` of `parts` (a tile's K
 // splits share the work)
-__device__ __forceinline__ void zero_rows(float* out, int r0, int r1,
+template <typename TOut>
+__device__ __forceinline__ void zero_rows(TOut* out, int r0, int r1,
                                           int n0, int ncols, int N,
                                           int part, int parts) {
+  // float 0.f and int32 0 are the same bits: one 8-byte store a pair
   const int half = ncols / 2;
   const int pairs = max(r1 - r0, 0) * half;
   const int lo = part * pairs / parts, hi = (part + 1) * pairs / parts;
   for (int i = lo + (int)threadIdx.x; i < hi; i += THREADS) {
     const int r = i / half, c = 2 * (i % half);
-    *reinterpret_cast<float2*>(out + (size_t)(r0 + r) * N + n0 + c) =
-        make_float2(0.f, 0.f);
+    *reinterpret_cast<int2*>(out + (size_t)(r0 + r) * N + n0 + c) =
+        make_int2(0, 0);
   }
 }
 
@@ -386,7 +391,7 @@ __device__ __forceinline__ void zero_rows(float* out, int r0, int r1,
 // tile's gridDim.z blocks are launched as one cluster.  a_mode: how the
 // activations arrive (above; float rows only as A_SLICE).  GROUPED:
 // blockIdx.y = expert * row tiles + row tile, rows of expert e at index
-// >= group_rows[e] absent (TOut float).
+// >= group_rows[e] absent (zeros of TOut).
 template <typename TA, typename TOut, int MT, int NT, int WN, bool GROUPED>
 __device__ __forceinline__ void mma_body(
     const TA* __restrict__ a, const int8_t* __restrict__ w,
@@ -802,7 +807,7 @@ approx_mac_kernel_mma(const TA* __restrict__ a, const int8_t* __restrict__ w,
                                         kslice, a_mode);
 }
 
-// The grouped GEMMs (TOut float): the same parameters, with a, w,
+// The grouped GEMMs (TOut float or int32): the same parameters, with a, w,
 // scale_row, out and cfg the first expert's and group_rows (E,).
 template <typename TA, typename TOut, int MT, int NT, int WN>
 __global__ void __launch_bounds__(THREADS, MT * NT >= 16 ? 2 : 3)
@@ -928,19 +933,19 @@ int dispatch(int mt, int nt, int warps_n, const TA* a, const int8_t* w,
 }
 
 // the grouped plan's (mt, nt, warps_n) -> the built grouped instance
-template <typename TA>
+template <typename TA, typename TOut>
 int dispatch_grouped(int mt, int nt, int warps_n, const TA* a,
                      const int8_t* w, const float* scale_rows,
                      const float* x_scale, const int32_t* cfg,
                      int cfg_stride, int cfg_bn, const int32_t* group_rows,
-                     int cfg_expert_stride, float* out, int E, int M, int K,
+                     int cfg_expert_stride, TOut* out, int E, int M, int K,
                      int N, int kslice, int a_ready, void* stream) {
   if (bad_gemm(w, M, K, N, cfg_bn, kslice) || E <= 0 ||
       group_rows == nullptr)
     return (int)cudaErrorInvalidValue;
 #define APPROX_MAC_GROUPED_CASE(MT_, NT_, WN_)                              \
   if (mt == MT_ && nt == NT_ && warps_n == WN_)                             \
-    return launch_mma<true, TA, float, MT_, NT_, WN_>(                      \
+    return launch_mma<true, TA, TOut, MT_, NT_, WN_>(                       \
         a, w, scale_rows, x_scale, cfg, cfg_stride, cfg_bn, group_rows,     \
         cfg_expert_stride, out, E, M, K, N, kslice, a_ready, stream);
   // approx_mac.grouped_plan's tilings: an expert's rows in one tile of
@@ -1019,17 +1024,22 @@ extern "C" int approx_mac_matmul(const int8_t* a, const int8_t* w,
 // scratch, needed where M > 16: the present rows of x are quantized into
 // it once by their own kernel (and truncated there with the expert's
 // config row when cfg_stride is 0).
-extern "C" int approx_mac_grouped_matmul(
-    const float* x, const int8_t* w, const float* scale_rows,
-    const float* x_scale, const int32_t* group_rows, const int32_t* cfg,
-    int cfg_expert_stride, int cfg_stride, int cfg_bn, float* out,
-    int8_t* xq, int E, int M, int K, int N, int mt, int nt, int warps_n,
-    int kslice, void* stream) {
+namespace {
+
+// both grouped entry points: the float rows straight into the GEMM at
+// M <= SLICE_ROWS, else quantized once by their own kernel
+template <typename TOut>
+int grouped_matmul(const float* x, const int8_t* w, const float* scale_rows,
+                   const float* x_scale, const int32_t* group_rows,
+                   const int32_t* cfg, int cfg_expert_stride, int cfg_stride,
+                   int cfg_bn, TOut* out, int8_t* xq, int E, int M, int K,
+                   int N, int mt, int nt, int warps_n, int kslice,
+                   void* stream) {
   if (M <= SLICE_ROWS)
-    return dispatch_grouped<float>(mt, nt, warps_n, x, w, scale_rows,
-                                   x_scale, cfg, cfg_stride, cfg_bn,
-                                   group_rows, cfg_expert_stride, out, E, M,
-                                   K, N, kslice, 0, stream);
+    return dispatch_grouped<float, TOut>(mt, nt, warps_n, x, w, scale_rows,
+                                         x_scale, cfg, cfg_stride, cfg_bn,
+                                         group_rows, cfg_expert_stride, out,
+                                         E, M, K, N, kslice, 0, stream);
   if (xq == nullptr || E <= 0 || E > 65535 || K <= 0 || group_rows == nullptr)
     return (int)cudaErrorInvalidValue;
   const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -1043,8 +1053,35 @@ extern "C" int approx_mac_grouped_matmul(
       rows_per_block, vec ? 1 : 0);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return dispatch_grouped<int8_t>(mt, nt, warps_n, xq, w, scale_rows,
-                                  x_scale, cfg, cfg_stride, cfg_bn,
-                                  group_rows, cfg_expert_stride, out, E, M,
-                                  K, N, kslice, ready, stream);
+  return dispatch_grouped<int8_t, TOut>(mt, nt, warps_n, xq, w, scale_rows,
+                                        x_scale, cfg, cfg_stride, cfg_bn,
+                                        group_rows, cfg_expert_stride, out,
+                                        E, M, K, N, kslice, ready, stream);
+}
+
+}  // namespace
+
+extern "C" int approx_mac_grouped_matmul(
+    const float* x, const int8_t* w, const float* scale_rows,
+    const float* x_scale, const int32_t* group_rows, const int32_t* cfg,
+    int cfg_expert_stride, int cfg_stride, int cfg_bn, float* out,
+    int8_t* xq, int E, int M, int K, int N, int mt, int nt, int warps_n,
+    int kslice, void* stream) {
+  return grouped_matmul<float>(x, w, scale_rows, x_scale, group_rows, cfg,
+                               cfg_expert_stride, cfg_stride, cfg_bn, out,
+                               xq, E, M, K, N, mt, nt, warps_n, kslice,
+                               stream);
+}
+
+// the same grouped GEMMs with the epilogue left out: out (E, M, N) int32
+// holds each expert's sums (zeros in absent rows); no scale_rows.
+extern "C" int approx_mac_grouped_matmul_int(
+    const float* x, const int8_t* w, const float* x_scale,
+    const int32_t* group_rows, const int32_t* cfg, int cfg_expert_stride,
+    int cfg_stride, int cfg_bn, int32_t* out, int8_t* xq, int E, int M,
+    int K, int N, int mt, int nt, int warps_n, int kslice, void* stream) {
+  return grouped_matmul<int32_t>(x, w, nullptr, x_scale, group_rows, cfg,
+                                 cfg_expert_stride, cfg_stride, cfg_bn, out,
+                                 xq, E, M, K, N, mt, nt, warps_n, kslice,
+                                 stream);
 }

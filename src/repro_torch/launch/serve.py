@@ -10,6 +10,7 @@
       [--draft-cfg CFG [--draft-k 3]] \
       [--paged [--num-blocks N] [--block-size 16] [--prefill-chunk 32]] \
       [--ckpt DIR] [--queue-capacity 256] [--ttft-slo S] [--e2e-slo S] \
+      [--mesh DPxTP [--kv {hd,seq}]] \
       [--brownout LADDER] [--chaos SEED] \
       [--traffic RATE [--spike START:END:MULT] [--ticks 60] \
        [--classes NAME:WEIGHT[:SHARE],...]]
@@ -54,12 +55,25 @@ lines report them, e.g.
 
 --ckpt DIR serves the params of a checkpoint in the reference's format
 (``{"params": ...}``, read by the port's ``Checkpointer``) instead of
-the random init.  Counterpart of ``repro.launch.serve`` without its
-mesh options (sharding is not ported).
+the random init.
+
+--mesh DPxTP serves sharded (``dist/sharding.py``, DESIGN.md §8) on a
+(data, model) mesh of DP x TP ranks, --kv picking the decode cache's
+layout (``serve_mapping``: "hd" shards the KV heads, or the head dim
+when they do not divide TP; "seq" the positions, with
+``kv_onehot_write``).  Run it under ``torchrun --nproc-per-node
+DP*TP`` (one card a rank, NCCL), or as one process at ``--mesh 1x1``
+(a group of one: NCCL on the card, gloo with ``--device cpu``).  Every
+rank serves the same requests; only rank 0 prints.  Counterpart of
+``repro.launch.serve``.
 """
 from __future__ import annotations
 
 import argparse
+import builtins
+import dataclasses
+import os
+import socket
 import time
 
 import numpy as np
@@ -87,6 +101,39 @@ def restore_params(ckpt: str, cfg, device) -> tuple:
     gen = torch.Generator(device=device).manual_seed(0)
     state, _ = ck.restore({"params": T.init_lm(gen, cfg, device)})
     return state["params"], ck.latest_step()
+
+
+def join_mesh(mesh: str, kv: str, device: torch.device):
+    """(mapping, device, created) for ``--mesh DPxTP``: the process group
+    from torchrun's environment, or a group of one on a free localhost
+    port; NCCL for the card, gloo for ``--device cpu``; this rank's own
+    card (LOCAL_RANK)."""
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import serve_mapping
+    from repro_torch.launch.mesh import make_serve_mesh
+    dp, tp = (int(x) for x in mesh.lower().split("x"))
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    created = not dist.is_initialized()
+    if created:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        if "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend)
+        else:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            dist.init_process_group(
+                backend, init_method=f"tcp://127.0.0.1:{port}",
+                world_size=1, rank=0)
+    try:
+        mesh = make_serve_mesh(dp=dp, tp=tp)
+    except Exception:
+        if created:
+            dist.destroy_process_group()
+        raise
+    return serve_mapping(mesh, kv=kv), device, created
 
 
 def main(argv=None) -> dict:
@@ -152,6 +199,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain "
                          "versions); no fallback between the two")
+    ap.add_argument("--mesh", default=None, metavar="DPxTP",
+                    help="serve sharded on a (data, model) mesh, e.g. "
+                         "2x4 (under torchrun), or 1x1 in one process")
+    ap.add_argument("--kv", choices=("hd", "seq"), default="hd",
+                    help="sharded decode cache: KV heads / head dim "
+                         "('hd') or sequence ('seq')")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -159,6 +212,25 @@ def main(argv=None) -> dict:
         cfg = cfg.smoke()
     refuse_encoder_decoder(cfg)
     device = T.resolve_device(args.device)
+    mapping, created, print = None, False, builtins.print
+    if args.mesh:
+        if args.kv == "seq":
+            cfg = dataclasses.replace(cfg, kv_onehot_write=True)
+        mapping, device, created = join_mesh(args.mesh, args.kv, device)
+        print = builtins.print if mapping.mesh.rank == 0 else _quiet
+        print(f"mesh {mapping.mesh.shape} over {mapping.mesh.size} ranks, "
+              f"kv={args.kv}")
+    try:
+        return _serve(args, cfg, device, mapping, print)
+    finally:
+        if created:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg, device, mapping, print) -> dict:
+    """The launcher's run on `device` (sharded by `mapping` when given);
+    `print` is this rank's."""
     paged = None
     if args.paged:
         num_blocks = args.num_blocks
@@ -207,7 +279,8 @@ def main(argv=None) -> dict:
                  max_len=args.max_len, approx_cfg=args.approx_cfg,
                  paged=paged, scheduler=sched, spec=spec,
                  queue_capacity=args.queue_capacity, brownout=brownout,
-                 fault_injector=injector, device=device)
+                 fault_injector=injector, device=device, mapping=mapping,
+                 param_specs=T.lm_specs(cfg) if mapping else None)
     exact_pj = energy_per_token_pj(np.zeros_like(eng.approx_cfg),
                                    eng.macs_per_token, eng._moe_mac_frac)
     if sched is not None:
@@ -328,7 +401,16 @@ def main(argv=None) -> dict:
         print(f"traffic: {tot['offered']} offered, availability "
               f"{tot['availability']*100:.1f}%, SLO attainment "
               f"{tot['slo_attainment']*100:.1f}%")
+    if mapping is not None:
+        rep["collectives"] = {f"{k} {'/'.join(a)}": n for (k, a), n
+                              in sorted(mapping.collectives.items())}
+        rep["tokens"] = [t for r in sorted(done, key=lambda r: r.rid)
+                         for t in r.tokens]
     return rep
+
+
+def _quiet(*args, **kw):
+    """``print`` on every rank but rank 0."""
 
 
 if __name__ == "__main__":

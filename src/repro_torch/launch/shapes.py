@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.registry import ShapeCell
-from repro_torch.nn.transformer import ModelConfig, init_cache
+from repro_torch.nn.transformer import (ModelConfig, cache_specs,
+                                        init_cache)
 
 META = torch.device("meta")
 WHISPER_ENC_LEN_FOR_DECODE = 1536   # fixed encoder stub for decode cells
@@ -51,12 +52,12 @@ def token_inputs(cfg: ModelConfig, cell: ShapeCell) -> dict:
 
 
 def decode_inputs(cfg: ModelConfig, cell: ShapeCell):
-    """(cache, token) of a decode cell: the port's ``init_cache`` of
-    global_batch rows and seq_len positions on ``meta`` (Whisper's cross
-    K/V over a 1,536-frame encoder stub) and the (B, 1) int32 token.
-    The reference also returns the cache's logical sharding specs; the
-    port has no spec tree until it shards (ROADMAP Queue 1 item 11)."""
+    """(cache, cache_specs, token) of a decode cell, as the reference
+    returns them: the port's ``init_cache`` of global_batch rows and
+    seq_len positions on ``meta`` (Whisper's cross K/V over a
+    1,536-frame encoder stub), its logical sharding spec tree
+    (``cache_specs``) and the (B, 1) int32 token."""
     b, s = cell.global_batch, cell.seq_len
     enc_len = WHISPER_ENC_LEN_FOR_DECODE if cfg.encoder_decoder else 0
     cache = init_cache(cfg, b, s, device=META, enc_len=enc_len)
-    return cache, _sds((b, 1), torch.int32)
+    return cache, cache_specs(cfg), _sds((b, 1), torch.int32)

@@ -17,7 +17,7 @@ Checkpoints default to ``build/torch_experiments/ckpt_train`` under the
 repository root.
 
 Not ported: ``--multi-pod`` and sharding over several devices (ROADMAP
-Queue 1 item 11; ``--microbatches`` accumulates on the one device), and
+Queue 1 item 11(b); ``--microbatches`` accumulates on the one device), and
 ``--approx-cfg`` other than 0: the integer pipeline's gradient reaches a
 weight only through the quantization scales (ROADMAP Queue 3).
 """
@@ -62,7 +62,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.multi_pod:
         raise NotImplementedError(
             "--multi-pod: training over several devices is not ported "
-            "(ROADMAP Queue 1 item 11)")
+            "(ROADMAP Queue 1 item 11(b))")
     if args.approx_cfg != 0:
         raise NotImplementedError(
             f"--approx-cfg {args.approx_cfg}: training at a config > 0 "

@@ -10,12 +10,18 @@ plain chunked path below.  A call with ``decay=`` (the mLSTM parallel
 form, whose normaliser is not a softmax) takes the plain chunked path
 on every device, as the reference's is XLA and never its Pallas kernel.
 ``decode_attention`` stays plain PyTorch, as the reference's is plain
-XLA (the paged cache has its own kernel).  Scores and softmax run in
+XLA (the paged cache has its own kernel); on the card it runs the KV
+heads in chunks fixed by the model's KV-head count, so that a head's
+bits do not depend on how many heads a tensor-parallel rank holds.  Scores and softmax run in
 f32; outputs take q's dtype.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+from repro_torch.launch.mesh import CARDS_PER_NODE
 
 from .layers import softcap
 
@@ -147,19 +153,72 @@ def _decay_attention(q, k, v, decay, logit_cap, scale, q_chunk):
 
 def decode_attention(q, k_cache, v_cache, cache_len, *,
                      logit_cap: float = 0.0,
-                     scale: float | None = None) -> torch.Tensor:
+                     scale: float | None = None,
+                     kv_heads: int | None = None) -> torch.Tensor:
     """q: (B, 1, H, hd); caches: (B, S_max, KV, hd); cache_len: scalar
     or (B,) tensor of valid positions (the new token already written);
     logit_cap > 0 soft-caps the scores.  A local layer's ring buffer is
     as long as its window, so no window mask is needed here (the
-    reference passes none)."""
+    reference passes none).  kv_heads: the model's KV-head count when
+    the caches hold a tensor-parallel rank's part of them (default: the
+    caches' KV)."""
     b, _, h, hd = q.shape
     scale = scale if scale is not None else hd ** -0.5
     n_rep = h // k_cache.shape[2]
     pos = torch.arange(k_cache.shape[1], device=q.device)[None, :]
     limit = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
     valid = (pos < limit)[:, None, None, :]
+    if q.device.type == "cuda":
+        return _decode_attention_chunks(q, k_cache, v_cache, valid, scale,
+                                        logit_cap, kv_heads)
     out = _softmax_attend(q, _repeat_kv(k_cache, n_rep),
                           _repeat_kv(v_cache, n_rep), valid, scale,
                           logit_cap)
     return out.to(q.dtype)
+
+
+def head_chunk(kv: int, kv_heads: int | None = None) -> int:
+    """KV heads a batched GEMM of ``_decode_attention_chunks`` takes, for
+    a cache of `kv` of the model's `kv_heads` KV heads: kv_heads //
+    gcd(kv_heads, CARDS_PER_NODE), the same for every tensor-parallel
+    split that divides gcd(kv_heads, CARDS_PER_NODE).  A finer split (more
+    ranks than a node's cards) takes what divides its `kv`, a GEMM of
+    another shape."""
+    kv_heads = kv if kv_heads is None else kv_heads
+    if kv_heads % kv:
+        raise ValueError(f"a cache of {kv} KV heads is no even part of "
+                         f"{kv_heads}")
+    return math.gcd(kv, kv_heads // math.gcd(kv_heads, CARDS_PER_NODE))
+
+
+def _decode_attention_chunks(q, k_cache, v_cache, valid, scale, logit_cap,
+                             kv_heads=None):
+    """``decode_attention`` on the card: the KV heads in chunks of
+    ``head_chunk`` heads, each chunk's two GEMMs (its query heads beside
+    it, no repeated K/V) a batched cuBLAS call of one shape and layout.
+    cuBLAS picks its algorithm, and with it the order of a head's sums,
+    by the shape of the call, batch count included; the chunk follows
+    the model's KV-head count, not the rank's, so a head's result is the
+    same whether its rank holds every head or 1/2, 1/4 or 1/8 of them
+    (tensor parallelism, ``nn.transformer._attn_mode``).  The operands
+    are laid out chunk-major once, and the scale, softcap, mask and
+    softmax run once over every chunk: they act on each element or each
+    row of scores alone, whatever the number of rows.  The same
+    arithmetic as the CPU path, in f32, up to that order."""
+    b, _, h, hd = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    rep = h // kv
+    c = head_chunk(kv, kv_heads)
+    n = kv // c
+    f32 = torch.float32
+    qf = q[:, 0].to(f32).reshape(b, n, c, rep, hd).transpose(0, 1)
+    qf = qf.contiguous()                                  # (n, B, c, rep, hd)
+    kf, vf = (t.to(f32).reshape(b, s, n, c, hd).permute(2, 0, 3, 1, 4)
+              .contiguous() for t in (k_cache, v_cache))  # (n, B, c, S, hd)
+    scores = torch.stack([torch.matmul(qf[j], kf[j].transpose(-1, -2))
+                          for j in range(n)]) * scale     # (n, B, c, rep, S)
+    if logit_cap > 0:
+        scores = softcap(scores, logit_cap)
+    w = torch.softmax(torch.where(valid[None], scores, NEG_INF), dim=-1)
+    out = torch.stack([torch.matmul(w[j], vf[j]) for j in range(n)])
+    return out.transpose(0, 1).reshape(b, 1, h, hd).to(q.dtype)

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.quantization import (QTensor, fake_quant,
                                           quantize_compiled)
+from repro_torch.dist.sharding import gemm_split
 
 MAC_BACKENDS = ("xla", "pallas")
 
@@ -52,6 +53,8 @@ def dense(x: torch.Tensor, w, *, approx_cfg=0, backend: str = "xla",
     ``error_rank`` config per group).  backend "xla" and "pallas" compute the
     same bits (the reference's two backends are bit-identical); cfg_bn
     is the logical config-block width (``ModelConfig.mac_blocks[1]``).
+    Under a sharding mapping the weight's spec splits the GEMM
+    (``dist.sharding.gemm_split``, ``ops.approx_dense_pallas``).
     """
     if backend not in MAC_BACKENDS:
         raise ValueError(f"unknown mac backend {backend!r}")
@@ -72,8 +75,16 @@ def dense(x: torch.Tensor, w, *, approx_cfg=0, backend: str = "xla",
         if is_tensor and approx_cfg.ndim == 2:
             approx_cfg = collapse_expert_cfg(approx_cfg)
         w_qt = w if isinstance(w, QTensor) else quantize_compiled(w, axis=1)
-        y = approx_dense_pallas(x, w_qt, config=approx_cfg, bn=cfg_bn)
+        split = gemm_split(w_qt)
+        y = approx_dense_pallas(x, w_qt, config=approx_cfg, bn=cfg_bn,
+                                **({} if split is None else
+                                   {"split": split}))
         return y.to(torch.bfloat16)
+    split = gemm_split(w)
+    if split is not None and split.row:
+        raise NotImplementedError(
+            "a row-parallel GEMM at the static exact config 0: its f32 "
+            "partial sums would reassociate; pass the config as a tensor")
     if isinstance(w, QTensor):
         w = w.dequantize()
     return x @ w.to(x.dtype)

@@ -56,7 +56,14 @@ scale; bit-identical to the grouped kernel at every config.
 (the reference's ``lm_loss`` does not add it, and neither does the
 port's).
 
-Not ported: expert parallelism (``ep``, multi-device); it raises.
+Under a sharding mapping (``dist/sharding.py``) the banks are split as
+the reference's specs place them: ``w_gate``/``w_up`` by output columns
+and ``w_down`` by its contraction dim on "model", each rank running its
+slice of every expert (``ops.approx_dense_grouped_pallas`` with the
+bank's ``GemmSplit``: the global activation scale, config rows by
+logical block, the int32 partial sums of ``w_down`` summed before the
+epilogue); the router and the dispatch run whole on every rank.  Not
+ported: expert parallelism (``ep``); it raises.
 """
 from __future__ import annotations
 
@@ -65,6 +72,7 @@ import torch
 
 from repro_torch.core.quantization import (QMAX, QTensor,
                                           activation_scale)
+from repro_torch.dist.sharding import gemm_split
 from repro_torch.kernels.approx_mac import ops as _ops
 from .layers import ACT
 
@@ -112,8 +120,14 @@ def _expert_gemm(h, w, approx_cfg, backend, group_rows, grouped=True):
             if cfg.ndim == 1:       # (g,) groups shared by every expert
                 cfg = cfg[None].expand(h.shape[0], -1)
         bank = quantize_expert_bank(w)
+        split = gemm_split(bank)
         if grouped:
-            y = _ops.approx_dense_grouped_pallas(h, bank, cfg, group_rows)
+            y = _ops.approx_dense_grouped_pallas(
+                h, bank, cfg, group_rows,
+                **({} if split is None else {"split": split}))
+        elif split is not None:
+            raise ValueError("grouped=False (the per-expert A/B path) is "
+                             "not sharded; serve sharded MoE grouped")
         else:
             y = _per_expert_gemm(h, bank, cfg)
         return y.to(h.dtype)
@@ -168,7 +182,7 @@ def moe_ffn(x: torch.Tensor, params, *, n_experts: int, top_k: int,
     sub-chunk's own dispatch)."""
     if ep:
         raise NotImplementedError("ep (expert parallelism) is not ported "
-                                  "(ROADMAP Queue 1 item 11)")
+                                  "(ROADMAP Queue 1 item 11(b))")
     t, d = x.shape
     if t % n_groups:
         raise ValueError(f"{t} tokens in {n_groups} groups")

@@ -84,6 +84,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.quantization import QTensor, quantize
+from repro_torch.dist.sharding import current_mapping, gemm_split, lsc_tree
+from repro_torch.dist.seq_parallel import sp_decode_attention
 from repro_torch.kernels.flash_attention.paged_attention import \
     paged_decode_attention
 from repro_torch.serve.paged_cache import TRASH_BLOCK
@@ -158,6 +160,8 @@ class ModelConfig:
     q_chunk: int = 1024
     compute_dtype: Any = torch.bfloat16
     kv_quant: bool = False               # int8 KV cache
+    kv_onehot_write: bool = False        # shard-local cache write (decode
+                                         # with a sequence-sharded cache)
     # training: recompute each layer in the backward (activation
     # checkpointing; only the "nothing saved" policy is ported) and the
     # vocab cross entropy in loss_chunks sequence chunks
@@ -331,6 +335,168 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda", *,
     return params
 
 
+# ---------------------------------------------------------------------------
+# logical sharding specs (dist/sharding.py)
+# ---------------------------------------------------------------------------
+# logical axes: "fsdp" (zero-3 over data), "tp" (tensor-parallel over
+# model), "tp?" (tp if divisible at mapping time else replicated),
+# "vocab" (== tp), "batch", "kv_seq", "kv_hd", None (replicated)
+
+def _norm_specs(cfg: ModelConfig) -> Params:
+    return ({"scale": (None,)} if cfg.norm == "rms"
+            else {"scale": (None,), "bias": (None,)})
+
+
+def _attn_specs(cfg: ModelConfig) -> Params:
+    s = {"wq": ("fsdp", "tp?", None), "wk": ("fsdp", "tp?", None),
+         "wv": ("fsdp", "tp?", None), "wo": ("tp?", None, "fsdp")}
+    if cfg.qkv_bias:
+        s.update(bq=("tp?", None), bk=("tp?", None), bv=("tp?", None))
+    return s
+
+
+def _mlp_specs(cfg: ModelConfig) -> Params:
+    if cfg.n_experts:
+        return {"router": (None, None), "w_gate": (None, "fsdp", "tp"),
+                "w_up": (None, "fsdp", "tp"), "w_down": (None, "tp", "fsdp")}
+    if cfg.mlp == "none" or cfg.d_ff == 0:
+        return {}
+    s = {"w_up": ("fsdp", "tp"), "w_down": ("tp", "fsdp")}
+    if cfg.mlp in ("swiglu", "geglu"):
+        s["w_gate"] = ("fsdp", "tp")
+    return s
+
+
+def _block_specs(cfg: ModelConfig, kind: str, cross: bool) -> Params:
+    """One layer's logical specs, the reference's ``_block_init``'s."""
+    s = {"norm1": _norm_specs(cfg)}
+    if kind in ATTENTION_KINDS:
+        s["attn"] = _attn_specs(cfg)
+        if cross:
+            s.update(norm_x=_norm_specs(cfg), xattn=_attn_specs(cfg))
+        s.update(norm2=_norm_specs(cfg), mlp=_mlp_specs(cfg))
+        if cfg.post_norm:
+            s.update(post1=_norm_specs(cfg), post2=_norm_specs(cfg))
+    elif kind == "recurrent":
+        s["rec"] = {"w_in_rec": ("fsdp", "tp"), "w_in_gate": ("fsdp", "tp"),
+                    "conv_w": (None, "tp"), "conv_b": ("tp",),
+                    "lru": {"lam": ("tp",), "w_a": (None, "tp"),
+                            "b_a": ("tp",), "w_x": (None, "tp"),
+                            "b_x": ("tp",)},
+                    "w_out": ("tp", "fsdp")}
+        s.update(norm2=_norm_specs(cfg), mlp=_mlp_specs(cfg))
+    elif kind == "mlstm":
+        s["cell"] = {k: ("fsdp", "tp?") for k in
+                     ("w_up", "w_gate", "w_q", "w_k", "w_v", "w_if")}
+        s["cell"].update(w_down=("tp?", "fsdp"), b_if=(None,),
+                         ln_scale=("tp?",))
+    else:
+        s["cell"] = {"w": ("fsdp", "tp?"), "r": (None, None, None),
+                     "b": (None,), "ln_scale": (None,),
+                     "w_up": ("fsdp", "tp?"), "w_gate": ("fsdp", "tp?"),
+                     "w_down": ("tp?", "fsdp")}
+    return s
+
+
+def lm_specs(cfg: ModelConfig) -> Params:
+    """The logical sharding spec tree of ``init_lm``'s params: the
+    second value the reference's ``init_lm`` returns, kept apart here
+    so that ``init_lm`` returns the params alone.  Laid out as the
+    port's params (``blocks`` and ``encoder`` per-layer lists; one spec
+    tuple per leaf, one logical name per dim)."""
+    specs: Params = {"embed": ("vocab", "fsdp")}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("fsdp", "vocab")
+    specs["blocks"] = [_block_specs(cfg, kind, cfg.encoder_decoder)
+                       for kind in cfg.layer_kinds()]
+    specs["final_norm"] = _norm_specs(cfg)
+    if cfg.encoder_decoder:
+        specs["encoder"] = [_block_specs(cfg, "global", False)
+                            for _ in range(cfg.n_enc_layers)]
+        specs["enc_norm"] = _norm_specs(cfg)
+        specs["enc_pos"] = (None, "fsdp")
+    if cfg.norm == "ln":
+        specs["dec_pos"] = (None, "fsdp")
+    return specs
+
+
+def _qtensor_spec(values_spec: tuple) -> Params:
+    """The spec node of one QTensor leaf: ``values`` keeps its spec, the
+    per-output-channel ``scale`` (the leading stacked dims and the out
+    dim) is sharded like the output dim it scales."""
+    values_spec = tuple(values_spec)
+    return {"values": values_spec,
+            "scale": values_spec[:-2] + (values_spec[-1],)}
+
+
+def quantize_lm_specs(specs: Params, cfg: ModelConfig) -> Params:
+    """An ``lm_specs`` tree transformed as ``quantize_lm_params``
+    transforms the params (the reference's ``quantize_lm_specs``):
+    attention ``wq``/``wk``/``wv`` (d, H, hd) -> (d, H*hd) and ``wo``
+    (H, hd, d) -> (H*hd, d), the merged dim taking the head dim's axis;
+    MLP mats and expert banks keep their layout; every quantized leaf
+    becomes a ``{"values", "scale"}`` node.  Float leaves (embed,
+    lm_head, norms, router, recurrent cells, biases) pass through."""
+    def merge(a, b):
+        return a if a is not None else b
+
+    def block(s: Params) -> Params:
+        out = dict(s)
+        for name in ("attn", "xattn"):
+            if name not in s:
+                continue
+            a = dict(s[name])
+            for key in ("wq", "wk", "wv"):
+                t = tuple(s[name][key])
+                a[key] = _qtensor_spec(t[:-2] + (merge(t[-2], t[-1]),))
+            t = tuple(s[name]["wo"])
+            a["wo"] = _qtensor_spec(t[:-3] + (merge(t[-3], t[-2]), t[-1]))
+            out[name] = a
+        if s.get("mlp"):
+            out["mlp"] = {k: (_qtensor_spec(v) if k != "router" else v)
+                          for k, v in s["mlp"].items()}
+        return out
+
+    out = dict(specs)
+    for key in ("blocks", "encoder"):
+        if key in specs:
+            out[key] = [block(s) for s in specs[key]]
+    return out
+
+
+def cache_specs(cfg: ModelConfig) -> Params:
+    """The logical spec tree of ``init_cache``'s cache, in the port's
+    per-kind stacks (a leading stacked-layer dim, replicated): K/V
+    ("batch", "kv_seq", "tp?", "kv_hd") per layer, int8 scales without
+    the head dim, an encoder-decoder's cross K/V ("batch", None, "tp?",
+    None), the recurrent states the reference's."""
+    kinds = cfg.layer_kinds()
+
+    def buffers() -> Params:
+        kv = (None, "batch", "kv_seq", "tp?", "kv_hd")
+        s = {"k": kv, "v": kv}
+        if cfg.kv_quant:
+            s.update(k_s=kv[:-1], v_s=kv[:-1])
+        if cfg.encoder_decoder:
+            x = (None, "batch", None, "tp?", None)
+            s.update(xk=x, xv=x)
+        return s
+
+    specs: Params = {"pos": (), **buffers()}
+    if "local" in kinds:
+        specs["local"] = buffers()
+    if "recurrent" in kinds:
+        specs["recurrent"] = {"h": (None, "batch", "tp"),
+                              "conv": (None, "batch", None, "tp")}
+    if "mlstm" in kinds:
+        specs["mlstm"] = {"C": (None, "batch", "tp?", None, None),
+                          "n": (None, "batch", "tp?", None),
+                          "m": (None, "batch", "tp?")}
+    if "slstm" in kinds:
+        specs["slstm"] = {k: (None, "batch", None) for k in "hcnm"}
+    return specs
+
+
 def _quantize_block(p: Params) -> Params:
     """One layer's GEMM weights as per-output-channel QTensors (QTensors
     pass through): attention and cross-attention projections in their
@@ -390,7 +556,9 @@ def _dense_kw(cfg: ModelConfig) -> dict:
 
 def _proj(x, w, approx_cfg, bias, cfg, heads):
     """x: (B,S,d) @ w -> (B,S,H,hd); w is a float (d,H,hd) array or a
-    QTensor in the 2D layout (d, H*hd) (then `heads` gives H)."""
+    QTensor in the 2D layout (d, H*hd) (then `heads` gives H).  Under a
+    sharding mapping the heads come out in the layout ``_attn_mode``
+    gives: this rank's heads, or all of them (``_tp_heads``)."""
     if isinstance(w, QTensor):
         h = heads
         y = dense(x, w, approx_cfg=approx_cfg, **_dense_kw(cfg))
@@ -398,6 +566,9 @@ def _proj(x, w, approx_cfg, bias, cfg, heads):
         d, h, hd = w.shape
         y = dense(x, w.reshape(d, h * hd), approx_cfg=approx_cfg,
                   **_dense_kw(cfg))
+    m = current_mapping()
+    if m is not None:
+        return _tp_heads(y, bias, heads, cfg, m)
     y = y.reshape(*x.shape[:-1], h, -1)
     if bias is not None:
         y = y + bias.to(y.dtype)
@@ -406,8 +577,83 @@ def _proj(x, w, approx_cfg, bias, cfg, heads):
 
 def _attn_out(y, wo, approx_cfg, cfg):
     w = wo if isinstance(wo, QTensor) else wo.reshape(-1, wo.shape[-1])
-    return dense(y.reshape(*y.shape[:-2], -1), w, approx_cfg=approx_cfg,
-                 **_dense_kw(cfg))
+    y = y.reshape(*y.shape[:-2], -1)
+    m = current_mapping()
+    if m is not None:
+        y = _fit_columns(y, w.values.shape[0], m)
+    return dense(y, w, approx_cfg=approx_cfg, **_dense_kw(cfg))
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism under a sharding mapping (dist/sharding.py)
+# ---------------------------------------------------------------------------
+# Every rank holds its slices of the params and the cache and runs the
+# same layers.  The approx-MAC GEMMs keep the single-device bits
+# (``ops``: the global activation scale, config rows by logical block,
+# int32 partial sums of row-parallel GEMMs); attention runs in one of
+# three layouts (``_attn_mode``):
+#   "heads"  (kv="hd", the TP size divides the KV heads): each rank's
+#            q/k/v columns are whole heads, its cache holds those heads,
+#            and attention never leaves the rank: bit-identical;
+#   "gather" (kv="hd", KV heads not divisible: the kv_hd fallback): the
+#            q/k/v columns are all-gathered (exact), attention runs over
+#            every head on every rank, and the cache holds this rank's
+#            slice of the head dim, all-gathered (exact) to attend:
+#            bit-identical, at a cache gather per layer and step;
+#   "seq"    (kv="seq"): q/k/v gathered as in "gather", the cache holds
+#            this rank's slice of the positions, written shard-locally,
+#            and decode attention is ``sp_decode_attention`` (one MAX and
+#            two SUMs across the shards: allclose, not bit-identical).
+# Each rank then gives ``wo`` its rows of the attention output.
+
+def _attn_mode(cfg: ModelConfig, m) -> str:
+    if m.kv_seq_axis:
+        return "seq"
+    return "heads" if cfg.n_kv_heads % m.tp == 0 else "gather"
+
+
+def _model_slice(t: torch.Tensor, dim: int, m) -> torch.Tensor:
+    """This rank's 1/tp of `t` along `dim`."""
+    n = t.shape[dim] // m.tp
+    return t.narrow(dim, m.mesh.coords["model"] * n, n)
+
+
+def _fit_columns(y: torch.Tensor, width: int, m) -> torch.Tensor:
+    """y's last dim brought to `width`: this rank's slice of a whole y,
+    the all-gather of a sliced one, or y itself."""
+    if y.shape[-1] > width:
+        return _model_slice(y, -1, m)
+    if y.shape[-1] < width:
+        return m.all_gather(y, -1, ("model",))
+    return y
+
+
+def _tp_heads(y, bias, heads: int, cfg: ModelConfig, m) -> torch.Tensor:
+    """A q/k/v projection's output columns (this rank's or all) -> the
+    attention layout of ``_attn_mode``: this rank's heads ("heads") or
+    every head, the bias added where its shape matches."""
+    hd = cfg.head_dim
+    full = heads * hd
+    local = _attn_mode(cfg, m) == "heads"
+    if bias is not None and bias.numel() == y.shape[-1] != full:
+        y = y + bias.reshape(-1).to(y.dtype)          # this rank's heads
+        bias = None
+    y = _fit_columns(y, full // m.tp if local else full, m)
+    y = y.reshape(*y.shape[:-1], -1, hd)
+    if bias is not None:
+        b = bias.to(y.dtype)
+        y = y + (_model_slice(b, 0, m) if b.shape[0] > y.shape[-2] else b)
+    return y
+
+
+def _vocab_parallel(params, cfg: ModelConfig, m) -> bool:
+    """Whether the embedding rows (and the head's columns) lie on
+    "model": the mapping puts "vocab" there, and the params were placed
+    by their specs (at TP 1 a slice is the whole)."""
+    if m is None or m.spec(("vocab", "fsdp"),
+                           (cfg.vocab_size, cfg.d_model))[0] != "model":
+        return False
+    return m.tp == 1 or params["embed"].shape[0] < cfg.vocab_size
 
 
 def _mlp_apply(p, x, cfg, approx_cfg):
@@ -431,10 +677,15 @@ def _mlp_apply(p, x, cfg, approx_cfg):
     kw = _dense_kw(cfg)
     if "w_gate" not in p:                      # mlp="gelu"
         h = ACT[cfg.act](dense(x, p["w_up"], approx_cfg=approx_cfg, **kw))
-        return dense(h, p["w_down"], approx_cfg=approx_cfg, **kw)
-    act = ACT["gelu" if cfg.mlp == "geglu" else cfg.act]
-    h = act(dense(x, p["w_gate"], approx_cfg=approx_cfg, **kw)) \
-        * dense(x, p["w_up"], approx_cfg=approx_cfg, **kw)
+    else:
+        act = ACT["gelu" if cfg.mlp == "geglu" else cfg.act]
+        h = act(dense(x, p["w_gate"], approx_cfg=approx_cfg, **kw)) \
+            * dense(x, p["w_up"], approx_cfg=approx_cfg, **kw)
+    m = current_mapping()
+    if m is not None:
+        w = p["w_down"]
+        h = _fit_columns(h, (w.values if isinstance(w, QTensor)
+                             else w).shape[0], m)
     return dense(h, p["w_down"], approx_cfg=approx_cfg, **kw)
 
 
@@ -536,7 +787,20 @@ def _layer_cfgs(approx_cfg, n_layers: int, device) -> list:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, cfg, tokens):
-    x = params["embed"][tokens].to(cfg.compute_dtype)
+    """The token rows, scaled by sqrt(d) where the model does.  With the
+    vocabulary on "model" each rank looks up the tokens in its rows,
+    zeros elsewhere, and the rows are summed over "model" in f32 (one
+    nonzero term each: exact)."""
+    m = current_mapping()
+    if _vocab_parallel(params, cfg, m):
+        emb = params["embed"]
+        n = emb.shape[0]
+        t = tokens.to(torch.long) - m.mesh.coords["model"] * n
+        own = ((t >= 0) & (t < n))[..., None]
+        rows = torch.where(own, emb[t.clamp(0, n - 1)], 0.0)
+        x = m.all_reduce(rows, "sum", ("model",)).to(cfg.compute_dtype)
+    else:
+        x = params["embed"][tokens].to(cfg.compute_dtype)
     if cfg.embed_scale:
         # sqrt(d) in the compute dtype, as the reference rounds it (bf16
         # sqrt(4608) is 68.0)
@@ -552,9 +816,15 @@ def head_weight(params, cfg, dtype) -> torch.Tensor:
 
 def logits_for(params, cfg, hidden, w: torch.Tensor | None = None):
     """Logits of `hidden` (B, ..., d); `w` is ``head_weight`` when the
-    caller already has it in hidden's dtype."""
+    caller already has it in hidden's dtype.  With the vocabulary on
+    "model" the local columns are all-gathered: every rank returns the
+    whole vocabulary."""
     w = head_weight(params, cfg, hidden.dtype) if w is None else w
     logits = hidden @ w
+    m = current_mapping()
+    if _vocab_parallel(params, cfg, m):
+        # each rank's vocab columns, gathered over "model" (exact)
+        logits = m.all_gather(logits, -1, ("model",))
     if cfg.final_softcap > 0:
         logits = softcap(logits.to(torch.float32), cfg.final_softcap)
     return logits
@@ -709,7 +979,8 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     with f32 scales under ``kv_quant``; an encoder-decoder's cross K/V
     ``xk``/``xv`` of `enc_len` positions in the compute dtype beside
     them; each recurrent kind's state stack under its name
-    (``_state_shapes``)."""
+    (``_state_shapes``).  Under a sharding mapping each rank keeps its
+    slice, placed by ``cache_specs``."""
     device = resolve_device(device)
     kinds = cfg.layer_kinds()
     kv_dtype = torch.int8 if cfg.kv_quant else cfg.compute_dtype
@@ -742,6 +1013,12 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                 name: torch.full((kinds.count(kind), batch_size, *shape),
                                  fill, dtype=torch.float32, device=device)
                 for name, (shape, fill) in _state_shapes(cfg, kind).items()}
+    m = current_mapping()
+    if m is not None:
+        if m.kv_seq_axis and max_len % m.tp:
+            raise ValueError(f"a sequence-sharded cache needs max_len "
+                             f"{max_len} divisible by TP {m.tp}")
+        cache = lsc_tree(cache, cache_specs(cfg))
     return cache
 
 
@@ -795,24 +1072,76 @@ def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
-def _kv_write(buf: Params, j: int, k_new, v_new, idx, cfg) -> None:
+def _kv_write(buf: Params, j: int, k_new, v_new, idx, cfg,
+              lo=None) -> None:
     """Write (B, T, KV, hd) K/V into layer j of `buf` at the (T,) buffer
     indices `idx`, in place (int8 values and scales under kv_quant);
-    `idx` may be a device tensor (no host sync)."""
-    for name, new in (("k", k_new), ("v", v_new)):
+    `idx` may be a device tensor (no host sync).  A buffer holding a
+    slice of the head dim (the kv_hd fallback) takes that slice.
+
+    lo (one token, ``kv_onehot_write``): `buf` holds positions [lo, lo
+    + S) of a sequence-sharded cache and idx the global index; the
+    rank that holds it writes it, every other rewrites the entry at
+    its clamped index with itself (the reference's one-hot blend,
+    shard-local)."""
+    m = current_mapping()
+    new = {}
+    for name, t in (("k", k_new), ("v", v_new)):
         if cfg.kv_quant:
-            new, scale = kv_quantize(new)
-            buf[name + "_s"][j].index_copy_(1, idx, scale)
-        buf[name][j].index_copy_(1, idx, new.to(buf[name].dtype))
+            t, new[name + "_s"] = kv_quantize(t)
+        if m is not None and t.shape[-1] > buf[name].shape[-1]:
+            t = _model_slice(t, -1, m)
+        new[name] = t
+    if lo is not None:
+        s_loc = buf["k"].shape[2]
+        local = idx - lo
+        own = ((local >= 0) & (local < s_loc)).reshape(())
+        idx = local.clamp(0, s_loc - 1)
+    for name, t in new.items():
+        dst = buf[name][j]
+        t = t.to(dst.dtype)
+        if lo is not None:
+            t = torch.where(own, t, dst.index_select(1, idx))
+        dst.index_copy_(1, idx, t)
 
 
 def _kv_read(buf: Params, j: int, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """Layer j's (B, S, KV, hd) K/V in the compute dtype (dequantized
-    under kv_quant)."""
+    under kv_quant); a head-dim slice (the kv_hd fallback) is
+    all-gathered to the whole head dim (exact)."""
     if not cfg.kv_quant:
-        return buf["k"][j], buf["v"][j]
-    return tuple((buf[n][j].to(torch.float32) * buf[n + "_s"][j][..., None]
-                  ).to(cfg.compute_dtype) for n in ("k", "v"))
+        kv = buf["k"][j], buf["v"][j]
+    else:
+        kv = tuple((buf[n][j].to(torch.float32)
+                    * buf[n + "_s"][j][..., None]).to(cfg.compute_dtype)
+                   for n in ("k", "v"))
+    m = current_mapping()
+    if m is not None and kv[0].shape[-1] < cfg.head_dim:
+        kv = tuple(m.all_gather(t, -1, ("model",)) for t in kv)
+    return kv
+
+
+def _seq_shard(buf: Params, m) -> tuple[int, int]:
+    """(first position held here, global buffer length) of a cache
+    buffer: the sequence dim lies on "model" under kv="seq"."""
+    s_loc = buf["k"].shape[2]
+    if m is None or not m.kv_seq_axis:
+        return 0, s_loc
+    return m.mesh.coords["model"] * s_loc, s_loc * m.tp
+
+
+def _shard_runs(first: int, s: int, lo: int, s_loc: int,
+                s_buf: int) -> list[tuple[int, int, int]]:
+    """The positions [first, s) of a prefill whose buffer index p % s_buf
+    lies in a sequence shard's [lo, lo + s_loc), as runs (p0, p1, the
+    local index of p0): at most two, as s - first <= s_buf."""
+    runs = []
+    base = first - first % s_buf
+    for lap in (base, base + s_buf):
+        p0, p1 = max(first, lap + lo), min(s, lap + lo + s_loc)
+        if p0 < p1:
+            runs.append((p0, p1, p0 - lap - lo))
+    return runs
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
@@ -863,6 +1192,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
                 f"true_len= with a padded prompt of {s} tokens longer "
                 f"than the local ring ({min(cfg.window, max_len)})")
     dev = tokens.device
+    m = current_mapping()
     enc_out = _encoder_output(params, cfg, enc_embeds)
     cache = init_cache(cfg, b, max_len, dev,
                        enc_len=0 if enc_out is None else enc_out.shape[1])
@@ -887,10 +1217,16 @@ def prefill(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
                                    approx_cfg=ac, xkv=xkv)
         if keep is not None:
             k, v = k * keep.to(k.dtype), v * keep.to(v.dtype)
-        s_buf = buf["k"].shape[2]
+        lo, s_buf = _seq_shard(buf, m)
         first = max(s - s_buf, 0)
-        idx = torch.arange(first, s, device=dev) % s_buf
-        _kv_write(buf, j, k[:, first:], v[:, first:], idx, cfg)
+        s_loc = buf["k"].shape[2]
+        if s_loc == s_buf:
+            _kv_write(buf, j, k[:, first:], v[:, first:],
+                      torch.arange(first, s, device=dev) % s_buf, cfg)
+        else:                  # a sequence shard: its own positions
+            for p0, p1, at in _shard_runs(first, s, lo, s_loc, s_buf):
+                _kv_write(buf, j, k[:, p0:p1], v[:, p0:p1],
+                          torch.arange(at, at + p1 - p0, device=dev), cfg)
     last = s if true_len is None else int(true_len)
     cache["pos"] = torch.tensor(last, dtype=torch.int32, device=dev)
     x = _apply_norm(params["final_norm"], x, cfg)
@@ -908,17 +1244,24 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
     tensor and the input cache's stacks are left as they were: a step
     that is not committed needs no rollback of them.  An "ln" model
     adds its learned position row at pos; an encoder-decoder's layers
-    cross-attend over every entry of their ``xk``/``xv``."""
+    cross-attend over every entry of their ``xk``/``xv``.  Under a
+    sharding mapping each rank steps its rows and slices of the cache
+    (the attention layouts above ``_attn_mode``) and returns the logits
+    of its batch rows over the whole vocabulary."""
     pos = cache["pos"]
     dev = token.device
     positions = pos.to(torch.long).reshape(1, 1)
     x = _learned_positions(params, cfg, embed_tokens(params, cfg, token),
                            positions)
-    at, length = {}, {}
+    m = current_mapping()
+    seq = m is not None and _attn_mode(cfg, m) == "seq"
+    at, length, lo = {}, {}, {}
     for kind in set(cfg.pattern) & set(ATTENTION_KINDS):
-        s_buf = _buffers(cache, kind)["k"].shape[2]
+        lo[kind], s_buf = _seq_shard(_buffers(cache, kind), m)
         at[kind] = (pos.to(torch.long) % s_buf).reshape(1)
         length[kind] = torch.clamp(pos + 1, max=s_buf)
+        if not (seq or cfg.kv_onehot_write):
+            lo[kind] = None
     states = {kind: {name: torch.empty_like(leaf)
                      for name, leaf in cache[kind].items()}
               for kind in RECURRENT_KINDS if kind in cache}
@@ -933,11 +1276,14 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
             continue
         buf = _buffers(cache, kind)
         q, k, v = _qkv(p, x, cfg, positions, ac)
-        _kv_write(buf, j, k, v, at[kind], cfg)
+        _kv_write(buf, j, k, v, at[kind], cfg,
+                  **({} if lo[kind] is None else {"lo": lo[kind]}))
         kc, vc = _kv_read(buf, j, cfg)
-        attn = decode_attention(q, kc, vc, length[kind],
-                                logit_cap=cfg.attn_softcap,
-                                scale=cfg.query_scale)
+        attend = (functools.partial(sp_decode_attention, mapping=m)
+                  if seq else functools.partial(decode_attention,
+                                                kv_heads=cfg.n_kv_heads))
+        attn = attend(q, kc, vc, length[kind], logit_cap=cfg.attn_softcap,
+                      scale=cfg.query_scale)
         xkv = (buf["xk"][j], buf["xv"][j]) if "xattn" in p else None
         x = _block_tail(p, x, attn, cfg, ac, xkv, decode=True)
     x = _apply_norm(params["final_norm"], x, cfg)
@@ -1117,7 +1463,8 @@ def decode_writes(cache: Params) -> list:
     under kv_quant) at each buffer's ``pos % s_buf`` (its recurrent
     states go into new stacks, leaving `cache`'s as they were),
     ``paged_decode_step`` (a cache with "tables") each row's slot from
-    ``_paged_decode_slots``.  Returns (tensor, dim, index, values) entries
+    ``_paged_decode_slots``; a sequence shard the clamped local index
+    ``_kv_write`` writes.  Returns (tensor, dim, index, values) entries
     for ``restore_writes``; reads no device value on the host."""
     saved = []
     if "tables" in cache:
@@ -1130,10 +1477,12 @@ def decode_writes(cache: Params) -> list:
             saved.append((flat, 1, idx, flat.index_select(1, idx)))
         return saved
     pos = cache["pos"].to(torch.long)
+    m = current_mapping()
     for buf in (cache, cache.get("local")):
         if buf is None:
             continue
-        at = (pos % buf["k"].shape[2]).reshape(1)
+        lo, s_buf = _seq_shard(buf, m)
+        at = ((pos % s_buf) - lo).clamp(0, buf["k"].shape[2] - 1).reshape(1)
         for name in ("k", "v", "k_s", "v_s"):
             if name in buf:
                 saved.append((buf[name], 2, at,

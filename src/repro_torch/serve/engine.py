@@ -103,8 +103,21 @@ from (seed, draw number), the draws counted where the reference splits
 its key, so a snapshot's ``rng`` leaf (uint32[2], as the reference's)
 holds (seed, draws) and a resumed run samples as the uninterrupted one.
 
-Not ported yet (the reference's knobs for it do not exist here):
-sharding (``mapping``, ``param_specs``).
+Sharded serving (``mapping=``, ``param_specs=``; DESIGN.md §8): SPMD
+over ``torch.distributed``.  Every rank runs this same host loop on the
+same requests and seeds; only device tensors are split.  Construction
+quantizes, then places the params by ``quantize_lm_specs(param_specs)``
+(replicated without specs) and the cache by ``cache_specs`` (the batch
+over "data" when ``max_batch`` divides by its size, else replicated);
+config tensors are never sharded.  Every tick runs under the mapping
+(``dist.sharding.activate``), and the decode logits are all-gathered
+(vocab over "model" in the model, batch rows over "data" here) before
+the guard and sampling, so tokens, the pool join, the scheduler's
+trajectory and every host counter are the same on every rank.  The
+reference's refusals hold (``paged``, ``spec``), and so do the port's
+for what this slice does not shard (recurrent and local layers, int8
+KV, encoder-decoder and vision-prefix models, snapshots; ROADMAP Queue
+1 item 11(b)).
 
 Runs on ``device="cuda"`` unless told otherwise; without a GPU the
 default raises rather than falling back to the CPU.
@@ -127,6 +140,7 @@ from repro_torch.core.power_model import (ENERGY_PER_MAC_PJ,
                                           MAC_SAVING_FRAC,
                                           energy_per_token_pj, error_rank)
 from repro_torch.core.quantization import QTensor
+from repro_torch.dist import sharding as shd
 from repro_torch.nn import transformer as T
 from .paged_cache import ZERO_BLOCK, PageAllocator, PagedCacheConfig
 from .sampling import sample
@@ -229,6 +243,33 @@ def refuse_encoder_decoder(cfg: T.ModelConfig) -> None:
             "enc_embeds=...) and decode_step")
 
 
+def _refuse_unsharded(cfg: T.ModelConfig, mapping, *, max_len: int,
+                      paged, spec, checkpointer) -> None:
+    """What the sharded Engine refuses: the reference's refusals (paged,
+    spec), and what this port does not shard yet (ROADMAP Queue 1 item
+    11(b))."""
+    if paged is not None or spec is not None:
+        raise ValueError("paged and speculative serving are single-device,"
+                         " as in the reference: pass mapping=None")
+    left = [name for name, bad in (
+        ("recurrent layers", any(k in T.RECURRENT_KINDS
+                                 for k in cfg.layer_kinds())),
+        ("local layers", "local" in cfg.layer_kinds()),
+        ("an int8 KV cache", cfg.kv_quant),
+        ("a vision prefix", cfg.vision_prefix_len > 0),
+        ("snapshots", checkpointer is not None),
+        ("fsdp", mapping.fsdp)) if bad]
+    if left:
+        raise ValueError(f"{cfg.name}: the sharded Engine does not shard "
+                         f"{', '.join(left)} (ROADMAP Queue 1 item 11(b))")
+    if mapping.kv_seq_axis and not cfg.kv_onehot_write:
+        raise ValueError("kv='seq' needs ModelConfig.kv_onehot_write (the "
+                         "shard-local cache write)")
+    if mapping.kv_seq_axis and max_len % mapping.tp:
+        raise ValueError(f"kv='seq' needs max_len {max_len} divisible by "
+                         f"TP {mapping.tp}")
+
+
 class Engine:
     def __init__(self, params, cfg: T.ModelConfig, *, max_batch: int = 4,
                  max_len: int = 512, approx_cfg=0, seed: int = 0,
@@ -243,7 +284,8 @@ class Engine:
                  max_retries: int = 2, retry_base_s: float = 0.05,
                  retry_cap_s: float = 2.0, nan_max_strikes: int = 2,
                  fault_injector=None, brownout=None, checkpointer=None,
-                 snapshot_every: int = 0, device="cuda"):
+                 snapshot_every: int = 0, device="cuda",
+                 mapping: shd.Mapping | None = None, param_specs=None):
         """max_batch: decode-pool slots; max_len: KV-cache length
         (prompt + generated); approx_cfg: engine-wide error config (int
         or per-layer[/per-group] array); seed: seed of the sampling
@@ -277,9 +319,18 @@ class Engine:
         ``clock``); brownout: a ``serve.brownout.BrownoutController``
         consulted first every tick; checkpointer: a
         ``checkpoint.Checkpointer`` for snapshots; snapshot_every:
-        auto-snapshot every this many decode steps (0: off)."""
+        auto-snapshot every this many decode steps (0: off).
+
+        mapping: a ``dist.sharding.Mapping`` to serve sharded on
+        (``serve_mapping``; `device` is then this rank's card);
+        param_specs: the params' logical spec tree (``T.lm_specs``),
+        None to replicate them."""
         self.device = T.resolve_device(device)
         refuse_encoder_decoder(cfg)
+        self.mapping = mapping
+        if mapping is not None:
+            _refuse_unsharded(cfg, mapping, max_len=max_len, paged=paged,
+                              spec=spec, checkpointer=checkpointer)
         if (cfg_groups > 1 or cfg_experts > 1) \
                 and cfg.mac_backend != "pallas":
             raise ValueError("per-group and per-expert configs require "
@@ -290,6 +341,17 @@ class Engine:
         params = _tree_to(params, self.device)
         self.params = (T.quantize_lm_params(params, cfg)
                        if quantize_weights else params)
+        self._macs_per_token: float | None = None
+        self._batch_rows = (0, max_batch)
+        if mapping is not None:
+            # the whole model's MACs, counted before placement
+            _ = self.macs_per_token
+            if param_specs is not None:
+                specs = (T.quantize_lm_specs(param_specs, cfg)
+                         if quantize_weights else param_specs)
+                self.params = mapping.shard_tree(self.params, specs)
+            self._batch_rows = mapping.local_range(
+                mapping.spec(("batch",), (max_batch,))[0], max_batch)
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
@@ -360,7 +422,9 @@ class Engine:
             self.cache = T.init_paged_cache(cfg, paged.num_blocks,
                                             paged.block_size, self.device)
         else:
-            self.cache = T.init_cache(cfg, max_batch, max_len, self.device)
+            with shd.activate(mapping):
+                self.cache = T.init_cache(cfg, max_batch, max_len,
+                                          self.device)
         self.n_rejected = 0
         self.n_decode_steps = 0
         self.n_prefill_tokens = 0
@@ -381,7 +445,6 @@ class Engine:
         self.energy_log: deque[tuple[str, int, float, str | None]] = \
             deque(maxlen=65536)
         self.completed: list[Request] = []
-        self._macs_per_token: float | None = None
         self.power_cap_pj_per_tick = power_cap_pj_per_tick
         # every token appended to a request: the pJ per emitted token
         # denominator (a verify pass emits up to k + 1 of them)
@@ -591,13 +654,18 @@ class Engine:
         """Copy a one-row prefill cache (every buffer whole, zeros past
         the prompt; the local rings, int8 scales and recurrent states
         included) into pool slot `slot`: batch is axis 1 of every leaf
-        but "pos"."""
+        but "pos".  With the batch on "data" only the rank that holds
+        the slot's row writes it."""
+        lo, hi = self._batch_rows
+        if not lo <= slot < hi:
+            return                 # another rank of "data" holds the row
+
         def splice(pool, row):
             for key, leaf in pool.items():
                 if isinstance(leaf, dict):
                     splice(leaf, row[key])
                 elif key != "pos":
-                    leaf[:, slot] = row[key][:, 0]
+                    leaf[:, slot - lo] = row[key][:, 0]
         splice(self.cache, row_cache)
 
     def _energy_pj_mean(self, cfg_vec: np.ndarray) -> float:
@@ -1038,7 +1106,12 @@ class Engine:
     def step(self) -> bool:
         """One tick: admit queued requests into free slots, then one
         decode step for the pool (paged: after one prefill chunk per
-        mid-prefill slot).  Returns whether work remains."""
+        mid-prefill slot).  Returns whether work remains.  Under a
+        mapping the whole tick runs with it current."""
+        with shd.activate(self.mapping):
+            return self._step()
+
+    def _step(self) -> bool:
         if self.paged is not None:
             return self._step_paged()
         now, inj = self._tick_start()
@@ -1096,13 +1169,15 @@ class Engine:
         charge, the scheduler's probe, emit, auto-snapshot and the
         scheduler's end-of-tick hook."""
         pool_cfg = self._pool_cfg()
-        token = torch.as_tensor(token, device=self.device)
+        token = torch.as_tensor(token[slice(*self._batch_rows)],
+                                device=self.device)
         saved = T.decode_writes(cache)
         try:
             if inj is not None:
                 inj.check_step_fail()
             logits, new_cache = step_fn(self.params, self.cfg, cache, token,
                                         approx_cfg=self._device_cfg(pool_cfg))
+            logits = self._all_rows(logits)
             if inj is not None:
                 logits = inj.corrupt_logits(logits, active)
         except Exception as err:  # noqa: BLE001 — the retry path
@@ -1159,7 +1234,15 @@ class Engine:
         logits, _ = step(self.params, self.cfg, cache, token,
                          approx_cfg=self._device_cfg(cfg_vec))
         T.restore_writes(saved)
-        return logits.float().cpu().numpy()
+        return self._all_rows(logits).float().cpu().numpy()
+
+    def _all_rows(self, logits: torch.Tensor) -> torch.Tensor:
+        """Decode logits of every pool row: this rank's rows all-gathered
+        over "data" when the batch lies there (exact); as they are
+        otherwise."""
+        if self._batch_rows == (0, self.max_batch):
+            return logits
+        return self.mapping.all_gather(logits, 0, self.mapping.batch_axes)
 
     # -- speculative decoding (DESIGN.md §12) ----------------------------
     def _spec_k(self) -> int:

@@ -1344,3 +1344,123 @@ def test_cuda_spec_streams_equal_plain_streams(cuda_device, trained_demo,
     if paged:
         spec.allocator.check_consistency(spec._slot_blocks)
         assert spec.allocator.free_blocks() == pool.usable_blocks
+
+
+# (E, M, K, N, present experts) of the grouped kernel's int32-out
+# instance: OLMoE-1B-7B's row-parallel w_down (1,024 -> 2,048) at a
+# decode pool's buffer (M 32, 26 of 64 experts holding rows) and at a
+# 2,048-token prefill's (M 320)
+GROUPED_INT_SHAPES = [(64, 32, 1024, 2048, 26), (64, 320, 1024, 2048, 26)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GROUPED_INT_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_grouped_int_kernel_equals_plain_version(cuda_device, shape):
+    """The int32-out grouped instance (no epilogue) against its plain
+    twin at configs 0, 8, 31 and a per-expert matrix: equal int32 sums,
+    zeros in every absent row."""
+    e, m, k, n, present = shape
+    x, w = _grouped_case(e, m, k, n)
+    rows = np.zeros(e, np.int32)
+    rows[np.random.default_rng(1).permutation(e)[:present]] = (
+        np.arange(present) % m) + 1
+    dev = cuda_device
+    xs = torch.tensor(x, device=dev)
+    bank = torch.tensor(np.clip(np.round(w / 0.05 * 40), -127, 127)
+                        .astype(np.int8), device=dev)
+    g = torch.tensor(rows, device=dev)
+    scale = (xs.abs().amax() * (1.0 / 127)).reshape(1)
+    nb = -(-n // 128)
+    mat = np.random.default_rng(2).integers(0, 32, (e, nb)).astype(np.int32)
+    for cfg in (0, 8, 31, mat):
+        c = A.grouped_config_operand(torch.as_tensor(cfg, device=dev), e, nb,
+                                     dev)
+        got = A.approx_mac_grouped_matmul_int(xs, bank, scale, g, c)
+        want = A.approx_mac_grouped_matmul_int_ref(xs, bank, scale, g, c)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32
+        assert torch.equal(got, want), _cfg_id(np.asarray(cfg))
+        absent = torch.arange(m, device=dev)[None, :] >= g[:, None]
+        assert not got[absent].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [False, True], ids=["dense", "grouped"])
+def test_cuda_row_parallel_gemm_at_world_size_1(cuda_device, grouped):
+    """The row-parallel path (quantize, int kernel or the grouped
+    int32-out instance, int32 sum over a group of one, epilogue) equal
+    bit for bit to the fused kernel on the same GEMM, with the NCCL
+    all-reduce of the sum and the scale's MAX counted."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import (GemmSplit, ShardedQTensor,
+                                           activate, serve_mapping)
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.nn.moe import quantize_expert_bank
+    os.environ.setdefault("MASTER_ADDR", "127.0.0.1")
+    os.environ.setdefault("MASTER_PORT", "29531")
+    dist.init_process_group("nccl", world_size=1, rank=0)
+    try:
+        mp = serve_mapping(make_serve_mesh(dp=1, tp=1))
+        dev = cuda_device
+        if grouped:
+            x, w = _grouped_case(8, 32, 1024, 2048)
+            bank = quantize_expert_bank(torch.tensor(w, device=dev))
+            wq = ShardedQTensor(bank.values, bank.scale, bank.axis,
+                                (None, "model", None))
+            rows = torch.tensor(_grouped_rows(8, 32)[1], dtype=torch.int32,
+                                device=dev)
+            xt = torch.tensor(x, device=dev)
+            cfg = torch.tensor(8, dtype=torch.int32, device=dev)
+            whole = ops.approx_dense_grouped_pallas(xt, bank, cfg, rows)
+            with activate(mp):
+                part = ops.approx_dense_grouped_pallas(
+                    xt, wq, cfg, rows, split=GemmSplit(mp, 2048, 0, True))
+        else:
+            x, w = _case(4, 11008, 2048)
+            q = quantize(torch.tensor(w, device=dev), axis=1)
+            wq = ShardedQTensor(q.values, q.scale, 1, ("model", None))
+            xt = torch.tensor(x, device=dev)
+            cfg = torch.tensor(8, dtype=torch.int32, device=dev)
+            whole = ops.approx_dense_pallas(xt, q, cfg)
+            with activate(mp):
+                part = ops.approx_dense_pallas(
+                    xt, wq, cfg, split=GemmSplit(mp, 2048, 0, True))
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole)
+        assert dict(mp.collectives) == {
+            ("all_reduce_max", ("data", "model")): 1,
+            ("all_reduce_sum", ("model",)): 1}
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma-7b", "gemma2-27b",
+                                  "qwen2.5-3b"])
+def test_cuda_decode_attention_keeps_bits_under_a_head_split(cuda_device,
+                                                             arch):
+    """decode_attention on a tensor-parallel rank's 1/tp of the heads
+    equals, bit for bit, that slice of the unsharded call, for every tp
+    that divides gcd(KV, 8): the chunks' GEMMs keep one shape."""
+    import math
+    from repro_torch.nn.attention import decode_attention
+    cfg = get_config(arch)
+    b, s, h, kv, hd = 4, 128, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn(b, n, heads, hd, device=cuda_device, generator=g)
+               .to(cfg.compute_dtype)
+               for n, heads in ((1, h), (s, kv), (s, kv)))
+    kw = dict(logit_cap=cfg.attn_softcap, scale=cfg.query_scale)
+    whole = decode_attention(q, k, v, 97, **kw)
+    for tp in (2, 4, 8):
+        if math.gcd(kv, 8) % tp:
+            continue
+        nk, nq = kv // tp, h // tp
+        for r in range(tp):
+            part = decode_attention(
+                q[:, :, r * nq:(r + 1) * nq], k[:, :, r * nk:(r + 1) * nk],
+                v[:, :, r * nk:(r + 1) * nk], 97, kv_heads=kv, **kw)
+            assert torch.equal(part, whole[:, :, r * nq:(r + 1) * nq]), \
+                (tp, r)

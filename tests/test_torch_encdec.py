@@ -50,6 +50,10 @@ from repro_torch.serve import engine as TE
 ARCH = "whisper-large-v3"
 TOL = 1e-5
 SEEDS = range(3)
+# FLIP_SEEDS and FLIP_REL absorb the f32 ops Whisper runs that
+# tests/test_torch_float_ops.py names in NOT_EQUAL: layernorm (rsqrt, the
+# row mean and variance), gelu_tanh (tanh) and the attention softmax
+# (exp, its row sum); an ulp of one turned into an int8 step
 FLIP_SEEDS = 1
 FLIP_REL = 0.25
 GRAD_TOL = 1e-5

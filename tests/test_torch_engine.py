@@ -162,7 +162,8 @@ NO_JAX_CHECK = (
 # run).  The limit is several times a group's time alone.
 REHEARSAL_LIMIT_S = 90
 REHEARSAL_GROUPS = ("dense", "spec", "resilience", "moe", "gemma2",
-                    "train", "slice12", "slice13", "slice14", "slice15")
+                    "train", "slice12", "slice13", "slice14", "slice15",
+                    "slice16")
 
 
 def _run_clean(code: str, timeout: float) -> subprocess.CompletedProcess:
@@ -232,9 +233,11 @@ def test_default_device_is_cuda():
 
 @pytest.mark.parametrize("knob", ["mapping", "cfg_experts"])
 def test_unported_engine_knobs_raise(knob):
-    """The reference's knobs for features not ported yet (sharding) are
-    refused, not ignored; the expert axis, now ported, is refused on a
-    model without experts."""
+    """The reference's knobs are refused where they cannot apply, not
+    ignored: the expert axis on a model without experts; the sharding
+    mapping, ported since slice 16, on a model whose layers it does not
+    shard yet (recurrent and local layers: ROADMAP Queue 1 item
+    11(b))."""
     cfg = tget("qwen2.5-3b").smoke()
     params = TE.T.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
     if knob == "cfg_experts":
@@ -244,8 +247,13 @@ def test_unported_engine_knobs_raise(knob):
             TE.Engine(params, dataclasses.replace(cfg, mac_backend="pallas"),
                       max_len=16, device="cpu", cfg_experts=2)
         return
-    with pytest.raises(TypeError):
-        TE.Engine(params, cfg, max_len=16, device="cpu", **{knob: 1})
+    from repro_torch.dist.sharding import serve_mapping
+    from repro_torch.launch.mesh import Mesh
+    rg = tget("recurrentgemma-2b").smoke()
+    mapping = serve_mapping(Mesh((1, 1), ("data", "model"), rank=0))
+    with pytest.raises(ValueError, match=r"recurrent layers.*item 11\(b\)"):
+        TE.Engine(TE.T.init_lm(torch.Generator().manual_seed(0), rg, "cpu"),
+                  rg, max_len=16, device="cpu", **{knob: mapping})
 
 
 @pytest.mark.parametrize("knob", ["brownout", "fault_injector",

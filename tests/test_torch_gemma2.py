@@ -58,6 +58,11 @@ from repro_torch.serve import engine as TE
 
 TOL = 1e-5
 SEEDS = range(6)
+# FLIP_SEEDS and ENGINE_FLIPS absorb the f32 ops this model runs that
+# tests/test_torch_float_ops.py names in NOT_EQUAL: rmsnorm (rsqrt, the
+# row mean of squares), apply_rope (sin, cos), gelu_tanh and the two
+# softcaps (tanh), and the attention softmax (exp, its row sum); an ulp
+# of one turned into an int8 step of an activation or of the K/V
 FLIP_SEEDS = 3
 ENGINE_SEEDS = range(8)
 ENGINE_FLIPS = 3

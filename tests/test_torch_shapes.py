@@ -4,7 +4,8 @@ stand-ins (``launch/shapes.py``) against the JAX reference's, for all 34
 key in shape and dtype, and ``decode_inputs``' token shape and cache
 equal leaf by leaf, the port's cache seen in the reference's layout
 through ``convert.cache_to_reference`` (each leaf's shape and dtype,
-and the two caches' total bytes).  The reference's shapes come from
+and the two caches' total bytes), and each reference cache leaf's
+logical spec equal to the port's ``cache_specs`` for its stack.  The reference's shapes come from
 ``jax.eval_shape``; the port's are tensors on ``meta``, which own no
 storage."""
 import _port_cpu  # noqa: F401  (one intra-op thread)
@@ -42,6 +43,23 @@ def test_cells_equal_reference():
         assert TR.cells_for(arch) == JR.cells_for(arch)
 
 
+def _check_cache_specs(cfg, cache, cspec, jspec):
+    """The port's cache spec tree has a spec for every cache leaf, and
+    each reference leaf's spec is the port's for that leaf's stack (the
+    reference's scan leaves keep the stacked dim, its rest layers drop
+    it)."""
+    assert set(dict(_leaves(cspec))) == set(dict(_leaves(cache)))
+    for path, ref in _leaves(jspec):
+        if path == ("pos",):
+            assert cspec["pos"] == tuple(ref) == ()
+            continue
+        pos = int(path[-2][1:]) if path[0] == "scan" else int(path[0][4:])
+        kind = cfg.pattern[pos % len(cfg.pattern)]
+        bucket = cspec if kind == "global" else cspec[kind]
+        port = bucket[path[-1]]
+        assert port[len(port) - len(ref):] == tuple(ref), (path, port, ref)
+
+
 def _leaves(tree, path=()):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -62,8 +80,9 @@ def test_inputs_equal_reference(arch, cell):
             assert tuple(_meta(got[key]).shape) == sds.shape, key
             assert _dtype(got[key]) == _dtype(sds), key
         return
-    cache, token = TS.decode_inputs(tcfg, tcell)
-    jcache, _, jtoken = JS.decode_inputs(jcfg, jcell)
+    cache, cspec, token = TS.decode_inputs(tcfg, tcell)
+    jcache, jspec, jtoken = JS.decode_inputs(jcfg, jcell)
+    _check_cache_specs(tcfg, cache, cspec, jspec)
     assert tuple(_meta(token).shape) == jtoken.shape
     assert _dtype(token) == _dtype(jtoken)
     view = dict(_leaves(cache_to_reference(cache, tcfg)))

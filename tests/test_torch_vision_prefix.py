@@ -40,6 +40,10 @@ from test_torch_encdec import (FLIP_REL, GRAD_TOL, HLO_AS_WRITTEN,
 ARCH = "internvl2-76b"
 S, MAX_LEN, N_DECODE, PREFIX = 12, 24, 4, 4
 ENGINE_SEEDS = range(3)
+# ENGINE_FLIPS (and FLIP_REL, shared with test_torch_encdec.py) absorb
+# the f32 ops InternVL2 runs that tests/test_torch_float_ops.py names in
+# NOT_EQUAL: rmsnorm (rsqrt, the row mean of squares), apply_rope (sin,
+# cos), silu (exp) and the attention softmax (exp, its row sum)
 ENGINE_FLIPS = 1
 
 
