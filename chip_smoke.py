@@ -108,7 +108,7 @@ seconds):
              through its plain version, bit for bit.
 12. profile_paged — torch.profiler over three paged decode steps.
 12b. sched_serve — the power loop on the dense serve run's params cut
-             to their first SPEC_DEPTH (9) layers (since PR 25): the
+             to their first SPEC_DEPTH (6) layers: the
              Engine with PowerBudgetScheduler(0.85 x exact pJ/token,
              probe_every 4, retune_every 8, seed 0), 16 requests of 4-24
              tokens, 32 new tokens each.  After a warm-up engine no
@@ -132,7 +132,7 @@ seconds):
              after the first tick; a draft step forced non-finite once
              skips its tick (one abort) and leaves the stream equal.
 12d. spec_serve — speculative decoding on the serve phase's full-width
-             Qwen2.5-3B params cut to their first SPEC_DEPTH (9) of 36
+             Qwen2.5-3B params cut to their first SPEC_DEPTH (6) of 36
              layers, and its requests (8 of 4-24 tokens, 16 new,
              max_batch 4, max_len 128), SpecConfig(draft 8, k 3, max_k 7)
              then set_spec to (k 5, draft 20) and (k 2, draft 31), dense
@@ -462,6 +462,18 @@ seconds):
              (a)'s unsharded tokens, and kv="seq" prefill and decode
              logits within 1e-5 of the unsharded.  (b)'s times are not
              a multi-card time.
+30. shard_train (slice 17, last) — sharded training: (a)
+             ``launch.train.run --multi-pod`` on an NCCL group of one in
+             this process, mesh (1, 1, 1), Qwen2.5-3B at 4 layers from
+             seed 0, B 4 x S 256, bf16, 3 steps, against the unsharded
+             build_train_step of the same setup: losses and params bit
+             for bit (or the parting op named), the collectives a step
+             by kind, both step ms, peak GB, flash launches a step; (b)
+             two spawned ranks sharing the card over gloo in f32: (2, 1)
+             and (1, 2) against the unsharded port, a compressed (2, 1)
+             step, OLMoE moe_ep at (1, 2), a 2-stage pipeline_forward, a
+             checkpoint written at (2, 1) and restored at (1, 2) bit for
+             bit.  Every sampled flash call held to its plain version.
 
 Then a ``{"kernels": [...]}`` line (the fused kernel's entry with a
 ``rows`` list: one Qwen2.5-3B layer at M 4 and one Gemma-2-27B layer at M 4
@@ -492,8 +504,8 @@ may flip a verify's argmax), moe_serve, moe_prefill, sched_moe, spec_moe (fewer,
 gemma2_serve, gemma2_window, train (remat on), train_resume,
 mlp_train (2 epochs), gemma7b_serve, danube_serve, danube_window,
 paged_moe, moe_path, moe_chunks, moe_train, rgemma_serve (8 layers,
-two of them rest layers), rgemma_window, xlstm_serve and shard_serve
-(gloo for both parts) phases at the smoke size
+two of them rest layers), rgemma_window, xlstm_serve, shard_serve and
+shard_train (gloo for both parts of each) phases at the smoke size
 on the CPU and never prints the ``ok`` line; its phases come in
 REHEARSAL_GROUPS, and ``--rehearse GROUP ...`` runs only those.
 Since the flash kernel carries every prefill attention on
@@ -599,9 +611,10 @@ DEMO_PAGED_SWEEP = ((0, 3, 8), (1, 5, 20))
 REHEARSE_DEMO_STEPS = 60
 RESILIENCE_PHASES = "chaos_serve, spike_serve and interactions"
 # the speculative phases' depth on the card: spec_serve and spec_sched run
-# the first 9 of Qwen2.5-3B's 36 layers (full width), which keeps the
-# script's time (their six full-depth runs took ~230 s on a slow host)
-SPEC_DEPTH = 9
+# the first 6 of Qwen2.5-3B's 36 layers (full width), which keeps the
+# script's time (their six full-depth runs took ~230 s on a slow host; 9
+# layers before shard_train came, 6 since, for its time)
+SPEC_DEPTH = 6
 SPEC_MOE_LAYERS = 8                # spec_moe's depth of OLMoE's 16 layers
 # slice 12: Danube's serve (max_len above its 4,096 window, one prompt
 # past it, two neuron groups a layer); the tokens of moe_chunks'
@@ -634,10 +647,13 @@ INTERNVL = dict(layers=8, requests=4, max_new=16, prefix=1024)
 DBRX_LAYERS = 4
 SCRATCH = ROOT / "build" / "chip_smoke"
 # slice 15: examples/serve_power_sweep.py's sections at full width (the
-# dense sweep at full depth, the other Qwen2.5-3B sections at SWEEP_DEPTH
-# layers; section 4 on OLMoE-1B-7B at full depth) and speculation on a
-# Qwen2.5-3B of SPEC_TRAINED["layers"] layers trained here
+# dense sweep at SWEEP_FIRST_DEPTH layers, cut from full depth for
+# shard_train's time; the other Qwen2.5-3B sections at
+# SWEEP_DEPTH layers; section 4 on OLMoE-1B-7B at full depth) and
+# speculation on a Qwen2.5-3B of SPEC_TRAINED["layers"] layers trained
+# here
 SWEEP_DEPTH = 9
+SWEEP_FIRST_DEPTH = 18
 SPEC_TRAINED = dict(layers=9, steps=120, batch=8, seq=128, templates=4,
                     peak_lr=5e-4, warmup=10, requests=8, prompt=24,
                     max_new=16)
@@ -1680,6 +1696,58 @@ def _chunk_step(torch, T, params, cfg, snap):
         approx_cfg=snap["approx_cfg"])[0]
 
 
+class layer_outputs:
+    """Records each attention layer's output (``T._block_tail``: the
+    hidden state after the layer) of the calls made inside the block."""
+
+    def __init__(self, T):
+        self.T, self.out = T, []
+
+    def __enter__(self) -> "layer_outputs":
+        self.orig = self.T._block_tail
+
+        def rec(*args, **kw):
+            y = self.orig(*args, **kw)
+            self.out.append(y.detach().clone())
+            return y
+        self.T._block_tail = rec
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.T._block_tail = self.orig
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp at each element of x: 2**(e - 8) for |x| in
+    [2**(e-1), 2**e)."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def parting_rows(torch, logits_k, logits_p, hidden_k, hidden_p) -> list:
+    """For each row whose argmax parts from the plain twin's: the plain
+    twin's top-1 minus top-2 logit margin, and the first layer whose
+    hidden state (the row's layer output) differs from the twin's by
+    more than one bf16 ulp somewhere (None: no layer does), with that
+    layer's largest difference in ulps."""
+    rows = (logits_k.argmax(-1) != logits_p.argmax(-1)).nonzero().flatten()
+    out = []
+    for r in rows.tolist():
+        top = torch.topk(logits_p[r].float(), 2).values
+        first, ulps = None, None
+        for layer, (a, b) in enumerate(zip(hidden_k, hidden_p)):
+            a, b = a[r].float(), b[r].float()
+            unit = torch.maximum(bf16_ulp(torch, a), bf16_ulp(torch, b))
+            if bool(((a - b).abs() > unit).any()):
+                first = layer
+                ulps = float(((a - b).abs() / unit).max())
+                break
+        out.append({"row": r, "plain_margin": float(top[0] - top[1]),
+                    "first_layer_past_one_ulp": first,
+                    "its_max_ulps": ulps})
+    return out
+
+
 def phase_paged_check(torch, T, PA, A, ops, params, cfg, snaps,
                       chunk_snap, *, name: str = "paged_check") -> float:
     """No host sync inside a paged decode step.  Each snapshot's step
@@ -1702,6 +1770,7 @@ def phase_paged_check(torch, T, PA, A, ops, params, cfg, snaps,
         finally:
             torch.cuda.set_sync_debug_mode(0)
     attn_err, attn_ratio, logit_err, logit_ratio, agree = 0.0, 0.0, [], [], []
+    parting = []
     for snap in snaps:
         calls = []
 
@@ -1710,12 +1779,16 @@ def phase_paged_check(torch, T, PA, A, ops, params, cfg, snaps,
             calls.append((args, kw, out))
             return out
 
-        logits_k = _snap_step(torch, T, params, cfg, snap)
+        with layer_outputs(T) as hid_k:
+            logits_k = _snap_step(torch, T, params, cfg, snap)
         T.paged_decode_attention = plain_attn
         try:
-            logits_p = _snap_step(torch, T, params, cfg, snap)
+            with layer_outputs(T) as hid_p:
+                logits_p = _snap_step(torch, T, params, cfg, snap)
         finally:
             T.paged_decode_attention = PA.paged_decode_attention
+        parting.append(parting_rows(torch, logits_k, logits_p, hid_k.out,
+                                    hid_p.out))
         assert len(calls) == cfg.n_layers, len(calls)
         for args, kw, ref in calls:
             out = PA.paged_decode_attention(*args, **kw)
@@ -1771,6 +1844,11 @@ def phase_paged_check(torch, T, PA, A, ops, params, cfg, snaps,
           "logits_worst_tolerance_share": logit_ratio,
           "logits_share_of": "1e-5 + 1.6e-2 * max |logit| (recorded)",
           "argmax_agreement": agree,
+          "parting_rows": parting,
+          "parting_note": "per snapshot, each row whose argmax parts from "
+                          "the plain twin's: the twin's top-1 minus top-2 "
+                          "logit margin and the first layer whose output "
+                          "differs by more than one bf16 ulp (recorded)",
           "fused_mac_chunk": {"slot": chunk_snap["slot"],
                               "start": chunk_snap["start"],
                               "count": chunk_snap["count"]},
@@ -2969,11 +3047,14 @@ def phase_gemma2_window(torch, T, FA, FAops, params, cfg, dev, *,
                                        T.kv_quantize(k_layer[:, first:])[1])
             else:
                 assert torch.equal(cache_k["k"][j][:, :s], stored(k_layer))
-    logit_err, agree = [], []
+    logit_err, agree, parting = [], [], []
     tok_k = torch.argmax(logits_k, -1)[:, None]
     for _ in range(8):
-        lk, cache_k = T.decode_step(p2, cfg2, cache_k, tok_k)
-        lp, cache_p = T.decode_step(p2, cfg2, cache_p, tok_k)
+        with layer_outputs(T) as hid_k:
+            lk, cache_k = T.decode_step(p2, cfg2, cache_k, tok_k)
+        with layer_outputs(T) as hid_p:
+            lp, cache_p = T.decode_step(p2, cfg2, cache_p, tok_k)
+        parting.append(parting_rows(torch, lk, lp, hid_k.out, hid_p.out))
         logit_err.append(float((lk - lp).abs().max()))
         agree.append(bool(torch.equal(torch.argmax(lk, -1),
                                       torch.argmax(lp, -1))))
@@ -2999,7 +3080,10 @@ def phase_gemma2_window(torch, T, FA, FAops, params, cfg, dev, *,
                torch.argmax(logits_k, -1), torch.argmax(logits_p, -1))),
            "decode_logits_max_abs_err": logit_err,
            "decode_argmax_agreement": agree,
-           "note": "decode steps recorded, not asserted"}
+           "decode_parting_rows": parting,
+           "note": "decode steps recorded, not asserted; for a step "
+                   "whose argmax parts, the plain-prefilled run's margin "
+                   "and the first layer past one bf16 ulp"}
     emit(res)
     return res
 
@@ -5830,8 +5914,8 @@ def phase_power_sweep(torch, T, libs, Engine, params, cfg, dev, *,
                       depth: int = SWEEP_DEPTH) -> list:
     """examples/serve_power_sweep.py's sections 1-3 and 5-8, through its
     own functions, on a full-width dense model (quantized params, this
-    run's strict Engine): the dense sweep at the model's full depth (five
-    configs x six prompts x 12 tokens), the others at `depth` layers.
+    run's strict Engine): the dense sweep at SWEEP_FIRST_DEPTH layers
+    (five configs x six prompts x 12 tokens), the others at `depth`.
     Each section asserts that nothing is built or loaded after its first
     tick; here also the fused kernel's 7 launches a layer per decode
     step at every config of the sweep, and flash once a layer a
@@ -5840,12 +5924,14 @@ def phase_power_sweep(torch, T, libs, Engine, params, cfg, dev, *,
     on_card = dev.type == "cuda"
     prompts = SW.demo_prompts(min(512, cfg.vocab_size))
     kw = dict(engine=Engine, quantize_weights=False)
+    first, first_cfg = cut_depth(params, cfg,
+                                 min(SWEEP_FIRST_DEPTH, cfg.n_layers))
     line, eng = sweep_section(
         torch, T, libs, 1,
-        lambda: SW.dense_sweep(params, cfg, dev, prompts, **kw), dev)
+        lambda: SW.dense_sweep(first, first_cfg, dev, prompts, **kw), dev)
     if on_card:
         assert line["fused_per_decode_step"] == GEMMS_PER_LAYER \
-            * cfg.n_layers, line
+            * first_cfg.n_layers, line
     lines = [line]
     del eng
     cut, cut_cfg = cut_depth(params, cfg, min(depth, cfg.n_layers))
@@ -6447,7 +6533,7 @@ def phase_shard_serve(torch, T, A, libs, Engine, Request, Scheduler,
            "decode_attention_head_split": head_split,
            "libraries_built_after_first_tick": 0,
            "launches_a": launches, "launches_b": rank_launches,
-           "a_s": part_a, "phase_s": time.perf_counter() - t_phase}
+           "a_s": part_a, "total_s": time.perf_counter() - t_phase}
     emit(res)
     return res
 
@@ -6543,6 +6629,687 @@ def phase_timing_grouped_int(torch, A, bank_of, dev) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# slice 17: sharded training
+# ---------------------------------------------------------------------------
+
+SHARD_TRAIN = dict(layers=4, batch=4, seq=256, steps=3, b_seq=64, b_steps=2,
+                   c_steps=1, moe_layers=2, pipe_d=2048, pipe_m=4, pipe_mb=8)
+REHEARSE_SHARD_TRAIN = dict(layers=2, batch=4, seq=32, steps=3, b_seq=16,
+                            b_steps=2, c_steps=2, moe_layers=2, pipe_d=64,
+                            pipe_m=4, pipe_mb=8)
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_PARAM_TOL = dict(rtol=2e-4, atol=2e-5)
+ST_LR = 3e-4
+# the share of a leaf's elements that may part by more than
+# TRAIN_PARAM_TOL after the AdamW steps: an element whose gradient is
+# at its rounding noise takes a step of about lr either way in each run
+# (AdamW's first step is lr * sign(g)); the gradients themselves are
+# held elementwise (GRAD_TOL)
+OUTSIDE_SHARE = 1e-4
+# every rank's grad_norm at every step, as the reference's test holds it
+GRAD_NORM_RTOL = 2e-4
+# the first step's gradients, every element: rtol of its own magnitude
+# plus atol_share of its leaf's largest (f32 sums reassociated across
+# ranks part near-cancelling elements by ~1e-6 of the leaf's scale)
+GRAD_TOL = dict(rtol=2e-4, atol_share=1e-4)
+PIPE_TOL = 1e-5
+COMPRESS_SHARE = 0.51
+NOT_PER_STEP = ("unshard_all_gather",)
+
+
+def shard_train_sizes(rehearse: bool) -> dict:
+    return REHEARSE_SHARD_TRAIN if rehearse else SHARD_TRAIN
+
+
+def shard_train_cfgs(get_config, rehearse: bool) -> tuple:
+    """Qwen2.5-3B and OLMoE-1B-7B (moe_ep: 64 experts, top-8) cut in
+    depth, full width on the card; their smoke configs (OLMoE with 8
+    experts, so that its banks take the expert-parallel specs) in the
+    rehearsal."""
+    z = shard_train_sizes(rehearse)
+    qwen, olmoe = get_config("qwen2.5-3b"), get_config("olmoe-1b-7b")
+    if rehearse:
+        qwen = qwen.smoke(remat=True, loss_chunks=8)
+        olmoe = olmoe.smoke(n_experts=8)
+    return (dataclasses.replace(qwen, n_layers=z["layers"]),
+            dataclasses.replace(olmoe, n_layers=z["moe_layers"],
+                                moe_ep=True))
+
+
+def _leaf_names(T, cfg, params) -> list:
+    """The flatten-order path of every param leaf, for reports."""
+    from repro_torch.dist.sharding import _map_with_path
+    from repro_torch.train.optimizer import tree_leaves
+    names = _map_with_path(lambda path, x: "/".join(map(str, path)), params)
+    return tree_leaves(names)
+
+
+def parted_leaves(torch, a, b, names) -> list:
+    from repro_torch.train.optimizer import tree_leaves
+    return [n for n, x, y in zip(names, tree_leaves(a), tree_leaves(b))
+            if not torch.equal(x, y)]
+
+
+def first_grads_parting(torch, T, cfg, dev, batch, mapping, specs) -> dict:
+    """Which leaves' first-step gradients part: two unsharded runs of
+    the same step (the card's own nondeterminism), and the sharded run
+    against the unsharded one."""
+    from repro_torch.dist.sharding import activate
+    from repro_torch.train.step import value_and_grad
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    names = _leaf_names(T, cfg, params)
+
+    def grads(sharded: bool):
+        if not sharded:
+            return value_and_grad(lambda p, b: T.lm_loss(p, cfg, b), params,
+                                  batch)
+        with activate(mapping):
+            return value_and_grad(lambda p, b: T.lm_loss(
+                mapping.use_params(p, specs), cfg, b), params, batch)
+    (l1, g1), (l2, g2), (l3, g3) = grads(False), grads(False), grads(True)
+    return {"loss_unsharded_twice_equal": bool(torch.equal(l1, l2)),
+            "loss_sharded_equal": bool(torch.equal(l1, l3)),
+            "grads_part_unsharded_twice": parted_leaves(torch, g1, g2, names),
+            "grads_part_sharded_vs_unsharded":
+                parted_leaves(torch, g1, g3, names)}
+
+
+def _launcher_twin(torch, T, LT, cfg, argv, dev) -> dict:
+    """The unsharded ``build_train_step`` of launch.train.run's setup
+    (seed-0 init, AdamW with weight decay 0.01 and clip 1.0 on the
+    launcher's warmup-cosine, SyntheticLM seed 0): its losses by step,
+    each step's wall ms (synchronized) and its final state; no
+    checkpoint."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.synthetic_lm import SyntheticLM, SyntheticLMConfig
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.step import build_train_step, init_state
+    args = LT.parse_args(argv)
+    opt = adamw(lr=warmup_cosine(args.lr, min(20, args.steps // 5 + 1),
+                                 args.steps),
+                weight_decay=0.01, grad_clip_norm=1.0)
+    state = init_state(T.init_lm(torch.Generator(dev).manual_seed(0), cfg,
+                                 dev), opt)
+    step = build_train_step(cfg, opt)
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=args.seq,
+                                         global_batch=args.batch, seed=0))
+    losses, step_ms = {}, []
+    for s in range(args.steps):
+        batch = to_device(data.batch(s), dev)     # outside the timing, as
+        t0 = time.perf_counter()                  # the launcher's loop
+        state, m = step(state, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses[s + 1] = float(m["loss"])
+    return {"losses": losses, "step_ms": step_ms, "state": state}
+
+
+def shard_train_a(torch, T, libs, get_config, dev) -> dict:
+    """(a): launch.train.run with --multi-pod over an NCCL group of one
+    (gloo in the rehearsal), mesh (1, 1, 1), against the unsharded
+    build_train_step of the same setup (``_launcher_twin``), each from
+    the seed-0 init and SyntheticLM seed 0, in the config's compute dtype
+    (bf16, remat, 8 loss chunks).  Losses and final params must be bit
+    for bit equal, or the parting leaves are named by their first-step
+    gradients."""
+    import torch.distributed as dist
+    from repro_torch.launch import train as LT
+    from repro_torch.train.optimizer import tree_map
+    A, PA, FA = libs
+    rehearse = dev.type != "cuda"
+    z = shard_train_sizes(rehearse)
+    cfg, _ = shard_train_cfgs(get_config, rehearse)
+    root = SCRATCH / "shard_train"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", "qwen2.5-3b", "--batch", str(z["batch"]), "--seq",
+            str(z["seq"]), "--steps", str(z["steps"]), "--device",
+            dev.type, "--ckpt-dir", str(root)]
+    on_card = dev.type == "cuda"
+    runs = {}
+    for name in ("unsharded", "sharded"):
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        FA.flash_attention.launches = 0
+        if name == "sharded":
+            dist.init_process_group(
+                "nccl" if on_card else "gloo",
+                init_method=f"tcp://127.0.0.1:{_free_port()}",
+                world_size=1, rank=0)
+        try:
+            t_run = time.perf_counter()
+            with held_calls(torch, T) as held:
+                out = (LT.run(LT.parse_args(argv + ["--multi-pod"]), cfg=cfg)
+                       if name == "sharded"
+                       else _launcher_twin(torch, T, LT, cfg, argv, dev))
+            out["run_s"] = time.perf_counter() - t_run
+            out["flash"] = FA.flash_attention.launches
+            out["held"] = held.check(A, FA, PA)
+            out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                              if on_card else None)
+            # the params on the host and the moments dropped, so that the
+            # next run's peak holds none of this run's state
+            out["params"] = tree_map(lambda x: x.cpu(),
+                                     out.pop("state")["params"])
+            runs[name] = out
+            if name == "sharded":
+                out["parting"] = None
+                plain = runs["unsharded"]
+                same_loss = plain["losses"] == out["losses"]
+                names = _leaf_names(T, cfg, plain["params"])
+                parted = parted_leaves(torch, plain["params"],
+                                       out["params"], names)
+                if not same_loss or parted:
+                    from repro_torch.data.pipeline import to_device
+                    from repro_torch.data.synthetic_lm import (
+                        SyntheticLM, SyntheticLMConfig)
+                    from repro_torch.dist.sharding import Mapping
+                    from repro_torch.launch.mesh import make_train_mesh
+                    mp_ = Mapping(make_train_mesh(multi_pod=True), fsdp=True,
+                                  batch_axes=("pod", "data"))
+                    batch = to_device(SyntheticLM(SyntheticLMConfig(
+                        vocab_size=cfg.vocab_size, seq_len=z["seq"],
+                        global_batch=z["batch"], seed=0)).batch(0), dev)
+                    specs = mp_.shardings(T.lm_specs(cfg), plain["params"])
+                    out["parting"] = first_grads_parting(
+                        torch, T, cfg, dev, batch, mp_, specs)
+                out["same_loss"], out["parted"] = same_loss, parted
+        finally:
+            if name == "sharded":
+                dist.destroy_process_group()
+    shutil.rmtree(root, ignore_errors=True)
+    plain, sharded = runs["unsharded"], runs["sharded"]
+    steps = z["steps"]
+    per_step = {f"{k} {'/'.join(a)}": n / steps
+                for (k, a), n in sorted(sharded["collectives"].items())
+                if k not in NOT_PER_STEP}
+    checkpoint = {f"{k} {'/'.join(a)}": n
+                  for (k, a), n in sorted(sharded["collectives"].items())
+                  if k in NOT_PER_STEP}
+    flash_per_step = sharded["flash"] / steps
+    if on_card:
+        assert sharded["flash"] == plain["flash"] == \
+            2 * cfg.n_layers * steps, (sharded["flash"], plain["flash"])
+        assert sharded["held"]["flash"]["held"] > 0, sharded["held"]
+    assert sharded["mesh"] == (1, 1, 1), sharded["mesh"]
+    assert all(math.isfinite(x) for x in sharded["losses"].values())
+    bits = sharded["same_loss"] and not sharded["parted"]
+    if not bits:
+        # the op that parts them must be named: the leaves whose
+        # gradients part, and whether the card parts its own runs
+        p = sharded["parting"]
+        assert p is not None and (p["grads_part_unsharded_twice"]
+                                  or p["grads_part_sharded_vs_unsharded"]
+                                  or not p["loss_sharded_equal"]), p
+
+    def ms(run):
+        return {"all": run["step_ms"], "min": min(run["step_ms"]),
+                "mean": sum(run["step_ms"]) / len(run["step_ms"]),
+                "mean_after_first": (sum(run["step_ms"][1:])
+                                     / max(len(run["step_ms"]) - 1, 1))}
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "batch": z["batch"], "seq": z["seq"], "steps": steps,
+            "compute_dtype": str(cfg.compute_dtype), "mesh": sharded["mesh"],
+            "backend": "nccl" if on_card else "gloo",
+            "losses_unsharded": plain["losses"],
+            "losses_sharded": sharded["losses"],
+            "bit_identical": bits, "parted_leaves": sharded["parted"],
+            "parting": sharded["parting"],
+            "collectives_per_step": per_step,
+            "checkpoint_collectives": checkpoint,
+            "step_ms_unsharded": ms(plain), "step_ms_sharded": ms(sharded),
+            "run_s": {"unsharded": plain["run_s"],
+                      "sharded": sharded["run_s"]},
+            "peak_gb_unsharded": plain["peak_gb"],
+            "peak_gb_sharded": sharded["peak_gb"],
+            "flash_launches_per_step": flash_per_step,
+            "flash_launches": sharded["flash"] + plain["flash"],
+            "held": {"unsharded": plain["held"]["flash"],
+                     "sharded": sharded["held"]["flash"]}}
+
+
+def _st_unshard(m, tree, specs):
+    from repro_torch.train.optimizer import tree_map
+    return tree_map(lambda x, s: m.unshard(x, s), tree, specs)
+
+
+def _st_close(torch, T, cfg, got, want) -> dict:
+    """`got` against `want` (param trees after the AdamW steps): the
+    largest difference, the share of elements outside TRAIN_PARAM_TOL
+    (the reference's bar) and the leaf with the largest share."""
+    from repro_torch.train.optimizer import tree_leaves
+    err = out_share = 0.0
+    worst = None
+    for name, a, b in zip(_leaf_names(T, cfg, want), tree_leaves(got),
+                          tree_leaves(want)):
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        err = max(err, float(d.max()))
+        outside = d > TRAIN_PARAM_TOL["atol"] + TRAIN_PARAM_TOL["rtol"] * b.abs()
+        share = float(outside.float().mean())
+        if share >= out_share:
+            out_share, worst = share, name
+    return {"max_abs_err": err, "outside_tolerance_share": out_share,
+            "worst_leaf": worst}
+
+
+def _st_grads(torch, T, cfg, got, want) -> dict:
+    """The first step's gradients (each rank's slices after the
+    data-parallel mean) against the unsharded step's, cut alike: the
+    worst element's |got - want| as a share of GRAD_TOL (rtol * |want|
+    + atol_share * the leaf's largest |want|; at most 1 passes), its
+    leaf, and the largest |got - want| over its leaf's largest |want|."""
+    from repro_torch.train.optimizer import tree_leaves
+    share = rel = 0.0
+    worst = None
+    for name, a, b in zip(_leaf_names(T, cfg, want), tree_leaves(got),
+                          tree_leaves(want)):
+        a, b = a.float(), b.float()
+        d, top = (a - b).abs(), float(b.abs().max())
+        if top == 0.0:
+            s = math.inf if float(d.max()) > 0 else 0.0
+        else:
+            tol = GRAD_TOL["rtol"] * b.abs() + GRAD_TOL["atol_share"] * top
+            s = float((d / tol).max())
+            rel = max(rel, float(d.max()) / top)
+        if s >= share:
+            share, worst = s, name
+    return {"grad_share_of_tol": share, "grad_worst_leaf": worst,
+            "grad_max_rel_err": rel}
+
+
+def _st_run(torch, T, cfg, dev, batches, shape, *, compress=False,
+            plain=False):
+    """Steps of `cfg` from the seed-0 init on `batches`: unsharded
+    (`plain`) or at the (data, model) mesh `shape`, AdamW lr 3e-4 (clip
+    1.0, decay 0.01).  Returns the losses and grad norms by step, the
+    first step's gradients as AdamW got them, the params (whole for an
+    unsharded run, this rank's slices for a sharded one), and for a
+    sharded run the mapping, the resolved specs and the state."""
+    from repro_torch.data.pipeline import sharded_placer, to_device
+    from repro_torch.dist.sharding import Mapping
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optimizer import adamw, tree_map
+    from repro_torch.train.step import build_train_step, init_state
+    opt = adamw(ST_LR, weight_decay=0.01, grad_clip_norm=1.0)
+    first = {}
+
+    def step_(params, grads, opt_state, norm):
+        """AdamW's update, the first step's (reduced) gradients kept."""
+        if not first:
+            first["grads"] = tree_map(torch.clone, grads)
+        return opt.step_(params, grads, opt_state, norm=norm)
+    kept = opt._replace(step_=step_)
+    whole = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    m = specs = None
+    if plain:
+        state = init_state(whole, opt)
+        step = build_train_step(cfg, kept)
+
+        def place(b):
+            return to_device(b, dev)
+    else:
+        m = Mapping(make_mesh(shape, ("data", "model")), fsdp=True)
+        # the moments start at zero: placed after the params are cut
+        specs = {"params": m.shardings(T.lm_specs(cfg), whole)}
+        state = init_state(m.shard_tree(whole, T.lm_specs(cfg)), opt)
+        step = build_train_step(cfg, kept, mapping=m,
+                                param_specs=specs["params"],
+                                compress=compress)
+        place = sharded_placer(m.batch_sharding(batches[0]), m, dev)
+    del whole
+    losses, norms = [], []
+    for b in batches:
+        state, met = step(state, place(b))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    # an unsharded run's moments are dropped here: only its params and
+    # first gradients are compared
+    return {"losses": losses, "norms": norms, "grads": first["grads"],
+            "params": state["params"], "mapping": m, "specs": specs,
+            "state": None if plain else state}
+
+
+class _compress_probe:
+    """Wraps the train step's ``compressed_psum_mean``: for every call,
+    each leaf's error against the exact mean of the ranks' inputs x =
+    grad + residual, as a share of the mean scale s = sum(scale) / n,
+    and the bound that holds whatever the ranks' scales: 0.5 s plus the
+    scale-mismatch term |sum_r q_r (s - s_r)| / n (one extra all-reduce
+    each, for the check only)."""
+
+    def __init__(self, torch):
+        self.torch, self.worst_share, self.worst_bound_share = torch, 0.0, 0.0
+        self.leaves = 0
+
+    def __enter__(self):
+        from repro_torch.train import step as S
+        self.S, self.orig = S, S.compressed_psum_mean
+        S.compressed_psum_mean = self._wrap
+        return self
+
+    def __exit__(self, *exc):
+        self.S.compressed_psum_mean = self.orig
+
+    def _wrap(self, grads, residual, mapping, axis):
+        torch = self.torch
+        import torch.distributed as dist
+        means, resid = self.orig(grads, residual, mapping, axis)
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        group, n = mapping.group_of(axes), mapping.mesh.axis_size(axes)
+        for g, r, mean in zip(grads, residual, means):
+            x = g.float() + r
+            s_r = torch.clamp(x.abs().amax(), min=1e-12) / 127.0
+            q = torch.clamp(torch.round(x / s_r), -127, 127)
+            exact, s_bar = x.clone(), s_r.clone()
+            dist.all_reduce(exact, group=group)
+            dist.all_reduce(s_bar, group=group)
+            exact, s_bar = exact / n, s_bar / n
+            mismatch = q * (s_bar - s_r)
+            dist.all_reduce(mismatch, group=group)
+            err = (mean - exact).abs()
+            bound = 0.51 * s_bar + (mismatch / n).abs() + 1e-7 * exact.abs()
+            self.worst_share = max(self.worst_share, float(err.max() / s_bar))
+            self.worst_bound_share = max(self.worst_bound_share,
+                                         float((err / bound).max()))
+            self.leaves += 1
+        return means, resid
+
+
+def shard_train_rank(rank, port, rehearse, out):
+    """One of the two ranks of shard_train (b), in a process of its own
+    on the one card (or the CPU when rehearsed), over gloo, in f32:
+    Qwen2.5-3B at (2, 1) and (1, 2), a compressed (2, 1) run, OLMoE
+    moe_ep at (1, 2), a 2-stage pipeline, a checkpoint written at
+    (2, 1) and restored at (1, 2); each rank runs the unsharded twins
+    and holds its own slices to them.  Puts its results on `out`."""
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(1 if rehearse else 4)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from repro_torch.configs.registry import get_config
+        from repro_torch.data.synthetic_lm import SyntheticLM, SyntheticLMConfig
+        from repro_torch.kernels.approx_mac import approx_mac as A
+        from repro_torch.kernels.flash_attention import flash_attention as FA
+        from repro_torch.kernels.flash_attention import paged_attention as PA
+        from repro_torch.nn import transformer as T
+        dev = torch.device("cpu" if rehearse else "cuda")
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank)
+        try:
+            res = _shard_train_b(torch, T, (A, PA, FA), get_config, dev,
+                                 rank, rehearse, SyntheticLM,
+                                 SyntheticLMConfig)
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, True, res))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        out.put((rank, False, traceback.format_exc()))
+
+
+def _shard_train_b(torch, T, libs, get_config, dev, rank, rehearse,
+                   SyntheticLM, SyntheticLMConfig) -> dict:
+    import torch.distributed as dist
+    A, PA, FA = libs
+    z = shard_train_sizes(rehearse)
+    qwen, olmoe = (dataclasses.replace(c, compute_dtype=torch.float32)
+                   for c in shard_train_cfgs(get_config, rehearse))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def data(cfg):
+        src = SyntheticLM(SyntheticLMConfig(
+            vocab_size=cfg.vocab_size, seq_len=z["b_seq"],
+            global_batch=z["batch"], seed=0))
+        return [src.batch(s) for s in range(z["b_steps"])]
+    res, times = {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        now = time.perf_counter()
+        times[name] = now - clock[0]
+        clock[0] = now
+    FA.flash_attention.launches = 0
+    def compare(cfg, run, plain) -> dict:
+        """This rank's slices against its cut of the unsharded run: the
+        losses, the grad norms, the first step's gradients, the params."""
+        from repro_torch.train.optimizer import tree_map
+        m, specs = run["mapping"], run["specs"]["params"]
+
+        def cut(tree):
+            return tree_map(lambda x, spec: m.shard(x, spec), tree, specs)
+        return {"losses": run["losses"], "norms": run["norms"],
+                "collectives": len(m.collectives),
+                "loss_err": max(abs(a - b) for a, b in zip(
+                    run["losses"], plain["losses"])),
+                "norm_rel_err": max(abs(a - b) / b for a, b in zip(
+                    run["norms"], plain["norms"])),
+                **_st_grads(torch, T, cfg, run["grads"],
+                            cut(plain["grads"])),
+                **_st_close(torch, T, cfg, run["params"],
+                            cut(plain["params"]))}
+    with held_calls(torch, T) as held:
+        # every rank runs the unsharded twin (concurrently: each
+        # process's first steps pay its own warm-up) and holds its own
+        # slices to it
+        qb = data(qwen)
+        plain = _st_run(torch, T, qwen, dev, qb, None, plain=True)
+        lap("qwen_unsharded")
+        for shape in ((2, 1), (1, 2)):
+            run = _st_run(torch, T, qwen, dev, qb, shape)
+            res[str(shape)] = compare(qwen, run, plain)
+            if shape == (2, 1):
+                kept = (run["mapping"], run["specs"], run["state"])
+            del run
+            lap(f"qwen_{shape[0]}x{shape[1]}")
+        # the elastic checkpoint: (2, 1)'s trained params, restored at
+        # (1, 2), bit for bit
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        from repro_torch.dist.sharding import Mapping
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.train.optimizer import tree_leaves, tree_map
+        m21, specs21, state21 = kept
+        whole21 = _st_unshard(m21, state21["params"], specs21["params"])
+        ck_dir = str(SCRATCH / "shard_train_ckpt")
+        t0 = time.perf_counter()
+        Checkpointer(ck_dir, cfg=qwen).save(
+            z["b_steps"], {"params": state21["params"]},
+            shardings=(m21, {"params": specs21["params"]}))
+        m12 = Mapping(make_mesh((1, 2), ("data", "model")), fsdp=True)
+        lp = T.lm_specs(qwen)
+        specs12 = m12.shardings({"params": lp}, {"params": whole21})
+        like = tree_map(torch.zeros_like, m12.shard_tree({"params": whole21},
+                                                          {"params": lp}))
+        got, _ = Checkpointer(ck_dir, cfg=qwen).restore(
+            like, shardings=(m12, specs12))
+        want = m12.shard_tree({"params": whole21}, {"params": lp})
+        res["checkpoint"] = {
+            "leaves": len(tree_leaves(got)),
+            "bit_identical": all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(got), tree_leaves(want))),
+            "save_restore_s": time.perf_counter() - t0}
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(ck_dir, ignore_errors=True)
+        del kept, whole21, state21, got, want, like
+        lap("checkpoint")
+        # the compressed DP mean, on the run's gradients
+        with _compress_probe(torch) as probe:
+            losses = _st_run(torch, T, qwen, dev, qb[:z["c_steps"]], (2, 1),
+                             compress=True)["losses"]
+        res["compressed"] = {"losses": losses,
+                             "worst_error_share_of_mean_scale":
+                                 probe.worst_share,
+                             "worst_share_of_bound": probe.worst_bound_share,
+                             "leaves": probe.leaves}
+        # the reference test's replicated case: equal inputs on both
+        # ranks, error at most 0.51 x scale
+        from repro_torch.train.grad_compress import (compressed_psum_mean,
+                                                     init_residual)
+        g = torch.Generator(device=dev).manual_seed(1)
+        rep = {"a": torch.randn(4, 2048, generator=g, device=dev),
+               "b": torch.randn(2048, generator=g, device=dev)}
+        mean, new_r = compressed_psum_mean(rep, init_residual(rep), m21)
+        rep_share = max(float((mean[k] - rep[k]).abs().max()
+                              / (rep[k].abs().max() / 127)) for k in rep)
+        recon = max(float(((rep[k] - new_r[k]) - mean[k]).abs().max()
+                          / (rep[k].abs().max() / 127)) for k in rep)
+        res["compressed"].update(replicated_error_share=rep_share,
+                                 replicated_residual_share=recon)
+        del plain
+        lap("compressed")
+        # OLMoE, expert-parallel at (1, 2)
+        ob = data(olmoe)
+        oplain = _st_run(torch, T, olmoe, dev, ob, None, plain=True)
+        lap("olmoe_unsharded")
+        run = _st_run(torch, T, olmoe, dev, ob, (1, 2))
+        res["ep"] = {
+            **compare(olmoe, run, oplain),
+            "bank": tuple(run["params"]["blocks"][0]["mlp"]["w_up"].shape),
+            "expert_axis": run["specs"]["params"]["blocks"][0]["mlp"]
+            ["w_up"][0]}
+        del run, oplain
+        lap("olmoe_ep_1x2")
+        launches = FA.flash_attention.launches
+    res["held"] = held.check(A, FA, PA)["flash"]
+    # the pipeline: 2 stages of tanh(x @ w), w ~ N(0, 1/d)
+    from repro_torch.dist.pipeline_par import pipeline_forward
+    d, mcount, mb = z["pipe_d"], z["pipe_m"], z["pipe_mb"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    w = torch.randn(2, d, d, generator=g, device=dev) / math.sqrt(d)
+    xs = torch.randn(mcount, mb, d, generator=g, device=dev)
+    pipe = pipeline_forward(lambda w_s, x: torch.tanh(x @ w_s), w, xs,
+                            make_mesh((2,), ("stage",)))
+    ref = xs
+    for s in range(2):
+        ref = torch.tanh(ref @ w[s])
+    res["pipeline"] = {"max_abs_err": float((pipe - ref).abs().max()),
+                       "shape": list(pipe.shape)}
+    lap("pipeline")
+    res["flash_launches"] = launches
+    res["seconds"] = times
+    return res
+
+
+def phase_shard_train(torch, T, libs, get_config, dev) -> dict:
+    """Sharded training.  (a) ``launch.train.run --multi-pod`` over an
+    NCCL group of one in this process (gloo in the rehearsal), mesh
+    (1, 1, 1) ("pod", "data", "model"): Qwen2.5-3B at full width and 4
+    of 36 layers from seed 0, B 4 x S 256, bf16, 3 steps, against the
+    same command with no group (``build_train_step`` unsharded): losses
+    and params bit for bit or the parting op named (``shard_train_a``);
+    the collectives a step by kind, both runs' step ms, peak GB, flash
+    launches a step; every flash call of both runs' sampled calls held
+    against its plain version.  (b) Two spawned ranks sharing the card
+    over gloo, f32 (gloo has no bf16 sum): Qwen2.5-3B, 4 layers, B 4 x
+    S 64, 2 steps at (2, 1) DP + FSDP and (1, 2) TP against the
+    unsharded port: losses within 1e-4, every step's grad_norm within
+    rtol 2e-4, every element of the first step's gradients within rtol
+    2e-4 plus 1e-4 of its leaf's largest, and at most 1e-4 of each
+    leaf's params outside rtol
+    2e-4 atol 2e-5 (an element whose gradient is at its rounding noise
+    steps by about lr either way in each run); a (2, 1)
+    run with grad_compress (each compressed mean's error against the
+    exact mean, as a share of the mean scale and of the bound that holds
+    at any scales; the reference test's replicated case at most 0.51 x
+    scale); OLMoE-1B-7B moe_ep at 2 of 16 layers (32 of 64 experts a
+    rank) at (1, 2), same tolerances; a 2-stage pipeline_forward
+    (tanh(x @ w), d 2,048, 4 microbatches of 8 rows) within 1e-5 of the
+    sequential chain; (2, 1)'s params checkpointed and restored at
+    (1, 2) bit for bit.  (b)'s times are two processes sharing one card
+    over gloo, not multi-card times."""
+    import multiprocessing as mp
+    rehearse = dev.type != "cuda"
+    t_phase = time.perf_counter()
+    a = shard_train_a(torch, T, libs, get_config, dev)
+    part_a = time.perf_counter() - t_phase
+    emit({"phase": "shard_train_a", **a})
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=shard_train_rank,
+                         args=(r, port, rehearse, out)) for r in range(2)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    deadline = time.monotonic() + 600
+    try:
+        while len(ranks) < len(procs):
+            try:
+                r, ok, value = out.get(timeout=5)
+            except queue.Empty:
+                dead = [i for i, p in enumerate(procs)
+                        if i not in ranks and p.exitcode not in (None, 0)]
+                if dead and not out.empty():
+                    continue
+                assert not dead and time.monotonic() < deadline, \
+                    f"shard_train ranks {dead or 'all'}: no result"
+                continue
+            assert ok, f"shard_train rank {r}:\n{value}"
+            ranks[r] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    b0 = ranks[0]
+    emit({"phase": "shard_train_b", "ranks": ranks})
+    for shape in ("(2, 1)", "(1, 2)", "ep"):
+        for r, rank in ranks.items():
+            got = rank[shape]
+            assert got["loss_err"] <= TRAIN_LOSS_TOL, (r, shape, got)
+            assert got["norm_rel_err"] <= GRAD_NORM_RTOL, (r, shape, got)
+            assert got["grad_share_of_tol"] <= 1.0, (r, shape, got)
+            assert got["outside_tolerance_share"] <= OUTSIDE_SHARE, \
+                (r, shape, got)
+            assert got["losses"] == b0[shape]["losses"], (r, shape)
+    ep = b0["ep"]
+    assert ep["expert_axis"] == "model", ep
+    c = b0["compressed"]
+    assert c["worst_share_of_bound"] <= 1.0, c
+    assert c["replicated_error_share"] <= COMPRESS_SHARE, c
+    assert c["replicated_residual_share"] <= COMPRESS_SHARE, c
+    assert all(math.isfinite(x) for x in c["losses"]), c
+    for r in ranks.values():
+        assert r["checkpoint"]["bit_identical"], r["checkpoint"]
+        assert r["pipeline"]["max_abs_err"] <= PIPE_TOL, r["pipeline"]
+        if not rehearse:
+            assert r["flash_launches"] > 0 and r["held"]["held"] > 0, r
+    res = {"phase": "shard_train", "a_bit_identical": a["bit_identical"],
+           "b": {"qwen_2x1": {r: g["(2, 1)"] for r, g in ranks.items()},
+                 "qwen_1x2": {r: g["(1, 2)"] for r, g in ranks.items()},
+                 "compressed_2x1": c,
+                 "olmoe_ep_1x2": {r: g["ep"] for r, g in ranks.items()},
+                 "checkpoint_2x1_to_1x2": b0["checkpoint"],
+                 "pipeline_2_stages": b0["pipeline"],
+                 "held_flash": {r: g["held"] for r, g in ranks.items()},
+                 "seconds": {r: g["seconds"] for r, g in ranks.items()},
+                 "note": "two processes sharing one card over gloo, f32: "
+                         "not multi-card times"},
+           "tolerances": {"loss": TRAIN_LOSS_TOL, "params": TRAIN_PARAM_TOL,
+                          "params_outside_share": OUTSIDE_SHARE,
+                          "grad_norm_rtol": GRAD_NORM_RTOL,
+                          "first_grads": GRAD_TOL,
+                          "pipeline": PIPE_TOL,
+                          "compressed_replicated": COMPRESS_SHARE},
+           "flash_launches": (a["flash_launches"]
+                              + sum(g["flash_launches"]
+                                    for g in ranks.values())),
+           "a_s": part_a, "total_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 def layer_row(name: str, rows: list, launches: int) -> dict:
     """One work row of a kernel's entry: the sums over a layer's GEMMs."""
     return {"work": name, "launches": launches,
@@ -6571,6 +7338,8 @@ REHEARSAL_GROUPS = {
                "check_seen",
     "slice15": "power_sweep (sections 1-8), spec_trained",
     "slice16": "shard_serve ((a) one rank, (b) two spawned ranks)",
+    "slice17": "shard_train ((a) launch.train --multi-pod on one rank, "
+               "(b) two spawned ranks)",
 }
 
 
@@ -6766,6 +7535,8 @@ def rehearse(groups=None) -> int:
     if "slice16" in groups:
         phase_shard_serve(torch, T, A, libs, Engine, Request,
                           PowerBudgetScheduler, get_config, cpu)
+    if "slice17" in groups:
+        phase_shard_train(torch, T, libs, get_config, cpu)
     emit({"rehearsal": True, "groups": groups, "ok": False})
     return 0
 
@@ -7026,6 +7797,9 @@ def main(argv: list[str]) -> int:
     # slice 16: sharded serving, on models of its own
     shard = phase_shard_serve(torch, T, A, libs, Engine, Request,
                               PowerBudgetScheduler, get_config, dev)
+    torch.cuda.empty_cache()
+    # slice 17: sharded training, last
+    shard_train = phase_shard_train(torch, T, libs, get_config, dev)
 
     def shard_launches(fn):
         return shard["launches_a"][fn] + shard["launches_b"][fn]
@@ -7220,7 +7994,8 @@ def main(argv: list[str]) -> int:
                      + s14["internvl_serve"]["engine_text_only"][
                          "flash_launches"]
                      + s14["dbrx_serve"]["flash_launches"]
-                     + shard_launches("flash_attention")),
+                     + shard_launches("flash_attention")
+                     + shard_train["flash_launches"]),
         "max_abs_err": flash_err,
         "ms": serve_flash["ms"],
         "plain_ms": serve_flash["plain_ms"],
@@ -7241,7 +8016,9 @@ def main(argv: list[str]) -> int:
                 "whisper_serve (hd 64: the encoder non-causal at 1,500 "
                 "frames, the cross-attention non-causal at 4-24 x "
                 "1,500), internvl_serve (1,028-1,048 tokens, H 64 on KV "
-                "8) and dbrx_serve; "
+                "8) and dbrx_serve, and shard_train's sharded and "
+                "unsharded train steps (bf16 on one NCCL rank, f32 on two "
+                "gloo ranks; forward and remat recompute); "
                 "library_ms is scaled_dot_product_attention (GQA, "
                 "causal) without the softcap, which it cannot express",
     }]})

@@ -23,6 +23,16 @@ checkpoint of a train state written by either package restores in the
 other.  ``meta.msgpack`` is written and read by the small msgpack subset
 below (dict, list, str, bytes, int, float, bool, None), which gives the
 ``msgpack`` package's bytes.
+
+A sharded tree — each rank's slices of a train state placed by a
+``dist.sharding.Mapping`` — is saved and restored with ``shardings=
+(mapping, specs)``, `specs` the tree's resolved spec tree
+(``Mapping.shardings`` on the whole tree): ``save`` gathers each leaf
+whole (every rank takes part), and rank 0 writes it, so the files are
+the reference's and independent of the mesh; ``restore`` reads the
+whole leaves and cuts each to this rank's slice, so a checkpoint that
+any mesh (or one device, or the reference) wrote resumes on any other:
+the elastic restore.
 """
 from __future__ import annotations
 
@@ -210,7 +220,27 @@ def _ref_layout(tree, cfg: ModelConfig | None, leaf, stack):
 
 def _meta(leaf) -> torch.Tensor:
     """A storage-free stand-in with `leaf`'s shape."""
-    return torch.empty(tuple(np.shape(leaf)), device="meta")
+    shape = leaf.shape if isinstance(leaf, torch.Tensor) else np.shape(leaf)
+    return torch.empty(tuple(shape), device="meta")
+
+
+def _unshard_to_host(mapping, x, spec, keep: bool):
+    """A rank's slice gathered whole (a collective: every rank calls
+    it), on the host where `keep`, else None."""
+    if not isinstance(x, torch.Tensor):
+        return x if keep else None
+    whole = mapping.unshard(x, spec)
+    return whole.cpu() if keep else None
+
+
+def _cut(mapping, x, spec):
+    """This rank's slice of a whole leaf (numpy or tensor) by `spec`."""
+    index = []
+    for dim, axes in enumerate(spec):
+        lo, hi = (mapping.local_range(axes, x.shape[dim])
+                  if axes is not None else (0, x.shape[dim]))
+        index.append(slice(lo, hi))
+    return x[tuple(index)] if index else x
 
 
 def _stack_meta(leaves: list) -> torch.Tensor:
@@ -251,20 +281,47 @@ def _write_like(arr: np.ndarray, like):
     return np.asarray(arr, dtype=np.asarray(like).dtype)
 
 
-def _into_like(ref, like, cfg):
+def _into_like(ref, like, cfg, cut):
     """The restored reference-layout numpy tree `ref` written into
-    `like`'s tensors in place, in `like`'s layout."""
-    if _is_lm_params(like):
-        return tree_map(_write_like, params_from_numpy(ref, cfg, "cpu"),
-                        like)
-    if isinstance(like, dict):
-        return {k: _into_like(ref[k], v, cfg) for k, v in like.items()}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_into_like(r, v, cfg) for r, v in zip(ref, like))
-    if isinstance(like, AdamWState):
-        return AdamWState(*(_into_like(r, v, cfg) for r, v in zip(
-            (ref.step, ref.mu, ref.nu), (like.step, like.mu, like.nu))))
-    return None if like is None else _write_like(ref, like)
+    `like`'s tensors in place, in `like`'s layout; `cut(whole, path)`
+    takes each whole leaf to `like`'s slice of it (a sharded restore)."""
+    def go(ref, like, path):
+        if _is_lm_params(like):
+            out = iter(_leaf_paths(like, path))
+            return tree_map(lambda a, l: _write_like(cut(a, next(out)), l),
+                            params_from_numpy(ref, cfg, "cpu"), like)
+        if isinstance(like, dict):
+            return {k: go(ref[k], v, path + (k,)) for k, v in like.items()}
+        if isinstance(like, (list, tuple)):
+            return type(like)(go(r, v, path + (i,)) for i, (r, v) in
+                              enumerate(zip(ref, like)))
+        if isinstance(like, AdamWState):
+            return AdamWState(*(go(r, v, path + (f,)) for r, v, f in zip(
+                (ref.step, ref.mu, ref.nu), (like.step, like.mu, like.nu),
+                ("step", "mu", "nu"))))
+        return None if like is None else _write_like(cut(ref, path), like)
+    return go(ref, like, ())
+
+
+def _leaf_paths(tree, path=()) -> list:
+    """The path of every leaf of `tree`, in flatten order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k],
+                                                             path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, path + (i,))]
+    if isinstance(tree, AdamWState):
+        return [p for f in ("step", "mu", "nu")
+                for p in _leaf_paths(getattr(tree, f), path + (f,))]
+    return [] if tree is None else [path]
+
+
+def _at(tree, path):
+    for key in path:
+        tree = getattr(tree, key) if isinstance(tree, AdamWState) \
+            else tree[key]
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -273,13 +330,15 @@ def _into_like(ref, like, cfg):
 
 class Checkpointer:
     def __init__(self, directory: str, keep_last_k: int = 3,
-                 cfg: ModelConfig | None = None):
+                 cfg: ModelConfig | None = None, shardings=None):
         """`cfg`: the model's config, where the saved trees hold LM
         params (their per-layer list is written stacked by its
-        pattern)."""
+        pattern); `shardings`: the (mapping, specs) of ``save`` and
+        ``restore`` calls that pass none (module docstring)."""
         self.directory = directory
         self.keep_last_k = keep_last_k
         self.cfg = cfg
+        self.shardings = shardings
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
 
@@ -305,11 +364,31 @@ class Checkpointer:
     def _host_tree(self, tree):
         return _ref_layout(tree, self.cfg, leaf_to_numpy, np.stack)
 
-    def save(self, step: int, tree: Any, metadata: dict | None = None):
+    def save(self, step: int, tree: Any, metadata: dict | None = None, *,
+             shardings=None):
+        """Write `tree` as step `step`.  With `shardings` (or the
+        checkpointer's) every rank calls this: each leaf is gathered
+        whole to the host of rank 0, which writes, and every rank waits
+        for the files."""
         self.wait()   # only one outstanding async save
-        self._write(int(step), self._host_tree(tree), metadata or {})
+        shardings = shardings or self.shardings
+        if shardings is None:
+            self._write(int(step), self._host_tree(tree), metadata or {})
+            return
+        mapping, specs = shardings
+        first = mapping.mesh.rank == 0
+        whole = tree_map(lambda x, spec: _unshard_to_host(
+            mapping, x, spec, first), tree, specs)
+        if first:
+            self._write(int(step), self._host_tree(whole), metadata or {})
+        del whole
+        torch.distributed.barrier()
 
     def save_async(self, step: int, tree: Any, metadata: dict | None = None):
+        """``save`` with the write in a daemon thread (a sharded tree, a
+        collective, is saved synchronously)."""
+        if self.shardings is not None:
+            return self.save(step, tree, metadata)
         self.wait()
         # snapshot to host synchronously, write in the background
         host_tree = self._host_tree(tree)
@@ -347,20 +426,33 @@ class Checkpointer:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # -- restore -----------------------------------------------------------
-    def restore(self, like: Any, step: int | None = None
-                ) -> tuple[Any, dict]:
+    def restore(self, like: Any, step: int | None = None, *,
+                shardings=None) -> tuple[Any, dict]:
         """Restore into `like` (a tree of tensors or arrays): its tensors
         are overwritten in place, keeping their devices and dtypes, so a
         restore holds no second copy of the state on the device; leaves
-        that are not tensors come back as arrays of their dtype.  Returns
-        (tree, metadata), the tree in `like`'s structure."""
+        that are not tensors come back as arrays of their dtype.  With
+        `shardings` (or the checkpointer's), `like` is this rank's
+        slices and each whole leaf is cut to its slice.  Returns (tree,
+        metadata), the tree in `like`'s structure."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         d = self._step_dir(step)
         with open(os.path.join(d, "meta.msgpack"), "rb") as f:
             meta = unpackb(f.read())
-        skeleton = _ref_layout(like, self.cfg, _meta, _stack_meta)
+        shardings = shardings or self.shardings
+        cut = (lambda x, path: x)
+        shapes_of = like
+        if shardings is not None:
+            mapping, specs = shardings
+            shapes_of = tree_map(lambda x, spec: torch.empty(
+                mapping.whole_shape(tuple(x.shape), spec), device="meta"),
+                like, specs)
+
+            def cut(x, path):
+                return _cut(mapping, x, _at(specs, path))
+        skeleton = _ref_layout(shapes_of, self.cfg, _meta, _stack_meta)
         shapes = tree_leaves(skeleton)
         if meta["n_leaves"] != len(shapes):
             raise ValueError(f"leaf count mismatch: checkpoint "
@@ -373,5 +465,5 @@ class Checkpointer:
                                  f"{tuple(ref.shape)}")
         with torch.no_grad():
             tree = _into_like(tree_unflatten(skeleton, leaves), like,
-                              self.cfg)
+                              self.cfg, cut)
         return tree, meta["metadata"]

@@ -5,9 +5,9 @@
 a bounded queue, so host-side batch synthesis overlaps the device step;
 its ``place`` hook moves each batch to the device as it is taken
 (e.g. ``to_device``: pinned host memory and a non-blocking copy on a
-CUDA device).  Placing onto several devices (the reference's
-``sharded_placer``) waits for sharded training (ROADMAP Queue 1
-item 11(b)).
+CUDA device).  ``sharded_placer`` is the hook of a sharded train step:
+each rank keeps its rows of every host batch (the reference's placer
+onto mesh shardings, where each device holds its rows).
 """
 from __future__ import annotations
 
@@ -82,3 +82,21 @@ def to_device(batch: dict, device) -> dict:
             t = t.pin_memory()
         out[key] = t.to(device, non_blocking=True)
     return out
+
+
+def sharded_placer(spec_tree, mapping, device):
+    """Batch placer for a sharded train step: each host batch (a dict of
+    numpy arrays) cut to this rank's slice by its resolved spec in
+    `spec_tree` (``Mapping.batch_sharding``: rows over the batch axes)
+    and moved to `device` through ``to_device``."""
+    def place(batch: dict) -> dict:
+        local = {}
+        for key, x in batch.items():
+            x = np.asarray(x)
+            for dim, axes in enumerate(spec_tree[key]):
+                if axes is not None:
+                    lo, hi = mapping.local_range(axes, x.shape[dim])
+                    x = x[(slice(None),) * dim + (slice(lo, hi),)]
+            local[key] = x
+        return to_device(local, device)
+    return place

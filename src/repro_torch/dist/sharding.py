@@ -24,16 +24,45 @@ and ``shard_tree`` cut a whole tensor or tree down to the calling
 rank's slice by its spec, and the model code calls the collectives
 below at the few places where the single-program result needs them:
 ``all_reduce`` (MAX of activation abs-maxima, SUM of int32 partial
-products and of masked embedding rows) and ``all_gather`` (vocab
-columns and batch rows of the logits, head columns where the heads do
-not divide the model axis).  Each call is counted in
-``Mapping.collectives`` by kind and axes.  With no mapping current,
-``current_mapping()`` is None and the model code calls none of them:
-single-device code pays nothing.
+products) and ``all_gather`` (batch rows of the logits).  Each call is
+counted in ``Mapping.collectives`` by kind and axes.  With no mapping
+current, ``current_mapping()`` is None and the model code calls none of
+them: single-device code pays nothing.
+
+Training differentiates through the sharded program, so the model code
+reaches its float collectives through ``torch.autograd.Function``s
+whose backward is the collective the gradient needs (Megatron's pair
+and its relatives):
+
+  ``copy_to``     "f": identity forward, SUM all-reduce backward; in
+                  front of a column-parallel GEMM, whose input is
+                  replicated but whose gradient each rank holds a part of
+  ``reduce_from`` "g": SUM all-reduce forward, identity backward; after
+                  a row-parallel GEMM (and the vocab-parallel embedding),
+                  whose output is then replicated with its gradient.
+                  (``torch.distributed.nn.functional.all_reduce`` is not
+                  used: its backward all-reduces the replicated gradient
+                  again, TP times too large)
+  ``gather_from`` all-gather forward, this rank's slice backward
+  ``scatter_to``  this rank's slice forward, all-gather backward
+  ``fsdp_gather`` all-gather over the FSDP axes forward, reduce-scatter
+                  MEAN backward: the zero-3 weight gather, whose backward
+                  is the data-parallel gradient mean of the leaf; a
+                  layer's weights are gathered where the layer runs
+                  (``LayerParams``)
+
+Each counts its collectives when they run (a backward one as
+``{kind}_bwd``).  Without autograd (serving) each is the plain
+collective it wraps, counted as before.  gloo has no reduce-scatter and
+no bf16 all-reduce: the reduce-scatter is written as an all-reduce and
+a slice there, and a bf16 sum travels as f32 (two terms round once, as
+NCCL's sum does); the NCCL path uses ``reduce_scatter_tensor`` and the
+tensor's own dtype.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Sequence
@@ -59,7 +88,8 @@ class ShardedQTensor(QTensor):
 class GemmSplit:
     """How one approx-MAC GEMM is split under a mapping.
 
-    col: the output columns lie on "model"; this rank holds logical
+    col: the output columns lie on "model" (at any TP size, one
+    included); this rank holds logical
     columns [n_offset, n_offset + local N) of ``n_logical``.  row: the
     contraction dim lies on "model": the int32 partial products are
     summed over it before the one epilogue multiply.  scale_axes: the
@@ -71,6 +101,7 @@ class GemmSplit:
     n_logical: int
     n_offset: int = 0
     row: bool = False
+    col: bool = False
 
     @property
     def scale_axes(self) -> tuple[str, ...]:
@@ -168,10 +199,11 @@ class Mapping:
         return out.clone(memory_format=torch.contiguous_format) \
             if out is not x else x
 
-    def shard_tree(self, tree, spec_tree):
+    def shard_tree(self, tree, spec_tree, path: tuple = ()):
         """Every leaf of `tree` cut to the calling rank's slice by the
-        spec its path resolves to in `spec_tree`; a QTensor becomes a
-        ``ShardedQTensor`` that carries its values' resolved spec."""
+        spec its path resolves to in `spec_tree` (`tree` sits at `path`
+        in it); a QTensor becomes a ``ShardedQTensor`` that carries its
+        values' resolved spec."""
         def leaf(path, x):
             return self.shard(x, self._leaf_spec(spec_tree, path, x))
 
@@ -180,7 +212,7 @@ class Mapping:
             return ShardedQTensor(leaf(path + ("values",), q.values),
                                   leaf(path + ("scale",), q.scale), q.axis,
                                   vspec)
-        return _map_with_path(leaf, tree, qtensor)
+        return _map_with_path(leaf, tree, qtensor, path)
 
     # -- collectives ----------------------------------------------------
     def group_of(self, axes: Sequence[str]):
@@ -197,13 +229,13 @@ class Mapping:
         dist.all_reduce(out, op=red, group=self.group_of(axes))
         return out
 
-    def all_gather(self, x: torch.Tensor, dim: int,
-                   axes: Sequence[str]) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, dim: int, axes: Sequence[str],
+                   kind: str = "all_gather") -> torch.Tensor:
         """The ranks' x of `axes` concatenated along `dim`, in rank
         order (a byte copy: bf16, which gloo does not take, travels as
-        its bytes)."""
+        its bytes), counted as `kind`."""
         axes = tuple(axes)
-        self.collectives[("all_gather", axes)] += 1
+        self.collectives[(kind, axes)] += 1
         n = self.mesh.axis_size(axes)
         dim = dim % x.ndim
         src = x.contiguous()
@@ -214,6 +246,171 @@ class Mapping:
         out = torch.cat(parts, dim=dim)
         return out.view(x.dtype) if out.dtype != x.dtype else out
 
+    # -- differentiable collectives (module docstring) -------------------
+    def _sum_(self, x: torch.Tensor, axes: tuple, kind: str) -> torch.Tensor:
+        """SUM all-reduce of `x` in place over `axes`, counted as `kind`
+        (a bf16 tensor over gloo summed in f32)."""
+        self.collectives[(kind, axes)] += 1
+        group = self.group_of(axes)
+        if x.dtype == torch.bfloat16 and dist.get_backend(group) == "gloo":
+            wide = x.to(torch.float32)
+            dist.all_reduce(wide, group=group)
+            return x.copy_(wide)
+        dist.all_reduce(x, group=group)
+        return x
+
+    def copy_to(self, x: torch.Tensor, axes=("model",)) -> torch.Tensor:
+        """"f": x itself forward; the gradient SUM-reduced over `axes`."""
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return x
+        return _CopyTo.apply(x, self, tuple(axes))
+
+    def reduce_from(self, x: torch.Tensor, axes=("model",)) -> torch.Tensor:
+        """"g": x SUM-reduced over `axes` (a new tensor, counted as
+        "all_reduce_sum"); the gradient passes through."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _ReduceFrom.apply(x, self, tuple(axes))
+        return self._sum_(x.clone(), tuple(axes), "all_reduce_sum")
+
+    def gather_from(self, x: torch.Tensor, dim: int,
+                    axes=("model",)) -> torch.Tensor:
+        """The ranks' x of `axes` concatenated along `dim`; the gradient
+        of the whole is replicated, so each rank keeps its slice."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _GatherFrom.apply(x, self, dim % x.ndim, tuple(axes))
+        return self.all_gather(x, dim, tuple(axes))
+
+    def scatter_to(self, x: torch.Tensor, dim: int,
+                   axes=("model",)) -> torch.Tensor:
+        """This rank's slice of a replicated x along `dim`; the slices'
+        gradients are all-gathered into the whole's."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _ScatterTo.apply(x, self, dim % x.ndim, tuple(axes))
+        lo, hi = self.local_range(tuple(axes), x.shape[dim])
+        return x.narrow(dim, lo, hi - lo)
+
+    def fsdp_gather(self, x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+        """A zero-3 shard gathered whole along `dim` over `axes`
+        ("fsdp_all_gather"); backward, the gradient's MEAN over `axes`,
+        cut to this rank's shard ("fsdp_reduce_scatter_bwd")."""
+        axes = tuple(axes)
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _FsdpGather.apply(x, self, dim % x.ndim, axes)
+        self.collectives[("fsdp_all_gather", axes)] += 1
+        return self._gather(x, dim % x.ndim, axes)
+
+    def _gather(self, x, dim, axes):
+        n = self.mesh.axis_size(axes)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=self.group_of(axes))
+        return torch.cat(parts, dim=dim)
+
+    def _reduce_scatter_mean(self, g, dim, axes):
+        """g (whole) summed over `axes`, cut to this rank's slice along
+        `dim`, divided by the axes' size.  NCCL: ``reduce_scatter_tensor``
+        on the dim moved to the front; gloo, which has none: an
+        all-reduce, then the slice."""
+        self.collectives[("fsdp_reduce_scatter_bwd", axes)] += 1
+        n = self.mesh.axis_size(axes)
+        group = self.group_of(axes)
+        if dist.get_backend(group) == "gloo":
+            whole = g.contiguous().clone()
+            dist.all_reduce(whole, group=group)
+            lo, hi = self.local_range(axes, g.shape[dim])
+            return whole.narrow(dim, lo, hi - lo).div_(n)
+        src = g.movedim(dim, 0).contiguous()
+        out = torch.empty((src.shape[0] // n,) + src.shape[1:],
+                          dtype=src.dtype, device=src.device)
+        dist.reduce_scatter_tensor(out, src, group=group)
+        return out.div_(n).movedim(0, dim).contiguous()
+
+    def mean_(self, tensors: list, axes) -> None:
+        """Each of `tensors` replaced in place by its MEAN over `axes`:
+        one SUM all-reduce of their concatenation ("all_reduce_mean")."""
+        axes = tuple(axes)
+        if not tensors:
+            return
+        flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+        self.collectives[("all_reduce_mean", axes)] += 1
+        dist.all_reduce(flat, group=self.group_of(axes))
+        flat.div_(self.mesh.axis_size(axes))
+        at = 0
+        for t in tensors:
+            t.copy_(flat[at:at + t.numel()].view(t.shape))
+            at += t.numel()
+
+    # -- the train state ------------------------------------------------
+    def use_params(self, params, specs):
+        """The params a rank's layers compute with: each leaf gathered
+        whole over the FSDP axes of its resolved spec (``fsdp_gather``),
+        its ``spec`` attribute the spec that is left ("model" splits
+        only), which ``gemm_split`` reads.  `specs`: the resolved spec
+        tree of `params` (``shardings`` on the whole params).  Each
+        layer of ``params["blocks"]`` stays a ``LayerParams``, gathered
+        where the layer runs."""
+        if isinstance(params, dict) and "blocks" in params:
+            rest = self.use_params(
+                {k: v for k, v in params.items() if k != "blocks"},
+                {k: v for k, v in specs.items() if k != "blocks"})
+            rest["blocks"] = [LayerParams(self, p, s) for p, s in
+                              zip(params["blocks"], specs["blocks"])]
+            return rest
+
+        def one(x, spec):
+            out = x
+            for dim, axes in enumerate(spec):
+                if axes is not None and self._is_fsdp(axes):
+                    out = self.fsdp_gather(out, dim, _as_axes(axes))
+            out = out.view_as(out) if out is x else out   # a new object
+            out.spec = tuple(None if a is not None and self._is_fsdp(a)
+                             else a for a in spec)
+            return out
+        from repro_torch.train.optimizer import tree_map
+        return tree_map(one, params, specs)
+
+    def _is_fsdp(self, axes) -> bool:
+        return self.fsdp and set(_as_axes(axes)) <= {"data"}
+
+    def unshard(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """The whole tensor of a rank's slice `x` by its resolved spec:
+        every sharded dim all-gathered over its axes (exact)."""
+        for dim, axes in enumerate(spec):
+            if axes is not None:
+                x = self.all_gather(x, dim, _as_axes(axes),
+                                    "unshard_all_gather")
+        return x
+
+    def whole_shape(self, shape, spec: tuple) -> tuple:
+        """The whole tensor's shape of a slice of `shape` by `spec`."""
+        return tuple(d * (self.mesh.axis_size(_as_axes(a)) if a else 1)
+                     for d, a in zip(shape, spec)) + tuple(shape[len(spec):])
+
+    def split_axes(self, spec: tuple) -> tuple[str, ...]:
+        """The mesh axes that split a tensor of resolved `spec`, in the
+        mesh's order."""
+        used = {a for axes in spec if axes is not None
+                for a in _as_axes(axes)}
+        return tuple(a for a in self.all_axes if a in used)
+
+    def batch_sharding(self, tree):
+        """The resolved spec of every leaf of `tree` with its dim 0 over
+        the batch axes (replicated where they do not divide it, and for
+        scalars): the reference's ``batch_sharding``."""
+        def one(_, x):
+            shape = tuple(x.shape)
+            if (not shape or not self.batch_axes
+                    or shape[0] % self._axis_size(self.batch_axes)):
+                return ()
+            first = (self.batch_axes if len(self.batch_axes) > 1
+                     else self.batch_axes[0])
+            return (first,) + (None,) * (len(shape) - 1)
+        return _map_with_path(one, tree)
+
+    @property
+    def batch_size(self) -> int:
+        """The ranks that hold other rows of a batch."""
+        return self._axis_size(self.batch_axes) if self.batch_axes else 1
+
     @property
     def tp(self) -> int:
         return self.mesh.shape.get("model", 1)
@@ -221,6 +418,87 @@ class Mapping:
     @property
     def all_axes(self) -> tuple[str, ...]:
         return self.mesh.axis_names
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m, axes):
+        ctx.m, ctx.axes = m, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.m._sum_(g.clone(), ctx.axes, "all_reduce_sum_bwd"), \
+            None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m, axes):
+        return m._sum_(x.clone(), axes, "all_reduce_sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m, dim, axes):
+        ctx.m, ctx.dim, ctx.axes = m, dim, axes
+        return m.all_gather(x, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi = ctx.m.local_range(ctx.axes, g.shape[ctx.dim])
+        return g.narrow(ctx.dim, lo, hi - lo), None, None, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m, dim, axes):
+        ctx.m, ctx.dim, ctx.axes = m, dim, axes
+        lo, hi = m.local_range(axes, x.shape[dim])
+        return x.narrow(dim, lo, hi - lo).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.m
+        m.collectives[("all_gather_bwd", ctx.axes)] += 1
+        return m._gather(g, ctx.dim, ctx.axes), None, None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m, dim, axes):
+        ctx.m, ctx.dim, ctx.axes = m, dim, axes
+        m.collectives[("fsdp_all_gather", axes)] += 1
+        return m._gather(x, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.m._reduce_scatter_mean(g, ctx.dim, ctx.axes), None, \
+            None, None
+
+
+class LayerParams:
+    """One layer's params as the rank holds them, gathered whole by
+    ``gather`` where the layer runs (``transformer._layer``).  Under
+    remat that is inside the recomputed region, so a layer's gathered
+    weights live while it runs its forward or its backward, not for the
+    whole step (zero-3); the backward gathers them again."""
+
+    __slots__ = ("mapping", "params", "specs")
+
+    def __init__(self, mapping: "Mapping", params, specs):
+        self.mapping, self.params, self.specs = mapping, params, specs
+
+    def gather(self):
+        return self.mapping.use_params(self.params, self.specs)
+
+
+def _as_axes(axes) -> tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 def _is_leaf_spec(t) -> bool:
@@ -246,9 +524,10 @@ def _walk(spec_tree, path):
 
 def _map_with_path(fn, tree, qfn=None, path=()):
     """fn(path, leaf) over the tensors of a tree of dicts, lists,
-    tuples and QTensors (a QTensor's fields are path entries "values"
-    and "scale"; ``qfn(path, qtensor)``, when given, maps a QTensor
-    whole); anything else passes through."""
+    tuples, QTensors and dataclasses (a QTensor's fields are path
+    entries "values" and "scale"; ``qfn(path, qtensor)``, when given,
+    maps a QTensor whole; an ``AdamWState``'s fields are entries too);
+    anything else passes through."""
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, v, qfn, path + (k,))
                 for k, v in tree.items()}
@@ -260,6 +539,11 @@ def _map_with_path(fn, tree, qfn=None, path=()):
             return qfn(path, tree)
         return {f: fn(path + (f,), getattr(tree, f))
                 for f in QTENSOR_FIELDS}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        # an optimizer state (``AdamWState``): its fields are path entries
+        return type(tree)(**{f.name: _map_with_path(
+            fn, getattr(tree, f.name), qfn, path + (f.name,))
+            for f in dataclasses.fields(tree)})
     if isinstance(tree, torch.Tensor) or hasattr(tree, "shape"):
         return fn(path, tree)
     return tree
@@ -267,9 +551,12 @@ def _map_with_path(fn, tree, qfn=None, path=()):
 
 def gemm_split(w) -> GemmSplit | None:
     """The split of a GEMM against weight `w` ((K, N) or an (E, K, N)
-    bank) under the current mapping; None with no mapping current.  A
-    weight that is not a ``ShardedQTensor`` (placed replicated) splits
-    nothing, but its input's abs-max is still reduced over "data"."""
+    bank) under the current mapping; None with no mapping current.  The
+    split is read from the weight's resolved ``spec``: a
+    ``ShardedQTensor``'s, or the ``spec`` attribute that
+    ``Mapping.use_params`` gives a float training weight.  A weight
+    with neither (placed replicated) splits nothing, but its input's
+    abs-max is still reduced over "data"."""
     m = current_mapping()
     if m is None:
         return None
@@ -285,7 +572,7 @@ def gemm_split(w) -> GemmSplit | None:
         raise ValueError(f"GEMM weight spec {spec} splits both dims")
     if not col:
         return GemmSplit(m, n, 0, row)
-    return GemmSplit(m, n * m.tp, m.mesh.coords["model"] * n, row)
+    return GemmSplit(m, n * m.tp, m.mesh.coords["model"] * n, row, True)
 
 
 def serve_mapping(mesh, *, kv: str = "hd",

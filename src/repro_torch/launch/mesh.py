@@ -17,8 +17,12 @@ not the world size raises.
 
 ``make_production_mesh`` is the layout of one DGX H100 node (8 cards
 on "model", tensor parallelism over NVLink) or of several nodes
-(nodes on "data", over the network between them).  The constants at
-the end are the H100 SXM data sheet's.
+(nodes on "data", over the network between them); with ``multi_pod``
+a leading "pod" axis of 2 pods (the reference's multi-pod form: the
+outer data-parallel dimension, whose gradient traffic crosses between
+pods).  ``make_train_mesh`` is the trainer's mesh over whatever world
+the launcher finds (``train_mesh_shape``).  The constants at the end
+are the H100 SXM data sheet's.
 """
 from __future__ import annotations
 
@@ -70,6 +74,14 @@ class Mesh:
 
     def axis_size(self, axes: Sequence[str]) -> int:
         return math.prod(self.shape[a] for a in axes)
+
+    def rank_at(self, **coords) -> int:
+        """The global rank at the caller's coordinates, with those given
+        replaced (e.g. ``rank_at(stage=0)``)."""
+        rank = 0
+        for a in self.axis_names:
+            rank = rank * self.shape[a] + coords.get(a, self.coords[a])
+        return rank
 
     def group(self, axes: Sequence[str]):
         """The process group of the ranks that share the caller's
@@ -136,12 +148,46 @@ def make_serve_mesh(*, dp: int = 1, tp: int | None = None) -> Mesh:
 CARDS_PER_NODE = 8
 
 
-def make_production_mesh(*, nodes: int = 1,
+def make_production_mesh(*, multi_pod: bool = False, nodes: int = 1,
                          cards_per_node: int = CARDS_PER_NODE) -> Mesh:
     """The documented H100 layout: each node's cards on "model" (tensor
     parallelism stays inside a node, over NVLink) and the nodes on
-    "data".  Needs nodes * cards_per_node ranks."""
-    return make_mesh((nodes, cards_per_node), ("data", "model"))
+    "data"; ``multi_pod`` doubles the world into 2 pods on a leading
+    "pod" axis, (2, nodes, 8) ("pod", "data", "model") — the reference's
+    (2, 16, 16) on H100 nodes — whose mapping batches over ("pod",
+    "data").  The layout is ``train_mesh_shape``'s; it needs (2 *) nodes
+    * cards_per_node ranks."""
+    world = nodes * cards_per_node * (2 if multi_pod else 1)
+    shape = train_mesh_shape(world, multi_pod=multi_pod,
+                             cards_per_node=cards_per_node)
+    return make_mesh(shape, _train_axes(multi_pod))
+
+
+def train_mesh_shape(world: int, *, multi_pod: bool = False,
+                     cards_per_node: int = CARDS_PER_NODE) -> tuple:
+    """The trainer's mesh for `world` ranks: gcd(world, cards_per_node)
+    cards on "model" (tensor parallelism inside a node), the rest on
+    "data"; with ``multi_pod`` the rest is split into 2 pods on a
+    leading "pod" axis when it is even (1 pod otherwise).  One rank is
+    (1, 1) or (1, 1, 1)."""
+    tp = math.gcd(world, cards_per_node)
+    rest = world // tp
+    if not multi_pod:
+        return (rest, tp)
+    pods = 2 if rest % 2 == 0 else 1
+    return (pods, rest // pods, tp)
+
+
+def _train_axes(multi_pod: bool) -> tuple:
+    return ("pod", "data", "model") if multi_pod else ("data", "model")
+
+
+def make_train_mesh(*, multi_pod: bool = False) -> Mesh:
+    """``train_mesh_shape`` over the default process group's world, on
+    ("data", "model") or ("pod", "data", "model")."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    return make_mesh(train_mesh_shape(world, multi_pod=multi_pod),
+                     _train_axes(multi_pod))
 
 
 # NVIDIA H100 SXM data sheet, per card (dense tensor-core peaks)

@@ -54,7 +54,8 @@ def dense(x: torch.Tensor, w, *, approx_cfg=0, backend: str = "xla",
     same bits (the reference's two backends are bit-identical); cfg_bn
     is the logical config-block width (``ModelConfig.mac_blocks[1]``).
     Under a sharding mapping the weight's spec splits the GEMM
-    (``dist.sharding.gemm_split``, ``ops.approx_dense_pallas``).
+    (``dist.sharding.gemm_split``, ``ops.approx_dense_pallas``; a float
+    training weight at config 0: ``float_gemm``).
     """
     if backend not in MAC_BACKENDS:
         raise ValueError(f"unknown mac backend {backend!r}")
@@ -81,13 +82,33 @@ def dense(x: torch.Tensor, w, *, approx_cfg=0, backend: str = "xla",
                                    {"split": split}))
         return y.to(torch.bfloat16)
     split = gemm_split(w)
-    if split is not None and split.row:
-        raise NotImplementedError(
-            "a row-parallel GEMM at the static exact config 0: its f32 "
-            "partial sums would reassociate; pass the config as a tensor")
     if isinstance(w, QTensor):
-        w = w.dequantize()
-    return x @ w.to(x.dtype)
+        if split is not None and split.row:
+            raise NotImplementedError(
+                "a row-parallel quantized GEMM at the static exact config "
+                "0: its float partial sums would reassociate where the "
+                "serving path keeps the bits; pass the config as a tensor")
+        return x @ w.dequantize().to(x.dtype)
+    return float_gemm(x, w, split)
+
+
+def float_gemm(x: torch.Tensor, w: torch.Tensor, split) -> torch.Tensor:
+    """x @ w in x's dtype for a float weight, split as ``gemm_split``
+    reads it: column-parallel behind "f" (``copy_to``: the input's
+    gradient summed over "model"); row-parallel as partial products
+    summed over "model" by "g" (``reduce_from``), in f32 when TP > 1 (the
+    sum reassociates, as the reference's GSPMD program's does; at TP 1
+    the one partial is the unsplit product).  w may be an (E, K, N)
+    expert bank against (E, M, K) rows."""
+    if split is None or not (split.col or split.row):
+        return x @ w.to(x.dtype)
+    m = split.mapping
+    if split.col:
+        return m.copy_to(x, ("model",)) @ w.to(x.dtype)
+    if m.tp == 1:
+        return m.reduce_from(x @ w.to(x.dtype), ("model",))
+    part = x.to(torch.float32) @ w.to(torch.float32)
+    return m.reduce_from(part, ("model",)).to(x.dtype)
 
 
 def qat_dense(x: torch.Tensor, w: torch.Tensor, *,

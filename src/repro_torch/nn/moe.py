@@ -62,8 +62,29 @@ and ``w_down`` by its contraction dim on "model", each rank running its
 slice of every expert (``ops.approx_dense_grouped_pallas`` with the
 bank's ``GemmSplit``: the global activation scale, config rows by
 logical block, the int32 partial sums of ``w_down`` summed before the
-epilogue); the router and the dispatch run whole on every rank.  Not
-ported: expert parallelism (``ep``); it raises.
+epilogue); the router and the dispatch run whole on every rank.  At
+the float config 0 (training) the same split runs ``layers.float_gemm``
+(gate and up behind "f", down's partial products through "g").
+
+Expert parallelism (``ep``; ``ModelConfig.moe_ep``, whose banks the
+specs place as ``("expert", "fsdp", None)`` / ``("expert", None,
+"fsdp")`` when the expert count is a multiple of 8, as the reference's)
+is read from the banks' placement: a bank whose expert dim lies on
+"model" holds this rank's E/tp experts.  Every model rank then routes
+its tokens alike (the router and the dispatch order run whole), fills
+and runs only its own experts' rows of the (G, E*C, d) buffer, combines
+its experts' contributions into the token layout (the other experts'
+slots hold zeros, which add nothing), and one SUM all-reduce of the
+(G, S_g, d) token tensor over "model" ("g") completes the output: the
+reference's gather-free formulation, whose per-layer collective is the
+token tensor and not the k-times-larger slot tensor.  The combine stays
+the deterministic gather above (no scatter-add), the misroute
+included.  The tokens entering the dispatch and the routing weights
+entering the combine pass "f", so the router and the residual stream
+get every rank's part of their gradient.  Without a mapping, or with
+banks not placed by expert, ``ep`` changes nothing (the reference's
+``ep=True`` without a mapping is its unsharded program).  The integer
+(serving) path does not run expert-parallel banks; it raises.
 """
 from __future__ import annotations
 
@@ -72,9 +93,9 @@ import torch
 
 from repro_torch.core.quantization import (QMAX, QTensor,
                                           activation_scale)
-from repro_torch.dist.sharding import gemm_split
+from repro_torch.dist.sharding import current_mapping, gemm_split
 from repro_torch.kernels.approx_mac import ops as _ops
-from .layers import ACT
+from .layers import ACT, float_gemm
 
 
 def router_probs(x: torch.Tensor, w_router: torch.Tensor) -> torch.Tensor:
@@ -121,6 +142,10 @@ def _expert_gemm(h, w, approx_cfg, backend, group_rows, grouped=True):
                 cfg = cfg[None].expand(h.shape[0], -1)
         bank = quantize_expert_bank(w)
         split = gemm_split(bank)
+        if _expert_split(w):
+            raise NotImplementedError(
+                "expert-parallel banks in the integer pipeline (sharded "
+                "serving of a moe_ep model, ROADMAP Queue 1 item 11(b))")
         if grouped:
             y = _ops.approx_dense_grouped_pallas(
                 h, bank, cfg, group_rows,
@@ -132,8 +157,15 @@ def _expert_gemm(h, w, approx_cfg, backend, group_rows, grouped=True):
             y = _per_expert_gemm(h, bank, cfg)
         return y.to(h.dtype)
     if isinstance(w, QTensor):
-        w = w.dequantize()
-    return torch.bmm(h, w.to(h.dtype))
+        return torch.bmm(h, w.dequantize().to(h.dtype))
+    return float_gemm(h, w, gemm_split(w))
+
+
+def _expert_split(w) -> bool:
+    """Whether bank `w` holds this rank's experts only (its resolved
+    spec puts the expert dim on "model")."""
+    spec = getattr(w, "spec", ())
+    return bool(spec) and spec[0] == "model" and current_mapping() is not None
 
 
 def _per_expert_gemm(h, bank: QTensor, cfg) -> torch.Tensor:
@@ -179,10 +211,9 @@ def moe_ffn(x: torch.Tensor, params, *, n_experts: int, top_k: int,
     sorted entry's buffer slot, E*C for a dropped one — and
     ``group_rows`` (E,), the rows per expert the grouped op is given;
     under seq_chunks the last three gain a leading sub-chunk axis (each
-    sub-chunk's own dispatch)."""
-    if ep:
-        raise NotImplementedError("ep (expert parallelism) is not ported "
-                                  "(ROADMAP Queue 1 item 11(b))")
+    sub-chunk's own dispatch).  ep: expert parallelism, which the banks'
+    placement carries (module docstring); kept for the reference's
+    signature."""
     t, d = x.shape
     if t % n_groups:
         raise ValueError(f"{t} tokens in {n_groups} groups")
@@ -245,17 +276,27 @@ def _moe_groups(xg, params, *, n_experts: int, top_k: int,
     slot = torch.where(pos < cap, sorted_e * cap + pos, e * cap)
     token_idx = sort_idx // k                                # (G,Sg*k)
 
+    # expert parallelism: this rank's experts e0 .. e0 + e_run - 1
+    m = current_mapping() if _expert_split(params["w_up"]) else None
+    e_run = e // m.tp if m is not None else e
+    e0 = m.mesh.coords["model"] * e_run if m is not None else 0
+    if m is not None:
+        xg, top_p = m.copy_to(xg), m.copy_to(top_p)
+
     # dispatch: slot e*cap + p holds expert e's p-th sorted entry if it
     # has one (a gather per slot, no scatter)
     p = torch.arange(cap, device=dev)
-    filled = p[None, None, :] < counts[..., None]            # (G,E,C)
-    src = torch.where(filled, starts[..., None] + p, 0).reshape(g, e * cap)
+    filled = (p[None, None, :]
+              < counts[:, e0:e0 + e_run, None])              # (G,E,C)
+    src = torch.where(filled, starts[:, e0:e0 + e_run, None] + p,
+                      0).reshape(g, e_run * cap)
     tok = torch.gather(token_idx, 1, src)
-    buf = torch.gather(xg, 1, tok[..., None].expand(g, e * cap, d))
-    buf = torch.where(filled.reshape(g, e * cap, 1), buf, 0)
+    buf = torch.gather(xg, 1, tok[..., None].expand(g, e_run * cap, d))
+    buf = torch.where(filled.reshape(g, e_run * cap, 1), buf, 0)
     # expert-major slices (E, G*C, d); expert e's rows past the last one
     # any group fills are absent
-    he = buf.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    he = buf.reshape(g, e_run, cap, d).transpose(0, 1).reshape(
+        e_run, g * cap, d)
     group_rows = torch.where(
         counts > 0,
         torch.arange(g, device=dev)[:, None] * cap
@@ -269,8 +310,13 @@ def _moe_groups(xg, params, *, n_experts: int, top_k: int,
     else:
         hmid = ACT[act](gemm(he, params["w_up"]))
     out_e = gemm(hmid, params["w_down"])                     # (E,G*C,d)
-    out_flat = out_e.reshape(e, g, cap, d).transpose(0, 1).reshape(
-        g, e * cap, d)
+    out_flat = out_e.reshape(e_run, g, cap, d).transpose(0, 1).reshape(
+        g, e_run * cap, d)
+    if m is not None:
+        # the other ranks' experts' slots: zeros, which add nothing
+        out_flat = torch.cat([
+            out_flat.new_zeros(g, e0 * cap, d), out_flat,
+            out_flat.new_zeros(g, (e - e0 - e_run) * cap, d)], dim=1)
 
     # combine: each token gathers its kept entries' outputs in ascending
     # slot order (= ascending expert id) and sums them from zero
@@ -296,6 +342,8 @@ def _moe_groups(xg, params, *, n_experts: int, top_k: int,
         starts[:, e - 1:] + cap - 1, max=sg * k - 1))
     extra = out_flat[:, last] * w_last.to(out_flat.dtype)
     yg[:, 0] = yg[:, 0] + torch.where(misroute[:, None], extra, 0)
+    if m is not None:
+        yg = m.reduce_from(yg, ("model",))      # every rank's experts
     aux = {"router_probs_mean": probs.mean(dim=(0, 1)), "top_e": top_e,
            "slot": slot, "group_rows": group_rows}
     return yg, aux

@@ -84,7 +84,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.quantization import QTensor, quantize
-from repro_torch.dist.sharding import current_mapping, gemm_split, lsc_tree
+from repro_torch.dist.sharding import (LayerParams, current_mapping,
+                                      gemm_split, lsc_tree)
 from repro_torch.dist.seq_parallel import sp_decode_attention
 from repro_torch.kernels.flash_attention.paged_attention import \
     paged_decode_attention
@@ -141,6 +142,7 @@ class ModelConfig:
     moe_grouped: bool = True             # one grouped kernel over all
                                          # experts (False: one int-kernel
                                          # launch per expert, the A/B path)
+    moe_ep: bool = False                 # expert-parallel (E over "model")
     # encoder-decoder (family "audio", Whisper): n_enc_layers encoder
     # layers over stub frame embeddings (B, S_enc, d_model)
     encoder_decoder: bool = False
@@ -242,13 +244,18 @@ def resolve_device(device) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda", *,
-            quantized: bool = False) -> Params:
+            quantized: bool = False, place=None) -> Params:
     """Random float params (the reference's init distributions) drawn
     from `gen`, a generator on `device`.  ``quantized`` quantizes each
     layer's GEMM weights as soon as they are drawn (the serving layout
     of ``quantize_lm_params``, bit for bit), so a full-width MoE
-    model's f32 expert banks exist one layer at a time."""
+    model's f32 expert banks exist one layer at a time.  ``place(path,
+    tree)``, when given, maps each top-level entry and each layer as
+    soon as it is drawn (``path`` its place in the params, e.g.
+    ``("blocks", 3)``): a rank's ``Mapping.shard_tree`` cut, so that
+    the whole model never exists on one rank, only one entry of it."""
     device = resolve_device(device)
+    place = place or (lambda path, tree: tree)
     d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     std = 1.0 / math.sqrt(d)
@@ -259,10 +266,11 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda", *,
     def zeros(*shape):
         return torch.zeros(*shape, device=device)
 
-    params: Params = {"embed": embed_init(gen, cfg.vocab_size, d,
-                                          device=device)}
+    params: Params = {"embed": place(("embed",), embed_init(
+        gen, cfg.vocab_size, d, device=device))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, d, cfg.vocab_size, device=device)
+        params["lm_head"] = place(("lm_head",), dense_init(
+            gen, d, cfg.vocab_size, device=device))
     def mlp_init():
         if cfg.n_experts:
             # w_gate and w_up are independent draws (the reference draws
@@ -305,7 +313,7 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda", *,
         return _quantize_block(block) if quantized else block
 
     blocks = []
-    for kind in cfg.layer_kinds():
+    for i, kind in enumerate(cfg.layer_kinds()):
         if kind in RECURRENT_KINDS:
             block = {"norm1": norm()}
             if kind == "recurrent":
@@ -318,20 +326,24 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda", *,
                                                  device=device)
             else:
                 block["cell"] = slstm_block_init(gen, d, h, device=device)
-            blocks.append(_quantize_block(block) if quantized else block)
+            blocks.append(place(("blocks", i), _quantize_block(block)
+                                if quantized else block))
             continue
-        blocks.append(attention_block(cfg.encoder_decoder))
+        blocks.append(place(("blocks", i),
+                            attention_block(cfg.encoder_decoder)))
     params["blocks"] = blocks
-    params["final_norm"] = norm()
+    params["final_norm"] = place(("final_norm",), norm())
     if cfg.encoder_decoder:
         # the encoder's layers: global, non-causal, no cross-attention;
         # their wo scaled by the decoder's depth, as the reference's
-        params["encoder"] = [attention_block(False)
-                             for _ in range(cfg.n_enc_layers)]
-        params["enc_norm"] = norm()
-        params["enc_pos"] = normal(cfg.max_positions, d) * 0.02
+        params["encoder"] = [place(("encoder", i), attention_block(False))
+                             for i in range(cfg.n_enc_layers)]
+        params["enc_norm"] = place(("enc_norm",), norm())
+        params["enc_pos"] = place(("enc_pos",),
+                                  normal(cfg.max_positions, d) * 0.02)
     if cfg.norm == "ln":
-        params["dec_pos"] = normal(cfg.max_positions, d) * 0.02
+        params["dec_pos"] = place(("dec_pos",),
+                                  normal(cfg.max_positions, d) * 0.02)
     return params
 
 
@@ -356,6 +368,11 @@ def _attn_specs(cfg: ModelConfig) -> Params:
 
 
 def _mlp_specs(cfg: ModelConfig) -> Params:
+    if cfg.n_experts and cfg.moe_ep and cfg.n_experts % 8 == 0:
+        # expert parallelism: each rank holds whole experts
+        return {"router": (None, None), "w_gate": ("expert", "fsdp", None),
+                "w_up": ("expert", "fsdp", None),
+                "w_down": ("expert", None, "fsdp")}
     if cfg.n_experts:
         return {"router": (None, None), "w_gate": (None, "fsdp", "tp"),
                 "w_up": (None, "fsdp", "tp"), "w_down": (None, "tp", "fsdp")}
@@ -564,8 +581,8 @@ def _proj(x, w, approx_cfg, bias, cfg, heads):
         y = dense(x, w, approx_cfg=approx_cfg, **_dense_kw(cfg))
     else:
         d, h, hd = w.shape
-        y = dense(x, w.reshape(d, h * hd), approx_cfg=approx_cfg,
-                  **_dense_kw(cfg))
+        y = dense(x, _merged(w.reshape(d, h * hd), w, 0, (1, 2)),
+                  approx_cfg=approx_cfg, **_dense_kw(cfg))
     m = current_mapping()
     if m is not None:
         return _tp_heads(y, bias, heads, cfg, m)
@@ -576,12 +593,29 @@ def _proj(x, w, approx_cfg, bias, cfg, heads):
 
 
 def _attn_out(y, wo, approx_cfg, cfg):
-    w = wo if isinstance(wo, QTensor) else wo.reshape(-1, wo.shape[-1])
+    w = wo if isinstance(wo, QTensor) else _merged(
+        wo.reshape(-1, wo.shape[-1]), wo, (0, 1), 2)
     y = y.reshape(*y.shape[:-2], -1)
     m = current_mapping()
     if m is not None:
-        y = _fit_columns(y, w.values.shape[0], m)
+        y = _fit_columns(y, (w.values if isinstance(w, QTensor)
+                             else w).shape[0], m)
     return dense(y, w, approx_cfg=approx_cfg, **_dense_kw(cfg))
+
+
+def _merged(w2: torch.Tensor, w: torch.Tensor, *dims) -> torch.Tensor:
+    """w2, a 2D reshape of a float weight `w`, carrying the resolved
+    ``spec`` of `w` (a training weight's, ``Mapping.use_params``) with
+    each group of `dims` merged into one dim: the axis of the first of
+    them that has one."""
+    spec = getattr(w, "spec", None)
+    if spec:
+        def axis(group):
+            group = (group,) if isinstance(group, int) else group
+            return next((spec[i] for i in group if spec[i] is not None),
+                        None)
+        w2.spec = tuple(axis(g) for g in dims)
+    return w2
 
 
 # ---------------------------------------------------------------------------
@@ -613,9 +647,9 @@ def _attn_mode(cfg: ModelConfig, m) -> str:
 
 
 def _model_slice(t: torch.Tensor, dim: int, m) -> torch.Tensor:
-    """This rank's 1/tp of `t` along `dim`."""
-    n = t.shape[dim] // m.tp
-    return t.narrow(dim, m.mesh.coords["model"] * n, n)
+    """This rank's 1/tp of `t` along `dim` (differentiable: the slices'
+    gradients are gathered back, ``Mapping.scatter_to``)."""
+    return m.scatter_to(t, dim, ("model",))
 
 
 def _fit_columns(y: torch.Tensor, width: int, m) -> torch.Tensor:
@@ -624,7 +658,7 @@ def _fit_columns(y: torch.Tensor, width: int, m) -> torch.Tensor:
     if y.shape[-1] > width:
         return _model_slice(y, -1, m)
     if y.shape[-1] < width:
-        return m.all_gather(y, -1, ("model",))
+        return m.gather_from(y, -1, ("model",))
     return y
 
 
@@ -672,7 +706,8 @@ def _mlp_apply(p, x, cfg, approx_cfg):
                        n_groups=groups, act=cfg.act,
                        renormalize=cfg.renormalize, approx_cfg=approx_cfg,
                        seq_chunks=cfg.moe_seq_chunks if s > 1 else 1,
-                       backend=cfg.mac_backend, grouped=cfg.moe_grouped)
+                       ep=cfg.moe_ep, backend=cfg.mac_backend,
+                       grouped=cfg.moe_grouped)
         return y.reshape(b, s, d)
     kw = _dense_kw(cfg)
     if "w_gate" not in p:                      # mlp="gelu"
@@ -798,7 +833,7 @@ def embed_tokens(params, cfg, tokens):
         t = tokens.to(torch.long) - m.mesh.coords["model"] * n
         own = ((t >= 0) & (t < n))[..., None]
         rows = torch.where(own, emb[t.clamp(0, n - 1)], 0.0)
-        x = m.all_reduce(rows, "sum", ("model",)).to(cfg.compute_dtype)
+        x = m.reduce_from(rows, ("model",)).to(cfg.compute_dtype)
     else:
         x = params["embed"][tokens].to(cfg.compute_dtype)
     if cfg.embed_scale:
@@ -814,17 +849,23 @@ def head_weight(params, cfg, dtype) -> torch.Tensor:
     return w.to(dtype)
 
 
-def logits_for(params, cfg, hidden, w: torch.Tensor | None = None):
+def logits_for(params, cfg, hidden, w: torch.Tensor | None = None, *,
+               gather: bool = True):
     """Logits of `hidden` (B, ..., d); `w` is ``head_weight`` when the
     caller already has it in hidden's dtype.  With the vocabulary on
-    "model" the local columns are all-gathered: every rank returns the
-    whole vocabulary."""
+    "model" the head is column-parallel (hidden behind "f") and the
+    local columns are all-gathered: every rank returns the whole
+    vocabulary; ``gather=False`` returns this rank's columns (the
+    vocab-parallel loss)."""
     w = head_weight(params, cfg, hidden.dtype) if w is None else w
-    logits = hidden @ w
     m = current_mapping()
-    if _vocab_parallel(params, cfg, m):
+    vocab = _vocab_parallel(params, cfg, m)
+    if vocab:
+        hidden = m.copy_to(hidden, ("model",))
+    logits = hidden @ w
+    if vocab and gather:
         # each rank's vocab columns, gathered over "model" (exact)
-        logits = m.all_gather(logits, -1, ("model",))
+        logits = m.gather_from(logits, -1, ("model",))
     if cfg.final_softcap > 0:
         logits = softcap(logits.to(torch.float32), cfg.final_softcap)
     return logits
@@ -867,6 +908,8 @@ def _recurrent_layer(p, x, cfg, kind, approx_cfg, *, state=None,
 
 def _layer(p, x, cfg, kind, positions, approx_cfg, causal=True,
            enc_out=None):
+    if isinstance(p, LayerParams):
+        p = p.gather()
     if kind in RECURRENT_KINDS:
         return _recurrent_layer(p, x, cfg, kind, approx_cfg)[0]
     xkv = (_cross_kv(p, enc_out, cfg, approx_cfg)
@@ -946,6 +989,9 @@ def lm_loss(params, cfg: ModelConfig, batch, *, approx_cfg=0):
     output projection is cast to the hidden dtype once for all.  A MoE
     model's gradients run through the capacity-dropped dispatch; like
     the reference, no load-balancing term is added."""
+    m = current_mapping()
+    if m is not None and torch.is_grad_enabled():
+        _sharded_training_gate(cfg)
     vision = batch.get("vision_embeds")
     hidden = forward(params, cfg, batch["tokens"], vision_embeds=vision,
                      enc_embeds=batch.get("enc_embeds"),
@@ -958,17 +1004,79 @@ def lm_loss(params, cfg: ModelConfig, batch, *, approx_cfg=0):
     s = hidden.shape[1]
     n_chunks = cfg.loss_chunks if s % cfg.loss_chunks == 0 else 1
     w = head_weight(params, cfg, hidden.dtype)
+    vocab = _vocab_parallel(params, cfg, m)
     losses, counts = [], []
     for h, lab in zip(hidden.chunk(n_chunks, dim=1),
                       labels.chunk(n_chunks, dim=1)):
-        logits = logits_for(params, cfg, h, w).to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lab.clamp(min=0)[..., None])[..., 0]
+        logits = logits_for(params, cfg, h, w,
+                            gather=not vocab).to(torch.float32)
+        if vocab:
+            nll = _VocabParallelNLL.apply(logits, lab, m)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                lab.clamp(min=0)[..., None])[..., 0]
+            nll = logz - gold
         mask = (lab >= 0).to(torch.float32)
-        losses.append(torch.sum((logz - gold) * mask))
+        losses.append(torch.sum(nll * mask))
         counts.append(torch.sum(mask))
-    return (torch.sum(torch.stack(losses))
-            / torch.clamp(torch.sum(torch.stack(counts)), min=1.0))
+    count = torch.sum(torch.stack(counts))
+    if m is None or not m.batch_axes:
+        return torch.sum(torch.stack(losses)) / torch.clamp(count, min=1.0)
+    # this rank's rows over the labels of every rank's rows, times the
+    # ranks: the ranks' losses average to the whole batch's, and so do
+    # their gradients (the train step's data-parallel MEAN)
+    count = m.all_reduce(count, "sum", m.batch_axes)
+    return (torch.sum(torch.stack(losses)) / torch.clamp(count, min=1.0)
+            * m.batch_size)
+
+
+def _sharded_training_gate(cfg: ModelConfig) -> None:
+    """Sharded training covers the attention decoders (dense and MoE);
+    the recurrent cells, the encoder-decoder and the vision prefix are
+    trained on one device only."""
+    kinds = sorted(set(cfg.layer_kinds()) - set(ATTENTION_KINDS))
+    if kinds or cfg.encoder_decoder or cfg.vision_prefix_len:
+        what = kinds or "encoder-decoder or vision prefix"
+        raise NotImplementedError(
+            f"sharded training of {cfg.name} ({what}): only attention "
+            "decoders are trained under a mapping (ROADMAP Queue 1 item "
+            "11(b))")
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log softmax(logits)[label] per position from this rank's vocab
+    columns (B, S, V/tp), f32: ``logsumexp`` from a MAX and a SUM over
+    "model" (the steps and rounding of ``torch.logsumexp``: max, exp of
+    the difference, sum, log, plus the max), the gold logit from a
+    masked SUM over "model".  The backward needs no collective: its
+    upstream gradient is replicated over "model", and each rank's
+    columns get softmax minus the gold one-hot, as autograd through
+    ``torch.logsumexp`` and ``torch.gather`` computes them."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, m):
+        n = logits.shape[-1]
+        mx = m.all_reduce(torch.amax(logits, dim=-1, keepdim=True), "max",
+                          ("model",))
+        mx = torch.where(mx.abs() == math.inf, 0.0, mx)
+        total = m.all_reduce(torch.sum(torch.exp(logits - mx), dim=-1),
+                             "sum", ("model",))
+        logz = torch.log(total) + mx[..., 0]
+        t = labels.clamp(min=0) - m.mesh.coords["model"] * n
+        own = (t >= 0) & (t < n)
+        idx = t.clamp(0, n - 1)[..., None]
+        gold = torch.where(own, torch.gather(logits, -1, idx)[..., 0], 0.0)
+        gold = m.all_reduce(gold, "sum", ("model",))
+        ctx.save_for_backward(logits, logz, idx, own)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, idx, own = ctx.saved_tensors
+        grad = g[..., None] * torch.exp(logits - logz[..., None])
+        grad.scatter_add_(-1, idx, torch.where(own, -g, 0.0)[..., None])
+        return grad, None, None
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed
 
 
 # ---------------------------------------------------------------------------
@@ -108,9 +109,30 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                          for leaf in tree_leaves(tree)))
+def global_norm(tree, mapping=None, specs: list | None = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares.  Under a sharding
+    `mapping`, where each leaf is a rank's slice and `specs` lists the
+    leaves' resolved specs in flatten order, each leaf's sum of squares
+    is summed over the mesh axes that split it and only those (a leaf
+    replicated on "model" counts once, not TP times): one SUM all-reduce
+    per set of axes ("norm_sum"); the leaves' totals are then added in
+    the unsharded order."""
+    sq = [torch.sum(torch.square(leaf.to(torch.float32)))
+          for leaf in tree_leaves(tree)]
+    if mapping is not None:
+        groups: dict[tuple, list[int]] = {}
+        for i, spec in enumerate(specs):
+            axes = mapping.split_axes(spec)
+            if axes:
+                groups.setdefault(axes, []).append(i)
+        for axes, idx in groups.items():
+            part = torch.stack([sq[i] for i in idx])
+            mapping.collectives[("norm_sum", axes)] += 1
+            torch.distributed.all_reduce(part, group=mapping.group_of(axes))
+            for j, i in enumerate(idx):
+                sq[i] = part[j]
+    return torch.sqrt(sum(sq))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

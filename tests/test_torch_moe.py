@@ -416,11 +416,15 @@ def test_dispatch_equals_oracle_at_full_capacity():
 
 
 def test_unported_moe_options_raise():
-    """Only expert parallelism (multi-device) stays unported."""
+    """``ep=True`` without a mapping runs the unsharded program (the
+    reference's, bit for bit with ``ep=False``; expert parallelism over
+    ranks is tests/test_torch_sharded_train.py's); the per-block config
+    without the pallas backend and a zero seq_chunks still raise."""
     _, tp = _both(_moe_params(np.random.default_rng(0)))
-    x = torch.zeros(8, 64)
-    with pytest.raises(NotImplementedError, match="ep"):
-        TM.moe_ffn(x, tp, n_experts=4, top_k=2, ep=True)
+    x = torch.randn(8, 64, generator=torch.Generator().manual_seed(0))
+    y_ep, _ = TM.moe_ffn(x, tp, n_experts=4, top_k=2, ep=True)
+    y, _ = TM.moe_ffn(x, tp, n_experts=4, top_k=2)
+    assert torch.equal(y_ep, y)
     with pytest.raises(ValueError, match="pallas"):
         TM.moe_ffn(x, tp, n_experts=4, top_k=2, approx_cfg=_i32([8, 8]))
     with pytest.raises(ValueError, match="moe_seq_chunks"):

@@ -511,10 +511,20 @@ def test_flash_function_gradient_is_the_plain_twins(monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--approx-cfg", "8"], ["--multi-pod"]])
 def test_launcher_refusals(flag, tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="Queue 3" if "8" in flag else "item 11"):
-        launch_train.main(["--arch", "qwen2.5-3b", "--smoke", "--device",
-                           "cpu", "--ckpt-dir", str(tmp_path), *flag])
+    """``--approx-cfg 8`` is refused (Queue 3).  ``--multi-pod`` in one
+    process (no process group) trains on the one device, as the
+    reference does with one device: the run without the flag's losses,
+    bit for bit (the sharded launcher is tests/test_torch_sharded_train.py's)."""
+    argv = ["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu"]
+    if "--multi-pod" in flag:
+        argv += ["--steps", "3", "--batch", "2", "--seq", "16"]
+        got = launch_train.main(argv + flag + ["--ckpt-dir",
+                                               str(tmp_path / "pod")])
+        want = launch_train.main(argv + ["--ckpt-dir", str(tmp_path / "one")])
+        assert "mesh" not in got and got["losses"] == want["losses"]
+        return
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        launch_train.main(argv + ["--ckpt-dir", str(tmp_path), *flag])
 
 
 # ---------------------------------------------------------------------------

@@ -152,15 +152,18 @@ def test_prefill_and_decode_match_reference(models, mac_backend, acfg):
 
 
 def test_only_the_ported_family_is_accepted():
-    """What is still unported is refused: expert parallelism (the
-    port's config has no ``moe_ep`` field), an unknown layer kind, norm
-    or family, and an unknown MAC backend.  The recurrent kinds, the
-    encoder-decoder and the vision prefix are ported (tests/
-    test_torch_recurrent_models.py, test_torch_encdec.py,
-    test_torch_vision_prefix.py)."""
+    """What is still unported is refused: an unknown layer kind, norm
+    or family, and an unknown MAC backend.  ``moe_ep`` is accepted, and
+    its expert banks get the reference's expert-parallel specs when the
+    expert count is a multiple of 8 (tests/test_torch_sharded_train.py
+    runs them).  The recurrent kinds, the encoder-decoder and the vision
+    prefix are ported (tests/test_torch_recurrent_models.py,
+    test_torch_encdec.py, test_torch_vision_prefix.py)."""
     assert tget("whisper-large-v3").encoder_decoder
-    with pytest.raises(TypeError):
-        TT.ModelConfig(moe_ep=True)
+    ep = TT.ModelConfig(family="moe", n_experts=8, top_k=2, moe_ep=True)
+    assert ep.moe_ep
+    assert TT.lm_specs(ep)["blocks"][0]["mlp"]["w_up"] == ("expert", "fsdp",
+                                                           None)
     with pytest.raises(NotImplementedError):
         TT.ModelConfig(pattern=("local", "cross"), window=16)
     with pytest.raises(NotImplementedError):
