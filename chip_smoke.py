@@ -108,7 +108,7 @@ seconds):
              through its plain version, bit for bit.
 12. profile_paged — torch.profiler over three paged decode steps.
 12b. sched_serve — the power loop on the dense serve run's params cut
-             to their first SPEC_DEPTH (6) layers: the
+             to their first SPEC_DEPTH (4) layers: the
              Engine with PowerBudgetScheduler(0.85 x exact pJ/token,
              probe_every 4, retune_every 8, seed 0), 16 requests of 4-24
              tokens, 32 new tokens each.  After a warm-up engine no
@@ -132,7 +132,7 @@ seconds):
              after the first tick; a draft step forced non-finite once
              skips its tick (one abort) and leaves the stream equal.
 12d. spec_serve — speculative decoding on the serve phase's full-width
-             Qwen2.5-3B params cut to their first SPEC_DEPTH (6) of 36
+             Qwen2.5-3B params cut to their first SPEC_DEPTH (4) of 36
              layers, and its requests (8 of 4-24 tokens, 16 new,
              max_batch 4, max_len 128), SpecConfig(draft 8, k 3, max_k 7)
              then set_spec to (k 5, draft 20) and (k 2, draft 31), dense
@@ -460,8 +460,28 @@ seconds):
              instance runs every w_down); (b) two spawned ranks sharing
              the card over gloo, mesh (1, 2): the same runs against
              (a)'s unsharded tokens, and kv="seq" prefill and decode
-             logits within 1e-5 of the unsharded.  (b)'s times are not
-             a multi-card time.
+             logits within 1e-5 of the unsharded; and the Qwen run at
+             (2, 1), two of the pool's rows a rank.  Decode attention
+             is held on a rank's share of the heads (TP) and of the
+             rows (DP 2 and 4).  (b)'s times are not a multi-card time.
+29b. shard_archs (slice 18, after shard_serve) — every family served
+             under a mapping at full width on models of its own
+             (SHARD_ARCHS' depths, seed 18): Gemma-2-27B 2 layers,
+             RecurrentGemma-2B 3, xLSTM-350M 2, InternVL2-76B 2 (its
+             1,024-patch prefix through prefill / decode_step, its text
+             through the Engine), DBRX-132B 2 (moe_ep, grouped and
+             grouped=False), Whisper-large-v3 2 + 2 (1,500 stub frames,
+             through prefill / decode_step), Qwen2.5-3B 2; (a) an NCCL
+             group of one, mesh (1, 1), against the unsharded runs:
+             tokens and the streams' logits bit for bit, collectives a
+             decode step, both decode-step ms; (b) two gloo ranks on
+             the card at (1, 2) and (2, 1) against (a)'s unsharded,
+             Qwen2.5-3B weight-gathered (fsdp) at (2, 1), a snapshot
+             written at (1, 2), restored at (2, 1) and unsharded; every
+             kernel call held against its plain version.  paged_check
+             also records, at the first layer where a parting row
+             passes one bf16 ulp, the int8 activations of its 7 fused
+             GEMMs in the kernel and the plain run.
 30. shard_train (slice 17, last) — sharded training: (a)
              ``launch.train.run --multi-pod`` on an NCCL group of one in
              this process, mesh (1, 1, 1), Qwen2.5-3B at 4 layers from
@@ -491,9 +511,9 @@ danube_serve, rgemma_serve and xlstm_serve, int from moe_path's
 per-expert path, paged and grouped from paged_moe (grouped also
 moe_path), flash from gemma7b_serve, danube_serve, rgemma_serve,
 paged_moe, moe_chunks and moe_train; fused, int, grouped and flash
-also shard_serve's (both of its parts), and the grouped kernel's
-int32-out instance has an entry of its own, its launches all
-shard_serve's.  Any failure raises and
+also shard_serve's and shard_archs' (both parts of each), and the
+grouped kernel's int32-out instance has an entry of its own, its
+launches shard_serve's.  Any failure raises and
 exits non-zero; without a CUDA device, or without the repository beside
 this file, the script exits non-zero and prints no result.  The
 rehearsal walks the serve, mlp, paged_serve, sched_serve, spec_check (60
@@ -611,10 +631,10 @@ DEMO_PAGED_SWEEP = ((0, 3, 8), (1, 5, 20))
 REHEARSE_DEMO_STEPS = 60
 RESILIENCE_PHASES = "chaos_serve, spike_serve and interactions"
 # the speculative phases' depth on the card: spec_serve and spec_sched run
-# the first 6 of Qwen2.5-3B's 36 layers (full width), which keeps the
+# the first 4 of Qwen2.5-3B's 36 layers (full width), which keeps the
 # script's time (their six full-depth runs took ~230 s on a slow host; 9
-# layers before shard_train came, 6 since, for its time)
-SPEC_DEPTH = 6
+# layers before shard_train came, 6 before shard_archs, 4 since)
+SPEC_DEPTH = 4
 SPEC_MOE_LAYERS = 8                # spec_moe's depth of OLMoE's 16 layers
 # slice 12: Danube's serve (max_len above its 4,096 window, one prompt
 # past it, two neuron groups a layer); the tokens of moe_chunks'
@@ -641,7 +661,8 @@ RECURRENT = dict(cfg_groups=2, window_prompt=4096, window_layers=3,
 # depth on one card (full depth needs ~70 GB of int8 weights beside a
 # 4.2 GB f32 head) and its vision prefix; DBRX-132B's depth (its 40
 # layers need four cards)
-WHISPER = dict(requests=4, max_new=16, frames=1500, check_layers=4,
+# Whisper's requests: 8 tokens each since shard_archs came (16 before)
+WHISPER = dict(requests=4, max_new=8, frames=1500, check_layers=4,
                check_steps=8)
 INTERNVL = dict(layers=8, requests=4, max_new=16, prefix=1024)
 DBRX_LAYERS = 4
@@ -658,6 +679,9 @@ SPEC_TRAINED = dict(layers=9, steps=120, batch=8, seq=128, templates=4,
                     peak_lr=5e-4, warmup=10, requests=8, prompt=24,
                     max_new=16)
 HELD_PER_KERNEL = 24
+# the rows of a fused or int kernel call that held_calls compares (a
+# larger call's first rows)
+HELD_ROWS = 128
 # the rehearsal's spec_trained: the smoke Qwen2.5-3B at its two layers,
 # trained briefly on the CPU
 REHEARSE_SPEC_TRAINED = dict(layers=2, steps=60, batch=8, seq=48,
@@ -1717,6 +1741,62 @@ class layer_outputs:
         self.T._block_tail = self.orig
 
 
+class fused_int8:
+    """Records, for every fused approx-MAC call of the block, the int8
+    activations the kernel multiplies (its input quantized at its
+    scale, as the kernel and its plain version quantize it) and the
+    scale, in call order."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self) -> "fused_int8":
+        from repro_torch.kernels.approx_mac import ops
+        self.ops, self.orig = ops, ops.approx_mac_fused_matmul
+        torch = self.torch
+
+        def rec(x2, w_q, w_row, x_scale, *rest, **kw):
+            q = torch.clamp(torch.round(x2 / x_scale), -127, 127)
+            self.calls.append((q.to(torch.int8), x_scale.clone()))
+            return self.orig(x2, w_q, w_row, x_scale, *rest, **kw)
+        ops.approx_mac_fused_matmul = rec
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.ops.approx_mac_fused_matmul = self.orig
+
+
+LAYER_GEMM_NAMES = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+def int8_at_layer(torch, got, want, layer: int, row: int) -> dict:
+    """The int8 activations of one layer's 7 fused GEMMs in two runs of
+    one decode step (``fused_int8``): per GEMM, the int8 values that
+    differ (all rows, and the parting row's), whether the scales are
+    equal; the differing values of the layers before; and the first
+    GEMM of the step where any value differs."""
+    n = len(LAYER_GEMM_NAMES)
+
+    def diff(i):
+        (a, sa), (b, sb) = got.calls[i], want.calls[i]
+        return a != b, bool(torch.equal(sa, sb))
+    gemms = []
+    for j, name in enumerate(LAYER_GEMM_NAMES):
+        d, scale_equal = diff(layer * n + j)
+        gemms.append({"gemm": name, "int8_differing": int(d.sum()),
+                      "int8_differing_in_row": int(d[row].sum()),
+                      "scale_equal": scale_equal})
+    counts = [int(diff(i)[0].sum()) for i in range(len(got.calls))]
+    first = next((i for i, c in enumerate(counts) if c), None)
+    return {"layer": layer, "gemms": gemms,
+            "int8_differing_in_earlier_layers": sum(counts[:layer * n]),
+            "first_int8_flip": None if first is None else {
+                "layer": first // n, "gemm": LAYER_GEMM_NAMES[first % n],
+                "int8_differing": counts[first],
+                "int8_differing_in_row": int(diff(first)[0][row].sum()),
+                "scale_equal": diff(first)[1]}}
+
+
 def bf16_ulp(torch, x):
     """One bf16 ulp at each element of x: 2**(e - 8) for |x| in
     [2**(e-1), 2**e)."""
@@ -1779,16 +1859,25 @@ def phase_paged_check(torch, T, PA, A, ops, params, cfg, snaps,
             calls.append((args, kw, out))
             return out
 
-        with layer_outputs(T) as hid_k:
+        with layer_outputs(T) as hid_k, fused_int8(torch) as q_k:
             logits_k = _snap_step(torch, T, params, cfg, snap)
         T.paged_decode_attention = plain_attn
         try:
-            with layer_outputs(T) as hid_p:
+            with layer_outputs(T) as hid_p, fused_int8(torch) as q_p:
                 logits_p = _snap_step(torch, T, params, cfg, snap)
         finally:
             T.paged_decode_attention = PA.paged_decode_attention
-        parting.append(parting_rows(torch, logits_k, logits_p, hid_k.out,
-                                    hid_p.out))
+        rows = parting_rows(torch, logits_k, logits_p, hid_k.out, hid_p.out)
+        if not cfg.n_experts:
+            # repair of the paged ulp question: the int8 activations the
+            # fused GEMMs multiplied at the first layer past one ulp
+            assert len(q_k.calls) == len(LAYER_GEMM_NAMES) * cfg.n_layers
+            for r in rows:
+                if r["first_layer_past_one_ulp"] is not None:
+                    r["int8"] = int8_at_layer(
+                        torch, q_k, q_p, r["first_layer_past_one_ulp"],
+                        r["row"])
+        parting.append(rows)
         assert len(calls) == cfg.n_layers, len(calls)
         for args, kw, ref in calls:
             out = PA.paged_decode_attention(*args, **kw)
@@ -1847,8 +1936,10 @@ def phase_paged_check(torch, T, PA, A, ops, params, cfg, snaps,
           "parting_rows": parting,
           "parting_note": "per snapshot, each row whose argmax parts from "
                           "the plain twin's: the twin's top-1 minus top-2 "
-                          "logit margin and the first layer whose output "
-                          "differs by more than one bf16 ulp (recorded)",
+                          "logit margin, the first layer whose output "
+                          "differs by more than one bf16 ulp and, there, "
+                          "the int8 activations of its 7 fused GEMMs in "
+                          "the two runs (recorded)",
           "fused_mac_chunk": {"slot": chunk_snap["slot"],
                               "start": chunk_snap["start"],
                               "count": chunk_snap["count"]},
@@ -5758,8 +5849,9 @@ class held_calls:
     kernel, operands of fewer than 4 M elements cloned (a cache or pool
     is written later) and larger ones (weights) by reference.  ``check``
     runs the plain versions: approx-MAC bit for bit, flash within
-    ``flash_tol``, paged within check_paged's tolerance.  The wrappers'
-    launch counts are left as the block made them."""
+    ``flash_tol``, paged within check_paged's tolerance; a fused or int
+    call of more than HELD_ROWS rows on its first HELD_ROWS.  The
+    wrappers' launch counts are left as the block made them."""
 
     BY_REFERENCE = 1 << 22
 
@@ -5823,6 +5915,13 @@ class held_calls:
         for kind, calls in self.calls.items():
             worst = 0.0
             for args, kw, got in calls:
+                if (kind in ("fused", "int")
+                        and args[0].shape[0] > HELD_ROWS):
+                    # a row's result is its own (the scale is an argument):
+                    # the plain version's f64 blocks of a 4,128-row
+                    # prefill would not fit, so its first rows are held
+                    args = (args[0][:HELD_ROWS],) + tuple(args[1:])
+                    got = got[:HELD_ROWS]
                 want = plain[kind](*args, **kw)
                 err = (float((got.float() - want.float()).abs().max())
                        if got.numel() else 0.0)
@@ -6297,6 +6396,38 @@ def check_head_split(torch, get_config, dev) -> dict:
     return {"bit_identical": True, "tp": cases}
 
 
+def check_row_split(torch, get_config, dev) -> dict:
+    """decode_attention on a data-parallel rank's share of the batch rows
+    (2 of 4, and 1 of 4: a lone row) against those rows of the whole
+    batch's call, bit for bit: Qwen2.5-3B, OLMoE-1B-7B, Gemma-2-27B and
+    RecurrentGemma-2B's heads, Whisper's cross-attention (1,500
+    positions), a 128-position cache with 97 valid, bf16."""
+    from repro_torch.nn.attention import decode_attention
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = {}
+    for arch in ("qwen2.5-3b", "olmoe-1b-7b", "gemma2-27b",
+                 "recurrentgemma-2b", "whisper-large-v3"):
+        cfg = get_config(arch)
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        s = 1500 if cfg.encoder_decoder else 128
+        q, k, v = (torch.randn(4, n, heads, hd, device=dev, generator=gen)
+                   .to(cfg.compute_dtype)
+                   for n, heads in ((1, h), (s, kv), (s, kv)))
+        whole = decode_attention(q, k, v, 97, kv_heads=kv)
+        # the CPU rehearsal's plain path multiplies a lone row by another
+        # kernel (gemv): it is held at 2 rows a rank only
+        dps = (2, 4) if dev.type == "cuda" else (2,)
+        for dp in dps:
+            n = 4 // dp
+            for r in range(dp):
+                rows = slice(r * n, (r + 1) * n)
+                part = decode_attention(q[rows], k[rows], v[rows], 97,
+                                        kv_heads=kv)
+                assert torch.equal(part, whole[rows]), (arch, dp, r)
+        cases[arch] = list(dps)
+    return {"bit_identical": True, "dp": cases}
+
+
 SHARD_KERNELS = ("approx_mac_fused_matmul", "approx_mac_matmul",
                  "approx_mac_grouped_matmul", "approx_mac_grouped_matmul_int")
 
@@ -6348,6 +6479,12 @@ def shard_rank(rank, port, rehearse, out):
                 dense = shard_dense_run(torch, T, (A, PA, FA), Engine,
                                         Request, PowerBudgetScheduler, qwen,
                                         cfg, dev, mp_hd, n_req, max_new)
+                # data parallelism: two rows of the pool a rank
+                dense_dp = shard_dense_run(
+                    torch, T, (A, PA, FA), Engine, Request,
+                    PowerBudgetScheduler, qwen, cfg, dev,
+                    serve_mapping(make_serve_mesh(dp=2, tp=1), kv="hd"),
+                    n_req, max_new)
                 moe = shard_moe_run(torch, T, Engine, Request, olmoe,
                                     moe_cfg, dev, serve_mapping(
                                         make_serve_mesh(dp=1, tp=2)))
@@ -6358,7 +6495,8 @@ def shard_rank(rank, port, rehearse, out):
             checked = held.check(A, FA, PA)
         finally:
             dist.destroy_process_group()
-        out.put((rank, True, {"dense": dense, "moe": moe, "seq": seq,
+        out.put((rank, True, {"dense": dense, "dense_dp": dense_dp,
+                              "moe": moe, "seq": seq,
                               "launches": launches, "held": checked}))
     except BaseException:  # noqa: BLE001 — reported to the parent
         import traceback
@@ -6412,9 +6550,11 @@ def phase_shard_serve(torch, T, A, libs, Engine, Request, Scheduler,
     the ranks hold their own), the int kernel and the int32-out
     instance at the row-parallel shapes included; and decode attention
     on a rank's share of the heads is held bit for bit to that slice of
-    the unsharded call (``check_head_split``).  (b)'s times are two
-    processes on one card, not a multi-card time."""
-    import multiprocessing as mp
+    the unsharded call (``check_head_split``), and on a data-parallel
+    rank's share of the rows to those rows (``check_row_split``).  (b)
+    also runs the Qwen run at (2, 1), two of the pool's four rows a
+    rank, against (a)'s unsharded (its collectives a step recorded).
+    (b)'s times are two processes on one card, not a multi-card time."""
     import torch.distributed as dist
     from repro_torch.dist.sharding import serve_mapping
     from repro_torch.launch.mesh import make_serve_mesh
@@ -6462,41 +6602,15 @@ def phase_shard_serve(torch, T, A, libs, Engine, Request, Scheduler,
     for kind in ("fused", "int", "grouped", "grouped_int"):
         assert held_a[kind]["held"] > 0, ("a", kind, held_a)
     head_split = check_head_split(torch, get_config, dev)
+    row_split = check_row_split(torch, get_config, dev)
     part_a = time.perf_counter() - t_phase
 
     # (b): two ranks, one card, gloo
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=shard_rank, args=(r, port, rehearse, out))
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    ranks = {}
-    deadline = time.monotonic() + 600
-    try:
-        while len(ranks) < len(procs):
-            try:
-                r, ok, value = out.get(timeout=5)
-            except queue.Empty:
-                # a rank that died before it could report ends the wait
-                dead = [i for i, p in enumerate(procs)
-                        if i not in ranks and p.exitcode not in (None, 0)]
-                if dead and not out.empty():
-                    continue
-                assert not dead and time.monotonic() < deadline, \
-                    f"shard_serve ranks {dead or 'all'}: no result"
-                continue
-            assert ok, f"shard_serve rank {r}:\n{value}"
-            ranks[r] = value
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
+    ranks = _run_ranks(shard_rank, rehearse, "shard_serve")
     for r, got in ranks.items():
         for key in keys:
             assert got["dense"][key] == plain[key], (r, key)
+            assert got["dense_dp"][key] == plain[key], ("(2, 1)", r, key)
         assert got["moe"] == moe_plain, r
         assert all(s == want for s in got["dense"]["collectives_per_step"])
         assert got["seq"]["prefill"] <= SEQ_TOL, (r, got["seq"])
@@ -6531,6 +6645,12 @@ def phase_shard_serve(torch, T, A, libs, Engine, Request, Scheduler,
            "held_a": held_a, "held_b": {r: g["held"]
                                         for r, g in ranks.items()},
            "decode_attention_head_split": head_split,
+           "decode_attention_row_split": row_split,
+           "b_2x1_gloo_one_card_decode_step_ms_mean":
+               mean(ranks[0]["dense_dp"]["step_ms"]),
+           "b_2x1_collectives_per_decode_step":
+               ranks[0]["dense_dp"]["collectives_per_step"][0],
+           "b_2x1_bit_identical": True,
            "libraries_built_after_first_tick": 0,
            "launches_a": launches, "launches_b": rank_launches,
            "a_s": part_a, "total_s": time.perf_counter() - t_phase}
@@ -7228,40 +7348,12 @@ def phase_shard_train(torch, T, libs, get_config, dev) -> dict:
     sequential chain; (2, 1)'s params checkpointed and restored at
     (1, 2) bit for bit.  (b)'s times are two processes sharing one card
     over gloo, not multi-card times."""
-    import multiprocessing as mp
     rehearse = dev.type != "cuda"
     t_phase = time.perf_counter()
     a = shard_train_a(torch, T, libs, get_config, dev)
     part_a = time.perf_counter() - t_phase
     emit({"phase": "shard_train_a", **a})
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=shard_train_rank,
-                         args=(r, port, rehearse, out)) for r in range(2)]
-    for p in procs:
-        p.start()
-    ranks = {}
-    deadline = time.monotonic() + 600
-    try:
-        while len(ranks) < len(procs):
-            try:
-                r, ok, value = out.get(timeout=5)
-            except queue.Empty:
-                dead = [i for i, p in enumerate(procs)
-                        if i not in ranks and p.exitcode not in (None, 0)]
-                if dead and not out.empty():
-                    continue
-                assert not dead and time.monotonic() < deadline, \
-                    f"shard_train ranks {dead or 'all'}: no result"
-                continue
-            assert ok, f"shard_train rank {r}:\n{value}"
-            ranks[r] = value
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
+    ranks = _run_ranks(shard_train_rank, rehearse, "shard_train")
     b0 = ranks[0]
     emit({"phase": "shard_train_b", "ranks": ranks})
     for shape in ("(2, 1)", "(1, 2)", "ep"):
@@ -7310,6 +7402,477 @@ def phase_shard_train(torch, T, libs, get_config, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# slice 18: every family served under a mapping
+# ---------------------------------------------------------------------------
+
+# the families of shard_archs at full width, each at the depth given (its
+# pattern's first layers: Gemma-2 one local and one global, RecurrentGemma
+# one period, Whisper 2 + 2), from fixed seeds
+SHARD_ARCHS = dict(
+    layers={"gemma2-27b": 2, "recurrentgemma-2b": 3, "xlstm-350m": 2,
+            "internvl2-76b": 2, "dbrx-132b": 2, "whisper-large-v3": 2,
+            "qwen2.5-3b": 2},
+    n_req=4, max_new=4, max_len=64, frames=1500, prefix=1024, stream_len=8,
+    steps=4, seed=18, snapshot_ticks=3)
+REHEARSE_SHARD_ARCHS = dict(frames=12, prefix=4)
+# the Engine runs (arch, variant) and the prefill / decode_step streams
+ARCH_ENGINE_RUNS = (("gemma2-27b", ""), ("recurrentgemma-2b", ""),
+                    ("xlstm-350m", ""), ("internvl2-76b", "text"),
+                    ("dbrx-132b", ""), ("dbrx-132b", "per_expert"),
+                    ("qwen2.5-3b", ""))
+ARCH_STREAMS = ("internvl2-76b", "whisper-large-v3")
+# the kernels whose calls every part of shard_archs holds (the int kernel:
+# the row-parallel GEMMs and the per-expert path; expert-parallel banks
+# need no int32-out instance)
+ARCH_HELD = ("fused", "int", "grouped")
+
+
+def merge_held(checks: list) -> dict:
+    """``held_calls.check`` results of several blocks as one: calls and
+    held calls summed, the largest error, per kernel."""
+    return {kind: {"calls": sum(c[kind]["calls"] for c in checks),
+                   "held": sum(c[kind]["held"] for c in checks),
+                   "max_abs_err": max(c[kind]["max_abs_err"]
+                                      for c in checks)}
+            for kind in checks[0]}
+
+
+def _run_ranks(target, rehearse: bool, name: str, *args) -> dict:
+    """Two processes of `target(rank, port, rehearse, out, *args)` on the
+    card (the CPU when rehearsed), joined over gloo by the target: their
+    results by rank; a rank's failure raises with its traceback."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=target, args=(r, port, rehearse, out) + args)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    deadline = time.monotonic() + 600
+    try:
+        while len(ranks) < len(procs):
+            try:
+                r, ok, value = out.get(timeout=5)
+            except queue.Empty:
+                # a rank that died before it could report ends the wait
+                dead = [i for i, p in enumerate(procs)
+                        if i not in ranks and p.exitcode not in (None, 0)]
+                if dead and not out.empty():
+                    continue
+                assert not dead and time.monotonic() < deadline, \
+                    f"{name} ranks {dead or 'all'}: no result"
+                continue
+            assert ok, f"{name} rank {r}:\n{value}"
+            ranks[r] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    return ranks
+
+
+def shard_arch_cfgs(get_config, rehearse: bool) -> dict:
+    """(arch, variant) -> its config at the phase's depth: full width on
+    the card, the smoke size in the rehearsal (DBRX with 8 experts there,
+    so that its banks stay expert-parallel); every one on the fused
+    backend, DBRX with moe_ep (and ``grouped=False`` for "per_expert"),
+    Whisper with as many encoder layers as decoder layers."""
+    out = {}
+    for arch, variant in ARCH_ENGINE_RUNS + tuple((a, "stream")
+                                                  for a in ARCH_STREAMS):
+        layers = SHARD_ARCHS["layers"][arch]
+        cfg = get_config(arch)
+        over = dict(n_layers=layers, mac_backend="pallas")
+        if rehearse:
+            cfg = cfg.smoke(**({"n_experts": 8} if cfg.n_experts else {}))
+        if cfg.encoder_decoder:
+            over["n_enc_layers"] = layers
+        if cfg.n_experts:
+            over.update(moe_ep=True, moe_grouped=variant != "per_expert")
+        out[(arch, variant)] = dataclasses.replace(cfg, **over)
+    return out
+
+
+def _arch_params(torch, T, cfg, dev):
+    """The family's params from the phase's seed, quantized as drawn:
+    every rank draws the same ones."""
+    return T.init_lm(torch.Generator(device=dev).manual_seed(
+        SHARD_ARCHS["seed"]), cfg, dev, quantized=True)
+
+
+def _arch_prompts(Request, cfg, n: int, new: int) -> list:
+    """Prompts of 6-20 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(18)
+    return [Request(rid=i, prompt=rng.integers(
+        0, min(cfg.vocab_size, 50000), int(rng.integers(6, 21)))
+        .astype(np.int32), max_new_tokens=new) for i in range(n)]
+
+
+def _layer_cfg(cfg):
+    """The runs' per-layer config: a mix of exact and approximate."""
+    import numpy as np
+    return (np.arange(cfg.n_layers, dtype=np.int32) * 13 + 5) % 32
+
+
+def arch_engine_run(torch, T, Engine, Request, params, cfg, dev, mapping,
+                    *, n_req: int, max_new: int) -> dict:
+    """One Engine (sharded by `mapping`, or not) over the phase's
+    requests at a per-layer config: its tokens, each decode step's ms
+    and collectives."""
+    on_card = dev.type == "cuda"
+    eng = Engine(params, cfg, max_batch=4, max_len=SHARD_ARCHS["max_len"],
+                 approx_cfg=_layer_cfg(cfg), device=dev, mapping=mapping,
+                 param_specs=T.lm_specs(cfg) if mapping else None)
+    for r in _arch_prompts(Request, cfg, n_req, max_new):
+        eng.submit(r)
+    steps, per_step, fn = [], [], T.decode_step
+
+    def timed(*args, **kw):
+        before = dict(mapping.collectives) if mapping else {}
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        if on_card:
+            torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t) * 1e3)
+        if mapping:
+            per_step.append({f"{k[0]} {'/'.join(k[1])}": v - before.get(k, 0)
+                             for k, v in mapping.collectives.items()
+                             if v - before.get(k, 0)})
+        return out
+
+    T.decode_step = timed
+    try:
+        done = sorted(eng.run(), key=lambda r: r.rid)
+    finally:
+        T.decode_step = fn
+    assert len(done) == n_req and all(r.status == "done" for r in done)
+    return {"tokens": [r.tokens for r in done], "step_ms": steps,
+            "collectives_per_step": per_step}
+
+
+def _stream_inputs(torch, cfg, dev, rehearse: bool) -> dict:
+    """A VLM's 1,024 stub patch embeddings or Whisper's 1,500 stub
+    frames for the 4 rows of a stream, from a fixed seed."""
+    z = {**SHARD_ARCHS, **(REHEARSE_SHARD_ARCHS if rehearse else {})}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    if cfg.vision_prefix_len:
+        return {"vision_embeds": torch.randn(
+            4, z["prefix"], cfg.d_model, generator=gen, device=dev) * 0.02}
+    return {"enc_embeds": torch.randn(4, z["frames"], cfg.d_model,
+                                      generator=gen, device=dev)}
+
+
+def arch_stream(torch, T, params, cfg, dev, mapping, inputs) -> dict:
+    """``prefill`` of 4 prompts of SHARD_ARCHS["stream_len"] tokens (with
+    the prefix or the frames) and greedy ``decode_step``s at the
+    per-layer config: tokens and every row's logits (a rank returns its
+    rows; they are gathered where "batch" cut them)."""
+    import numpy as np
+    from repro_torch.dist.sharding import activate
+    if mapping is not None:
+        params = mapping.shard_tree(
+            params, T.quantize_lm_specs(T.lm_specs(cfg), cfg))
+    toks = torch.as_tensor(np.random.default_rng(20).integers(
+        0, cfg.vocab_size, (4, SHARD_ARCHS["stream_len"])), device=dev)
+    acfg = torch.as_tensor(_layer_cfg(cfg), device=dev)
+    rows = mapping.spec(("batch",), (4,))[0] if mapping else None
+
+    def every_row(logits):
+        return logits if rows is None else mapping.all_gather(
+            logits, 0, mapping.batch_axes)
+    with activate(mapping):
+        logits, cache = T.prefill(params, cfg, toks, approx_cfg=acfg,
+                                  max_len=toks.shape[1] + cfg.vision_prefix_len
+                                  + SHARD_ARCHS["steps"] + 1, **inputs)
+        logits = every_row(logits)
+        tokens, seen = [], [logits.float()]
+        for _ in range(SHARD_ARCHS["steps"]):
+            nxt = torch.argmax(logits, -1)[:, None]
+            tokens.append(nxt[:, 0].tolist())
+            logits, cache = T.decode_step(params, cfg, cache, nxt,
+                                          approx_cfg=acfg)
+            logits = every_row(logits)
+            seen.append(logits.float())
+    # numpy: a tensor crossing a rank's queue would be a shared-memory
+    # handle, gone with the rank
+    return {"tokens": tokens, "logits": torch.stack(seen).cpu().numpy()}
+
+
+def stream_diff(ref: dict, got: dict) -> dict:
+    """Where two ``arch_stream`` results part: each step's largest
+    |logit difference| (step 0 the prefill) and the tokens."""
+    import numpy as np
+    return {"max_abs_diff_per_step": [float(np.abs(a - b).max()) for a, b
+                                      in zip(ref["logits"], got["logits"])],
+            "tokens": (ref["tokens"], got["tokens"])}
+
+
+def snapshot_engine(torch, T, Engine, Checkpointer, params, cfg, dev,
+                    mapping, directory: str):
+    """Qwen2.5-3B's Engine of the snapshot runs (max_batch 4, the phase's
+    requests, a checkpointer in `directory`)."""
+    return Engine(params, cfg, max_batch=4, max_len=SHARD_ARCHS["max_len"],
+                  approx_cfg=_layer_cfg(cfg), device=dev, mapping=mapping,
+                  checkpointer=Checkpointer(directory),
+                  param_specs=T.lm_specs(cfg) if mapping else None)
+
+
+def _finish(eng) -> list:
+    return [r.tokens for r in sorted(eng.run(), key=lambda r: r.rid)]
+
+
+def shard_archs_rank(rank, port, rehearse, out, directory):
+    """One of the two ranks of shard_archs (b), over gloo on the one card:
+    every family at (1, 2) and (2, 1) (Engine runs and prefill /
+    decode_step streams), Qwen2.5-3B weight-gathered at (2, 1), and a
+    snapshot written at (1, 2) and restored at (2, 1); every kernel call
+    held against its plain version.  Puts its results on `out`."""
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(1 if rehearse else 4)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        from repro_torch.configs.registry import get_config
+        from repro_torch.dist.sharding import serve_mapping
+        from repro_torch.kernels.approx_mac import approx_mac as A
+        from repro_torch.kernels.flash_attention import flash_attention as FA
+        from repro_torch.kernels.flash_attention import paged_attention as PA
+        from repro_torch.launch.mesh import make_serve_mesh
+        from repro_torch.nn import transformer as T
+        from repro_torch.serve import faults as F
+        from repro_torch.serve.engine import Engine, Request
+        Engine = strict_engine(Engine, F)
+        dev = torch.device("cpu" if rehearse else "cuda")
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank)
+        n_req, max_new = SHARD_ARCHS["n_req"], SHARD_ARCHS["max_new"]
+        res = {"engine": {}, "stream": {}}
+        t0 = time.perf_counter()
+        checks = []
+
+        def mapping(dp, tp, **kw):
+            return serve_mapping(make_serve_mesh(dp=dp, tp=tp), **kw)
+
+        def family(arch, variant, cfg, params):
+            for g, grid in (("1x2", (1, 2)), ("2x1", (2, 1))):
+                key = f"{arch}/{variant or 'engine'}/{g}"
+                if variant == "stream":
+                    res["stream"][key] = arch_stream(
+                        torch, T, params, cfg, dev, mapping(*grid),
+                        _stream_inputs(torch, cfg, dev, rehearse))
+                else:
+                    res["engine"][key] = arch_engine_run(
+                        torch, T, Engine, Request, params, cfg, dev,
+                        mapping(*grid), n_req=n_req, max_new=max_new)
+            if arch != "qwen2.5-3b":
+                return
+            fsdp = mapping(2, 1, fsdp=True)
+            res["fsdp_2x1"] = arch_engine_run(
+                torch, T, Engine, Request, params, cfg, dev, fsdp,
+                n_req=n_req, max_new=max_new)
+            res["fsdp_collectives"] = {f"{k[0]} {'/'.join(k[1])}": v
+                                       for k, v in fsdp.collectives.items()}
+            eng = snapshot_engine(torch, T, Engine, Checkpointer, params,
+                                  cfg, dev, mapping(1, 2), directory)
+            for r in _arch_prompts(Request, cfg, n_req, max_new):
+                eng.submit(r)
+            for _ in range(SHARD_ARCHS["snapshot_ticks"]):
+                eng.step()
+            eng.save_snapshot(1)
+            res["snapshot_saved_1x2"] = _finish(eng)
+            back = snapshot_engine(torch, T, Engine, Checkpointer, params,
+                                   cfg, dev, mapping(2, 1), directory)
+            back.restore_snapshot(1)
+            res["snapshot_restored_2x1"] = _finish(back)
+
+        try:
+            _zero_shard_launches(A, FA)
+            for (arch, variant), cfg in shard_arch_cfgs(
+                    get_config, rehearse).items():
+                # held and checked a family at a time: the held calls
+                # keep its weights alive
+                with held_calls(torch, T) as held:
+                    family(arch, variant, cfg,
+                           _arch_params(torch, T, cfg, dev))
+                checks.append(held.check(A, FA, PA))
+                del held
+                if not rehearse:
+                    torch.cuda.empty_cache()
+            launches = _shard_launches(A, FA)
+        finally:
+            dist.destroy_process_group()
+        res.update(held=merge_held(checks), launches=launches,
+                   seconds=time.perf_counter() - t0)
+        out.put((rank, True, res))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        out.put((rank, False, traceback.format_exc()))
+
+
+def phase_shard_archs(torch, T, A, libs, Engine, Request, Checkpointer,
+                      get_config, dev) -> dict:
+    """Every family served under a mapping, at full width and the depths
+    of SHARD_ARCHS: Gemma-2-27B (one local and one global layer, both
+    softcaps, int8 KV), RecurrentGemma-2B (one period: two RG-LRU
+    layers and an MQA local layer), xLSTM-350M (an mLSTM and an sLSTM
+    layer), InternVL2-76B (its 1,024-patch prefix through prefill /
+    decode_step, its text through the Engine), DBRX-132B (moe_ep,
+    grouped and ``grouped=False``), Whisper-large-v3 (2 + 2 layers,
+    1,500 stub frames, through prefill / decode_step) and Qwen2.5-3B.
+    (a) An NCCL group of one in this process (gloo in the rehearsal),
+    mesh (1, 1): each against its unsharded run, tokens (and the
+    streams' logits) bit for bit, each decode step's collectives and
+    both decode-step ms.  (b) Two spawned ranks sharing the card over
+    gloo: each at (1, 2) and (2, 1) against (a)'s unsharded tokens and
+    logits, Qwen2.5-3B weight-gathered (``serve_mapping(fsdp=True)``) at
+    (2, 1), and a snapshot of Qwen2.5-3B written at (1, 2) after
+    SHARD_ARCHS["snapshot_ticks"] ticks, restored at (2, 1) and here
+    unsharded, each continuing as the uninterrupted unsharded engine.
+    In both parts every kernel call is held against its plain version
+    (``held_calls``).  (b)'s times are two processes on one card, not a
+    multi-card time."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import serve_mapping
+    from repro_torch.launch.mesh import make_serve_mesh
+    rehearse = dev.type != "cuda"
+    t_phase = time.perf_counter()
+    n_req, max_new = SHARD_ARCHS["n_req"], SHARD_ARCHS["max_new"]
+    directory = SCRATCH / "shard_archs"
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    plain, one, streams = {}, {}, {}
+    dist.init_process_group("gloo" if rehearse else "nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    checks = []
+    try:
+        _zero_shard_launches(A, libs[-1])
+        for (arch, variant), cfg in shard_arch_cfgs(get_config,
+                                                    rehearse).items():
+            key = f"{arch}/{variant or 'engine'}"
+            one_rank = serve_mapping(make_serve_mesh(dp=1, tp=1))
+            # held and checked a family at a time: the held calls keep
+            # its weights alive
+            with held_calls(torch, T) as held:
+                params = _arch_params(torch, T, cfg, dev)
+                if variant == "stream":
+                    inputs = _stream_inputs(torch, cfg, dev, rehearse)
+                    streams[key] = tuple(
+                        arch_stream(torch, T, params, cfg, dev, m, inputs)
+                        for m in (None, one_rank))
+                else:
+                    plain[key], one[key] = (
+                        arch_engine_run(torch, T, Engine, Request, params,
+                                        cfg, dev, m, n_req=n_req,
+                                        max_new=max_new)
+                        for m in (None, one_rank))
+                if arch == "qwen2.5-3b":
+                    eng = snapshot_engine(torch, T, Engine, Checkpointer,
+                                          params, cfg, dev, None,
+                                          str(directory / "plain"))
+                    for r in _arch_prompts(Request, cfg, n_req, max_new):
+                        eng.submit(r)
+                    for _ in range(SHARD_ARCHS["snapshot_ticks"]):
+                        eng.step()
+                    uninterrupted = _finish(eng)
+                    qwen = (params, cfg)
+                del params
+            checks.append(held.check(A, libs[-1], libs[1]))
+            del held
+            if not rehearse:
+                torch.cuda.empty_cache()
+        launches_a = _shard_launches(A, libs[-1])
+        held_a = merge_held(checks)
+    finally:
+        dist.destroy_process_group()
+    for key, got in one.items():
+        assert got["tokens"] == plain[key]["tokens"], ("a", key)
+    for key, (ref, got) in streams.items():
+        assert got["tokens"] == ref["tokens"] and np.array_equal(
+            got["logits"], ref["logits"]), ("a", key, stream_diff(ref, got))
+    part_a = time.perf_counter() - t_phase
+    if not rehearse:
+        torch.cuda.empty_cache()      # the ranks' room on the card
+    ranks = _run_ranks(shard_archs_rank, rehearse, "shard_archs",
+                       str(directory / "sharded"))
+    for r, got in ranks.items():
+        for key, run in got["engine"].items():
+            arch_variant = key.rsplit("/", 1)[0]
+            assert run["tokens"] == plain[arch_variant]["tokens"], (r, key)
+        for key, run in got["stream"].items():
+            ref = streams[key.rsplit("/", 1)[0]][0]
+            assert run["tokens"] == ref["tokens"] and np.array_equal(
+                run["logits"], ref["logits"]), (r, key, stream_diff(ref, run))
+        qwen_plain = plain["qwen2.5-3b/engine"]["tokens"]
+        assert got["fsdp_2x1"]["tokens"] == qwen_plain, r
+        assert got["fsdp_collectives"].get("fsdp_all_gather data", 0) > 0
+        assert got["snapshot_saved_1x2"] == uninterrupted, r
+        assert got["snapshot_restored_2x1"] == uninterrupted, r
+        for kind in ARCH_HELD:
+            assert got["held"][kind]["held"] > 0, ("b", r, kind)
+    # the sharded snapshot restored unsharded
+    eng = snapshot_engine(torch, T, Engine, Checkpointer, *qwen, dev, None,
+                          str(directory / "sharded"))
+    eng.restore_snapshot(1)
+    assert _finish(eng) == uninterrupted
+    del eng, qwen
+    for kind in ARCH_HELD:
+        assert held_a[kind]["held"] > 0, ("a", kind, held_a)
+    if not rehearse:
+        assert held_a["flash"]["held"] > 0, held_a
+
+    def mean(xs):
+        return sum(xs) / len(xs) if xs else None
+    per_arch = {}
+    for key in plain:
+        steps = one[key]["collectives_per_step"]
+        per_arch[key] = {
+            "layers": SHARD_ARCHS["layers"][key.split("/")[0]],
+            "collectives_per_decode_step_1x1": steps[0] if steps else {},
+            "collectives_per_decode_step_equal": all(s == steps[0]
+                                                     for s in steps),
+            "unsharded_decode_step_ms_mean": mean(plain[key]["step_ms"]),
+            "sharded_1x1_decode_step_ms_mean": mean(one[key]["step_ms"]),
+            "unsharded_decode_step_ms_min": min(plain[key]["step_ms"]),
+            "sharded_1x1_decode_step_ms_min": min(one[key]["step_ms"]),
+            "sharded_over_unsharded_min": (min(one[key]["step_ms"])
+                                           / min(plain[key]["step_ms"])),
+            "b_1x2_gloo_decode_step_ms_mean": mean(
+                ranks[0]["engine"][key + "/1x2"]["step_ms"]),
+            "b_2x1_gloo_decode_step_ms_mean": mean(
+                ranks[0]["engine"][key + "/2x1"]["step_ms"])}
+    rank_launches = {fn: sum(g["launches"][fn] for g in ranks.values())
+                     for fn in launches_a}
+    res = {"phase": "shard_archs",
+           "device": nvidia_smi() if not rehearse else "cpu (rehearsal)",
+           "archs": per_arch, "streams": sorted(streams),
+           "requests": n_req, "max_new_tokens": max_new,
+           "tokens_bit_identical": True, "stream_logits_bit_identical": True,
+           "fsdp_2x1_bit_identical": True,
+           "fsdp_collectives_2x1": ranks[0]["fsdp_collectives"],
+           "snapshot_1x2_to_2x1_and_unsharded_bit_identical": True,
+           "held_a": held_a, "held_b": {r: g["held"]
+                                        for r, g in ranks.items()},
+           "launches_a": launches_a, "launches_b": rank_launches,
+           "b_seconds": {r: g["seconds"] for r, g in ranks.items()},
+           "b_note": "two processes sharing one card over gloo: not a "
+                     "multi-card time",
+           "a_s": part_a, "total_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 def layer_row(name: str, rows: list, launches: int) -> dict:
     """One work row of a kernel's entry: the sums over a layer's GEMMs."""
     return {"work": name, "launches": launches,
@@ -7340,6 +7903,7 @@ REHEARSAL_GROUPS = {
     "slice16": "shard_serve ((a) one rank, (b) two spawned ranks)",
     "slice17": "shard_train ((a) launch.train --multi-pod on one rank, "
                "(b) two spawned ranks)",
+    "slice18": "shard_archs ((a) one rank, (b) two spawned ranks)",
 }
 
 
@@ -7537,6 +8101,9 @@ def rehearse(groups=None) -> int:
                           PowerBudgetScheduler, get_config, cpu)
     if "slice17" in groups:
         phase_shard_train(torch, T, libs, get_config, cpu)
+    if "slice18" in groups:
+        phase_shard_archs(torch, T, A, libs, Engine, Request, Checkpointer,
+                          get_config, cpu)
     emit({"rehearsal": True, "groups": groups, "ok": False})
     return 0
 
@@ -7798,11 +8365,17 @@ def main(argv: list[str]) -> int:
     shard = phase_shard_serve(torch, T, A, libs, Engine, Request,
                               PowerBudgetScheduler, get_config, dev)
     torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    # slice 18: every family served under a mapping
+    archs = phase_shard_archs(torch, T, A, libs, Engine, Request,
+                              Checkpointer, get_config, dev)
+    torch.cuda.empty_cache()
     # slice 17: sharded training, last
     shard_train = phase_shard_train(torch, T, libs, get_config, dev)
 
     def shard_launches(fn):
-        return shard["launches_a"][fn] + shard["launches_b"][fn]
+        return (shard["launches_a"][fn] + shard["launches_b"][fn]
+                + archs["launches_a"][fn] + archs["launches_b"][fn])
 
     layer = [timing[(4, *s)] for s in LAYER_GEMMS]
     gemma_rows = {m: [timing[(m, *s)] for s in GEMMA_GEMMS] for m in (4, 48)}
@@ -7864,7 +8437,7 @@ def main(argv: list[str]) -> int:
                 "speculative runs (spec_check, spec_serve, spec_sched, "
                 "spec_moe, spec_trained), chaos_serve, spike_serve and "
                 "interactions, power_sweep's eight sections, "
-                "shard_serve's column-parallel GEMMs, "
+                "shard_serve's and shard_archs' column-parallel GEMMs, "
                 "gemma7b_serve and danube_serve, rgemma_serve and "
                 "xlstm_serve, whisper_serve and internvl_serve (with "
                 "its text-only Engine run), moe_chunks' per-expert "
@@ -7897,9 +8470,11 @@ def main(argv: list[str]) -> int:
         "work": "the paper MLP's two GEMMs (62x30, 30x10) at batch "
                 "10,000; launches from the mlp (untrained) and mlp_train "
                 "(trained, the 32-config sweep) runs, moe_path's "
-                "per-expert (grouped=False) path and shard_serve's "
-                "row-parallel dense GEMMs (o, down: int32 partial sums "
-                "before the all-reduce); library_ms is "
+                "per-expert (grouped=False) path, shard_serve's and "
+                "shard_archs' row-parallel dense GEMMs (o, down, the "
+                "cells' w_out / w_down: int32 partial sums before the "
+                "all-reduce) and shard_archs' sharded DBRX "
+                "grouped=False; library_ms is "
                 "torch._int_mm at config 0 on operands padded to its "
                 "shape rules, in the faster weight layout",
     }, {
@@ -7948,8 +8523,9 @@ def main(argv: list[str]) -> int:
                 "sched_moe, spec_moe, paged_moe, power_sweep's section "
                 "4, moe_path and "
                 "dbrx_serve (E 16, top-4, K 6,144, N 10,752) runs, "
-                "moe_chunks' per-expert run and shard_serve's "
-                "column-parallel banks (w_gate, w_up); "
+                "moe_chunks' per-expert run, shard_serve's "
+                "column-parallel banks (w_gate, w_up) and shard_archs' "
+                "DBRX (expert-parallel banks at (1, 2)); "
                 "library_ms is a torch._int_mm loop over the touched "
                 "experts at config 0, each GEMM in its faster weight "
                 "layout (timing_grouped's library_layout)",
@@ -8016,7 +8592,11 @@ def main(argv: list[str]) -> int:
                 "whisper_serve (hd 64: the encoder non-causal at 1,500 "
                 "frames, the cross-attention non-causal at 4-24 x "
                 "1,500), internvl_serve (1,028-1,048 tokens, H 64 on KV "
-                "8) and dbrx_serve, and shard_train's sharded and "
+                "8) and dbrx_serve, shard_serve's and shard_archs' "
+                "prefills (Gemma-2's window and softcap, RecurrentGemma's "
+                "MQA, InternVL2's 1,032-token prefix prompts, Whisper's "
+                "encoder and cross-attention at 1,500 frames, on each "
+                "rank's heads), and shard_train's sharded and "
                 "unsharded train steps (bf16 on one NCCL rank, f32 on two "
                 "gloo ranks; forward and remat recompute); "
                 "library_ms is scaled_dot_product_attention (GQA, "

@@ -65,14 +65,16 @@ def compute_scale(x: torch.Tensor, axis: int | None = None,
 
 
 def compiled_scale(x: torch.Tensor, axis: int | None = None,
-                   eps: float = 1e-12) -> torch.Tensor:
+                   eps: float = 1e-12, amax=None) -> torch.Tensor:
     """``compute_scale`` as the reference's COMPILED programs compute it:
     max(|x|, eps) times the f32 reciprocal of 127.  Inside ``jit`` XLA
     strength-reduces the constant division to that multiply (DESIGN.md
     §3), which rounds ~6 % of the scales one ulp away from the eager
-    division."""
+    division.  `amax`: the abs-max when the caller has it (a tensor
+    whose parts lie on several ranks: the MAX of theirs)."""
+    amax = _amax(x, axis) if amax is None else amax
     # a Python float operand is rounded to f32 first: one f32 multiply
-    return torch.clamp(_amax(x, axis), min=eps) * (1.0 / QMAX)
+    return torch.clamp(amax, min=eps) * (1.0 / QMAX)
 
 
 def activation_scale(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -99,10 +101,12 @@ def quantize(x: torch.Tensor, axis: int | None = None) -> QTensor:
     return _to_int8(x, compute_scale(x, axis), axis)
 
 
-def quantize_compiled(x: torch.Tensor, axis: int | None = None) -> QTensor:
+def quantize_compiled(x: torch.Tensor, axis: int | None = None,
+                      amax=None) -> QTensor:
     """``quantize`` at ``compiled_scale``: a float weight quantized
-    inside a compiled call of the reference (``layers.dense``)."""
-    return _to_int8(x, compiled_scale(x, axis), axis)
+    inside a compiled call of the reference (``layers.dense``); `amax`
+    as ``compiled_scale``'s."""
+    return _to_int8(x, compiled_scale(x, axis, amax=amax), axis)
 
 
 def _fake_quant_values(x: torch.Tensor, axis: int | None) -> torch.Tensor:

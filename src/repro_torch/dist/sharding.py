@@ -73,6 +73,7 @@ import torch.distributed as dist
 from repro_torch.core.quantization import QTensor
 
 _ACTIVE: list["Mapping"] = []
+_ROWS: list = []
 QTENSOR_FIELDS = ("values", "scale")
 
 
@@ -96,17 +97,20 @@ class GemmSplit:
     mesh axes whose ranks hold other parts of the GEMM's input, over
     which the activation abs-max is reduced (MAX) before the scale
     formula: "data" for a column-parallel or unsplit GEMM (the batch),
-    every axis for a row-parallel one."""
+    every axis for a row-parallel one and for an expert bank split by
+    experts (expert: the other experts' rows lie on the other ranks of
+    "model")."""
     mapping: "Mapping"
     n_logical: int
     n_offset: int = 0
     row: bool = False
     col: bool = False
+    expert: bool = False
 
     @property
     def scale_axes(self) -> tuple[str, ...]:
         m = self.mapping
-        return m.all_axes if self.row else tuple(
+        return m.all_axes if self.row or self.expert else tuple(
             a for a in m.all_axes if a != "model")
 
 
@@ -190,12 +194,14 @@ class Mapping:
 
     def shard(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
         """The calling rank's slice of a whole tensor by a resolved spec
-        (a contiguous copy when anything is cut)."""
+        (a contiguous copy when anything is cut; `x` itself where every
+        axis of the spec holds one rank)."""
         out = x
         for dim, axes in enumerate(spec):
             if axes is not None:
                 lo, hi = self.local_range(axes, x.shape[dim])
-                out = out.narrow(dim, lo, hi - lo)
+                if hi - lo < x.shape[dim]:
+                    out = out.narrow(dim, lo, hi - lo)
         return out.clone(memory_format=torch.contiguous_format) \
             if out is not x else x
 
@@ -203,9 +209,16 @@ class Mapping:
         """Every leaf of `tree` cut to the calling rank's slice by the
         spec its path resolves to in `spec_tree` (`tree` sits at `path`
         in it); a QTensor becomes a ``ShardedQTensor`` that carries its
-        values' resolved spec."""
+        values' resolved spec, and a tensor that is cut carries its own
+        as a ``spec`` attribute (a float GEMM weight's split,
+        ``gemm_split``)."""
         def leaf(path, x):
-            return self.shard(x, self._leaf_spec(spec_tree, path, x))
+            spec = self._leaf_spec(spec_tree, path, x)
+            out = self.shard(x, spec)
+            if any(a is not None for a in spec):
+                out = out.view_as(out) if out is x else out
+                out.spec = spec
+            return out
 
         def qtensor(path, q):
             vspec = self._leaf_spec(spec_tree, path + ("values",), q.values)
@@ -301,9 +314,13 @@ class Mapping:
 
     def _gather(self, x, dim, axes):
         n = self.mesh.axis_size(axes)
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous(), group=self.group_of(axes))
-        return torch.cat(parts, dim=dim)
+        src = x.contiguous()
+        if src.dtype == torch.bfloat16:        # gloo takes no bf16
+            src = src.view(torch.uint8)
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=self.group_of(axes))
+        out = torch.cat(parts, dim=dim)
+        return out.view(x.dtype) if out.dtype != x.dtype else out
 
     def _reduce_scatter_mean(self, g, dim, axes):
         """g (whole) summed over `axes`, cut to this rank's slice along
@@ -347,7 +364,9 @@ class Mapping:
         only), which ``gemm_split`` reads.  `specs`: the resolved spec
         tree of `params` (``shardings`` on the whole params).  Each
         layer of ``params["blocks"]`` stays a ``LayerParams``, gathered
-        where the layer runs."""
+        where the layer runs.  A QTensor (weight-gathered serving) comes
+        back a ``ShardedQTensor`` with its values and scale gathered
+        alike, its spec the values' that is left."""
         if isinstance(params, dict) and "blocks" in params:
             rest = self.use_params(
                 {k: v for k, v in params.items() if k != "blocks"},
@@ -357,6 +376,10 @@ class Mapping:
             return rest
 
         def one(x, spec):
+            if isinstance(x, QTensor):
+                values = one(x.values, spec["values"])
+                return ShardedQTensor(values, one(x.scale, spec["scale"]),
+                                      x.axis, values.spec)
             out = x
             for dim, axes in enumerate(spec):
                 if axes is not None and self._is_fsdp(axes):
@@ -553,10 +576,11 @@ def gemm_split(w) -> GemmSplit | None:
     """The split of a GEMM against weight `w` ((K, N) or an (E, K, N)
     bank) under the current mapping; None with no mapping current.  The
     split is read from the weight's resolved ``spec``: a
-    ``ShardedQTensor``'s, or the ``spec`` attribute that
-    ``Mapping.use_params`` gives a float training weight.  A weight
-    with neither (placed replicated) splits nothing, but its input's
-    abs-max is still reduced over "data"."""
+    ``ShardedQTensor``'s, or the ``spec`` attribute that ``shard_tree``
+    or ``Mapping.use_params`` gives a float weight.  A weight with
+    neither (placed replicated) splits nothing, but its input's abs-max
+    is still reduced over "data".  A bank whose expert dim lies on
+    "model" holds this rank's experts (``expert``)."""
     m = current_mapping()
     if m is None:
         return None
@@ -564,14 +588,16 @@ def gemm_split(w) -> GemmSplit | None:
     spec = getattr(w, "spec", ())
     if len(spec) < 2:
         return GemmSplit(m, n)
-    if "fsdp" in str(spec) or any(isinstance(a, tuple) for a in spec):
+    if any(a not in (None, "model") for a in spec):
         raise ValueError(f"GEMM weight spec {spec}: only the 'model' axis "
-                         "is sharded in serving")
+                         "splits a GEMM; gather the FSDP axes first "
+                         "(Mapping.use_params)")
     col, row = spec[-1] == "model", spec[-2] == "model"
+    expert = len(spec) == 3 and spec[0] == "model"
     if col and row:
         raise ValueError(f"GEMM weight spec {spec} splits both dims")
     if not col:
-        return GemmSplit(m, n, 0, row)
+        return GemmSplit(m, n, 0, row, expert=expert)
     return GemmSplit(m, n * m.tp, m.mesh.coords["model"] * n, row, True)
 
 
@@ -591,7 +617,10 @@ def serve_mapping(mesh, *, kv: str = "hd",
         allclose, not bit-identical).  Pair it with
         ``ModelConfig.kv_onehot_write``.
 
-    ``fsdp`` stays off for serving (whole weight shards resident)."""
+    ``fsdp``: weight-gathered serving, the reference's ``serve_mapping``
+    option: the weights' "fsdp" dims lie on "data" as well, and each
+    layer's are gathered where it runs (``Mapping.use_params``; exact,
+    so the streams keep their bits)."""
     if kv == "hd":
         return Mapping(mesh, fsdp=fsdp, batch_axes=batch_axes,
                        kv_hd_axis=("model",))
@@ -624,6 +653,77 @@ def activate(mapping: Mapping | None):
 
 def current_mapping() -> Mapping | None:
     return _ACTIVE[-1] if _ACTIVE else None
+
+
+@contextlib.contextmanager
+def batch_rows(axes):
+    """Make `axes` (a resolved "batch" entry: mesh axes, or None) the
+    axes the current call's batch rows lie on: ``transformer.prefill``
+    and ``decode_step`` cut their inputs' rows by it, and the float
+    parts that run whole on every rank (``whole``) gather the rows over
+    it."""
+    _ROWS.append(axes)
+    try:
+        yield axes
+    finally:
+        _ROWS.pop()
+
+
+def row_axes():
+    """The current call's batch-row axes (None: every rank holds every
+    row, or no call under a mapping set them)."""
+    return _ROWS[-1] if _ROWS else None
+
+
+def whole(x: torch.Tensor, model_dim: int | None = None, *,
+          rows: bool = True, row_dim: int = 0) -> torch.Tensor:
+    """A rank's part of an activation or state made whole, exactly: its
+    dim `model_dim` gathered over "model" (None: not split there) and,
+    with `rows`, its batch rows (dim `row_dim`) over ``row_axes()``.
+    The float parts whose bits depend on the shapes they run at (f32
+    matmuls, reductions over a split dim, batched products) run on the
+    whole tensor on every rank, as on one device, and keep their part
+    (``own``).  The identity with no mapping current; an axis of one
+    rank gathers nothing."""
+    m = current_mapping()
+    if m is None:
+        return x
+    for dim, axes in enumerate(_part_spec(x, model_dim, rows, row_dim)):
+        if axes is not None and m.mesh.axis_size(_as_axes(axes)) > 1:
+            x = m.all_gather(x, dim, _as_axes(axes))
+    return x
+
+
+def own(x: torch.Tensor, model_dim: int | None = None, *,
+        rows: bool = True, row_dim: int = 0) -> torch.Tensor:
+    """This rank's part of a whole `x` (``whole``'s inverse)."""
+    m = current_mapping()
+    if m is None:
+        return x
+    return m.shard(x, _part_spec(x, model_dim, rows, row_dim))
+
+
+def _part_spec(x, model_dim, rows: bool, row_dim: int) -> tuple:
+    spec = [None] * x.ndim
+    if rows and row_axes() is not None:
+        spec[row_dim % x.ndim] = row_axes()
+    if model_dim is not None:
+        spec[model_dim % x.ndim] = "model"
+    return tuple(spec)
+
+
+def whole_weight(w: torch.Tensor) -> torch.Tensor:
+    """A float weight gathered whole over the axes of its ``spec``
+    attribute (exact; itself where nothing splits it, an axis of one
+    rank included)."""
+    m = current_mapping()
+    spec = getattr(w, "spec", ())
+    if m is None or not any(a is not None for a in spec):
+        return w
+    for dim, axes in enumerate(spec):
+        if axes is not None and m.mesh.axis_size(_as_axes(axes)) > 1:
+            w = m.all_gather(w, dim, _as_axes(axes), "weight_all_gather")
+    return w
 
 
 def lsc(x: torch.Tensor, *logical) -> torch.Tensor:

@@ -167,17 +167,19 @@ def _row_sum(acc: torch.Tensor, split) -> torch.Tensor:
 
 
 def approx_mac(a: torch.Tensor, b: torch.Tensor, config=0, *,
-               bn: int = 128) -> torch.Tensor:
+               bn: int = 128, split=None) -> torch.Tensor:
     """a: (..., M, K) int8; b: (K, N) int8 -> (..., M, N) int32 on the int
     kernel.  config: Python int, 0-d int tensor, an (ceil(N/bn),)
     per-block vector or a (g,) neuron-group vector (see
-    ``_expand_group_vector``); bn: the logical config-block width.
-    Bit-identical to the reference ``approx_mac`` at every config."""
+    ``_expand_group_vector``); bn: the logical config-block width;
+    split: a column shard's ``GemmSplit`` (the config rows of its
+    logical blocks).  Bit-identical to the reference ``approx_mac`` at
+    every config."""
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"need int8 operands, got {a.dtype}, {b.dtype}")
     lead, k = a.shape[:-1], a.shape[-1]
     n = b.shape[-1]
-    rows = _config_rows(config, n, bn, a.device)
+    rows = _config_rows(config, n, bn, a.device, split)
     out = approx_mac_matmul(a.reshape(-1, k), b, rows, bn)
     return out.reshape(*lead, n)
 

@@ -63,9 +63,11 @@ layout (``serve_mapping``: "hd" shards the KV heads, or the head dim
 when they do not divide TP; "seq" the positions, with
 ``kv_onehot_write``).  Run it under ``torchrun --nproc-per-node
 DP*TP`` (one card a rank, NCCL), or as one process at ``--mesh 1x1``
-(a group of one: NCCL on the card, gloo with ``--device cpu``).  Every
-rank serves the same requests; only rank 0 prints.  Counterpart of
-``repro.launch.serve``.
+(a group of one: NCCL on the card, gloo with ``--device cpu``).  It
+serves every arch it serves unsharded (local and recurrent layers, an
+int8 KV cache, expert-parallel banks); --paged and --draft-cfg stay
+single-device, as in the reference.  Every rank serves the same
+requests; only rank 0 prints.  Counterpart of ``repro.launch.serve``.
 """
 from __future__ import annotations
 

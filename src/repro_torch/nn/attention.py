@@ -200,7 +200,10 @@ def _decode_attention_chunks(q, k_cache, v_cache, valid, scale, logit_cap,
     by the shape of the call, batch count included; the chunk follows
     the model's KV-head count, not the rank's, so a head's result is the
     same whether its rank holds every head or 1/2, 1/4 or 1/8 of them
-    (tensor parallelism, ``nn.transformer._attn_mode``).  The operands
+    (tensor parallelism, ``nn.transformer._attn_mode``), and a row's
+    the same whether its rank holds every row or a share of them (data
+    parallelism): a lone row of a one-head chunk runs as a batch of two.
+    The operands
     are laid out chunk-major once, and the scale, softcap, mask and
     softmax run once over every chunk: they act on each element or each
     row of scores alone, whatever the number of rows.  The same
@@ -209,6 +212,15 @@ def _decode_attention_chunks(q, k_cache, v_cache, valid, scale, logit_cap,
     s, kv = k_cache.shape[1], k_cache.shape[2]
     rep = h // kv
     c = head_chunk(kv, kv_heads)
+    if b * c == 1:
+        # a batch of one GEMM is a plain GEMM to cuBLAS, another kernel
+        # than the strided-batched one a batch of rows runs (whose
+        # rows keep their bits at every count: chip_smoke.py's
+        # check_row_split); a data-parallel rank's lone row runs twice
+        two = [t.expand(2, *t.shape[1:]) for t in (q, k_cache, v_cache)]
+        return _decode_attention_chunks(
+            *two, valid.expand(2, *valid.shape[1:]), scale, logit_cap,
+            kv_heads)[:1]
     n = kv // c
     f32 = torch.float32
     qf = q[:, 0].to(f32).reshape(b, n, c, rep, hd).transpose(0, 1)

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core.quantization import (QTensor, fake_quant,
                                           quantize_compiled)
-from repro_torch.dist.sharding import gemm_split
+from repro_torch.dist.sharding import ShardedQTensor, gemm_split
 
 MAC_BACKENDS = ("xla", "pallas")
 
@@ -55,7 +55,10 @@ def dense(x: torch.Tensor, w, *, approx_cfg=0, backend: str = "xla",
     is the logical config-block width (``ModelConfig.mac_blocks[1]``).
     Under a sharding mapping the weight's spec splits the GEMM
     (``dist.sharding.gemm_split``, ``ops.approx_dense_pallas``; a float
-    training weight at config 0: ``float_gemm``).
+    weight quantized per call takes the whole weight's scales,
+    ``_quantize_placed``); at the static config 0 a split serving
+    QTensor runs whole (``_whole_gemm``) and a float training weight
+    takes ``float_gemm``.
     """
     if backend not in MAC_BACKENDS:
         raise ValueError(f"unknown mac backend {backend!r}")
@@ -75,7 +78,7 @@ def dense(x: torch.Tensor, w, *, approx_cfg=0, backend: str = "xla",
                                                         collapse_expert_cfg)
         if is_tensor and approx_cfg.ndim == 2:
             approx_cfg = collapse_expert_cfg(approx_cfg)
-        w_qt = w if isinstance(w, QTensor) else quantize_compiled(w, axis=1)
+        w_qt = w if isinstance(w, QTensor) else _quantize_placed(w)
         split = gemm_split(w_qt)
         y = approx_dense_pallas(x, w_qt, config=approx_cfg, bn=cfg_bn,
                                 **({} if split is None else
@@ -83,13 +86,48 @@ def dense(x: torch.Tensor, w, *, approx_cfg=0, backend: str = "xla",
         return y.to(torch.bfloat16)
     split = gemm_split(w)
     if isinstance(w, QTensor):
-        if split is not None and split.row:
-            raise NotImplementedError(
-                "a row-parallel quantized GEMM at the static exact config "
-                "0: its float partial sums would reassociate where the "
-                "serving path keeps the bits; pass the config as a tensor")
+        if split is not None and split.mapping.tp > 1 and (split.row
+                                                           or split.col):
+            return _whole_gemm(x, w, split)
         return x @ w.dequantize().to(x.dtype)
     return float_gemm(x, w, split)
+
+
+def _quantize_placed(w: torch.Tensor) -> QTensor:
+    """``quantize_compiled(w, axis=1)`` of the whole float weight, on
+    this rank's part of it: a row-parallel part's per-column abs-max is
+    the MAX over "model" of the parts' (exact), so every rank quantizes
+    at the whole weight's scales; the QTensor carries w's ``spec``."""
+    split = gemm_split(w)
+    amax = None
+    if split is not None and split.row:
+        amax = split.mapping.all_reduce(w.abs().amax(0), "max", ("model",))
+    q = quantize_compiled(w, axis=1, amax=amax)
+    spec = getattr(w, "spec", None)
+    return q if spec is None else ShardedQTensor(q.values, q.scale, q.axis,
+                                                 spec)
+
+
+def _whole_gemm(x: torch.Tensor, w: QTensor, split) -> torch.Tensor:
+    """A split serving weight at the static exact config 0 (Whisper's
+    encoder): the weight's split dim gathered (and a row-parallel
+    input's columns), the float product computed whole as on one
+    device, then this rank's columns.  A float GEMM's bits follow its
+    shape (cuBLAS picks its algorithm by it), and summed float partials
+    reassociate, so neither split would keep the bits; the gathers are
+    exact."""
+    m = split.mapping
+    dim = -1 if split.col else -2
+    values = m.all_gather(w.values, dim, ("model",), "weight_all_gather")
+    scale = (m.all_gather(w.scale, -1, ("model",), "weight_all_gather")
+             if split.col else w.scale)
+    if split.row:
+        x = m.all_gather(x, -1, ("model",))
+    y = x @ QTensor(values, scale, w.axis).dequantize().to(x.dtype)
+    if split.col:
+        n = w.values.shape[-1]
+        y = y[..., split.n_offset:split.n_offset + n]
+    return y
 
 
 def float_gemm(x: torch.Tensor, w: torch.Tensor, split) -> torch.Tensor:

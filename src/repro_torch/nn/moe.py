@@ -62,7 +62,8 @@ and ``w_down`` by its contraction dim on "model", each rank running its
 slice of every expert (``ops.approx_dense_grouped_pallas`` with the
 bank's ``GemmSplit``: the global activation scale, config rows by
 logical block, the int32 partial sums of ``w_down`` summed before the
-epilogue); the router and the dispatch run whole on every rank.  At
+epilogue; ``grouped=False`` the same split through one int launch an
+expert); the router and the dispatch run whole on every rank.  At
 the float config 0 (training) the same split runs ``layers.float_gemm``
 (gate and up behind "f", down's partial products through "g").
 
@@ -72,19 +73,21 @@ specs place as ``("expert", "fsdp", None)`` / ``("expert", None,
 is read from the banks' placement: a bank whose expert dim lies on
 "model" holds this rank's E/tp experts.  Every model rank then routes
 its tokens alike (the router and the dispatch order run whole), fills
-and runs only its own experts' rows of the (G, E*C, d) buffer, combines
-its experts' contributions into the token layout (the other experts'
-slots hold zeros, which add nothing), and one SUM all-reduce of the
-(G, S_g, d) token tensor over "model" ("g") completes the output: the
-reference's gather-free formulation, whose per-layer collective is the
-token tensor and not the k-times-larger slot tensor.  The combine stays
-the deterministic gather above (no scatter-add), the misroute
-included.  The tokens entering the dispatch and the routing weights
-entering the combine pass "f", so the router and the residual stream
-get every rank's part of their gradient.  Without a mapping, or with
-banks not placed by expert, ``ep`` changes nothing (the reference's
-``ep=True`` without a mapping is its unsharded program).  The integer
-(serving) path does not run expert-parallel banks; it raises.
+and runs only its own experts' rows of the (G, E*C, d) buffer (the
+integer path: the grouped kernel, or one int launch an expert, at the
+dispatch buffer's global activation scale, a MAX over the ranks that
+hold the other experts' rows, and the config rows of its experts'
+global indices), and the experts' slots are all-gathered over "model"
+(exact) into the whole (G, E*C, d) output, which every rank combines
+as one device does.  A SUM of the ranks' token-layout partials would
+add a token's top-k terms in another order than the combine's, and
+part the bits; the gathered slots are k times the token tensor.  The
+tokens entering the dispatch pass "f", so the residual stream gets
+every rank's part of its gradient; the combine runs whole on every
+rank, so the routing weights' gradient is whole there.  Without a
+mapping, or with banks not placed by expert, ``ep`` changes nothing
+(the reference's ``ep=True`` without a mapping is its unsharded
+program).
 """
 from __future__ import annotations
 
@@ -93,18 +96,23 @@ import torch
 
 from repro_torch.core.quantization import (QMAX, QTensor,
                                           activation_scale)
-from repro_torch.dist.sharding import current_mapping, gemm_split
+from repro_torch.dist.sharding import current_mapping, gemm_split, own, whole
 from repro_torch.kernels.approx_mac import ops as _ops
 from .layers import ACT, float_gemm
 
 
 def router_probs(x: torch.Tensor, w_router: torch.Tensor) -> torch.Tensor:
-    """x: (..., d) -> (..., E) softmax router probabilities in full f32."""
+    """x: (..., d) -> (..., E) softmax router probabilities in full f32.
+    Under a sharding mapping whose call splits the batch rows
+    (``dist.sharding.row_axes``), the matmul runs on every rank's tokens
+    (``whole``: an f32 cuBLAS product takes its bits from its shape)
+    and each rank keeps its own."""
     if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("the MoE router needs full-f32 matmuls; set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
-    logits = torch.matmul(x.to(torch.float32), w_router.to(torch.float32))
-    return torch.softmax(logits, dim=-1)
+    flat = whole(x.reshape(-1, x.shape[-1]))
+    logits = torch.matmul(flat.to(torch.float32), w_router.to(torch.float32))
+    return own(torch.softmax(logits, dim=-1)).reshape(*x.shape[:-1], -1)
 
 
 def quantize_expert_bank(w) -> QTensor:
@@ -121,11 +129,14 @@ def quantize_expert_bank(w) -> QTensor:
     return QTensor(q.to(torch.int8), scale.to(torch.float32), axis=1)
 
 
-def _expert_gemm(h, w, approx_cfg, backend, group_rows, grouped=True):
+def _expert_gemm(h, w, approx_cfg, backend, group_rows, grouped=True,
+                 experts: slice = slice(None)):
     """(E, M, K) activations @ an (E, K, N) bank -> (E, M, N) in h's
     dtype: the grouped approx-MAC op (``grouped``) or one int-kernel
     launch per expert for a tensor or nonzero config, a float batched
-    matmul for the static exact config 0 (a Python int)."""
+    matmul for the static exact config 0 (a Python int).  `experts`:
+    the experts of the whole bank this rank's slice of an
+    expert-parallel bank holds (their config rows)."""
     if isinstance(approx_cfg, torch.Tensor) or approx_cfg > 0:
         if torch.is_grad_enabled() and (h.requires_grad or (
                 isinstance(w, torch.Tensor) and w.requires_grad)):
@@ -140,21 +151,16 @@ def _expert_gemm(h, w, approx_cfg, backend, group_rows, grouped=True):
                                  "require backend='pallas'")
             if cfg.ndim == 1:       # (g,) groups shared by every expert
                 cfg = cfg[None].expand(h.shape[0], -1)
+            else:
+                cfg = cfg[experts]
         bank = quantize_expert_bank(w)
         split = gemm_split(bank)
-        if _expert_split(w):
-            raise NotImplementedError(
-                "expert-parallel banks in the integer pipeline (sharded "
-                "serving of a moe_ep model, ROADMAP Queue 1 item 11(b))")
+        kw = {} if split is None else {"split": split}
         if grouped:
-            y = _ops.approx_dense_grouped_pallas(
-                h, bank, cfg, group_rows,
-                **({} if split is None else {"split": split}))
-        elif split is not None:
-            raise ValueError("grouped=False (the per-expert A/B path) is "
-                             "not sharded; serve sharded MoE grouped")
+            y = _ops.approx_dense_grouped_pallas(h, bank, cfg, group_rows,
+                                                 **kw)
         else:
-            y = _per_expert_gemm(h, bank, cfg)
+            y = _per_expert_gemm(h, bank, cfg, **kw)
         return y.to(h.dtype)
     if isinstance(w, QTensor):
         return torch.bmm(h, w.dequantize().to(h.dtype))
@@ -168,22 +174,27 @@ def _expert_split(w) -> bool:
     return bool(spec) and spec[0] == "model" and current_mapping() is not None
 
 
-def _per_expert_gemm(h, bank: QTensor, cfg) -> torch.Tensor:
+def _per_expert_gemm(h, bank: QTensor, cfg, split=None) -> torch.Tensor:
     """The reference's ``grouped=False`` path: h quantized once on one
     shared per-tensor scale (every buffer row, as the reference's
     ``lax.map`` path multiplies them all), one ``ops.approx_mac`` int
     launch per expert at its config row, then the int32 products times
     the combined scale ``h_scale * w_scale`` rounded once: the grouped
-    kernel's epilogue, so the bits are the grouped op's."""
+    kernel's epilogue, so the bits are the grouped op's.  Under a
+    mapping, `split` as the grouped op's: the scale's MAX over its
+    axes, a column shard's config rows by logical block, a row-parallel
+    bank's int32 products summed over "model" before the epilogue."""
     e = h.shape[0]
     h = h.to(torch.float32)
-    h_scale = activation_scale(h)
+    h_scale = _ops._activation_scale(h, split)
     h_q = torch.clamp(torch.round(h / h_scale), -QMAX, QMAX).to(torch.int8)
     cfg = torch.as_tensor(cfg, dtype=torch.int32, device=h.device)
     cfg_e = cfg.expand((e,) + tuple(cfg.shape[1:])) if cfg.ndim else \
         cfg.expand(e)
-    acc = torch.stack([_ops.approx_mac(h_q[i], bank.values[i], cfg_e[i])
-                       for i in range(e)])
+    col = split if split is not None and split.col else None
+    acc = torch.stack([_ops.approx_mac(h_q[i], bank.values[i], cfg_e[i],
+                                       split=col) for i in range(e)])
+    acc = _ops._row_sum(acc, split)
     w_scale = bank.scale.to(torch.float32)
     scale = h_scale * (w_scale.reshape(e, 1, -1) if w_scale.ndim
                        else w_scale)
@@ -281,7 +292,7 @@ def _moe_groups(xg, params, *, n_experts: int, top_k: int,
     e_run = e // m.tp if m is not None else e
     e0 = m.mesh.coords["model"] * e_run if m is not None else 0
     if m is not None:
-        xg, top_p = m.copy_to(xg), m.copy_to(top_p)
+        xg = m.copy_to(xg)
 
     # dispatch: slot e*cap + p holds expert e's p-th sorted entry if it
     # has one (a gather per slot, no scatter)
@@ -303,7 +314,9 @@ def _moe_groups(xg, params, *, n_experts: int, top_k: int,
         + torch.clamp(counts, max=cap), 0).amax(dim=0).to(torch.int32)
 
     def gemm(h, w):
-        return _expert_gemm(h, w, approx_cfg, backend, group_rows, grouped)
+        return _expert_gemm(h, w, approx_cfg, backend,
+                            group_rows[e0:e0 + e_run], grouped,
+                            slice(e0, e0 + e_run))
 
     if "w_gate" in params:
         hmid = ACT[act](gemm(he, params["w_gate"])) * gemm(he, params["w_up"])
@@ -313,10 +326,8 @@ def _moe_groups(xg, params, *, n_experts: int, top_k: int,
     out_flat = out_e.reshape(e_run, g, cap, d).transpose(0, 1).reshape(
         g, e_run * cap, d)
     if m is not None:
-        # the other ranks' experts' slots: zeros, which add nothing
-        out_flat = torch.cat([
-            out_flat.new_zeros(g, e0 * cap, d), out_flat,
-            out_flat.new_zeros(g, (e - e0 - e_run) * cap, d)], dim=1)
+        # every rank's experts' slots, in expert order (exact)
+        out_flat = m.gather_from(out_flat, 1, ("model",))
 
     # combine: each token gathers its kept entries' outputs in ascending
     # slot order (= ascending expert id) and sums them from zero
@@ -342,8 +353,6 @@ def _moe_groups(xg, params, *, n_experts: int, top_k: int,
         starts[:, e - 1:] + cap - 1, max=sg * k - 1))
     extra = out_flat[:, last] * w_last.to(out_flat.dtype)
     yg[:, 0] = yg[:, 0] + torch.where(misroute[:, None], extra, 0)
-    if m is not None:
-        yg = m.reduce_from(yg, ("model",))      # every rank's experts
     aux = {"router_probs_mean": probs.mean(dim=(0, 1)), "top_e": top_e,
            "slot": slot, "group_rows": group_rows}
     return yg, aux

@@ -21,6 +21,19 @@ bit for bit.  The cells' weights stay float when a model is served
 (``transformer.quantize_lm_params`` leaves them), and ``dense``
 quantizes them per call, as the reference's compiled programs do.
 
+Under a sharding mapping (``dist/sharding.py``) the cells' GEMMs are
+split as their specs place the weights (column-parallel in
+projections; ``w_out`` and ``w_down`` row-parallel, quantized at the
+whole weight's scales and summed as int32 partials), and the float
+recurrences run whole on every rank: the split GEMM outputs and
+states are all-gathered (``whole``, exact), the gates, conv, scan,
+decay attention and state updates run at the one-device shapes with
+the float weights gathered whole (``whole_weight``), and each rank
+keeps its rows and channels (``own``).  Their f32 matmuls and batched
+products take their bits from their shapes (cuBLAS chooses by shape),
+and RG-LRU's gates are dense W x W matmuls over every channel, so a
+channel or head split of them would part the bits from one device.
+
 Deviations: RG-LRU's diagonal scan runs in chunks of ``SCAN_CHUNK``
 positions (one (T, T) decay matrix per channel in a chunk, the state
 carried across chunks) where the reference's associative scan sums in
@@ -36,6 +49,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.sharding import own, whole, whole_weight
 
 from .attention import chunked_attention
 from .layers import dense, gelu_tanh, rmsnorm, silu
@@ -167,6 +182,12 @@ def causal_conv1d_step(x_t, conv_state, w, b):
     return (window * w).sum(1) + b, window[:, 1:]
 
 
+def _split(t: torch.Tensor, whole_size: int, dim: int = -1):
+    """`dim` when `t` holds a "model" part of a dim of `whole_size`
+    (a split GEMM's output, a state placed by its spec), else None."""
+    return dim if t.shape[dim] != whole_size else None
+
+
 def recurrent_block(params, x, *, approx_cfg=0, state=None,
                     decode: bool = False, dense_kw: dict | None = None):
     """Griffin's recurrent block: gate branch * (conv -> RG-LRU) branch.
@@ -176,21 +197,25 @@ def recurrent_block(params, x, *, approx_cfg=0, state=None,
     gate = gelu_tanh(dense(x, params["w_in_gate"], approx_cfg=approx_cfg,
                            **kw))
     rec = dense(x, params["w_in_rec"], approx_cfg=approx_cfg, **kw)
+    lru = {k: whole_weight(v) for k, v in params["lru"].items()}
+    conv_w, conv_b = (whole_weight(params[k]) for k in ("conv_w", "conv_b"))
+    split = _split(rec, conv_w.shape[-1])
+    rec = whole(rec, split)
     if decode:
+        state = {k: whole(v, split) for k, v in state.items()}
         c_out, conv = causal_conv1d_step(rec[:, 0].to(torch.float32),
-                                         state["conv"], params["conv_w"],
-                                         params["conv_b"])
-        h_out, h = rg_lru_step(params["lru"], c_out, state["h"])
+                                         state["conv"], conv_w, conv_b)
+        h_out, h = rg_lru_step(lru, c_out, state["h"])
         y = h_out[:, None, :].to(x.dtype)
     else:
         recf = rec.to(torch.float32)
-        c_out = causal_conv1d(recf, params["conv_w"], params["conv_b"])
-        y, h = rg_lru_scan(params["lru"], c_out.to(x.dtype))
-        k = params["conv_w"].shape[0]
+        c_out = causal_conv1d(recf, conv_w, conv_b)
+        y, h = rg_lru_scan(lru, c_out.to(x.dtype))
+        k = conv_w.shape[0]
         conv = F.pad(recf, (0, 0, k - 1, 0))[:, -(k - 1):]
-    out = dense((y * gate).to(x.dtype), params["w_out"],
+    out = dense((own(y, split) * gate).to(x.dtype), params["w_out"],
                 approx_cfg=approx_cfg, **kw)
-    return out, {"h": h, "conv": conv}
+    return out, {"h": own(h, split), "conv": own(conv, split)}
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +241,8 @@ def mlstm_block_init(gen, d_model: int, n_heads: int,
 
 def _mlstm_gates(params, up, nh: int):
     """(log_i, log_f), each (..., H) f32, from the up-projection."""
-    if_g = _f32_matmul(up, params["w_if"]) + params["b_if"]
+    if_g = (_f32_matmul(up, whole_weight(params["w_if"]))
+            + whole_weight(params["b_if"]))
     return if_g[..., :nh], _log_sigmoid(if_g[..., nh:])
 
 
@@ -239,24 +265,40 @@ def mlstm_parallel(params, x, n_heads: int, *, approx_cfg=0,
     from this call's own projections: the same bits, no second pass)."""
     kw = dense_kw or {}
     nh = n_heads
-    b, s, _ = x.shape
-    up = dense(x, params["w_up"], approx_cfg=approx_cfg, **kw)
-    gate = silu(dense(x, params["w_gate"], approx_cfg=approx_cfg, **kw))
-    d_inner = up.shape[-1]
+    up, gate, q, k, v, d_inner = _mlstm_in(params, x, approx_cfg, kw)
+    b, s = up.shape[:2]
     hd = d_inner // nh
-    q, k, v = (dense(up, params[key], approx_cfg=approx_cfg, **kw)
-               .reshape(b, s, nh, hd)
-               for key in ("w_q", "w_k", "w_v"))
+    q, k, v = (t.reshape(b, s, nh, hd) for t in (q, k, v))
     log_i, log_f = _mlstm_gates(params, up, nh)
     log_fcum = torch.cumsum(log_f, 1)
     h = chunked_attention(q, k, v, causal=True, q_chunk=min(q_chunk, s),
                           decay={"log_fcum": log_fcum, "log_i": log_i})
-    h = rmsnorm(h.reshape(b, s, d_inner), params["ln_scale"] - 1.0)
-    out = dense((h * gate).to(x.dtype), params["w_down"],
-                approx_cfg=approx_cfg, **kw)
+    h = rmsnorm(h.reshape(b, s, d_inner),
+                whole_weight(params["ln_scale"]) - 1.0)
+    out = dense((own(h, _split(gate, d_inner)) * gate).to(x.dtype),
+                params["w_down"], approx_cfg=approx_cfg, **kw)
     if with_state:
-        return out, _final_state(k, v, log_i, log_fcum)
+        # this rank's rows, every head (``transformer.prefill`` keeps a
+        # head-split cache's part)
+        return out, {name: own(t) for name, t in
+                     _final_state(k, v, log_i, log_fcum).items()}
     return out
+
+
+def _mlstm_in(params, x, approx_cfg, kw):
+    """The cell's input projections: up and the gate branch (this
+    rank's rows and columns), and q, k, v made whole (``whole``), with
+    up's whole-width rows as the q/k/v GEMMs' input; under no mapping
+    each is the plain projection."""
+    up = dense(x, params["w_up"], approx_cfg=approx_cfg, **kw)
+    gate = silu(dense(x, params["w_gate"], approx_cfg=approx_cfg, **kw))
+    d_inner = params["w_q"].shape[0]
+    split = _split(up, d_inner)
+    up = whole(up, split, rows=False)
+    q, k, v = (dense(up, params[key], approx_cfg=approx_cfg, **kw)
+               for key in ("w_q", "w_k", "w_v"))
+    q, k, v = (whole(t, _split(t, d_inner)) for t in (q, k, v))
+    return whole(up), gate, q, k, v, d_inner
 
 
 def mlstm_final_state(params, x, n_heads: int, *, approx_cfg=0,
@@ -273,17 +315,15 @@ def mlstm_step(params, x_t, state, n_heads: int, *, approx_cfg=0,
     "m": (B, H)}.  x_t: (B, 1, D) -> ((B, 1, D), new state)."""
     kw = dense_kw or {}
     nh = n_heads
-    b = x_t.shape[0]
-    up = dense(x_t[:, 0], params["w_up"], approx_cfg=approx_cfg, **kw)
-    gate = silu(dense(x_t[:, 0], params["w_gate"], approx_cfg=approx_cfg,
-                      **kw))
-    d_inner = up.shape[-1]
+    up, gate, q, k, v, d_inner = _mlstm_in(params, x_t[:, 0], approx_cfg,
+                                           kw)
+    b = up.shape[0]
     hd = d_inner // nh
-    q, k, v = (dense(up, params[key], approx_cfg=approx_cfg, **kw)
-               .reshape(b, nh, hd)
-               for key in ("w_q", "w_k", "w_v"))
+    q, k, v = (t.reshape(b, nh, hd) for t in (q, k, v))
     log_i, log_f = _mlstm_gates(params, up, nh)
-    m_prev, c_prev, n_prev = state["m"], state["C"], state["n"]
+    split = _split(state["m"], nh, 1)          # the heads' dim
+    m_prev, c_prev, n_prev = (whole(state[name], split)
+                              for name in ("m", "C", "n"))
     m_new = torch.maximum(log_f + m_prev, log_i)
     f_sc = torch.exp(log_f + m_prev - m_new)[..., None, None]
     i_sc = torch.exp(log_i - m_new)[..., None, None]
@@ -295,10 +335,11 @@ def mlstm_step(params, x_t, state, n_heads: int, *, approx_cfg=0,
     den = torch.maximum(torch.einsum("bhi,bhi->bh", n_new, qf).abs(),
                         torch.exp(-m_new))
     h = rmsnorm((num / den[..., None]).reshape(b, d_inner),
-                params["ln_scale"] - 1.0)
-    out = dense((h * gate).to(x_t.dtype), params["w_down"],
-                approx_cfg=approx_cfg, **kw)
-    return out[:, None, :], {"C": c_new, "n": n_new, "m": m_new}
+                whole_weight(params["ln_scale"]) - 1.0)
+    out = dense((own(h, _split(gate, d_inner)) * gate).to(x_t.dtype),
+                params["w_down"], approx_cfg=approx_cfg, **kw)
+    return out[:, None, :], {"C": own(c_new, split), "n": own(n_new, split),
+                             "m": own(m_new, split)}
 
 
 # ---------------------------------------------------------------------------
@@ -349,22 +390,26 @@ def slstm_scan(params, x, n_heads: int, *, approx_cfg=0, state=None,
     (B, D) f32): the cell over the positions in order (no host sync),
     then RMSNorm and the gated up/down projection."""
     kw = dense_kw or {}
-    b, s, d = x.shape
+    d = x.shape[-1]
     wx = dense(x, params["w"], approx_cfg=approx_cfg, **kw).to(torch.float32)
+    wx = whole(wx, _split(wx, 4 * d))
+    b, s = wx.shape[:2]
     if state is None:
         zeros = torch.zeros(b, d, device=x.device)
         carry = (zeros, zeros, zeros, zeros - 30.0)
     else:
-        carry = (state["h"], state["c"], state["n"], state["m"])
+        carry = tuple(whole(state[name]) for name in "hcnm")
+    cell = {key: whole_weight(params[key]) for key in ("r", "b")}
     hs = []
     for t in range(s):
-        carry = _slstm_cell(params, wx[:, t], carry, n_heads)
+        carry = _slstm_cell(cell, wx[:, t], carry, n_heads)
         hs.append(carry[0])
-    h = rmsnorm(torch.stack(hs, 1).to(x.dtype), params["ln_scale"] - 1.0)
+    h = own(rmsnorm(torch.stack(hs, 1).to(x.dtype),
+                    whole_weight(params["ln_scale"]) - 1.0))
     up = silu(dense(h, params["w_gate"], approx_cfg=approx_cfg, **kw)) \
         * dense(h, params["w_up"], approx_cfg=approx_cfg, **kw)
     out = dense(up, params["w_down"], approx_cfg=approx_cfg, **kw)
-    return out, dict(zip("hcnm", carry))
+    return out, {name: own(t) for name, t in zip("hcnm", carry)}
 
 
 def slstm_step(params, x_t, state, n_heads: int, *, approx_cfg=0,

@@ -84,11 +84,13 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.quantization import QTensor, quantize
-from repro_torch.dist.sharding import (LayerParams, current_mapping,
-                                      gemm_split, lsc_tree)
+from repro_torch.dist.sharding import (LayerParams, batch_rows,
+                                      current_mapping, gemm_split, lsc_tree,
+                                      own, whole)
 from repro_torch.dist.seq_parallel import sp_decode_attention
 from repro_torch.kernels.flash_attention.paged_attention import \
     paged_decode_attention
+from repro_torch.launch.mesh import CARDS_PER_NODE
 from repro_torch.serve.paged_cache import TRASH_BLOCK
 from .attention import (_repeat_kv, _softmax_attend, chunked_attention,
                         decode_attention)
@@ -777,7 +779,8 @@ def _block_tail(p, x, attn, cfg, approx_cfg, xkv=None, decode=False):
         q = _proj(_apply_norm(p["norm_x"], x, cfg), a["wq"], approx_cfg,
                   None, cfg, cfg.n_heads)
         xk, xv = xkv
-        attn = (decode_attention(q, xk, xv, xk.shape[1]) if decode else
+        attn = (decode_attention(q, xk, xv, xk.shape[1],
+                                 kv_heads=cfg.n_kv_heads) if decode else
                 chunked_attention(q, xk, xv, causal=False,
                                   q_chunk=cfg.q_chunk))
         x = x + _attn_out(attn, a["wo"], approx_cfg, cfg)
@@ -856,19 +859,45 @@ def logits_for(params, cfg, hidden, w: torch.Tensor | None = None, *,
     "model" the head is column-parallel (hidden behind "f") and the
     local columns are all-gathered: every rank returns the whole
     vocabulary; ``gather=False`` returns this rank's columns (the
-    vocab-parallel loss)."""
-    w = head_weight(params, cfg, hidden.dtype) if w is None else w
+    vocab-parallel loss).  Without `w` (serving) the head runs in
+    ``vocab_chunk`` column chunks (``_head_chunks``), so that a split's
+    logits keep one device's bits."""
     m = current_mapping()
     vocab = _vocab_parallel(params, cfg, m)
     if vocab:
         hidden = m.copy_to(hidden, ("model",))
-    logits = hidden @ w
+    if w is None:
+        logits = _head_chunks(params, cfg, hidden)
+    else:
+        logits = hidden @ w
     if vocab and gather:
         # each rank's vocab columns, gathered over "model" (exact)
         logits = m.gather_from(logits, -1, ("model",))
     if cfg.final_softcap > 0:
         logits = softcap(logits.to(torch.float32), cfg.final_softcap)
     return logits
+
+
+def vocab_chunk(v_local: int, v_whole: int) -> int:
+    """Columns of one head GEMM in ``_head_chunks``: v_whole //
+    gcd(v_whole, CARDS_PER_NODE), the same for every vocab-parallel
+    split that divides gcd(v_whole, CARDS_PER_NODE), as ``attention.
+    head_chunk`` fixes decode attention's heads."""
+    return math.gcd(v_local, v_whole // math.gcd(v_whole, CARDS_PER_NODE))
+
+
+def _head_chunks(params, cfg, hidden) -> torch.Tensor:
+    """hidden @ the head (this rank's vocab columns), one GEMM per
+    ``vocab_chunk`` columns, each chunk cast to hidden's dtype on its
+    own (contiguous): cuBLAS picks its kernel, and with it the bits, by
+    the GEMM's shape (Whisper's 51,866 columns and a TP-2 rank's 25,933
+    take different kernels on the card), so every split runs the same
+    chunks, on every batch row (``whole``; a rank keeps its rows)."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    c = vocab_chunk(w.shape[1], cfg.vocab_size)
+    rows = whole(hidden)              # every batch row: the one-device M
+    return own(torch.cat([rows @ w[:, j:j + c].to(hidden.dtype)
+                          for j in range(0, w.shape[1], c)], dim=-1))
 
 
 def _recurrent_layer(p, x, cfg, kind, approx_cfg, *, state=None,
@@ -908,8 +937,7 @@ def _recurrent_layer(p, x, cfg, kind, approx_cfg, *, state=None,
 
 def _layer(p, x, cfg, kind, positions, approx_cfg, causal=True,
            enc_out=None):
-    if isinstance(p, LayerParams):
-        p = p.gather()
+    p = _gathered(p)
     if kind in RECURRENT_KINDS:
         return _recurrent_layer(p, x, cfg, kind, approx_cfg)[0]
     xkv = (_cross_kv(p, enc_out, cfg, approx_cfg)
@@ -1278,11 +1306,50 @@ def prefill(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
     prompt, where the reference keeps the last s_buf PADDED positions
     and zeroes them by ring slot, not by position (ROADMAP Queue 3).
     As in the reference, it is refused for VLM and encoder-decoder
-    models too."""
+    models too.
+
+    Under a sharding mapping the inputs' batch rows are cut over
+    "batch" where its axes divide them (``own``): each rank prefills
+    its rows into its slice of the cache and returns its rows' logits,
+    as ``decode_step`` does; an encoder-decoder's encoder runs on every
+    row (its float GEMMs at the one-device shapes) and each rank keeps
+    its rows of the output."""
     if cfg.encoder_decoder and enc_embeds is None:
         # the reference fails here on enc_out None (AttributeError)
         raise ValueError("an encoder-decoder prefill needs enc_embeds")
     b = tokens.shape[0]
+    with batch_rows(_row_axes(b)):
+        tokens, vision_embeds = (None if t is None else own(t)
+                                 for t in (tokens, vision_embeds))
+        return _prefill(params, cfg, tokens, b, vision_embeds, enc_embeds,
+                        max_len, approx_cfg, true_len)
+
+
+def _row_axes(b: int):
+    """The mesh axes a call's b batch rows lie on under the current
+    mapping (None: every rank holds them all)."""
+    m = current_mapping()
+    return None if m is None else m.spec(("batch",), (b,))[0]
+
+
+def _gathered(p):
+    """A layer's params, gathered where the layer runs (weight-gathered
+    serving: ``LayerParams``)."""
+    return p.gather() if isinstance(p, LayerParams) else p
+
+
+def _fit_part(t: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """`t` cut to this rank's "model" part of the dim where `dst` (a
+    cache leaf placed by its spec) is narrower: an mLSTM state's heads."""
+    for dim, (a, b) in enumerate(zip(t.shape, dst.shape)):
+        if a != b:
+            return own(t, dim, rows=False)
+    return t
+
+
+def _prefill(params, cfg, tokens, b, vision_embeds, enc_embeds, max_len,
+             approx_cfg, true_len):
+    """``prefill`` on this rank's rows; `b` the whole batch's."""
     x = _decoder_inputs(params, cfg, tokens, vision_embeds)
     s = x.shape[1]
     max_len = max_len or s
@@ -1301,7 +1368,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
                 f"than the local ring ({min(cfg.window, max_len)})")
     dev = tokens.device
     m = current_mapping()
+    # the encoder runs on every row on each rank (its GEMMs are float
+    # at config 0, whose cuBLAS bits follow the rows they run on), and
+    # each rank keeps its rows of the output
     enc_out = _encoder_output(params, cfg, enc_embeds)
+    enc_out = None if enc_out is None else own(enc_out)
     cache = init_cache(cfg, b, max_len, dev,
                        enc_len=0 if enc_out is None else enc_out.shape[1])
     positions = torch.arange(s, device=dev)[None]
@@ -1309,11 +1380,13 @@ def prefill(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
             (torch.arange(s, device=dev) < true_len)[None, :, None, None])
     for p, (kind, j), ac in zip(params["blocks"], _cache_slots(cfg),
                                 _layer_cfgs(approx_cfg, cfg.n_layers, dev)):
+        p = _gathered(p)
         if kind in RECURRENT_KINDS:
             # the parallel form, then the state after the prompt
             x, state = _recurrent_layer(p, x, cfg, kind, ac, with_state=True)
             for name, leaf in state.items():
-                cache[kind][name][j].copy_(leaf)
+                dst = cache[kind][name][j]
+                dst.copy_(_fit_part(leaf, dst))
             continue
         buf = _buffers(cache, kind)
         xkv = None
@@ -1353,9 +1426,17 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
     that is not committed needs no rollback of them.  An "ln" model
     adds its learned position row at pos; an encoder-decoder's layers
     cross-attend over every entry of their ``xk``/``xv``.  Under a
-    sharding mapping each rank steps its rows and slices of the cache
-    (the attention layouts above ``_attn_mode``) and returns the logits
-    of its batch rows over the whole vocabulary."""
+    sharding mapping `token` holds every row: each rank steps the rows
+    its slice of the cache holds (cut over "batch" where its axes divide
+    them) and the slices of the cache (the attention layouts above
+    ``_attn_mode``), and returns the logits of its batch rows over the
+    whole vocabulary."""
+    with batch_rows(_row_axes(token.shape[0])):
+        return _decode_step(params, cfg, cache, own(token), approx_cfg)
+
+
+def _decode_step(params, cfg, cache, token, approx_cfg):
+    """``decode_step`` on this rank's rows."""
     pos = cache["pos"]
     dev = token.device
     positions = pos.to(torch.long).reshape(1, 1)
@@ -1375,6 +1456,7 @@ def decode_step(params, cfg: ModelConfig, cache: Params, token, *,
               for kind in RECURRENT_KINDS if kind in cache}
     for p, (kind, j), ac in zip(params["blocks"], _cache_slots(cfg),
                                 _layer_cfgs(approx_cfg, cfg.n_layers, dev)):
+        p = _gathered(p)
         if kind in RECURRENT_KINDS:
             x, new = _recurrent_layer(
                 p, x, cfg, kind, ac,

@@ -113,11 +113,17 @@ config tensors are never sharded.  Every tick runs under the mapping
 (``dist.sharding.activate``), and the decode logits are all-gathered
 (vocab over "model" in the model, batch rows over "data" here) before
 the guard and sampling, so tokens, the pool join, the scheduler's
-trajectory and every host counter are the same on every rank.  The
-reference's refusals hold (``paged``, ``spec``), and so do the port's
-for what this slice does not shard (recurrent and local layers, int8
-KV, encoder-decoder and vision-prefix models, snapshots; ROADMAP Queue
-1 item 11(b)).
+trajectory and every host counter are the same on every rank.  Every
+family the Engine serves on one device it serves under a mapping: local
+rings and int8 KV caches in each attention layout, the recurrent cells
+(their float recurrences run whole on every rank,
+``nn/recurrent.py``), expert-parallel banks, and weight-gathered
+serving (``serve_mapping(fsdp=True)``: each layer's weights gathered
+where it runs, ``_model_params``).  A snapshot of a sharded engine is
+written whole by rank 0 (the checkpointer's ``shardings``), so its
+files are an unsharded engine's and restore on any mesh.  The
+reference's refusals hold (``paged``, ``spec``; and the
+encoder-decoder, ``refuse_encoder_decoder``).
 
 Runs on ``device="cuda"`` unless told otherwise; without a GPU the
 default raises rather than falling back to the CPU.
@@ -230,6 +236,31 @@ def _unpack_request(d: dict | None) -> Request | None:
                       "tokens": list(d["tokens"])})
 
 
+class _SpecOf:
+    """A cache leaf's resolved spec standing in for the leaf in
+    ``cache_to_reference``: a slice of the stacked-layer dim keeps it,
+    one layer of the stack (an unstacked rest layer) drops that dim."""
+    __slots__ = ("spec",)
+
+    def __init__(self, spec):
+        self.spec = tuple(spec)
+
+    def __getitem__(self, index):
+        return self if isinstance(index, slice) else _SpecOf(self.spec[1:])
+
+
+def _wrap_specs(tree):
+    if isinstance(tree, dict):
+        return {k: _wrap_specs(v) for k, v in tree.items()}
+    return _SpecOf(tree)
+
+
+def _unwrap_specs(tree):
+    if isinstance(tree, dict):
+        return {k: _unwrap_specs(v) for k, v in tree.items()}
+    return tree.spec
+
+
 def refuse_encoder_decoder(cfg: T.ModelConfig) -> None:
     """The Engine serves decoder-only models: it has no ``enc_embeds``
     to pass.  The reference's Engine takes an encoder-decoder config and
@@ -244,24 +275,12 @@ def refuse_encoder_decoder(cfg: T.ModelConfig) -> None:
 
 
 def _refuse_unsharded(cfg: T.ModelConfig, mapping, *, max_len: int,
-                      paged, spec, checkpointer) -> None:
+                      paged, spec) -> None:
     """What the sharded Engine refuses: the reference's refusals (paged,
-    spec), and what this port does not shard yet (ROADMAP Queue 1 item
-    11(b))."""
+    speculative), and the preconditions of a sequence-sharded cache."""
     if paged is not None or spec is not None:
         raise ValueError("paged and speculative serving are single-device,"
                          " as in the reference: pass mapping=None")
-    left = [name for name, bad in (
-        ("recurrent layers", any(k in T.RECURRENT_KINDS
-                                 for k in cfg.layer_kinds())),
-        ("local layers", "local" in cfg.layer_kinds()),
-        ("an int8 KV cache", cfg.kv_quant),
-        ("a vision prefix", cfg.vision_prefix_len > 0),
-        ("snapshots", checkpointer is not None),
-        ("fsdp", mapping.fsdp)) if bad]
-    if left:
-        raise ValueError(f"{cfg.name}: the sharded Engine does not shard "
-                         f"{', '.join(left)} (ROADMAP Queue 1 item 11(b))")
     if mapping.kv_seq_axis and not cfg.kv_onehot_write:
         raise ValueError("kv='seq' needs ModelConfig.kv_onehot_write (the "
                          "shard-local cache write)")
@@ -330,7 +349,7 @@ class Engine:
         self.mapping = mapping
         if mapping is not None:
             _refuse_unsharded(cfg, mapping, max_len=max_len, paged=paged,
-                              spec=spec, checkpointer=checkpointer)
+                              spec=spec)
         if (cfg_groups > 1 or cfg_experts > 1) \
                 and cfg.mac_backend != "pallas":
             raise ValueError("per-group and per-expert configs require "
@@ -343,16 +362,20 @@ class Engine:
                        if quantize_weights else params)
         self._macs_per_token: float | None = None
         self._batch_rows = (0, max_batch)
+        self._param_shardings = None
+        self.cfg = cfg
         if mapping is not None:
             # the whole model's MACs, counted before placement
             _ = self.macs_per_token
             if param_specs is not None:
                 specs = (T.quantize_lm_specs(param_specs, cfg)
                          if quantize_weights else param_specs)
+                if mapping.fsdp:
+                    self._param_shardings = mapping.shardings(specs,
+                                                              self.params)
                 self.params = mapping.shard_tree(self.params, specs)
             self._batch_rows = mapping.local_range(
                 mapping.spec(("batch",), (max_batch,))[0], max_batch)
-        self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
         self.cfg_groups = cfg_groups
@@ -493,6 +516,15 @@ class Engine:
             if spec is not None:
                 # the draft depth becomes the scheduler's second axis
                 scheduler.configure_spec(spec.k)
+
+    def _model_params(self):
+        """The params a model call runs on: under weight-gathered serving
+        (``serve_mapping(fsdp=True)``) every entry but the layers
+        gathered over "data", each layer a ``LayerParams`` that the
+        model gathers where it runs (``Mapping.use_params``)."""
+        if self._param_shardings is None:
+            return self.params
+        return self.mapping.use_params(self.params, self._param_shardings)
 
     # -- config management ----------------------------------------------
     def _as_layer_vector(self, approx_cfg) -> np.ndarray:
@@ -746,7 +778,7 @@ class Engine:
                     pad = (-true_len) % self.prefill_pad
                     toks = np.concatenate([toks, np.zeros(pad, np.int32)])
                 logits, row_cache = T.prefill(
-                    self.params, self.cfg,
+                    self._model_params(), self.cfg,
                     torch.as_tensor(toks[None], device=self.device),
                     max_len=self.max_len,
                     approx_cfg=self._device_cfg(req_cfg),
@@ -967,7 +999,7 @@ class Engine:
             tokens = torch.as_tensor(buf, device=self.device)
             if start == 0 and toks.size <= C:
                 logits, row_cache = T.prefill(
-                    self.params, self.cfg, tokens, max_len=C,
+                    self._model_params(), self.cfg, tokens, max_len=C,
                     approx_cfg=acfg, true_len=count)
                 self._scatter_prefill(slot, row_cache, count)
             else:
@@ -1169,13 +1201,13 @@ class Engine:
         charge, the scheduler's probe, emit, auto-snapshot and the
         scheduler's end-of-tick hook."""
         pool_cfg = self._pool_cfg()
-        token = torch.as_tensor(token[slice(*self._batch_rows)],
-                                device=self.device)
+        token = torch.as_tensor(token, device=self.device)
         saved = T.decode_writes(cache)
         try:
             if inj is not None:
                 inj.check_step_fail()
-            logits, new_cache = step_fn(self.params, self.cfg, cache, token,
+            logits, new_cache = step_fn(self._model_params(), self.cfg,
+                                        cache, token,
                                         approx_cfg=self._device_cfg(pool_cfg))
             logits = self._all_rows(logits)
             if inj is not None:
@@ -1231,7 +1263,7 @@ class Engine:
         saved = T.decode_writes(cache)
         step = (T.decode_step if self.paged is None
                 else T.paged_decode_step)
-        logits, _ = step(self.params, self.cfg, cache, token,
+        logits, _ = step(self._model_params(), self.cfg, cache, token,
                          approx_cfg=self._device_cfg(cfg_vec))
         T.restore_writes(saved)
         return self._all_rows(logits).float().cpu().numpy()
@@ -1671,9 +1703,28 @@ class Engine:
                     for s, pr in self._prefill_progress.items()},
                 "n_preempted": int(self.n_preempted),
                 "n_shared_blocks": int(self.n_shared_blocks)}
-        self.checkpointer.save(step, self._snapshot_arrays(), meta)
+        arrs = self._snapshot_arrays()
+        self.checkpointer.save(step, arrs, meta,
+                               shardings=self._snapshot_shardings(arrs))
         self._last_snapshot = step
         return step
+
+    def _snapshot_shardings(self, arrs):
+        """(mapping, resolved specs) of a sharded engine's snapshot tree
+        (the cache's leaves by ``cache_specs``, in the reference's
+        layout; the host arrays replicated), None unsharded: rank 0
+        writes every leaf whole, so the files are an unsharded
+        engine's, and a restore cuts them onto this engine's mesh."""
+        if self.mapping is None:
+            return None
+        with shd.activate(None):        # the whole cache's shapes
+            shapes = T.init_cache(self.cfg, self.max_batch, self.max_len,
+                                  "meta")
+        port = self.mapping.shardings(T.cache_specs(self.cfg), shapes)
+        specs = {k: () for k in arrs}
+        specs["cache"] = _unwrap_specs(cache_to_reference(
+            _wrap_specs(port), self.cfg))
+        return self.mapping, specs
 
     def restore_snapshot(self, step: int | None = None) -> None:
         """Load a snapshot (the latest by default), this package's or the
@@ -1682,8 +1733,9 @@ class Engine:
         (``_quarantine``)."""
         if self.checkpointer is None:
             raise ValueError("snapshots need Engine(checkpointer=...)")
-        tree, meta = self.checkpointer.restore(self._snapshot_arrays(),
-                                               step)
+        arrs = self._snapshot_arrays()
+        tree, meta = self.checkpointer.restore(
+            arrs, step, shardings=self._snapshot_shardings(arrs))
         self.approx_cfg = np.array(tree["approx_cfg"], dtype=np.int32)
         self.slot_cfg = np.array(tree["slot_cfg"], dtype=np.int32)
         self.slot_pos = np.array(tree["slot_pos"], dtype=np.int64)

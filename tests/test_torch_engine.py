@@ -163,7 +163,7 @@ NO_JAX_CHECK = (
 REHEARSAL_LIMIT_S = 90
 REHEARSAL_GROUPS = ("dense", "spec", "resilience", "moe", "gemma2",
                     "train", "slice12", "slice13", "slice14", "slice15",
-                    "slice16", "slice17")
+                    "slice16", "slice17", "slice18")
 
 
 def _run_clean(code: str, timeout: float) -> subprocess.CompletedProcess:
@@ -235,9 +235,8 @@ def test_default_device_is_cuda():
 def test_unported_engine_knobs_raise(knob):
     """The reference's knobs are refused where they cannot apply, not
     ignored: the expert axis on a model without experts; the sharding
-    mapping, ported since slice 16, on a model whose layers it does not
-    shard yet (recurrent and local layers: ROADMAP Queue 1 item
-    11(b))."""
+    mapping (which serves every family) with the paged cache, which
+    the reference serves on one device only."""
     cfg = tget("qwen2.5-3b").smoke()
     params = TE.T.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
     if knob == "cfg_experts":
@@ -249,11 +248,13 @@ def test_unported_engine_knobs_raise(knob):
         return
     from repro_torch.dist.sharding import serve_mapping
     from repro_torch.launch.mesh import Mesh
-    rg = tget("recurrentgemma-2b").smoke()
+    from repro_torch.serve.paged_cache import PagedCacheConfig
     mapping = serve_mapping(Mesh((1, 1), ("data", "model"), rank=0))
-    with pytest.raises(ValueError, match=r"recurrent layers.*item 11\(b\)"):
-        TE.Engine(TE.T.init_lm(torch.Generator().manual_seed(0), rg, "cpu"),
-                  rg, max_len=16, device="cpu", **{knob: mapping})
+    with pytest.raises(ValueError, match="single-device"):
+        TE.Engine(params, cfg, max_len=16, device="cpu",
+                  paged=PagedCacheConfig(num_blocks=8, block_size=16,
+                                         prefill_chunk=16),
+                  **{knob: mapping})
 
 
 @pytest.mark.parametrize("knob", ["brownout", "fault_injector",

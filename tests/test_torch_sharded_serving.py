@@ -21,7 +21,8 @@ same library builds.  The bars, DESIGN.md §8's:
 * the kv_hd fallback (2 KV heads over TP 4: the head dim is sharded and
   gathered to attend): tokens equal bit for bit, as the gathers are
   exact;
-* the refusals, the column-shard config rule, ``sp_decode_attention``
+* the configs the sharded Engine once refused, served at (1, 1); the
+  refusals left, the column-shard config rule, ``sp_decode_attention``
   against the unsharded ``decode_attention`` (its contract; the
   reference's own test of it fails on every run), the row-parallel
   GEMM's int32 sum and global scale, the launcher at ``--mesh 1x1`` and
@@ -306,16 +307,31 @@ def test_column_shard_config_rule():
         _shard_blocks(100, 100, 200, 128)
 
 
-@pytest.mark.parametrize("over, match", [
+@pytest.mark.parametrize("over, what", [
     ({"pattern": ("local", "global"), "window": 8}, "local layers"),
     ({"kv_quant": True}, "int8 KV"),
     ({"vision_prefix_len": 4, "family": "vlm"}, "vision prefix"),
 ])
-def test_refusals_name_item_11b(over, match):
+def test_refusals_name_item_11b(over, what):
+    """The three configs the sharded Engine once refused (ROADMAP item
+    11(b)) are served: at (1, 1), on a gloo group of one in this
+    process, their tokens equal the unsharded Engine's."""
+    import torch.distributed as dist
+    from repro_torch.launch.serve import join_mesh
     cfg = dense_cfg(**over)
-    mp_ = serve_mapping(Mesh((1, 1), ("data", "model"), rank=0), kv="hd")
-    with pytest.raises(ValueError, match=match + r".*item 11\(b\)"):
-        Engine(_params(cfg, 0), cfg, mapping=mp_, device="cpu")
+    params, prompts = _params(cfg, 0), _dense_prompts()
+    mp_, _, created = join_mesh("1x1", "hd", torch.device("cpu"))
+    try:
+        got = _streams(Engine(params, cfg, max_batch=4, max_len=48,
+                              mapping=mp_, param_specs=T.lm_specs(cfg),
+                              device="cpu"), Request, prompts, (8,), 6)
+    finally:
+        if created:
+            dist.destroy_process_group()
+    want = _streams(Engine(params, cfg, max_batch=4, max_len=48,
+                           device="cpu"), Request, prompts, (8,), 6)
+    assert got == want, what
+    assert mp_.collectives[("all_reduce_sum", ("model",))] > 0
 
 
 def test_refusals_paged_spec_and_seq_write():
