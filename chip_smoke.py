@@ -160,11 +160,12 @@ seconds):
 12e2. power_sweep — examples/serve_power_sweep.py's sections through
              the port example's own functions on the serve phase's
              full-width Qwen2.5-3B: the dense sweep (configs 0, 1, 8, 16,
-             31, six prompts, 12 tokens) at full depth, mixed per-request
-             configs and a per-layer allocation, the fused backend at
-             cfg_groups 2, the PowerBudgetScheduler at 0.85 x exact, the
-             chaos run (NaN logits, a failed step, a brownout ladder),
-             the (k, draft) sweep and per-class budgets at 9 layers;
+             31, six prompts, 12 tokens) at SWEEP_FIRST_DEPTH (4)
+             layers, mixed per-request configs and a per-layer
+             allocation, the fused backend at cfg_groups 2, the
+             PowerBudgetScheduler at 0.85 x exact, the chaos run (NaN
+             logits, a failed step, a brownout ladder), the (k, draft)
+             sweep and per-class budgets at SWEEP_DEPTH (4) layers;
              section 4 (per-expert configs, a single-expert retune) on
              OLMoE-1B-7B after spec_moe.  One line a section: tokens,
              agreement, saving, wall ms a tick, device ms a decode tick
@@ -174,7 +175,7 @@ seconds):
              kernel's 3 a layer before and after the retune), flash
              once a layer a prefill, and every kernel call held against
              its plain version on its own operands (``held_calls``).
-12e3. spec_trained — Qwen2.5-3B cut to 9 layers at full width, trained
+12e3. spec_trained — Qwen2.5-3B cut to 4 layers at full width, trained
              here 120 AdamW steps (B 8 x S 128, SyntheticLM at its vocab,
              4 templates), saved by the Checkpointer in the reference's
              format, restored through launch/serve.py's --ckpt path
@@ -269,7 +270,7 @@ seconds):
              retune every 4 ticks; grouped 3 and fused 4 launches per
              layer per prefill, decode step and probe.
 17d. spec_moe — spec_serve on moe_serve's params cut to their first
-             SPEC_MOE_LAYERS (8) of 16 layers, and its requests, at
+             SPEC_MOE_LAYERS (4) of 16 layers, and its requests, at
              SpecConfig(draft 8, k 3, max_k 7), dense only: the fused
              kernel 4 and the grouped kernel 3 times per layer per draft
              step and verify; the same reports, and the expert entries
@@ -449,7 +450,7 @@ seconds):
              zero), then its time at decode beside the twin, a
              torch._int_mm loop and its byte bound.
 29. shard_serve (slice 16, last) — sharded serving on models of its
-             own (Qwen2.5-3B at SWEEP_DEPTH layers, OLMoE at 4, from
+             own (Qwen2.5-3B at SWEEP_DEPTH layers, OLMoE at 2, from
              fixed seeds): (a) an NCCL group of one in this process,
              mesh (1, 1), Engine(mapping) against Engine(None) with a
              PowerBudgetScheduler (tokens, probes, agreements,
@@ -482,9 +483,9 @@ seconds):
              also records, at the first layer where a parting row
              passes one bf16 ulp, the int8 activations of its 7 fused
              GEMMs in the kernel and the plain run.
-30. shard_train (slice 17, last) — sharded training: (a)
+30. shard_train (slice 17) — sharded training: (a)
              ``launch.train.run --multi-pod`` on an NCCL group of one in
-             this process, mesh (1, 1, 1), Qwen2.5-3B at 4 layers from
+             this process, mesh (1, 1, 1), Qwen2.5-3B at 2 layers from
              seed 0, B 4 x S 256, bf16, 3 steps, against the unsharded
              build_train_step of the same setup: losses and params bit
              for bit (or the parting op named), the collectives a step
@@ -494,6 +495,21 @@ seconds):
              step, OLMoE moe_ep at (1, 2), a 2-stage pipeline_forward, a
              checkpoint written at (2, 1) and restored at (1, 2) bit for
              bit.  Every sampled flash call held to its plain version.
+31. shard_families (slice 19) — sharded training of the recurrent,
+             encoder-decoder and vision-prefix families at full width,
+             one pattern group each (SHARD_FAMILIES): (a) one NCCL rank
+             at (1, 1, 1), bf16, bit for bit with the unsharded step,
+             both step ms and peak GB; (b) two gloo ranks on the card at
+             (1, 2) in f32 against the unsharded step (rank 0's, run
+             alone first): losses, grad norms, params within shard_train
+             (b)'s bars.  Every sampled flash call held to its plain
+             version.
+32. dryrun (slice 19, last) — ``launch/dryrun.py`` in a spawned process
+             on a fake process group: shard_train (a)'s config and batch
+             at (1, 1), its per-rank argument bytes equal to what a real
+             rank holds here, its peak estimate beside
+             ``max_memory_allocated``; then the qwen2.5-3b decode_32k
+             cell on rank 0 of 512 and its wall seconds.
 
 Then a ``{"kernels": [...]}`` line (the fused kernel's entry with a
 ``rows`` list: one Qwen2.5-3B layer at M 4 and one Gemma-2-27B layer at M 4
@@ -525,7 +541,8 @@ gemma2_serve, gemma2_window, train (remat on), train_resume,
 mlp_train (2 epochs), gemma7b_serve, danube_serve, danube_window,
 paged_moe, moe_path, moe_chunks, moe_train, rgemma_serve (8 layers,
 two of them rest layers), rgemma_window, xlstm_serve, shard_serve and
-shard_train (gloo for both parts of each) phases at the smoke size
+shard_train, shard_families (gloo for both parts of each) and dryrun
+phases at the smoke size
 on the CPU and never prints the ``ok`` line; its phases come in
 REHEARSAL_GROUPS, and ``--rehearse GROUP ...`` runs only those.
 Since the flash kernel carries every prefill attention on
@@ -635,7 +652,7 @@ RESILIENCE_PHASES = "chaos_serve, spike_serve and interactions"
 # script's time (their six full-depth runs took ~230 s on a slow host; 9
 # layers before shard_train came, 6 before shard_archs, 4 since)
 SPEC_DEPTH = 4
-SPEC_MOE_LAYERS = 8                # spec_moe's depth of OLMoE's 16 layers
+SPEC_MOE_LAYERS = 4                # spec_moe's depth of OLMoE's 16 layers
 # slice 12: Danube's serve (max_len above its 4,096 window, one prompt
 # past it, two neuron groups a layer); the tokens of moe_chunks'
 # per-expert run (the grouped kernel on the chunked path); OLMoE's
@@ -669,13 +686,13 @@ DBRX_LAYERS = 4
 SCRATCH = ROOT / "build" / "chip_smoke"
 # slice 15: examples/serve_power_sweep.py's sections at full width (the
 # dense sweep at SWEEP_FIRST_DEPTH layers, cut from full depth for
-# shard_train's time; the other Qwen2.5-3B sections at
+# the script's time; the other Qwen2.5-3B sections at
 # SWEEP_DEPTH layers; section 4 on OLMoE-1B-7B at full depth) and
 # speculation on a Qwen2.5-3B of SPEC_TRAINED["layers"] layers trained
 # here
-SWEEP_DEPTH = 9
-SWEEP_FIRST_DEPTH = 18
-SPEC_TRAINED = dict(layers=9, steps=120, batch=8, seq=128, templates=4,
+SWEEP_DEPTH = 4
+SWEEP_FIRST_DEPTH = 4
+SPEC_TRAINED = dict(layers=4, steps=120, batch=8, seq=128, templates=4,
                     peak_lr=5e-4, warmup=10, requests=8, prompt=24,
                     max_new=16)
 HELD_PER_KERNEL = 24
@@ -3180,11 +3197,11 @@ def phase_gemma2_window(torch, T, FA, FAops, params, cfg, dev, *,
 
 
 def phase_profile_gemma2(torch, T, eng, dev) -> None:
-    """torch.profiler over three Gemma-2 decode steps and one 48-token
+    """torch.profiler over two Gemma-2 decode steps and one 48-token
     prefill: device time by kernel, the flash kernel's share of the
     prefill, and the device's busy share of the same calls unprofiled."""
     from torch.profiler import ProfilerActivity, profile
-    cfg, steps = eng.cfg, 3
+    cfg, steps = eng.cfg, 2
     gen = torch.Generator(device=dev).manual_seed(15)
     cache = dict(eng.cache)
     cache["pos"] = torch.tensor(100, dtype=torch.int32, device=dev)
@@ -6198,7 +6215,7 @@ def phase_spec_trained(torch, T, libs, E, Engine, Request, SpecConfig,
 # slice 16: sharded serving
 # ---------------------------------------------------------------------------
 SHARD = dict(layers=SWEEP_DEPTH, n_req=8, max_new=16, probe_every=2,
-             retune_every=6, moe_layers=4, moe_req=3, moe_new=8,
+             retune_every=6, moe_layers=2, moe_req=3, moe_new=8,
              qwen_seed=16, moe_seed=17)
 GROUPED_INT_CASES = ((64, 32, 1024, 2048, 26), (64, 320, 1024, 2048, 26))
 SEQ_TOL = 1e-5
@@ -6538,7 +6555,7 @@ def phase_shard_serve(torch, T, A, libs, Engine, Request, Scheduler,
     assignment, retunes, probes and agreements equal; each decode step's
     collectives counted and asserted, the row-parallel int32 path and
     the scale reductions included; both engines' decode-step ms; nothing
-    built after the first tick), then OLMoE-1B-7B at 4 layers with a
+    built after the first tick), then OLMoE-1B-7B at 2 layers with a
     mixed (L, E, g) config and a single-expert retune (tokens equal; the
     grouped kernel's int32-out instance runs w_down).  (b) Two ranks in
     processes of their own sharing the one card over gloo, mesh (1, 2):
@@ -6753,7 +6770,7 @@ def phase_timing_grouped_int(torch, A, bank_of, dev) -> dict:
 # slice 17: sharded training
 # ---------------------------------------------------------------------------
 
-SHARD_TRAIN = dict(layers=4, batch=4, seq=256, steps=3, b_seq=64, b_steps=2,
+SHARD_TRAIN = dict(layers=2, batch=4, seq=256, steps=3, b_seq=64, b_steps=2,
                    c_steps=1, moe_layers=2, pipe_d=2048, pipe_m=4, pipe_mb=8)
 REHEARSE_SHARD_TRAIN = dict(layers=2, batch=4, seq=32, steps=3, b_seq=16,
                             b_steps=2, c_steps=2, moe_layers=2, pipe_d=64,
@@ -7324,14 +7341,14 @@ def _shard_train_b(torch, T, libs, get_config, dev, rank, rehearse,
 def phase_shard_train(torch, T, libs, get_config, dev) -> dict:
     """Sharded training.  (a) ``launch.train.run --multi-pod`` over an
     NCCL group of one in this process (gloo in the rehearsal), mesh
-    (1, 1, 1) ("pod", "data", "model"): Qwen2.5-3B at full width and 4
+    (1, 1, 1) ("pod", "data", "model"): Qwen2.5-3B at full width and 2
     of 36 layers from seed 0, B 4 x S 256, bf16, 3 steps, against the
     same command with no group (``build_train_step`` unsharded): losses
     and params bit for bit or the parting op named (``shard_train_a``);
     the collectives a step by kind, both runs' step ms, peak GB, flash
     launches a step; every flash call of both runs' sampled calls held
     against its plain version.  (b) Two spawned ranks sharing the card
-    over gloo, f32 (gloo has no bf16 sum): Qwen2.5-3B, 4 layers, B 4 x
+    over gloo, f32 (gloo has no bf16 sum): Qwen2.5-3B, 2 layers, B 4 x
     S 64, 2 steps at (2, 1) DP + FSDP and (1, 2) TP against the
     unsharded port: losses within 1e-4, every step's grad_norm within
     rtol 2e-4, every element of the first step's gradients within rtol
@@ -7873,6 +7890,438 @@ def phase_shard_archs(torch, T, A, libs, Engine, Request, Checkpointer,
     return res
 
 
+# ---------------------------------------------------------------------------
+# slice 19: sharded training of every family, and the dry run
+# ---------------------------------------------------------------------------
+
+# the families shard_families trains at full width, one pattern group each
+# (RecurrentGemma recurrent, recurrent, local; xLSTM an mLSTM and an sLSTM
+# layer; Whisper one encoder and one decoder layer over 1,500 stub frames;
+# InternVL2 one layer after its 1,024-patch prefix), B 2 x S 128, remat,
+# 8 loss chunks, AdamW at ST_LR from seed 0
+SHARD_FAMILIES = dict(
+    layers={"recurrentgemma-2b": 3, "xlstm-350m": 2, "whisper-large-v3": 1,
+            "internvl2-76b": 1},
+    batch=2, seq=128, frames=1500, steps=2, b_steps=2, seed=19)
+REHEARSE_SHARD_FAMILIES = dict(seq=16, frames=12)
+
+
+def family_cfgs(get_config, rehearse: bool) -> dict:
+    out = {}
+    for arch, n in SHARD_FAMILIES["layers"].items():
+        cfg = get_config(arch)
+        if rehearse:
+            cfg = cfg.smoke()
+        over = dict(n_layers=n, remat=True, loss_chunks=8)
+        if cfg.encoder_decoder:
+            over["n_enc_layers"] = n
+        out[arch] = dataclasses.replace(cfg, **over)
+    return out
+
+
+def family_batches(torch, cfg, z, n: int) -> list:
+    """`n` seeded batches (numpy): tokens and labels (B, S), Whisper's
+    frame embeddings (B, frames, d), InternVL2's patch embeddings (B,
+    prefix, d)."""
+    g = torch.Generator().manual_seed(z["seed"])
+    out = []
+    for _ in range(n):
+        b = {k: torch.randint(0, cfg.vocab_size, (z["batch"], z["seq"]),
+                              generator=g, dtype=torch.int32).numpy()
+             for k in ("tokens", "labels")}
+        if cfg.encoder_decoder:
+            b["enc_embeds"] = torch.randn(z["batch"], z["frames"],
+                                          cfg.d_model, generator=g).numpy()
+        if cfg.vision_prefix_len:
+            b["vision_embeds"] = torch.randn(
+                z["batch"], cfg.vision_prefix_len, cfg.d_model,
+                generator=g).numpy()
+        out.append(b)
+    return out
+
+
+def family_run(torch, T, cfg, dev, batches, mapping=None) -> dict:
+    """The train step of `cfg` from the seed-0 init over `batches`,
+    unsharded or under `mapping` (FSDP; the state and the rows cut to the
+    rank's slices): losses, grad norms, each step's ms (synchronized),
+    the params (the rank's slices) and the peak GB."""
+    from repro_torch.data.pipeline import sharded_placer, to_device
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.step import build_train_step, init_state
+    opt = adamw(ST_LR, weight_decay=0.01, grad_clip_norm=1.0)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    specs = None
+    if mapping is None:
+        params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                           dev)
+        step = build_train_step(cfg, opt)
+
+        def place(b):
+            return to_device(b, dev)
+    else:
+        lp = T.lm_specs(cfg)
+        params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                           dev, place=lambda path, tree:
+                           mapping.shard_tree(tree, lp, path))
+        specs = mapping.shardings(lp, T.init_lm(None, cfg, "meta"))
+        step = build_train_step(cfg, opt, mapping=mapping,
+                                param_specs=specs)
+        place = sharded_placer(mapping.batch_sharding(batches[0]), mapping,
+                               dev)
+    state = init_state(params, opt)
+    del params
+    losses, norms, step_ms = [], [], []
+    for b in batches:
+        b = place(b)
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        if on_card:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    return {"losses": losses, "norms": norms, "step_ms": step_ms,
+            "params": state["params"], "specs": specs,
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None)}
+
+
+def shard_families_a(torch, T, libs, get_config, dev) -> dict:
+    """(a): each family's train step under a mapping over an NCCL group
+    of one (gloo in the rehearsal), mesh (1, 1, 1) ("pod", "data",
+    "model"), FSDP, against the same step unsharded, in the config's
+    compute dtype (bf16 on the card): losses and params bit for bit;
+    both runs' step ms and peak GB, the collectives a step, flash
+    launches."""
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import Mapping
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.train.optimizer import tree_leaves
+    A, PA, FA = libs
+    rehearse = dev.type != "cuda"
+    z = {**SHARD_FAMILIES, **(REHEARSE_SHARD_FAMILIES if rehearse else {})}
+    out, checks, launches = {}, [], 0
+    dist.init_process_group("gloo" if rehearse else "nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    if not rehearse:
+        # InternVL2's sharded step peaks at ~69 GB: after the script's
+        # earlier phases the cache's free blocks are too fragmented for
+        # it, so this phase takes its new segments expandable
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        for arch, cfg in family_cfgs(get_config, rehearse).items():
+            t_arch = time.perf_counter()
+            batches = family_batches(torch, cfg, z, z["steps"])
+            FA.flash_attention.launches = 0
+            with held_calls(torch, T) as held:
+                plain = family_run(torch, T, cfg, dev, batches)
+                # on the host, so that the card holds one run's state
+                kept = [x.cpu() for x in tree_leaves(plain.pop("params"))]
+                m = Mapping(make_train_mesh(multi_pod=True), fsdp=True,
+                            batch_axes=("pod", "data"))
+                run = family_run(torch, T, cfg, dev, batches, m)
+            flash = FA.flash_attention.launches
+            launches += flash
+            checks.append(held.check(A, FA, PA))
+            parted = [i for i, (a, b) in enumerate(zip(
+                kept, tree_leaves(run.pop("params"))))
+                if not torch.equal(a, b.cpu())]
+            del kept
+            per_step = {f"{k} {'/'.join(a)}": n / z["steps"]
+                        for (k, a), n in sorted(m.collectives.items())}
+            out[arch] = {
+                "layers": cfg.n_layers, "compute_dtype": str(cfg.compute_dtype),
+                "losses_unsharded": plain["losses"],
+                "losses_sharded": run["losses"],
+                "bit_identical": (plain["losses"] == run["losses"]
+                                  and not parted),
+                "parted_leaves": parted,
+                "step_ms_unsharded": plain["step_ms"],
+                "step_ms_sharded": run["step_ms"],
+                "peak_gb_unsharded": plain["peak_gb"],
+                "peak_gb_sharded": run["peak_gb"],
+                "collectives_per_step": per_step,
+                "flash_launches": flash,
+                "run_s": time.perf_counter() - t_arch}
+            del run, plain
+    finally:
+        dist.destroy_process_group()
+        if not rehearse:
+            gc.collect()
+            torch.cuda.empty_cache()      # the ranks of (b) need the card
+            torch.cuda.memory._set_allocator_settings(
+                "expandable_segments:False")
+    return {"archs": out, "held_flash": merge_held(checks)["flash"],
+            "flash_launches": launches, "mesh": (1, 1, 1),
+            "backend": "gloo" if rehearse else "nccl"}
+
+
+def shard_families_rank(rank, port, rehearse, out):
+    """One of the two gloo ranks of shard_families (b), on the card (the
+    CPU when rehearsed), f32: each family at (1, 2) (tensor parallelism,
+    no FSDP) against its
+    unsharded step (run by rank 0 alone first, the card's memory holding
+    one unsharded model at a time), this rank's slices held to rank 0's
+    cut of it."""
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        import os
+        # two f32 ranks of InternVL2's halves share the card: no
+        # fragmentation left unused
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(1 if rehearse else 4)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from repro_torch.configs.registry import get_config
+        from repro_torch.kernels.approx_mac import approx_mac as A
+        from repro_torch.kernels.flash_attention import flash_attention as FA
+        from repro_torch.kernels.flash_attention import paged_attention as PA
+        from repro_torch.nn import transformer as T
+        dev = torch.device("cpu" if rehearse else "cuda")
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank)
+        try:
+            res = _shard_families_b(torch, T, (A, PA, FA), get_config, dev,
+                                    rank, rehearse)
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, True, res))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        out.put((rank, False, traceback.format_exc()))
+
+
+def _shard_families_b(torch, T, libs, get_config, dev, rank,
+                      rehearse) -> dict:
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import Mapping
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optimizer import tree_map
+    A, PA, FA = libs
+    z = {**SHARD_FAMILIES, **(REHEARSE_SHARD_FAMILIES if rehearse else {})}
+    res, checks = {}, []
+    FA.flash_attention.launches = 0
+    for arch, cfg in family_cfgs(get_config, rehearse).items():
+        t_arch = time.perf_counter()
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        batches = family_batches(torch, cfg, z, z["b_steps"])
+        with held_calls(torch, T) as held:
+            plain = (family_run(torch, T, cfg, dev, batches) if rank == 0
+                     else None)
+            if plain is not None:
+                plain["params"] = tree_map(lambda x: x.cpu(),
+                                           plain["params"])
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()    # the card for both ranks
+            dist.barrier()
+            # no FSDP: over a data axis of one it shards nothing, and its
+            # gathers' copies would not leave two f32 InternVL2 ranks room
+            m = Mapping(make_mesh((1, 2), ("data", "model")), fsdp=False)
+            run = family_run(torch, T, cfg, dev, batches, m)
+        checks.append(held.check(A, FA, PA))
+        row = {"losses": run["losses"], "norms": run["norms"],
+               "step_ms": run["step_ms"], "peak_gb": run["peak_gb"],
+               "twin_peak_gb": None if plain is None else plain["peak_gb"]}
+        if plain is not None:
+            cut = tree_map(lambda x, spec: m.shard(x, spec).to(dev),
+                           plain["params"], run["specs"])
+            row.update(
+                loss_err=max(abs(a - b) for a, b in zip(run["losses"],
+                                                        plain["losses"])),
+                norm_rel_err=max(abs(a - b) / b for a, b in zip(
+                    run["norms"], plain["norms"])),
+                **_st_close(torch, T, cfg, run["params"], cut))
+            del cut
+        del run, plain
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        row["run_s"] = time.perf_counter() - t_arch
+        res[arch] = row
+    res["held"] = merge_held(checks)["flash"]
+    res["flash_launches"] = FA.flash_attention.launches
+    return res
+
+
+def phase_shard_families(torch, T, libs, get_config, dev) -> dict:
+    """Sharded training of the recurrent, encoder-decoder and
+    vision-prefix families (``SHARD_FAMILIES``): (a) one NCCL rank at
+    (1, 1, 1) in bf16, bit for bit with the unsharded step
+    (``shard_families_a``); (b) two gloo ranks sharing the card at
+    (1, 2) in f32: losses within TRAIN_LOSS_TOL of the unsharded step,
+    grad norms within GRAD_NORM_RTOL, at most OUTSIDE_SHARE of a leaf's
+    params outside TRAIN_PARAM_TOL.  Every sampled flash call of both
+    parts held to its plain version.  (b)'s times are two processes
+    sharing one card over gloo, not multi-card times."""
+    rehearse = dev.type != "cuda"
+    t0 = time.perf_counter()
+    a = shard_families_a(torch, T, libs, get_config, dev)
+    if not rehearse:
+        free, total = torch.cuda.mem_get_info()
+        a["card_free_gb_before_b"] = free / 1e9
+        a["reserved_gb_before_b"] = torch.cuda.memory_reserved() / 1e9
+    emit({"phase": "shard_families_a", **a})
+    for arch, r in a["archs"].items():
+        assert r["bit_identical"], (arch, r)
+        assert all(math.isfinite(x) for x in r["losses_sharded"]), arch
+    ranks = _run_ranks(shard_families_rank, rehearse, "shard_families")
+    emit({"phase": "shard_families_b", "ranks": ranks})
+    b0 = ranks[0]
+    for arch in SHARD_FAMILIES["layers"]:
+        got = b0[arch]
+        assert got["loss_err"] <= TRAIN_LOSS_TOL, (arch, got)
+        assert got["norm_rel_err"] <= GRAD_NORM_RTOL, (arch, got)
+        assert got["outside_tolerance_share"] <= OUTSIDE_SHARE, (arch, got)
+        assert ranks[1][arch]["losses"] == got["losses"], arch
+    flash = a["flash_launches"] + sum(r["flash_launches"]
+                                      for r in ranks.values())
+    if not rehearse:
+        assert flash > 0 and a["held_flash"]["held"] > 0, a["held_flash"]
+        assert all(r["held"]["held"] > 0 for r in ranks.values())
+    res = {"phase": "shard_families",
+           "a": {arch: {k: r[k] for k in ("bit_identical", "step_ms_unsharded",
+                                          "step_ms_sharded",
+                                          "peak_gb_unsharded",
+                                          "peak_gb_sharded")}
+                 for arch, r in a["archs"].items()},
+           "b": {arch: b0[arch] for arch in SHARD_FAMILIES["layers"]},
+           "held_flash": {"a": a["held_flash"],
+                          **{f"b{r}": g["held"] for r, g in ranks.items()}},
+           "flash_launches": flash,
+           "tolerances": {"loss": TRAIN_LOSS_TOL, "params": TRAIN_PARAM_TOL,
+                          "params_outside_share": OUTSIDE_SHARE,
+                          "grad_norm_rtol": GRAD_NORM_RTOL},
+           "note": "(b): two processes sharing one card over gloo, f32: "
+                   "not multi-card times",
+           "total_s": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def dryrun_child(rehearse, out):
+    """The dry run in a process of its own (it joins a fake process
+    group): shard_train (a)'s Qwen2.5-3B config and batch at (1, 1) on a
+    fake group of one, then the full qwen2.5-3b decode_32k cell on rank 0
+    of 512."""
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+        import torch.distributed as dist
+        from repro_torch.configs.registry import ShapeCell, get_config
+        from repro_torch.launch import dryrun as D
+        from repro_torch.launch.mesh import make_mesh
+        torch.set_num_threads(1 if rehearse else 4)
+        z = shard_train_sizes(rehearse)
+        cfg, _ = shard_train_cfgs(get_config, rehearse)
+        cell = ShapeCell("shard_train_a", z["seq"], z["batch"], "train")
+        D.join_fake_world(1)
+        c, m = D.cell_mapping(cfg, cell, make_mesh((1, 1), ("data",
+                                                            "model")))
+        t0 = time.perf_counter()
+        small = D.run_cell(c, cell, m)
+        small["wall_s"] = time.perf_counter() - t0
+        dist.destroy_process_group()
+        full = None
+        if not rehearse:
+            D.join_fake_world()
+            tag, mesh = D.production_mesh(False)
+            full = D.lower_cell("qwen2.5-3b", "decode_32k", mesh, tag)
+            dist.destroy_process_group()
+        out.put((True, {"small": small, "full": full}))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        out.put((False, traceback.format_exc()))
+
+
+def start_dryrun(rehearse: bool):
+    """``dryrun_child`` started in a spawned process (its fake-tensor
+    traces run on the host's cores while the card trains the families);
+    (process, queue) for ``phase_dryrun``."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=dryrun_child, args=(rehearse, q))
+    p.start()
+    return p, q
+
+
+def phase_dryrun(torch, T, get_config, dev, child) -> dict:
+    """``launch/dryrun.py`` against a real run: its trace of shard_train
+    (a)'s Qwen2.5-3B config and batch (bf16, remat, 2 layers, B 4 x S
+    256) at (1, 1), in a spawned process on a fake group, against the
+    same train step run here on the card: the per-rank argument bytes
+    (params, AdamW moments, batch) must equal what this rank holds; the
+    dry run's peak estimate is printed beside
+    ``torch.cuda.max_memory_allocated`` with their ratio (recorded, not
+    asserted).  Then the full qwen2.5-3b decode_32k cell on rank 0 of
+    512 and its wall seconds.  `child`: ``start_dryrun``'s process."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.synthetic_lm import SyntheticLM, SyntheticLMConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.step import build_train_step, init_state
+    rehearse = dev.type != "cuda"
+    t0 = time.perf_counter()
+    p, q = child
+    try:
+        ok, got = q.get(timeout=600)
+    finally:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+    assert ok, f"dryrun child:\n{got}"
+    z = shard_train_sizes(rehearse)
+    cfg, _ = shard_train_cfgs(get_config, rehearse)
+    opt = adamw(lr=1e-4, weight_decay=0.01, grad_clip_norm=1.0)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = init_state(T.init_lm(torch.Generator(dev).manual_seed(0), cfg,
+                                 dev), opt)
+    batch = to_device(SyntheticLM(SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, seq_len=z["seq"],
+        global_batch=z["batch"], seed=0)).batch(0), dev)
+    held = {"params": D.tree_bytes(state["params"]),
+            "opt_state": D.tree_bytes(state["opt"]),
+            "batch": D.tree_bytes(batch)}
+    build_train_step(cfg, opt)(state, batch)
+    real_peak = (torch.cuda.max_memory_allocated()
+                 if dev.type == "cuda" else None)
+    del state, batch
+    small = got["small"]
+    est = small["bytes_per_rank"]
+    for k in ("params", "opt_state", "batch"):
+        assert est[k] == held[k], (k, est[k], held[k])
+    res = {"phase": "dryrun", "config": cfg.name, "layers": cfg.n_layers,
+           "batch": z["batch"], "seq": z["seq"],
+           "bytes_per_rank_estimate": est, "bytes_held": held,
+           "peak_estimate_bytes": small["peak_estimate_bytes"],
+           "max_memory_allocated": real_peak,
+           "peak_ratio": (small["peak_estimate_bytes"] / real_peak
+                          if real_peak else None),
+           "flops_per_rank": small["flops_per_rank"],
+           "collectives": small["collectives"],
+           "small_wall_s": small["wall_s"],
+           "decode_32k_512": None if got["full"] is None else {
+               k: got["full"][k] for k in (
+                   "mesh", "bytes_per_rank", "peak_estimate_bytes",
+                   "flops_per_rank", "collectives_total_bytes", "wall_s")},
+           "total_s": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
 def layer_row(name: str, rows: list, launches: int) -> dict:
     """One work row of a kernel's entry: the sums over a layer's GEMMs."""
     return {"work": name, "launches": launches,
@@ -7904,6 +8353,8 @@ REHEARSAL_GROUPS = {
     "slice17": "shard_train ((a) launch.train --multi-pod on one rank, "
                "(b) two spawned ranks)",
     "slice18": "shard_archs ((a) one rank, (b) two spawned ranks)",
+    "slice19": "shard_families ((a) one rank, (b) two spawned ranks), "
+               "dryrun (a spawned fake-group process)",
 }
 
 
@@ -8104,6 +8555,10 @@ def rehearse(groups=None) -> int:
     if "slice18" in groups:
         phase_shard_archs(torch, T, A, libs, Engine, Request, Checkpointer,
                           get_config, cpu)
+    if "slice19" in groups:
+        child = start_dryrun(True)
+        phase_shard_families(torch, T, libs, get_config, cpu)
+        phase_dryrun(torch, T, get_config, cpu, child)
     emit({"rehearsal": True, "groups": groups, "ok": False})
     return 0
 
@@ -8370,8 +8825,15 @@ def main(argv: list[str]) -> int:
     archs = phase_shard_archs(torch, T, A, libs, Engine, Request,
                               Checkpointer, get_config, dev)
     torch.cuda.empty_cache()
-    # slice 17: sharded training, last
+    # slice 17: sharded training
     shard_train = phase_shard_train(torch, T, libs, get_config, dev)
+    torch.cuda.empty_cache()
+    # slice 19: sharded training of every family, then the dry run (its
+    # traces on the host while the card trains), last
+    dry_child = start_dryrun(False)
+    families = phase_shard_families(torch, T, libs, get_config, dev)
+    torch.cuda.empty_cache()
+    phase_dryrun(torch, T, get_config, dev, dry_child)
 
     def shard_launches(fn):
         return (shard["launches_a"][fn] + shard["launches_b"][fn]
@@ -8571,7 +9033,8 @@ def main(argv: list[str]) -> int:
                          "flash_launches"]
                      + s14["dbrx_serve"]["flash_launches"]
                      + shard_launches("flash_attention")
-                     + shard_train["flash_launches"]),
+                     + shard_train["flash_launches"]
+                     + families["flash_launches"]),
         "max_abs_err": flash_err,
         "ms": serve_flash["ms"],
         "plain_ms": serve_flash["plain_ms"],
@@ -8598,7 +9061,10 @@ def main(argv: list[str]) -> int:
                 "encoder and cross-attention at 1,500 frames, on each "
                 "rank's heads), and shard_train's sharded and "
                 "unsharded train steps (bf16 on one NCCL rank, f32 on two "
-                "gloo ranks; forward and remat recompute); "
+                "gloo ranks; forward and remat recompute) and "
+                "shard_families' (RecurrentGemma's local MQA, Whisper's "
+                "encoder, decoder and cross-attention, InternVL2's prefix "
+                "and text, sharded and unsharded); "
                 "library_ms is scaled_dot_product_attention (GQA, "
                 "causal) without the softcap, which it cannot express",
     }]})

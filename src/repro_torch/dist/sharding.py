@@ -25,7 +25,8 @@ rank's slice by its spec, and the model code calls the collectives
 below at the few places where the single-program result needs them:
 ``all_reduce`` (MAX of activation abs-maxima, SUM of int32 partial
 products) and ``all_gather`` (batch rows of the logits).  Each call is
-counted in ``Mapping.collectives`` by kind and axes.  With no mapping
+counted in ``Mapping.collectives`` by kind and axes, and its result's
+bytes in ``Mapping.collective_bytes``.  With no mapping
 current, ``current_mapping()`` is None and the model code calls none of
 them: single-device code pays nothing.
 
@@ -51,8 +52,10 @@ and its relatives):
                   layer's weights are gathered where the layer runs
                   (``LayerParams``)
 
-Each counts its collectives when they run (a backward one as
-``{kind}_bwd``).  Without autograd (serving) each is the plain
+The float parts that run whole on every rank (``whole``, ``own``,
+``whole_weight``: the recurrent cells) are ``gather_from`` and
+``scatter_to`` under autograd.  Each counts its collectives when they
+run (a backward one as ``{kind}_bwd``).  Without autograd (serving) each is the plain
 collective it wraps, counted as before.  gloo has no reduce-scatter and
 no bf16 all-reduce: the reduce-scatter is written as an all-reduce and
 a slice there, and a bf16 sum travels as f32 (two terms round once, as
@@ -128,6 +131,8 @@ class Mapping:
         self.kv_seq_axis = tuple(kv_seq_axis) if kv_seq_axis else None
         self.kv_hd_axis = tuple(kv_hd_axis) if kv_hd_axis else None
         self.collectives: Counter = Counter()
+        # the bytes of each counted call's result, by the same key
+        self.collective_bytes: Counter = Counter()
 
     # -- logical -> mesh axis resolution --------------------------------
     def _axis_size(self, axes: tuple[str, ...]) -> int:
@@ -231,12 +236,18 @@ class Mapping:
     def group_of(self, axes: Sequence[str]):
         return self.mesh.group(tuple(axes))
 
+    def count(self, kind: str, axes: tuple, nbytes: int) -> None:
+        """One call of collective `kind` over `axes` whose result holds
+        `nbytes`, in ``collectives`` and ``collective_bytes``."""
+        self.collectives[(kind, axes)] += 1
+        self.collective_bytes[(kind, axes)] += int(nbytes)
+
     def all_reduce(self, x: torch.Tensor, op: str,
                    axes: Sequence[str]) -> torch.Tensor:
         """x reduced ("sum" or "max") over the ranks of `axes`, in place
         on a copy; returns it.  Counted even over a group of one."""
         axes = tuple(axes)
-        self.collectives[(f"all_reduce_{op}", axes)] += 1
+        self.count(f"all_reduce_{op}", axes, nbytes(x))
         out = x.clone()
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         dist.all_reduce(out, op=red, group=self.group_of(axes))
@@ -248,8 +259,8 @@ class Mapping:
         order (a byte copy: bf16, which gloo does not take, travels as
         its bytes), counted as `kind`."""
         axes = tuple(axes)
-        self.collectives[(kind, axes)] += 1
         n = self.mesh.axis_size(axes)
+        self.count(kind, axes, n * nbytes(x))
         dim = dim % x.ndim
         src = x.contiguous()
         if src.dtype == torch.bfloat16:
@@ -263,7 +274,7 @@ class Mapping:
     def _sum_(self, x: torch.Tensor, axes: tuple, kind: str) -> torch.Tensor:
         """SUM all-reduce of `x` in place over `axes`, counted as `kind`
         (a bf16 tensor over gloo summed in f32)."""
-        self.collectives[(kind, axes)] += 1
+        self.count(kind, axes, nbytes(x))
         group = self.group_of(axes)
         if x.dtype == torch.bfloat16 and dist.get_backend(group) == "gloo":
             wide = x.to(torch.float32)
@@ -285,13 +296,15 @@ class Mapping:
             return _ReduceFrom.apply(x, self, tuple(axes))
         return self._sum_(x.clone(), tuple(axes), "all_reduce_sum")
 
-    def gather_from(self, x: torch.Tensor, dim: int,
-                    axes=("model",)) -> torch.Tensor:
-        """The ranks' x of `axes` concatenated along `dim`; the gradient
-        of the whole is replicated, so each rank keeps its slice."""
+    def gather_from(self, x: torch.Tensor, dim: int, axes=("model",),
+                    kind: str = "all_gather") -> torch.Tensor:
+        """The ranks' x of `axes` concatenated along `dim` (counted as
+        `kind`); the gradient of the whole is replicated, so each rank
+        keeps its slice."""
         if torch.is_grad_enabled() and x.requires_grad:
-            return _GatherFrom.apply(x, self, dim % x.ndim, tuple(axes))
-        return self.all_gather(x, dim, tuple(axes))
+            return _GatherFrom.apply(x, self, dim % x.ndim, tuple(axes),
+                                     kind)
+        return self.all_gather(x, dim, tuple(axes), kind)
 
     def scatter_to(self, x: torch.Tensor, dim: int,
                    axes=("model",)) -> torch.Tensor:
@@ -309,7 +322,8 @@ class Mapping:
         axes = tuple(axes)
         if torch.is_grad_enabled() and x.requires_grad:
             return _FsdpGather.apply(x, self, dim % x.ndim, axes)
-        self.collectives[("fsdp_all_gather", axes)] += 1
+        self.count("fsdp_all_gather", axes,
+                   self.mesh.axis_size(axes) * nbytes(x))
         return self._gather(x, dim % x.ndim, axes)
 
     def _gather(self, x, dim, axes):
@@ -327,8 +341,8 @@ class Mapping:
         `dim`, divided by the axes' size.  NCCL: ``reduce_scatter_tensor``
         on the dim moved to the front; gloo, which has none: an
         all-reduce, then the slice."""
-        self.collectives[("fsdp_reduce_scatter_bwd", axes)] += 1
         n = self.mesh.axis_size(axes)
+        self.count("fsdp_reduce_scatter_bwd", axes, nbytes(g) // n)
         group = self.group_of(axes)
         if dist.get_backend(group) == "gloo":
             whole = g.contiguous().clone()
@@ -348,7 +362,7 @@ class Mapping:
         if not tensors:
             return
         flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
-        self.collectives[("all_reduce_mean", axes)] += 1
+        self.count("all_reduce_mean", axes, nbytes(flat))
         dist.all_reduce(flat, group=self.group_of(axes))
         flat.div_(self.mesh.axis_size(axes))
         at = 0
@@ -467,14 +481,14 @@ class _ReduceFrom(torch.autograd.Function):
 
 class _GatherFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, m, dim, axes):
+    def forward(ctx, x, m, dim, axes, kind):
         ctx.m, ctx.dim, ctx.axes = m, dim, axes
-        return m.all_gather(x, dim, axes)
+        return m.all_gather(x, dim, axes, kind)
 
     @staticmethod
     def backward(ctx, g):
         lo, hi = ctx.m.local_range(ctx.axes, g.shape[ctx.dim])
-        return g.narrow(ctx.dim, lo, hi - lo), None, None, None
+        return g.narrow(ctx.dim, lo, hi - lo), None, None, None, None
 
 
 class _ScatterTo(torch.autograd.Function):
@@ -487,7 +501,8 @@ class _ScatterTo(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         m = ctx.m
-        m.collectives[("all_gather_bwd", ctx.axes)] += 1
+        m.count("all_gather_bwd", ctx.axes,
+                m.mesh.axis_size(ctx.axes) * nbytes(g))
         return m._gather(g, ctx.dim, ctx.axes), None, None, None
 
 
@@ -495,7 +510,7 @@ class _FsdpGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, m, dim, axes):
         ctx.m, ctx.dim, ctx.axes = m, dim, axes
-        m.collectives[("fsdp_all_gather", axes)] += 1
+        m.count("fsdp_all_gather", axes, m.mesh.axis_size(axes) * nbytes(x))
         return m._gather(x, dim, axes)
 
     @staticmethod
@@ -518,6 +533,10 @@ class LayerParams:
 
     def gather(self):
         return self.mapping.use_params(self.params, self.specs)
+
+
+def nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _as_axes(axes) -> tuple[str, ...]:
@@ -684,23 +703,49 @@ def whole(x: torch.Tensor, model_dim: int | None = None, *,
     matmuls, reductions over a split dim, batched products) run on the
     whole tensor on every rank, as on one device, and keep their part
     (``own``).  The identity with no mapping current; an axis of one
-    rank gathers nothing."""
+    rank gathers nothing.
+
+    Under autograd it is ``gather_from``: every rank runs the same
+    whole computation, whose gradients are then whole and the same on
+    every rank (``own``'s backward gathers them), so the backward keeps
+    the rank's slice and needs no collective.  Its input's gradient is
+    then exact whatever else the input feeds: a column-parallel GEMM
+    behind "f", whose backward has already summed over "model", or a
+    replicated leaf, which the train step sums over no "model" rank."""
     m = current_mapping()
     if m is None:
         return x
     for dim, axes in enumerate(_part_spec(x, model_dim, rows, row_dim)):
         if axes is not None and m.mesh.axis_size(_as_axes(axes)) > 1:
-            x = m.all_gather(x, dim, _as_axes(axes))
+            x = m.gather_from(x, dim, _as_axes(axes))
     return x
 
 
 def own(x: torch.Tensor, model_dim: int | None = None, *,
         rows: bool = True, row_dim: int = 0) -> torch.Tensor:
-    """This rank's part of a whole `x` (``whole``'s inverse)."""
+    """This rank's part of a whole `x` (``whole``'s inverse).  Under
+    autograd its "model" part is ``scatter_to``: the parts' gradients
+    are all-gathered ("all_gather_bwd"), so the whole computation behind
+    `x` differentiates the whole gradient on every rank.  Its rows are a
+    plain slice: rows do not mix in the whole computations, and a
+    weight's gradient must hold this rank's rows alone, whose
+    data-parallel MEAN the train step takes (a gather there would count
+    every row on every data rank)."""
     m = current_mapping()
     if m is None:
         return x
-    return m.shard(x, _part_spec(x, model_dim, rows, row_dim))
+    spec = _part_spec(x, model_dim, rows, row_dim)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return m.shard(x, spec)
+    for dim, axes in enumerate(spec):
+        if axes is None or m.mesh.axis_size(_as_axes(axes)) == 1:
+            continue
+        if axes == "model":
+            x = m.scatter_to(x, dim, ("model",))
+        else:
+            lo, hi = m.local_range(_as_axes(axes), x.shape[dim])
+            x = x.narrow(dim, lo, hi - lo)
+    return x
 
 
 def _part_spec(x, model_dim, rows: bool, row_dim: int) -> tuple:
@@ -715,14 +760,17 @@ def _part_spec(x, model_dim, rows: bool, row_dim: int) -> tuple:
 def whole_weight(w: torch.Tensor) -> torch.Tensor:
     """A float weight gathered whole over the axes of its ``spec``
     attribute (exact; itself where nothing splits it, an axis of one
-    rank included)."""
+    rank included), counted as "weight_all_gather".  Under autograd the
+    gradient of the whole weight is whole on every rank (``whole``), and
+    the backward keeps the rank's slice; a leaf's data-parallel MEAN
+    stays the FSDP gather's or the train step's."""
     m = current_mapping()
     spec = getattr(w, "spec", ())
     if m is None or not any(a is not None for a in spec):
         return w
     for dim, axes in enumerate(spec):
         if axes is not None and m.mesh.axis_size(_as_axes(axes)) > 1:
-            w = m.all_gather(w, dim, _as_axes(axes), "weight_all_gather")
+            w = m.gather_from(w, dim, _as_axes(axes), "weight_all_gather")
     return w
 
 

@@ -43,6 +43,7 @@ import torch
 from repro_torch.core.error_metrics import mred_table
 from repro_torch.core.power_model import error_rank
 from repro_torch.core.quantization import QMAX, QTensor, activation_scale
+from repro_torch.kernels import counting
 
 from .approx_mac import (approx_mac_fused_matmul, approx_mac_grouped_matmul,
                          approx_mac_grouped_matmul_int, approx_mac_matmul,
@@ -177,6 +178,8 @@ def approx_mac(a: torch.Tensor, b: torch.Tensor, config=0, *,
     every config."""
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"need int8 operands, got {a.dtype}, {b.dtype}")
+    if (counter := counting.active()) is not None:
+        return counting.approx_mac(counter, a, b)
     lead, k = a.shape[:-1], a.shape[-1]
     n = b.shape[-1]
     rows = _config_rows(config, n, bn, a.device, split)
@@ -201,6 +204,8 @@ def approx_dense_pallas(x: torch.Tensor, w_qt: QTensor, config=0, *,
     row-parallel split always takes the unfused passes, with the int32
     sum between the int kernel and the rescale."""
     w_q = w_qt.values
+    if (counter := counting.active()) is not None:
+        return counting.approx_dense(counter, x, w_q, split)
     lead, k = x.shape[:-1], x.shape[-1]
     n = w_q.shape[-1]
     x2 = x.to(torch.float32).reshape(-1, k)
@@ -238,6 +243,8 @@ def approx_dense_grouped_pallas(x: torch.Tensor, w_qt: QTensor, config=0,
     row-parallel bank through the grouped kernel's int32-out instance,
     the int32 sum over "model", then the epilogue."""
     w_q = w_qt.values
+    if (counter := counting.active()) is not None:
+        return counting.approx_dense_grouped(counter, x, w_q, split)
     e, m, _ = x.shape
     n = w_q.shape[-1]
     n_logical = n if split is None else split.n_logical

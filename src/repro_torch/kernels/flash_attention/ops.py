@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import counting
+
 from .flash_attention import flash_attention, flash_attention_ref
 
 
@@ -45,6 +47,8 @@ def flash_attn(q, k, v, *, causal: bool = True, window: int = 0,
     """Attention with online softmax: the kernel for CUDA tensors (or it
     raises), differentiable through its plain twin's gradient; the plain
     version for CPU tensors.  `scale` defaults to the true hd ** -0.5."""
+    if (counter := counting.active()) is not None:
+        return counting.flash_attn(counter, q, k, v, causal, window)
     kwargs = dict(causal=causal, window=window, logit_cap=logit_cap,
                   scale=scale)
     if q.device.type == "cpu":

@@ -194,4 +194,10 @@ def make_train_mesh(*, multi_pod: bool = False) -> Mesh:
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12          # the approx-MAC int8 path
 HBM_BW = 3.35e12                 # bytes/s
+HBM_BYTES = 80e9                 # device memory
+# weight-gathered serving (``launch/dryrun.weight_gathered``): the
+# weights are also sharded over "data" when their TP-sharded bf16 bytes
+# pass half of one card's memory (the reference's 8 GiB of a TPU v5e's
+# 16 GiB, restated for the H100)
+FSDP_SERVE_BYTES = HBM_BYTES / 2
 NVLINK_BW = 900e9                # bytes/s per card, all 18 links together

@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import counting
 from repro_torch.launch.mesh import CARDS_PER_NODE
 
 from .layers import softcap
@@ -97,8 +98,9 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
             raise NotImplementedError("the mLSTM decay is causal and "
                                       "unwindowed")
         return _decay_attention(q, k, v, decay, logit_cap, scale, q_chunk)
-    if q.device.type == "cuda":
-        # imported here: the kernel's module imports this one
+    if q.device.type == "cuda" or counting.active() is not None:
+        # imported here: the kernel's module imports this one (the dry
+        # run's counting context stands for the card on any device)
         from repro_torch.kernels.flash_attention.ops import flash_attn
         return flash_attn(q, k, v, causal=causal, window=window,
                           logit_cap=logit_cap, scale=scale)

@@ -643,9 +643,21 @@ def _merged(w2: torch.Tensor, w: torch.Tensor, *dims) -> torch.Tensor:
 # Each rank then gives ``wo`` its rows of the attention output.
 
 def _attn_mode(cfg: ModelConfig, m) -> str:
-    if m.kv_seq_axis:
+    """The heads' layout; a cache sequence-sharded over other axes than
+    "model" (long-context decode over the data axes, the reference's
+    ``kv_seq_axis=("data",)``) keeps "heads" or "gather" for its heads
+    and is read as a sequence shard all the same (``_seq_axes``)."""
+    if m.kv_seq_axis and "model" in m.kv_seq_axis:
         return "seq"
     return "heads" if cfg.n_kv_heads % m.tp == 0 else "gather"
+
+
+def _seq_axes(m) -> tuple:
+    """The mesh axes a sequence-sharded cache's positions lie on (empty:
+    not sharded)."""
+    if m is None or not m.kv_seq_axis:
+        return ()
+    return tuple(a for a in m.kv_seq_axis if a in m.mesh.axis_names)
 
 
 def _model_slice(t: torch.Tensor, dim: int, m) -> torch.Tensor:
@@ -1018,8 +1030,6 @@ def lm_loss(params, cfg: ModelConfig, batch, *, approx_cfg=0):
     model's gradients run through the capacity-dropped dispatch; like
     the reference, no load-balancing term is added."""
     m = current_mapping()
-    if m is not None and torch.is_grad_enabled():
-        _sharded_training_gate(cfg)
     vision = batch.get("vision_embeds")
     hidden = forward(params, cfg, batch["tokens"], vision_embeds=vision,
                      enc_embeds=batch.get("enc_embeds"),
@@ -1057,19 +1067,6 @@ def lm_loss(params, cfg: ModelConfig, batch, *, approx_cfg=0):
     count = m.all_reduce(count, "sum", m.batch_axes)
     return (torch.sum(torch.stack(losses)) / torch.clamp(count, min=1.0)
             * m.batch_size)
-
-
-def _sharded_training_gate(cfg: ModelConfig) -> None:
-    """Sharded training covers the attention decoders (dense and MoE);
-    the recurrent cells, the encoder-decoder and the vision prefix are
-    trained on one device only."""
-    kinds = sorted(set(cfg.layer_kinds()) - set(ATTENTION_KINDS))
-    if kinds or cfg.encoder_decoder or cfg.vision_prefix_len:
-        what = kinds or "encoder-decoder or vision prefix"
-        raise NotImplementedError(
-            f"sharded training of {cfg.name} ({what}): only attention "
-            "decoders are trained under a mapping (ROADMAP Queue 1 item "
-            "11(b))")
 
 
 class _VocabParallelNLL(torch.autograd.Function):
@@ -1151,9 +1148,10 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                 for name, (shape, fill) in _state_shapes(cfg, kind).items()}
     m = current_mapping()
     if m is not None:
-        if m.kv_seq_axis and max_len % m.tp:
+        n = m.mesh.axis_size(_seq_axes(m))
+        if max_len % n:
             raise ValueError(f"a sequence-sharded cache needs max_len "
-                             f"{max_len} divisible by TP {m.tp}")
+                             f"{max_len} divisible by its {n} shards")
         cache = lsc_tree(cache, cache_specs(cfg))
     return cache
 
@@ -1259,11 +1257,13 @@ def _kv_read(buf: Params, j: int, cfg) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _seq_shard(buf: Params, m) -> tuple[int, int]:
     """(first position held here, global buffer length) of a cache
-    buffer: the sequence dim lies on "model" under kv="seq"."""
+    buffer: the sequence dim lies on the mapping's ``kv_seq_axis``
+    ("model" under kv="seq", the data axes for long-context decode)."""
     s_loc = buf["k"].shape[2]
-    if m is None or not m.kv_seq_axis:
+    axes = _seq_axes(m)
+    if not axes:
         return 0, s_loc
-    return m.mesh.coords["model"] * s_loc, s_loc * m.tp
+    return m.mesh.axis_index(axes) * s_loc, s_loc * m.mesh.axis_size(axes)
 
 
 def _shard_runs(first: int, s: int, lo: int, s_loc: int,
@@ -1443,7 +1443,7 @@ def _decode_step(params, cfg, cache, token, approx_cfg):
     x = _learned_positions(params, cfg, embed_tokens(params, cfg, token),
                            positions)
     m = current_mapping()
-    seq = m is not None and _attn_mode(cfg, m) == "seq"
+    seq = bool(_seq_axes(m))
     at, length, lo = {}, {}, {}
     for kind in set(cfg.pattern) & set(ATTENTION_KINDS):
         lo[kind], s_buf = _seq_shard(_buffers(cache, kind), m)
@@ -1469,7 +1469,8 @@ def _decode_step(params, cfg, cache, token, approx_cfg):
         _kv_write(buf, j, k, v, at[kind], cfg,
                   **({} if lo[kind] is None else {"lo": lo[kind]}))
         kc, vc = _kv_read(buf, j, cfg)
-        attend = (functools.partial(sp_decode_attention, mapping=m)
+        attend = (functools.partial(sp_decode_attention, mapping=m,
+                                    seq_axes=_seq_axes(m))
                   if seq else functools.partial(decode_attention,
                                                 kv_heads=cfg.n_kv_heads))
         attn = attend(q, kc, vc, length[kind], logit_cap=cfg.attn_softcap,

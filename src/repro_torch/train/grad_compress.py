@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist.sharding import nbytes
 from repro_torch.train.optimizer import tree_leaves, tree_map, tree_unflatten
 
 
@@ -52,9 +53,9 @@ def compressed_psum_mean(grads, residual, mapping, axis="data"):
     qs = [_q8(x, s) for x, s in zip(xs, scales)]
     summed = torch.cat([q.reshape(-1).to(torch.int32) for q in qs])
     scale_sum = scales.clone()
-    mapping.collectives[("compressed_sum_int32", axes)] += 1
+    mapping.count("compressed_sum_int32", axes, nbytes(summed))
     dist.all_reduce(summed, group=group)
-    mapping.collectives[("compressed_scales", axes)] += 1
+    mapping.count("compressed_scales", axes, nbytes(scale_sum))
     dist.all_reduce(scale_sum, group=group)
     means, resids, at = [], [], 0
     for i, (x, q) in enumerate(zip(xs, qs)):

@@ -30,6 +30,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 import torch.distributed
 
+from repro_torch.dist.sharding import nbytes
+
 
 # ---------------------------------------------------------------------------
 # trees
@@ -128,7 +130,7 @@ def global_norm(tree, mapping=None, specs: list | None = None
                 groups.setdefault(axes, []).append(i)
         for axes, idx in groups.items():
             part = torch.stack([sq[i] for i in idx])
-            mapping.collectives[("norm_sum", axes)] += 1
+            mapping.count("norm_sum", axes, nbytes(part))
             torch.distributed.all_reduce(part, group=mapping.group_of(axes))
             for j, i in enumerate(idx):
                 sq[i] = part[j]

@@ -163,7 +163,7 @@ NO_JAX_CHECK = (
 REHEARSAL_LIMIT_S = 90
 REHEARSAL_GROUPS = ("dense", "spec", "resilience", "moe", "gemma2",
                     "train", "slice12", "slice13", "slice14", "slice15",
-                    "slice16", "slice17", "slice18")
+                    "slice16", "slice17", "slice18", "slice19")
 
 
 def _run_clean(code: str, timeout: float) -> subprocess.CompletedProcess:
